@@ -1,0 +1,8 @@
+"""Optimizer (AdamW) and learning-rate schedules."""
+from repro_torch.optim.optimizers import (Optimizer, OptimizerConfig,
+                                          clip_by_global_norm, global_norm,
+                                          make_optimizer)
+from repro_torch.optim.schedules import SCHEDULES
+
+__all__ = ["Optimizer", "OptimizerConfig", "make_optimizer",
+           "clip_by_global_norm", "global_norm", "SCHEDULES"]
