@@ -2,8 +2,9 @@
 
 ``get_config(arch_id)`` returns the exact published config;
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU tests.
-Only ``minicpm-2b`` is ported; the JAX package's other nine architectures
-raise ``NotImplementedError`` pointing to ``ROADMAP.md``.
+Ported: ``minicpm-2b``, ``stablelm-12b`` and ``gemma2-27b`` (the dense
+family); the JAX package's other seven architectures raise
+``NotImplementedError`` pointing to ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -13,10 +14,10 @@ from typing import Dict
 
 from repro_torch.models.model import ModelConfig
 
-ARCHS = ("minicpm_2b",)
+ARCHS = ("minicpm_2b", "stablelm_12b", "gemma2_27b")
 
 # the JAX package's architectures that the port does not have yet
-_NOT_PORTED = ("stablelm_12b", "gemma2_27b", "qwen15_32b",
+_NOT_PORTED = ("qwen15_32b",
                "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b", "rwkv6_7b",
                "musicgen_medium", "internvl2_26b", "hymba_1_5b")
 

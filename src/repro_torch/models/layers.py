@@ -6,11 +6,12 @@ with ``params`` a dict of tensors, in the JAX layouts (``wq`` (D,H,Dh),
 ``wk``/``wv`` (D,Hkv,Dh), ``wo`` (H,Dh,D)), so weights cross between the
 packages without transposes.
 
-Attention runs the dense or the KV-chunked path as plain tensor ops, which
-is what the JAX package leaves to XLA outside the flash kernel. The flash
-backend (a hand-written kernel) is the port's next slice: ``flash`` raises,
-and ``auto`` resolves to the dense/chunked path for now. The KV-cache
-(decode) branch and the MoE layer are not ported (``ROADMAP.md``).
+Attention runs one of three backends: ``flash`` (the hand-written Hopper
+kernels of ``kernels/flash_attention.py``, one forward launch per layer and
+a dQ and a dK/dV launch in its backward), or the dense or KV-chunked path
+as plain tensor ops, which is what the JAX package leaves to XLA outside
+the flash kernel. The KV-cache (decode) branch and the MoE layer are not
+ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import flash_attention as flash_lib
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -57,24 +60,69 @@ def _activation(name: str):
 # attention
 # ---------------------------------------------------------------------------
 
-def resolve_attn_backend(cfg, S: int, T: int) -> str:
-    """Training backend for this shape → chunked | dense.
+_FLASH_BLOCKS = (128, 64, 32, 16, 8)
 
-    ``flash`` is the hand-written kernel of the port's next slice and raises
-    until then; ``auto`` takes the dense/chunked path (on the TPU the JAX
-    package picks flash for it).
+
+def _flash_blocks(S: int, T: int):
+    """Largest of the JAX kernel's tile sizes dividing the q/kv lengths
+    (None = none fit) — the JAX package's block rule."""
+    bq = next((b for b in _FLASH_BLOCKS if S % b == 0), None)
+    bk = next((b for b in _FLASH_BLOCKS if T % b == 0), None)
+    return bq, bk
+
+
+def _flash_feasible(cfg, S: int, T: int) -> bool:
+    """The JAX block rule plus the Hopper kernels' own limits (head dim,
+    shared memory, bf16/f32). The JAX package's 12 MB VMEM guard on the
+    whole K/V stream is not copied: the Hopper kernels tile KV, so T is not
+    limited, and a shape the TPU would route to chunked can go to flash here."""
+    bq, bk = _flash_blocks(S, T)
+    return (bq is not None and bk is not None and flash_lib.supports(cfg.head_dim)
+            and cfg.param_dtype in ("bfloat16", "float32"))
+
+
+def resolve_attn_backend(cfg, S: int, T: int, device) -> str:
+    """Training backend for this shape on ``device`` → flash | chunked | dense.
+
+    "auto" takes flash on a CUDA device when the shape is feasible, as the
+    JAX package does on the TPU, and the dense/chunked paths on the CPU (the
+    plain flash version is slower there than the dense path); explicit
+    "flash" runs the kernels on CUDA tensors and their plain versions on CPU
+    tensors, and falls back to the chunked/dense path only when the shape is
+    not feasible.
     """
     b = getattr(cfg, "attn_backend", "auto")
     chunked = "chunked" if cfg.attn_chunk and T > cfg.attn_chunk else "dense"
     if b == "dense":
         return "dense"
-    if b in ("chunked", "auto"):
+    if b == "chunked":
         return chunked
     if b == "flash":
-        raise NotImplementedError(
-            "attn_backend='flash' needs the flash-attention kernels, which are "
-            "the port's next slice (see ROADMAP.md); use 'dense' or 'chunked'")
+        return "flash" if _flash_feasible(cfg, S, T) else chunked
+    if b == "auto":
+        if torch.device(device).type == "cuda" and _flash_feasible(cfg, S, T):
+            return "flash"
+        return chunked
     raise ValueError(f"unknown attn_backend: {b!r}")
+
+
+def _flash_attention(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     is_local: bool) -> torch.Tensor:
+    """One flash launch per layer. q (B,S,H,Dh) pre-scaled (kernel scale 1);
+    k/v (B,S,Hkv,Dh). Streams fold head-major (a copy) so q stream i reads kv
+    stream i // group without repeating K/V. Assumes contiguous from-zero
+    positions (``forward_hiddens``' layout)."""
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+
+    def fold(x, heads):
+        return x.transpose(1, 2).contiguous().view(B * heads, S, Dh)
+
+    window = cfg.sliding_window if cfg.sliding_window is not None and is_local else None
+    out = flash_lib.flash_attention(
+        fold(q, H), fold(k, Hkv), fold(v, Hkv), causal=True, window=window,
+        softcap=cfg.attn_logit_softcap, group=H // Hkv, scale=1.0)
+    return out.view(B, H, S, Dh).transpose(1, 2)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -106,7 +154,10 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
         q = q / torch.tensor(math.sqrt(Dh), dtype=torch.float32,
                              device=q.device).to(q.dtype)
 
-    backend = resolve_attn_backend(cfg, S, S)
+    backend = resolve_attn_backend(cfg, S, S, x.device)
+    if backend == "flash":
+        out = _flash_attention(cfg, q, k, v, is_local)
+        return out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D), None
     qpos, kpos = positions[:, :, None], positions[:, None, :]
     mask = kpos <= qpos                                             # (B,S,T)
     if cfg.sliding_window is not None and is_local:

@@ -1,18 +1,24 @@
-"""Card-only tests of the port: the hand-written CUDA kernel against its
-plain PyTorch twin, and a short GPU training run. Marked ``cuda``; they
+"""Card-only tests of the port: the hand-written CUDA kernels against their
+plain PyTorch twins, and a short GPU training run. Marked ``cuda``; they
 skip where there is no NVIDIA GPU. Imports no JAX, so it runs on a machine
 that has only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances: pivots and ``G_sel`` bit-equal (same single-rounding
-elimination; the gather is a copy); errors atol 1e-5 and logvol rtol 1e-5,
-because the kernel's block reductions sum in another order than PyTorch.
+Tolerances: graft_select's pivots and ``G_sel`` bit-equal (same
+single-rounding elimination; the gather is a copy); errors atol 1e-5 and
+logvol rtol 1e-5, because the kernel's block reductions sum in another
+order than PyTorch. Flash attention: float32 outputs and gradients within
+1e-4·max|plain| and lse within 1e-4 (float32 sums of up to T products in
+another order); bf16 outputs within one bf16 ulp of max|plain| (2^-7·max:
+both round the same float32 value once). Bounded vs exhaustive KV loops
+and two runs on the same inputs are bit-equal.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.graft_select import graft_select, graft_select_reference
 from torch_cases import CASES, assert_refresh_match, graft_case
 
@@ -71,15 +77,139 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
                      torch.zeros(8, device=cuda), 4)
 
 
+def _flash_counts():
+    f = fa.flash_attention
+    return f.forward_launches, f.dq_launches, f.dkv_launches
+
+
 @pytest.mark.cuda
 def test_trainer_on_card_launches_kernel_per_refresh(cuda):
+    """The default smoke config on the card: auto → flash at head_dim 12.
+    4 steps, refresh every 2, 2 layers, no remat: 2·4 subset forwards + 2·2
+    selection forwards, and one dQ and one dK/dV per layer and step."""
     from repro_torch.api import ExperimentConfig, Trainer
     cfg = ExperimentConfig().apply_overrides(
         ["train.steps=4", "train.batch=8", "train.seq=16", "graft.rset=[2,4]",
          "graft.refresh_every=2", "graft.use_pallas=true", "train.log_every=0"])
-    before = graft_select.launches
+    before, flash_before = graft_select.launches, _flash_counts()
     report = Trainer(cfg).fit()
     assert graft_select.launches - before == 2
+    assert tuple(a - b for a, b in zip(_flash_counts(), flash_before)) == (12, 8, 8)
     assert report["device"].startswith("cuda")
     assert all(np.isfinite(r["loss"]) and r["rank"] in (2, 4)
                for r in report["history"])
+
+
+# (B, H, Hkv, S, Dh, dtype, causal, window, softcap): the training path's
+# shape, gemma2-like (window, softcap, GQA 2, Dh 128), stablelm's Dh 160 with
+# GQA 4, the smoke Dh 12 in f32, Dh 256 (tiles of 32) on a ragged S, and
+# bidirectional
+FLASH_CASES = {
+    "slice": (16, 36, 36, 256, 64, torch.bfloat16, True, None, None),
+    "gemma2_like": (1, 32, 16, 1024, 128, torch.bfloat16, True, 512, 50.0),
+    "stablelm_dh160_gqa4": (1, 32, 8, 512, 160, torch.bfloat16, True, None, None),
+    "smoke_dh12_f32": (8, 6, 6, 16, 12, torch.float32, True, None, None),
+    "dh256_f32_ragged": (1, 4, 2, 200, 256, torch.float32, True, 96, None),
+    "bidirectional_f32": (2, 4, 4, 192, 64, torch.float32, False, None, None),
+}
+
+
+def _flash_inputs(name, dev, seed=0):
+    B, H, Hkv, S, Dh, dtype, causal, window, softcap = FLASH_CASES[name]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(n):
+        return torch.randn((n, S, Dh), generator=g).to(dev, dtype)
+
+    q, k, v, do = rnd(B * H), rnd(B * Hkv), rnd(B * Hkv), rnd(B * H)
+    return q, k, v, do, dict(causal=causal, window=window, softcap=softcap,
+                             group=H // Hkv)
+
+
+def _assert_close(got, want, what):
+    bf16 = torch.bfloat16 in (got.dtype, want.dtype)
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    tol = 2.0 ** -7 * scale if bf16 else 1e-4 * scale + 1e-6
+    err = (got - want).abs().max().item()
+    assert err <= tol, f"{what}: max|diff| {err:.3g} > {tol:.3g}"
+
+
+def _run_kernels(q, k, v, do, opts, bound_loop=True):
+    o, lse = fa.flash_forward(q, k, v, bound_loop=bound_loop, **opts)
+    delta = (o.float() * do.float()).sum(-1)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, bound_loop=bound_loop, **opts)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, bound_loop=bound_loop, **opts)
+    torch.cuda.synchronize()
+    return o, lse, delta, dq, dk, dv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, name):
+    q, k, v, do, opts = _flash_inputs(name, cuda)
+    before = _flash_counts()
+    o, lse, delta, dq, dk, dv = _run_kernels(q, k, v, do, opts)
+    assert tuple(a - b for a, b in zip(_flash_counts(), before)) == (1, 1, 1)
+    o_r, lse_r = fa.flash_forward_reference(q, k, v, **opts)
+    _assert_close(o, o_r, "o")
+    assert o.dtype == q.dtype and lse.dtype == torch.float32
+    assert (lse - lse_r).abs().max().item() <= 1e-4
+    dq_r = fa.flash_dq_reference(q, k, v, do, lse, delta, **opts)
+    dk_r, dv_r = fa.flash_dkv_reference(q, k, v, do, lse, delta, **opts)
+    for got, want, what in ((dq, dq_r, "dq"), (dk, dk_r, "dk"), (dv, dv_r, "dv")):
+        assert got.dtype == want.dtype
+        _assert_close(got, want, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["slice", "gemma2_like", "dh256_f32_ragged"])
+def test_flash_bounded_loops_and_reruns_are_bit_equal(cuda, name):
+    q, k, v, do, opts = _flash_inputs(name, cuda, seed=1)
+    first = _run_kernels(q, k, v, do, opts)
+    again = _run_kernels(q, k, v, do, opts)
+    exhaustive = _run_kernels(q, k, v, do, opts, bound_loop=False)
+    for a, b, c in zip(first, again, exhaustive):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_flash_fully_masked_rows_are_exactly_zero(cuda):
+    """window = 0 masks every key of every row: o, dq, dk, dv exactly 0 and
+    lse +inf (the masked-row guard)."""
+    q, k, v, do, opts = _flash_inputs("bidirectional_f32", cuda, seed=2)
+    opts = dict(opts, causal=True, window=0)
+    o, lse, _, dq, dk, dv = _run_kernels(q, k, v, do, opts)
+    for t in (o, dq, dk, dv):
+        assert torch.equal(t, torch.zeros_like(t))
+    assert bool(torch.all(torch.isinf(lse) & (lse > 0)))
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_card_matches_cpu(cuda):
+    q, k, v, do, opts = _flash_inputs("smoke_dh12_f32", cuda, seed=3)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, **opts)
+        (out * do.to(dev)).sum().backward()
+        grads[dev.type] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        _assert_close(got, want, "autograd")
+
+
+@pytest.mark.cuda
+def test_flash_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros(2, 64, 272, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 272"):
+        fa.flash_forward(x, x, x)
+    h = torch.zeros(2, 64, 32, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_forward(h, h, h)
+    nc = torch.zeros(2, 32, 64, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_forward(nc, nc.contiguous(), nc.contiguous())
+    with pytest.raises(ValueError, match="GQA"):
+        fa.flash_forward(torch.zeros(3, 64, 32, device=cuda),
+                         torch.zeros(2, 64, 32, device=cuda),
+                         torch.zeros(2, 64, 32, device=cuda), group=2)

@@ -38,7 +38,9 @@ from repro_torch.optim import schedules as tsched
 
 # smoke minicpm variants: the default, KV-chunked attention, a gemma-like
 # block (sliding window on alternate layers, logit softcaps, post-norms,
-# QKV bias, GELU), GQA with an untied head
+# QKV bias, GELU), GQA with an untied head; and the flash backend on three
+# of them (the JAX side runs its Pallas kernels in interpret mode, the port
+# its plain flash versions)
 VARIANTS = {
     "default": {},
     "chunked": {"attn_backend": "chunked", "attn_chunk": 4},
@@ -48,6 +50,8 @@ VARIANTS = {
                        "mlp_activation": "gelu", "query_scale": 0.3},
     "gqa_untied": {"num_kv_heads": 2, "tie_embeddings": False, "remat": "full"},
 }
+for _name in ("default", "window_softcap", "gqa_untied"):
+    VARIANTS[f"flash_{_name}"] = dict(VARIANTS[_name], attn_backend="flash")
 
 
 def _batch(B=4, S=8, V=257, seed=0):
@@ -84,7 +88,9 @@ def test_forward_and_per_example_loss_match_jax(variant):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("variant", ["default", "window_softcap", "gqa_untied"])
+@pytest.mark.parametrize("variant", ["default", "window_softcap", "gqa_untied",
+                                     "flash_default", "flash_window_softcap",
+                                     "flash_gqa_untied"])
 def test_weighted_subset_loss_grads_match_jax(variant):
     jcfg, tcfg, jparams, tm = _pair(variant)
     b = _batch(seed=3)
@@ -154,17 +160,51 @@ def test_load_jax_checkpoint_bf16_round_trip(tmp_path):
 
 
 def test_attention_backend_routing():
-    cfg = tsmoke("minicpm-2b", attn_backend="flash")
-    m = tmodel.init_params(tsmoke("minicpm-2b"), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.forward_hiddens(cfg, m, {k: torch.from_numpy(v) for k, v in _batch().items()})
+    """flash runs on CPU tensors through its plain versions (no launch, close
+    to the dense path); what is not ported still raises."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    m = tmodel.init_params(tsmoke("minicpm-2b", param_dtype="float32"),
+                           torch.Generator().manual_seed(0))
+    b = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    launches = (fa.forward_launches, fa.dq_launches, fa.dkv_launches)
+    with torch.no_grad():
+        hf, _ = tmodel.forward_hiddens(
+            tsmoke("minicpm-2b", param_dtype="float32", attn_backend="flash"), m, b)
+        hd, _ = tmodel.forward_hiddens(
+            tsmoke("minicpm-2b", param_dtype="float32", attn_backend="dense"), m, b)
+    assert (fa.forward_launches, fa.dq_launches, fa.dkv_launches) == launches
+    np.testing.assert_allclose(hf.numpy(), hd.numpy(), rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.Model(tsmoke("minicpm-2b", family="moe"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.Model(tsmoke("minicpm-2b", remat="dots"))
     from repro_torch import configs
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_config("gemma2-27b")
+        configs.get_config("qwen1.5-32b")
+
+
+@pytest.mark.parametrize("backend,overrides,S,device,want", [
+    ("auto", {}, 16, "cpu", "dense"),
+    ("auto", {"attn_chunk": 4}, 16, "cpu", "chunked"),
+    ("auto", {}, 16, "cuda", "flash"),
+    ("auto", {"attn_chunk": 4}, 16, "cuda", "flash"),
+    ("auto", {}, 12, "cuda", "dense"),              # no JAX block size divides 12
+    ("auto", {"head_dim": 320}, 16, "cuda", "dense"),   # above the kernels' 256
+    ("auto", {"param_dtype": "float16"}, 16, "cuda", "dense"),
+    ("flash", {}, 16, "cpu", "flash"),
+    ("flash", {"attn_chunk": 4}, 12, "cpu", "chunked"),
+    ("dense", {}, 16, "cuda", "dense"),
+    ("chunked", {"attn_chunk": 4}, 16, "cuda", "chunked"),
+    ("auto", {"head_dim": 128}, 65536, "cuda", "flash"),  # no VMEM guard
+])
+def test_resolve_attn_backend_by_device(backend, overrides, S, device, want):
+    """auto → flash on the card when feasible (as the JAX package on the
+    TPU), dense/chunked on the CPU; explicit flash falls back only on an
+    infeasible shape. The JAX VMEM guard is not copied (the Hopper kernels
+    tile KV): 65536 tokens at head_dim 128 are flash."""
+    from repro_torch.models.layers import resolve_attn_backend
+    cfg = tsmoke("minicpm-2b", attn_backend=backend, **overrides)
+    assert resolve_attn_backend(cfg, S, S, torch.device(device)) == want
 
 
 def test_init_params_distributions():

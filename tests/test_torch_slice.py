@@ -6,7 +6,10 @@ An 8-step GRAFT run of ``repro_torch.launch.steps`` is held against
 minicpm with float32 params, the JAX init carried across by the bridge and
 the same ``SyntheticLM`` batches: per-step loss rtol 1e-4 (the forward and
 backward sums reassociate and AdamW compounds it over 8 updates), ranks and
-pivots EXACTLY equal.
+pivots EXACTLY equal. The same holds under ``attn_backend="flash"`` for the
+minicpm, stablelm (GQA 2) and gemma2 (window 16 on alternate layers at
+seq 32, softcaps, post-norms, GQA 2) smoke configs: the JAX side runs its
+Pallas flash kernels in interpret mode, the port its plain flash versions.
 """
 import json
 import subprocess
@@ -69,6 +72,31 @@ def test_eight_steps_match_jax_step_functions(use_pallas):
         assert tstate["step"] == int(jstate["step"]) == step + 1
 
 
+@pytest.mark.parametrize("arch,seq", [("minicpm-2b", 16), ("stablelm-12b", 16),
+                                      ("gemma2-27b", 32)])
+def test_eight_flash_steps_match_jax_step_functions(arch, seq):
+    gc = dict(rset=(2, 4), eps=0.25, refresh_every=2, use_pallas=True)
+    ov = dict(param_dtype="float32", attn_backend="flash")
+    jm, tm = jsmoke(arch, **ov), tsmoke(arch, **ov)
+    jt = jsteps.TrainConfig(optimizer=JOptCfg(**OPT), graft=JGraftConfig(**gc),
+                            probe_positions=8)
+    tt = tsteps.TrainConfig(optimizer=TOptCfg(**OPT), graft=TGraftConfig(**gc),
+                            probe_positions=8)
+    data = SyntheticLM(DataConfig(vocab_size=jm.vocab_size, seq_len=seq, global_batch=8))
+    jstate = jsteps.init_train_state(jm, jt, jax.random.PRNGKey(0), 8)
+    model = params_from_numpy(jax.tree_util.tree_map(np.asarray, jstate["params"]), Model(tm))
+    tstate = tsteps.state_for_model(tm, tt, model, 8)
+    jfn, tfn = jax.jit(jsteps.make_train_step(jm, jt)), tsteps.make_train_step(tm, tt)
+    for step in range(8):
+        b = data.batch_at(step)
+        jstate, jmet = jfn(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        tstate, tmet = tfn(tstate, _tb(b))
+        np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]), rtol=1e-4)
+        assert int(tmet["rank"]) == int(jmet["rank"])
+        np.testing.assert_array_equal(tstate["graft"].pivots.numpy(),
+                                      np.asarray(jstate["graft"].pivots))
+
+
 SMALL = ["train.steps=5", "train.batch=8", "train.seq=16", "graft.rset=[2,4]",
          "graft.refresh_every=2", "graft.use_pallas=true", "train.log_every=0"]
 
@@ -123,7 +151,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, capsys):
 @pytest.mark.parametrize("override", [
     "train.checkpoint_dir=/nonexistent", "train.eval_every=5", "graft.overlap=true",
     "train.fault_plan=x", "backend.kind=multiprocess", "data.source=synthetic_vision",
-    "train.sampler=random", "optimizer.name=lion", "model.arch=gemma2-27b"])
+    "train.sampler=random", "optimizer.name=lion", "model.arch=qwen1.5-32b"])
 def test_not_ported_parts_raise_pointing_to_roadmap(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cfg = ExperimentConfig().apply_overrides(SMALL + [override])
