@@ -15,7 +15,14 @@ Phases (any failure exits nonzero and prints no result line):
                the training path's shapes and on degenerate inputs (exact
                equality where the arithmetic is the same, a stated tolerance
                where only the summation order differs), then timed with CUDA
-               events against the twin and its bound.
+               events against the twin and its bound; its global-W plan at
+               V 1024×64 against the twin and bit-equal to the shared plan
+               where both fit; the batched kernel's rows bit-equal to the
+               single kernel; fast_maxvol at (K,R,rank) (16,8,8),
+               (256,32,32), (1024,64,64), (2048,256,256) and
+               projection_sweep at (d,R) (2304,8), (1024,32), (16384,64)
+               against their plain versions and bit-equal to the fused
+               kernel's pivots and errors; each timed.
   4. flash   — the flash-attention forward, dQ and dK/dV kernels against
                their plain versions at the slice's shape, minicpm at 4096
                tokens, gemma2-27b's attention (window 4096, softcap 50, GQA 2,
@@ -30,15 +37,27 @@ Phases (any failure exits nonzero and prints no result line):
                depth: 6 steps, GRAFT refresh every 2 steps through the
                kernel, attention ``auto``, which must resolve to flash. The
                kernels' launch counts are zeroed just before and read just
-               after; each must equal what the path reckons.
-  6. profile — where a steady step's time goes: the selection refresh, the
+               after; each must equal what the path reckons (0 for the
+               selection kernels the training path does not run; those are
+               counted where phase engine drives them).
+  6. engine  — the multi-batch selection engine on the slice's trained
+               params: a 4-microbatch stack (16 × 256 each, ``SyntheticLM.
+               microbatch_stack``) through ``selection_inputs`` (flash) and
+               ``select_multi_batch`` (GRAFT, ``use_pallas``): exactly one
+               batched launch, bit-equal to a loop of ``select_batch`` (4
+               single launches), pivots and ranks equal to the plain chain;
+               the ``kernels/ops`` chain fast_maxvol → gather →
+               projection_sweep on the same stack, bit-equal to the fused
+               kernel; all three timed, and again at the selection
+               benchmark's shape B=8, K=256, R=32, d=1024, rank 32.
+  7. profile — where a steady step's time goes: the selection refresh, the
                subset forward/backward, clipping and the AdamW update timed
                apart with CUDA events on the trained state, and the top
                kernels of one whole step by device time (torch.profiler).
-  7. depth8  — the same slice with depth cut to 8 layers, dense attention
+  8. depth8  — the same slice with depth cut to 8 layers, dense attention
                beside flash from the same seed, run dense, flash, flash,
                dense: steady step times from one call.
-  8. check   — the same path at smoke size on the card against the port's
+  9. check   — the same path at smoke size on the card against the port's
                CPU run (which the CPU tests hold against the JAX package),
                under flash attention: minicpm, and gemma2 at seq 32 so that
                its window of 16 bites. Per-step losses rtol 1e-4, ranks and
@@ -161,16 +180,40 @@ def _graft_inputs(kind, K, R, d, rank, dev, seed=0):
     return [torch.from_numpy(a).to(dev) for a in (V, G, gb)] + [rank]
 
 
-def _graft_bound(K, R, d, rank):
-    """Least time for the refresh on an H100: its inputs read once and its
-    outputs written once over HBM bandwidth, vs its float32 operations."""
-    nbytes = 4 * (K * R + d * K + d + rank + rank + 1 + d * rank)
-    maxvol = rank * (K + 2 * K * R)                    # divide, multiply-subtract
-    sweep = sum(2 * 4 * d * j + 6 * d for j in range(rank))  # 2 CGS passes + norm/dot
-    flops = maxvol + sweep
+def _maxvol_flops(K, R, rank):
+    """Fast MaxVol's float32 operations: per pivot step a division per row
+    and a multiply-subtract on every row of the columns still to pivot on."""
+    return sum(K + 2 * K * (R - j - 1) for j in range(rank))
+
+
+def _sweep_flops(d, n):
+    """The CGS2 sweep: two passes of coefficients + update per column, and
+    its norm, normalisation and dot with ĝ."""
+    return sum(2 * 4 * d * j + 6 * d for j in range(n))
+
+
+def _bound(nbytes, flops):
+    """Least time on an H100: bytes over HBM bandwidth vs float32 operations
+    over the CUDA-core peak, whichever is larger."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
         nbytes, flops
+
+
+def _graft_bound(K, R, d, rank, B=1):
+    """The refresh (B of them): its inputs read once and its outputs written
+    once, vs its operations."""
+    nbytes = B * 4 * (K * R + d * K + d + rank + rank + 1 + d * rank)
+    return _bound(nbytes, B * (_maxvol_flops(K, R, rank) + _sweep_flops(d, rank)))
+
+
+def _entry(name, replaces, launches, err, ms, plain_ms, bound):
+    """A kernels-line entry for a kernel of graft_select.cu: no single
+    PyTorch call computes any of them, so there is no library time."""
+    return {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/graft_select.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None}
 
 
 def phase_kernels(ctx):
@@ -210,13 +253,148 @@ def phase_kernels(ctx):
     print(f"[graft_select] K={K} R={R} d={d} rank={rank}: kernel {ms:.4f} ms, "
           f"twin {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
           f"({nbytes} bytes, {flops} flop); {ms / bound_ms:.0f}x the bound")
-    ctx["kernels"] = {"graft_select": {
-        "name": "graft_select", "route": "cuda",
-        "source": "src/repro_torch/csrc/graft_select.cu",
-        "replaces": "src/repro/kernels/graft_select.py:137",
-        "launches": None, "max_abs_err": ctx["graft_max_abs_err"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}}
+    ctx["kernels"] = {"graft_select": _entry(
+        "graft_select", "src/repro/kernels/graft_select.py:137", None,
+        ctx["graft_max_abs_err"], ms, plain_ms, (bound_ms, bound_by))}
+    _kernels_wide_and_global(dev)
+    _kernels_standalone(ctx, dev)
+
+
+def _random_refresh(K, R, d, dev, B=None, seed=0):
+    """Seeded V, G, ḡ on the card, with a leading B when given."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    lead = () if B is None else (B,)
+    V = rng.normal(size=lead + (K, R)).astype(np.float32)
+    G = rng.normal(size=lead + (d, K)).astype(np.float32)
+    gb = G.mean(axis=-1).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (V, G, gb)]
+
+
+def _refresh_diff(got, want):
+    """(pivots equal, G_sel equal, max|errors diff|, |logvol diff|)."""
+    import torch
+    return (torch.equal(got[0].long(), want[0].long()), torch.equal(got[3], want[3]),
+            (got[1] - want[1]).abs().max().item(),
+            (got[2] - want[2]).abs().max().item())
+
+
+def _all_equal(a, b):
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _kernels_wide_and_global(dev):
+    """graft_select at the wide shape and on the global-W plan; the batched
+    kernel's rows against the single kernel."""
+    import torch
+    from repro_torch.kernels import graft_select as gs
+    for K, R, d, rank in ((256, 64, 4096, 64), (1024, 64, 1024, 64)):
+        args = _random_refresh(K, R, d, dev, seed=2) + [rank]
+        plan = gs.choose_plan(K, R, rank)
+        got = gs.graft_select(*args)
+        torch.cuda.synchronize()
+        piv_eq, gsel_eq, err_d, lv_d = _refresh_diff(got, gs.graft_select_reference(*args))
+        lv_ok = lv_d <= 1e-5 * abs(got[2].item()) + 1e-7
+        ok = piv_eq and gsel_eq and err_d <= 1e-5 and lv_ok
+        ms = _time_auto(lambda: gs.graft_select(*args), max_iters=200)
+        plain_ms = _time_auto(lambda: gs.graft_select_reference(*args))
+        b_ms, b_by, nbytes, flops = _graft_bound(K, R, d, rank)
+        print(f"[graft_select] {plan} plan K={K} R={R} d={d} rank={rank}: pivots "
+              f"{'equal' if piv_eq else 'DIFFER'}, G_sel {'equal' if gsel_eq else 'DIFFERS'}, "
+              f"max|errors diff| {err_d:.3g} (atol 1e-05), |logvol diff| {lv_d:.3g} "
+              f"(rtol 1e-05) -> {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({nbytes} bytes, "
+              f"{flops} flop); {ms / b_ms:.0f}x the bound", flush=True)
+        if not ok:
+            raise AssertionError(f"graft_select disagrees with its twin at K={K} R={R}")
+    for K, R, d, rank in ((16, 8, 2304, 8), (256, 64, 4096, 64), (64, 8, 2304, 6)):
+        args = _random_refresh(K, R, d, dev, seed=3) + [rank]
+        shared = gs.graft_select(*args, plan="shared")
+        glob = gs.graft_select(*args, plan="global")
+        same = _all_equal(shared, glob)
+        t = {p: _time_auto(lambda p=p: gs.graft_select(*args, plan=p), max_iters=500)
+             for p in ("shared", "global")}
+        print(f"[graft_select] K={K} R={R} d={d} rank={rank}: global plan "
+              f"{'bit-equal to' if same else 'DIFFERS from'} shared plan "
+              f"(pivots, errors, logvol, G_sel); shared {t['shared']:.4f} ms, "
+              f"global {t['global']:.4f} ms", flush=True)
+        if not same:
+            raise AssertionError("graft_select's two plans disagree")
+    for B, K, R, d, rank in ((4, 16, 8, 2304, 8), (8, 256, 32, 1024, 32)):
+        Vs, Gs, gbs = _random_refresh(K, R, d, dev, B=B, seed=4)
+        got = gs.graft_select_batched(Vs, Gs, gbs, rank)
+        rows = all(_all_equal([t[b] for t in got], gs.graft_select(Vs[b], Gs[b], gbs[b], rank))
+                   for b in range(B))
+        print(f"[graft_select_batched] B={B} K={K} R={R} d={d} rank={rank}: every row "
+              f"{'bit-equal to' if rows else 'DIFFERS from'} the single kernel", flush=True)
+        if not rows:
+            raise AssertionError("the batched kernel disagrees with the single kernel")
+
+
+def _kernels_standalone(ctx, dev):
+    """fast_maxvol and projection_sweep against their plain versions and
+    the fused kernel, each timed against its bound."""
+    import torch
+    from repro_torch.core import maxvol as maxvol_lib
+    from repro_torch.core import projection as proj_lib
+    from repro_torch.kernels import fast_maxvol as fm
+    from repro_torch.kernels import graft_select as gs
+    from repro_torch.kernels import projection_sweep as ps
+    for K, R, rank in ((16, 8, 8), (256, 32, 32), (1024, 64, 64), (2048, 256, 256)):
+        V, G, gb = _random_refresh(K, R, 64, dev, seed=K)
+        piv, lv = fm.fast_maxvol(V, rank)
+        piv_r, lv_r = maxvol_lib.fast_maxvol(V, rank)
+        fused = gs.graft_select(V, G, gb, rank)
+        torch.cuda.synchronize()
+        lv_d = abs(lv.item() - lv_r.item())
+        ok = (torch.equal(piv.long(), piv_r.long()) and torch.equal(piv, fused[0])
+              and torch.equal(lv, fused[2]) and lv_d <= 1e-5 * abs(lv_r.item()) + 1e-7)
+        ms = _time_auto(lambda: fm.fast_maxvol(V, rank), max_iters=500)
+        plain_ms = _time_auto(lambda: maxvol_lib.fast_maxvol(V, rank))
+        bound = _bound(4 * (K * R + rank + 1), _maxvol_flops(K, R, rank))
+        print(f"[fast_maxvol] {gs.choose_plan(K, R, rank)} plan K={K} R={R} rank={rank}: "
+              f"pivots {'equal' if ok else 'DIFFER or'} to the plain version's and "
+              f"graft_select's, logvol bit-equal to graft_select's, |logvol diff| vs plain "
+              f"{lv_d:.3g} (rtol 1e-05) -> {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound[0]:.6f} ms by {bound[1]} "
+              f"({bound[2]} bytes, {bound[3]} flop); {ms / bound[0]:.0f}x the bound", flush=True)
+        if not ok:
+            raise AssertionError(f"fast_maxvol disagrees at K={K} R={R} rank={rank}")
+        if (K, R, rank) == (16, 8, 8):
+            ctx["kernels"]["fast_maxvol"] = _entry(
+                "fast_maxvol", "src/repro/kernels/fast_maxvol.py:55", None, lv_d,
+                ms, plain_ms, bound)
+    for d, R in ((2304, 8), (1024, 32), (16384, 64)):
+        V, G, gb = _random_refresh(R, R, d, dev, seed=d)
+        # G_sel from the fused kernel where its 12 MB guard admits the shape
+        fits = gs.fused_budget_bytes(R, R, d, R) <= gs.VMEM_BUDGET_BYTES
+        fused = gs.graft_select(V, G, gb, R) if fits else None
+        G_sel = fused[3] if fits else G
+        err = ps.projection_sweep(G_sel, gb)
+        err_r = proj_lib.prefix_projection_errors(G_sel, gb)
+        torch.cuda.synchronize()
+        err_d = (err - err_r).abs().max().item()
+        same = torch.equal(err, fused[1]) if fits else None
+        plans_eq = torch.equal(ps.projection_sweep(G_sel, gb, plan="global"), err)
+        ok = err_d <= 1e-5 and same is not False and plans_eq
+        ms = _time_auto(lambda: ps.projection_sweep(G_sel, gb), max_iters=500)
+        plain_ms = _time_auto(lambda: proj_lib.prefix_projection_errors(G_sel, gb))
+        bound = _bound(4 * (d * R + d + R), _sweep_flops(d, R))
+        vs_fused = ("bit-equal to the fused kernel's" if same else "DIFFER from the fused kernel's"
+                    ) if fits else "(the fused kernel's 12 MB guard refuses this shape)"
+        print(f"[projection_sweep] d={d} R={R}: max|errors diff| vs plain {err_d:.3g} "
+              f"(atol 1e-05), errors {vs_fused}, global-scratch plan "
+              f"{'bit-equal' if plans_eq else 'DIFFERS'} -> {'ok' if ok else 'FAIL'}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.6f} ms by {bound[1]} "
+              f"({bound[2]} bytes, {bound[3]} flop); {ms / bound[0]:.0f}x the bound", flush=True)
+        if not ok:
+            raise AssertionError(f"projection_sweep disagrees at d={d} R={R}")
+        if (d, R) == (2304, 8):
+            ctx["kernels"]["projection_sweep"] = _entry(
+                "projection_sweep", "src/repro/kernels/projection_sweep.py:50", None,
+                err_d, ms, plain_ms, bound)
 
 
 def _flash_inputs(B, H, Hkv, S, Dh, dtype, seed=0):
@@ -274,7 +452,7 @@ def _flash_plain(fn, q, k, v, do, lse, delta, group, opts):
     return torch.cat(outs)
 
 
-def _time_auto(fn, budget_ms=300.0):
+def _time_auto(fn, budget_ms=300.0, max_iters=50):
     """CUDA-event time of fn, with the iteration count sized to the budget."""
     import torch
     fn()
@@ -285,7 +463,7 @@ def _time_auto(fn, budget_ms=300.0):
     end.record()
     torch.cuda.synchronize()
     once = max(start.elapsed_time(end), 1e-3)
-    return cuda_time_ms(fn, iters=int(min(50, max(2, budget_ms / once))), warmup=1)
+    return cuda_time_ms(fn, iters=int(min(max_iters, max(2, budget_ms / once))), warmup=1)
 
 
 def phase_flash(ctx):
@@ -396,12 +574,17 @@ def phase_flash(ctx):
 
 def _kernel_counters():
     """(name, holder, attribute) of every kernel's launch count."""
+    from repro_torch.kernels import fast_maxvol as fm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import graft_select as gs
+    from repro_torch.kernels import projection_sweep as ps
     return [("graft_select", gs.graft_select, "launches"),
             ("flash_forward", fa.flash_attention, "forward_launches"),
             ("flash_dq", fa.flash_attention, "dq_launches"),
-            ("flash_dkv", fa.flash_attention, "dkv_launches")]
+            ("flash_dkv", fa.flash_attention, "dkv_launches"),
+            ("graft_select_batched", gs.graft_select_batched, "launches"),
+            ("fast_maxvol", fm.fast_maxvol, "launches"),
+            ("projection_sweep", ps.projection_sweep, "launches")]
 
 
 def _zero_counts():
@@ -416,13 +599,15 @@ def _read_counts():
 def _expected_launches(mcfg, cfg):
     """Launches the slice reckons: per step one flash forward per layer for
     the subset loss and one more for its remat recompute, one dQ and one
-    dK/dV; per refresh one selection forward per layer and one graft_select."""
+    dK/dV; per refresh one selection forward per layer and one graft_select.
+    The training path runs no batched refresh and no standalone stage."""
     steps = cfg.train.steps
     refreshes = sum(1 for s in range(steps) if s % cfg.graft.refresh_every == 0)
     fwd_per_step = 2 if mcfg.remat == "full" else 1
     L = mcfg.num_layers
     return {"graft_select": refreshes, "flash_forward": L * (steps * fwd_per_step + refreshes),
-            "flash_dq": L * steps, "flash_dkv": L * steps}
+            "flash_dq": L * steps, "flash_dkv": L * steps,
+            "graft_select_batched": 0, "fast_maxvol": 0, "projection_sweep": 0}
 
 
 def phase_slice(ctx):
@@ -465,12 +650,158 @@ def phase_slice(ctx):
     assert all(np.isfinite(r["loss"]) for r in hist), "non-finite loss"
     assert all(int(r["rank"]) in cfg.graft.rset for r in hist), "rank outside rset"
     assert launches == expected, f"launches {launches}, expected {expected}"
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was never launched on the main path"
-        ctx["kernels"][name]["launches"] = n
+    for name in ("graft_select", "flash_forward", "flash_dq", "flash_dkv"):
+        assert launches[name] > 0, f"kernel {name} was never launched on the main path"
+        ctx["kernels"][name]["launches"] = launches[name]
     steady = [r["step_time_s"] for r in hist[1:]]
     print(f"[slice] steady step time (steps 1-5) mean {np.mean(steady) * 1e3:.1f} ms; "
           f"refresh steps {[r['step_time_s'] * 1e3 for r in hist[2::2]]} ms")
+
+
+def _engine_compare(cfg, Vs, Gs, gbs, scores, step, what):
+    """The engine's three routes on one stack: one batched launch, a loop
+    of select_batch (one single launch per lane), and the plain chain.
+    Asserts the launch counts and the agreements; returns the batched
+    state and the launch counts of its call."""
+    import dataclasses
+    import torch
+    from repro_torch.selection import engine
+    B = Vs.shape[0]
+    _zero_counts()
+    multi, carry = engine.select_multi_batch(cfg, "graft", Vs, Gs, gbs, scores=scores,
+                                             step=step)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    assert carry == {}, f"graft carries nothing, got {carry}"
+    assert counts == dict({k: 0 for k in counts}, graft_select_batched=1), \
+        f"{what}: select_multi_batch launched {counts}, expected one batched launch"
+    _zero_counts()
+    singles = [engine.select_batch(cfg, "graft", Vs[b], Gs[b], gbs[b], scores=scores[b],
+                                   step=step)[0] for b in range(B)]
+    torch.cuda.synchronize()
+    loop_counts = _read_counts()
+    assert loop_counts == dict({k: 0 for k in counts}, graft_select=B), loop_counts
+    loop_eq = all(torch.equal(getattr(multi, f)[b], getattr(singles[b], f))
+                  for b in range(B) for f in multi._fields)
+    plain, _ = engine.select_multi_batch(dataclasses.replace(cfg, use_pallas=False), "graft",
+                                         Vs, Gs, gbs, scores=scores, step=step)
+    torch.cuda.synchronize()
+    piv_eq = torch.equal(multi.pivots, plain.pivots) and torch.equal(multi.rank, plain.rank)
+    err_d = max((multi.last_error - plain.last_error).abs().max().item(),
+                (multi.alignment - plain.alignment).abs().max().item())
+    print(f"[engine] {what}: select_multi_batch launched {counts['graft_select_batched']} "
+          f"batched kernel; the select_batch loop {loop_counts['graft_select']} single "
+          f"launches, every field {'bit-equal' if loop_eq else 'DIFFERS'}; plain chain "
+          f"pivots and ranks {'equal' if piv_eq else 'DIFFER'}, max|last_error, alignment "
+          f"diff| {err_d:.3g} (atol 1e-05); ranks {multi.rank.tolist()}", flush=True)
+    assert loop_eq, f"{what}: the batched path differs from the select_batch loop"
+    assert piv_eq and err_d <= 1e-5, f"{what}: the batched path differs from the plain chain"
+    return multi, counts
+
+
+def _engine_times(cfg, Vs, Gs, gbs, scores, step, what):
+    """Device times of the batched launch, B single launches and the plain
+    chain (kernel level), and of the engine call on both routes."""
+    import dataclasses
+    from repro_torch.kernels import graft_select as gs
+    from repro_torch.selection import engine
+    B, r = Vs.shape[0], cfg.r_max
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    t = {"batched": _time_auto(lambda: gs.graft_select_batched(Vs, Gs, gbs, r), max_iters=500),
+         "singles": _time_auto(lambda: [gs.graft_select(Vs[b], Gs[b], gbs[b], r)
+                                        for b in range(B)], max_iters=500),
+         "plain": _time_auto(lambda: gs.graft_select_batched_reference(Vs, Gs, gbs, r)),
+         "engine": _time_auto(lambda: engine.select_multi_batch(
+             cfg, "graft", Vs, Gs, gbs, scores=scores, step=step), max_iters=200),
+         "engine_plain": _time_auto(lambda: engine.select_multi_batch(
+             plain_cfg, "graft", Vs, Gs, gbs, scores=scores, step=step))}
+    K, R, d = Vs.shape[1], Vs.shape[2], Gs.shape[1]
+    bound = _graft_bound(K, R, d, r, B=B)
+    print(f"[engine] {what} B={B} K={K} R={R} d={d} rank={r}: one batched launch "
+          f"{t['batched']:.4f} ms, {B} single launches {t['singles']:.4f} ms, plain chain "
+          f"{t['plain']:.4f} ms; select_multi_batch with the epilogue {t['engine']:.4f} ms "
+          f"(use_pallas) vs {t['engine_plain']:.4f} ms (plain); bound {bound[0]:.6f} ms by "
+          f"{bound[1]} ({bound[2]} bytes, {bound[3]} flop); batched "
+          f"{t['batched'] / bound[0]:.0f}x the bound", flush=True)
+    return t, bound
+
+
+def phase_engine(ctx):
+    """The multi-batch selection engine at full width on the trained params."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import graft_select as gs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.selection import GraftConfig
+    tr = ctx["trainer"]
+    mcfg, tcfg = tr.mcfg, tr.tcfg
+    cfg, B, step = tcfg.graft, 4, 6
+    stack = tr.data.microbatch_stack(step=step, num_micro=B)
+    _zero_counts()
+    with torch.no_grad():
+        per = [steps_lib.selection_inputs(mcfg, tcfg, tr.state["model"], {
+            k: torch.from_numpy(np.ascontiguousarray(v[b])).to("cuda")
+            for k, v in stack.items()}) for b in range(B)]
+    torch.cuda.synchronize()
+    sel_counts = _read_counts()
+    Vs, Gs, gbs, scores = (torch.stack(x).contiguous() for x in zip(*per))
+    print(f"[engine] microbatch_stack(step={step}, num_micro={B}): tokens "
+          f"{stack['tokens'].shape}; selection inputs V {tuple(Vs.shape)}, G "
+          f"{tuple(Gs.shape)}, g_bar {tuple(gbs.shape)}, scores {tuple(scores.shape)}; "
+          f"flash forwards {sel_counts['flash_forward']} ({B} x {mcfg.num_layers} layers)",
+          flush=True)
+    assert Vs.shape == (B, tr.config.train.batch, cfg.r_max) and Gs.shape[2] == Vs.shape[1]
+    assert sel_counts["flash_forward"] == B * mcfg.num_layers, sel_counts
+    assert all(bool(torch.isfinite(x).all()) for x in (Vs, Gs, gbs, scores))
+    multi, path_counts = _engine_compare(cfg, Vs, Gs, gbs, scores, step, "slice stack")
+    # the same stack through kernels/ops: MaxVol, gather, sweep
+    r = cfg.r_max
+    fused = gs.graft_select_batched(Vs, Gs, gbs, r)
+    _zero_counts()
+    chain = []
+    for b in range(B):
+        piv, lv = ops.fast_maxvol_with_logvol(Vs[b], r)
+        err = ops.projection_sweep(Gs[b].index_select(1, piv), gbs[b])
+        chain.append((piv, err, lv))
+    torch.cuda.synchronize()
+    ops_counts = _read_counts()
+    assert ops_counts == dict({k: 0 for k in ops_counts}, fast_maxvol=B, projection_sweep=B), \
+        f"the ops chain launched {ops_counts}"
+    chain_eq = all(torch.equal(piv, fused[0][b]) and torch.equal(err, fused[1][b])
+                   and torch.equal(lv, fused[2][b]) for b, (piv, err, lv) in enumerate(chain))
+    chain_eq = chain_eq and torch.equal(fused[0], multi.pivots)
+    print(f"[engine] kernels/ops chain fast_maxvol -> gather -> projection_sweep on the "
+          f"stack: {ops_counts['fast_maxvol']} + {ops_counts['projection_sweep']} launches; "
+          f"pivots, logvol and errors {'bit-equal' if chain_eq else 'DIFFER'} to the batched "
+          f"kernel's", flush=True)
+    assert chain_eq, "the ops chain differs from the fused kernel"
+    launches = {"graft_select_batched": path_counts["graft_select_batched"],
+                "fast_maxvol": ops_counts["fast_maxvol"],
+                "projection_sweep": ops_counts["projection_sweep"]}
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} was never launched on its path"
+    ctx["kernels"]["fast_maxvol"]["launches"] = launches["fast_maxvol"]
+    ctx["kernels"]["projection_sweep"]["launches"] = launches["projection_sweep"]
+    want = gs.graft_select_batched_reference(Vs, Gs, gbs, r)
+    piv_eq, gsel_eq, err_d, lv_d = _refresh_diff(fused, want)
+    assert piv_eq and gsel_eq and err_d <= 1e-5, "batched kernel vs its plain version"
+    t, bound = _engine_times(cfg, Vs, Gs, gbs, scores, step, "slice stack")
+    ctx["kernels"]["graft_select_batched"] = _entry(
+        "graft_select_batched", "src/repro/kernels/graft_select.py:175",
+        launches["graft_select_batched"],
+        max(err_d, lv_d), t["batched"], t["plain"], bound)
+    # the selection benchmark's shape (benchmarks/bench_selection_overhead.py)
+    bcfg = GraftConfig(rset=(8, 16, 32), eps=0.25, use_pallas=True)
+    Vs, Gs, gbs = _random_refresh(256, 32, 1024, "cuda", B=8, seed=5)
+    scores = torch.zeros(8, 256, device="cuda")
+    _engine_compare(bcfg, Vs, Gs, gbs, scores, 0, "benchmark shape")
+    _engine_times(bcfg, Vs, Gs, gbs, scores, 0, "benchmark shape")
+    unfused = _time_auto(lambda: [ops.projection_sweep(
+        Gs[b].index_select(1, ops.fast_maxvol(Vs[b], 32)), gbs[b]) for b in range(8)],
+        max_iters=200)
+    print(f"[engine] benchmark shape: the unfused ops chain (fast_maxvol, gather, "
+          f"projection_sweep) for the 8 refreshes {unfused:.4f} ms", flush=True)
 
 
 def phase_profile(ctx):
@@ -614,7 +945,8 @@ def main() -> int:
     failed = []
     for name, fn in (("device", phase_device), ("build", phase_build),
                      ("kernels", phase_kernels), ("flash", phase_flash),
-                     ("slice", phase_slice), ("profile", phase_profile),
+                     ("slice", phase_slice), ("engine", phase_engine),
+                     ("profile", phase_profile),
                      ("depth8", phase_depth8), ("check", phase_check)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
@@ -627,10 +959,19 @@ def main() -> int:
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         if name in ("device", "build") and failed:
             break
+    kernels = list(ctx.get("kernels", {}).values())
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    unrun = [k.get("name") for k in kernels
+             if any(f not in k for f in keys) or not k["launches"]]
+    if not failed and (len(kernels) != len(_kernel_counters()) or unrun):
+        print(f"chip_smoke: kernels without a full entry or a launch on their path: "
+              f"{unrun or [k.get('name') for k in kernels]}", file=sys.stderr)
+        failed.append("kernels line")
     if failed:
         print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": list(ctx["kernels"].values())}))
+    print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

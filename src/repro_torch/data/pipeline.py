@@ -42,6 +42,15 @@ class DataSourceBase:
     def __call__(self, step: int) -> Dict[str, np.ndarray]:
         return self.batch_at(step)
 
+    def microbatch_stack(self, step: int, num_micro: int) -> Dict[str, np.ndarray]:
+        """``num_micro`` consecutive batches stacked on a new leading axis —
+        the input layout of the multi-batch selection path
+        (``repro_torch.selection.engine.select_multi_batch``): one call
+        selects for every microbatch at once. A function of ``step`` alone:
+        no iterator state moves."""
+        stack = [self.batch_at(step + i) for i in range(num_micro)]
+        return {k: np.stack([b[k] for b in stack]) for k in stack[0]}
+
 
 @dataclasses.dataclass
 class DataConfig:

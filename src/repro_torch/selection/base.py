@@ -70,8 +70,9 @@ class SelectionState(NamedTuple):
 
 class SelectionInputs(NamedTuple):
     """Per-batch selection inputs. ``scores`` are per-sample scalars for
-    score-ranked samplers; ``key`` would drive stochastic samplers (none is
-    ported, so it stays ``None``)."""
+    score-ranked samplers; ``key`` drives stochastic samplers. The engines
+    pass a caller's ``key``/``keys`` through per lane and derive none (no
+    ported sampler draws random numbers), so it is ``None`` unless given."""
     V: torch.Tensor                        # (K, R_max) relevance-ordered features
     G: torch.Tensor                        # (d, K) per-sample grad embeddings
     g_bar: torch.Tensor                    # (d,) batch mean gradient

@@ -61,6 +61,30 @@ def graft_select(cfg: GraftConfig, V: torch.Tensor, G: torch.Tensor,
     return _finalize(cfg, pivots, errors, G_sel, g_bar, step)
 
 
+def stack_states(states) -> SelectionState:
+    """Stack per-row states on a new leading axis (the JAX ``vmap`` output
+    layout)."""
+    return SelectionState(*(torch.stack(field) for field in zip(*states)))
+
+
+def graft_select_batched(cfg: GraftConfig, V: torch.Tensor, G: torch.Tensor,
+                         g_bar: torch.Tensor, step) -> SelectionState:
+    """A whole microbatch stack of refreshes: V (B, K, R_max), G (B, d, K),
+    ḡ (B, d). Semantically a loop of ``graft_select`` (the JAX ``vmap``);
+    with ``cfg.use_pallas`` the stack runs as ONE launch of the batched
+    kernel, then the epilogue per row (device ops, no host sync)."""
+    step = torch.as_tensor(step, dtype=torch.int32, device=V.device)
+    if cfg.use_pallas:
+        from repro_torch.kernels.graft_select import graft_select_batched as fused
+        pivots, errors, _, G_sel = fused(
+            V.to(torch.float32).contiguous(), G.to(torch.float32).contiguous(),
+            g_bar.to(torch.float32).contiguous(), cfg.r_max)
+        return stack_states([_finalize(cfg, pivots[b], errors[b], G_sel[b],
+                                       g_bar[b], step) for b in range(V.shape[0])])
+    return stack_states([graft_select(cfg, V[b], G[b], g_bar[b], step)
+                         for b in range(V.shape[0])])
+
+
 def graft_sampler_fn(cfg: GraftConfig, inputs: SelectionInputs,
                      step: torch.Tensor) -> SelectionState:
     """Registry adapter: the ``Sampler.fn`` signature over ``graft_select``."""
@@ -68,4 +92,4 @@ def graft_sampler_fn(cfg: GraftConfig, inputs: SelectionInputs,
 
 
 __all__ = ["GraftConfig", "GraftState", "SelectionState", "graft_select",
-           "graft_sampler_fn", "pivot_and_sweep"]
+           "graft_select_batched", "graft_sampler_fn", "pivot_and_sweep"]

@@ -8,7 +8,9 @@ that has only PyTorch and the CUDA toolkit:
 Tolerances: graft_select's pivots and ``G_sel`` bit-equal (same
 single-rounding elimination; the gather is a copy); errors atol 1e-5 and
 logvol rtol 1e-5, because the kernel's block reductions sum in another
-order than PyTorch. Flash attention: float32 outputs and gradients within
+order than PyTorch. The kernels of one source share their device code, so
+the batched kernel's rows, the two MaxVol plans, the standalone MaxVol and
+the standalone sweep are bit-equal to the fused single kernel. Flash attention: float32 outputs and gradients within
 1e-4·max|plain| and lse within 1e-4 (float32 sums of up to T products in
 another order); bf16 outputs within one bf16 ulp of max|plain| (2^-7·max:
 both round the same float32 value once). Bounded vs exhaustive KV loops
@@ -18,7 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import maxvol as maxvol_lib
+from repro_torch.core import projection as proj_lib
+from repro_torch.kernels import fast_maxvol as fm
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import graft_select as gs
+from repro_torch.kernels import projection_sweep as ps
 from repro_torch.kernels.graft_select import graft_select, graft_select_reference
 from torch_cases import CASES, assert_refresh_match, graft_case
 
@@ -65,16 +72,138 @@ def test_kernel_matches_twin_at_training_widths(cuda, K, R, d, rank):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take(cuda):
-    V = torch.zeros(1024, 64, device=cuda)
-    G = torch.zeros(8, 1024, device=cuda)
-    with pytest.raises(ValueError, match="232448"):
-        graft_select(V, G, torch.zeros(8, device=cuda), 8)
+    """A V of 1024×64 does not fit a block's shared memory: it runs on the
+    global plan and matches the plain version. What the JAX kernel's 12 MB
+    estimate refuses, this refuses; so it does bad types and layouts."""
+    rng = np.random.default_rng(4)
+    Vn = rng.normal(size=(1024, 64)).astype(np.float32)
+    Gn = rng.normal(size=(8, 1024)).astype(np.float32)
+    V, G, gb = _on(cuda, Vn, Gn, Gn.mean(axis=1).astype(np.float32))
+    got = graft_select(V, G, gb, 64)
+    want = graft_select_reference(V, G, gb, 64)
+    assert_refresh_match([t.cpu().numpy() for t in got],
+                         [t.cpu().numpy() for t in want])
+    with pytest.raises(ValueError, match="VMEM budget"):
+        graft_select(V, torch.zeros(4096, 1024, device=cuda),
+                     torch.zeros(4096, device=cuda), 8)
     with pytest.raises(TypeError, match="float32"):
         graft_select(V[:16].double(), G[:, :16].double(),
                      torch.zeros(8, device=cuda, dtype=torch.float64), 4)
     with pytest.raises(ValueError, match="contiguous"):
         graft_select(torch.zeros(8, 16, device=cuda).T, G[:, :16],
                      torch.zeros(8, device=cuda), 4)
+
+
+def _random_stack(B, K, R, d, seed):
+    rng = np.random.default_rng(seed)
+    Vs = rng.normal(size=(B, K, R)).astype(np.float32)
+    Gs = rng.normal(size=(B, d, K)).astype(np.float32)
+    return Vs, Gs, Gs.mean(axis=2).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,R,d,rank", [(4, 16, 8, 2304, 8), (8, 256, 32, 1024, 32),
+                                          (3, 1024, 64, 64, 64)])
+def test_batched_kernel_rows_equal_single_kernel(cuda, B, K, R, d, rank):
+    """One launch for the stack; row b bit-equal to the single kernel on row
+    b (the same block code), and to the plain version as the single one is."""
+    Vs, Gs, gbs = _on(cuda, *_random_stack(B, K, R, d, seed=B))
+    before = (gs.graft_select.launches, gs.graft_select_batched.launches)
+    got = gs.graft_select_batched(Vs, Gs, gbs, rank)
+    torch.cuda.synchronize()
+    assert (gs.graft_select.launches, gs.graft_select_batched.launches) == \
+        (before[0], before[1] + 1)
+    assert got[0].shape == (B, rank) and got[3].shape == (B, d, rank)
+    for b in range(B):
+        single = graft_select(Vs[b], Gs[b], gbs[b], rank)
+        for a, s in zip(got, single):
+            assert torch.equal(a[b], s)
+    want = gs.graft_select_batched_reference(Vs, Gs, gbs, rank)
+    for b in range(B):
+        assert_refresh_match([t[b].cpu().numpy() for t in got],
+                             [t[b].cpu().numpy() for t in want])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,R,d,rank", [(16, 8, 2304, 8), (256, 64, 512, 64),
+                                        (64, 8, 32, 6)])
+def test_global_plan_bit_equal_to_shared_plan(cuda, K, R, d, rank):
+    V, G, gb = _on(cuda, *(x[0] for x in _random_stack(1, K, R, d, seed=K)))
+    shared = graft_select(V, G, gb, rank, plan="shared")
+    glob = graft_select(V, G, gb, rank, plan="global")
+    for a, b in zip(shared, glob):
+        assert torch.equal(a, b)
+    for plan in ("shared", "global"):
+        p, lv = fm.fast_maxvol(V, rank, plan=plan)
+        assert torch.equal(p, shared[0]) and torch.equal(lv, shared[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CASES)
+def test_fast_maxvol_and_sweep_kernels_match_plain(cuda, name):
+    V, G, gb, rank = graft_case(name)
+    V, G, gb = _on(cuda, V, G, gb)
+    before = (fm.fast_maxvol.launches, ps.projection_sweep.launches)
+    piv, lv = fm.fast_maxvol(V, rank)
+    fused = graft_select(V, G, gb, rank)
+    errs = ps.projection_sweep(fused[3], gb)
+    torch.cuda.synchronize()
+    assert (fm.fast_maxvol.launches, ps.projection_sweep.launches) == \
+        (before[0] + 1, before[1] + 1)
+    piv_r, lv_r = maxvol_lib.fast_maxvol(V, rank)
+    assert torch.equal(piv.long(), piv_r.long()) and torch.equal(piv, fused[0])
+    assert torch.equal(lv, fused[2])
+    np.testing.assert_allclose(lv.item(), lv_r.item(), rtol=1e-5)
+    # the same sweep routine as the fused kernel: bit-equal errors
+    assert torch.equal(errs, fused[1])
+    errs_r = proj_lib.prefix_projection_errors(fused[3], gb)
+    np.testing.assert_allclose(errs.cpu().numpy(), errs_r.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,R,rank", [(1024, 64, 64), (2048, 256, 256)])
+def test_fast_maxvol_kernel_wide(cuda, K, R, rank):
+    rng = np.random.default_rng(K)
+    V = torch.from_numpy(rng.normal(size=(K, R)).astype(np.float32)).to(cuda)
+    assert gs.choose_plan(K, R, rank) == "global"
+    piv, lv = fm.fast_maxvol(V, rank)
+    piv_r, lv_r = maxvol_lib.fast_maxvol(V, rank)
+    assert torch.equal(piv.long(), piv_r.long())
+    np.testing.assert_allclose(lv.item(), lv_r.item(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,R", [(2304, 8), (1024, 32), (16384, 64)])
+def test_projection_sweep_kernel_wide(cuda, d, R):
+    rng = np.random.default_rng(d + R)
+    G = torch.from_numpy(rng.normal(size=(d, R)).astype(np.float32)).to(cuda)
+    gb = G.mean(dim=1).contiguous()
+    got = ps.projection_sweep(G, gb)
+    want = proj_lib.prefix_projection_errors(G, gb)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5)
+    # the reduction scratch in global memory: the same sums, bit-equal
+    assert torch.equal(ps.projection_sweep(G, gb, plan="global"), got)
+
+
+@pytest.mark.cuda
+def test_select_multi_batch_on_card_one_batched_launch(cuda):
+    from repro_torch.selection import GraftConfig, engine
+    Vs, Gs, gbs = _on(cuda, *_random_stack(4, 16, 8, 2304, seed=9))
+    cfg = GraftConfig(rset=(2, 4, 8), eps=0.25, use_pallas=True)
+    before = (gs.graft_select.launches, gs.graft_select_batched.launches)
+    multi, _ = engine.select_multi_batch(cfg, "graft", Vs, Gs, gbs, step=2)
+    torch.cuda.synchronize()
+    assert (gs.graft_select.launches, gs.graft_select_batched.launches) == \
+        (before[0], before[1] + 1)
+    plain, _ = engine.select_multi_batch(GraftConfig(rset=(2, 4, 8), eps=0.25),
+                                         "graft", Vs, Gs, gbs, step=2)
+    assert torch.equal(multi.pivots, plain.pivots) and torch.equal(multi.rank, plain.rank)
+    np.testing.assert_allclose(multi.last_error.cpu().numpy(),
+                               plain.last_error.cpu().numpy(), atol=1e-5)
+    for b in range(4):
+        single, _ = engine.select_batch(cfg, "graft", Vs[b], Gs[b], gbs[b], step=2)
+        for field in single._fields:
+            assert torch.equal(getattr(multi, field)[b], getattr(single, field)), field
 
 
 def _flash_counts():

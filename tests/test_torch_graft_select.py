@@ -78,3 +78,33 @@ def test_unfused_chain_vs_pallas_reference_chain():
     te = tproj.prefix_projection_errors(torch.from_numpy(G[:, tp.numpy()]),
                                         torch.from_numpy(gb))
     np.testing.assert_allclose(np.asarray(je), te.numpy(), atol=1e-5)
+
+
+def test_plan_choice_and_the_fused_budget_refusal():
+    """The wrapper keeps V's working copy in shared memory where it fits
+    and in a global scratch where it does not (1024×64 runs now); it
+    refuses exactly what the JAX kernel's 12 MB estimate refuses, with the
+    same message."""
+    from repro_torch.kernels.graft_select import (VMEM_BUDGET_BYTES, choose_plan,
+                                                  fused_budget_bytes)
+    assert choose_plan(16, 8, 8) == "shared"
+    assert choose_plan(256, 64, 64) == "shared"
+    assert choose_plan(1024, 64, 64) == "global"
+    assert choose_plan(2048, 256, 256) == "global"
+    # the global plan keeps only the per-rank and per-warp scratch in a block
+    assert smem_bytes(1024, 64, 64, "global") == 4 * ((8 + 2) * 64 + 2 * 8 + 2)
+    assert fused_budget_bytes(1024, 64, 8, 64) < VMEM_BUDGET_BYTES
+    V = torch.zeros(1024, 64)
+    got = graft_select(V, torch.zeros(8, 1024), torch.zeros(8), 64)   # plain version
+    assert got[0].shape == (64,) and len(set(got[0].tolist())) == 64
+    big = dict(V=np.zeros((1024, 64), np.float32), G=np.zeros((4096, 1024), np.float32),
+               gb=np.zeros(4096, np.float32))                        # 16 MB of G
+    assert fused_budget_bytes(1024, 64, 4096, 8) > VMEM_BUDGET_BYTES
+    with pytest.raises(ValueError) as want:
+        fused_graft_select_pallas(jnp.asarray(big["V"]), jnp.asarray(big["G"]),
+                                  jnp.asarray(big["gb"]), 8, interpret=True)
+    with pytest.raises(ValueError) as got_err:
+        graft_select(torch.from_numpy(big["V"]), torch.from_numpy(big["G"]),
+                     torch.from_numpy(big["gb"]), 8)
+    assert str(got_err.value) == str(want.value)
+    assert "VMEM budget" in str(got_err.value)
