@@ -57,14 +57,28 @@ Phases (any failure exits nonzero and prints no result line):
   8. depth8  — the same slice with depth cut to 8 layers, dense attention
                beside flash from the same seed, run dense, flash, flash,
                dense: steady step times from one call.
-  9. check   — the same path at smoke size on the card against the port's
-               CPU run (which the CPU tests hold against the JAX package),
-               under flash attention: minicpm, and gemma2 at seq 32 so that
-               its window of 16 bites. Per-step losses rtol 1e-4, ranks and
-               pivots equal.
+  9. rwkv    — the RWKV6 recurrence's forward and backward kernels against
+               their plain versions: the JAX kernel test's four shapes, the
+               rwkv6-7b selection forward (BH 1024 = 16 × 64 heads, T 256,
+               D 64) and subset forward (BH 512), a long context (BH 64,
+               T 4096), a T that is not a multiple of the time tile and D
+               256, which the model never uses; reruns bit-equal, the no-grad
+               forward equal to the one that saves states, ``ops.rwkv_scan``
+               equal for every chunk. Each timed against its plain version
+               and its bound (no single PyTorch call computes it).
+ 10. rwkv_slice — ``Trainer`` on rwkv6-7b at full width with depth cut to
+               16 of 32 layers: 6 steps, the slice's GRAFT settings, exact
+               launch counts (rwkv_scan 16 × (6·2 + 3), its backward 16 × 6,
+               graft_select 3, flash 0), peak memory; then the profile of
+               phase 7 on its trained state.
+ 11. check   — the same path at smoke size on the card against the port's
+               CPU run (which the CPU tests hold against the JAX package):
+               minicpm and gemma2 (seq 32, so that its window of 16 bites)
+               under flash attention, and rwkv6-7b through the RWKV kernels.
+               Per-step losses rtol 1e-4, ranks and pivots equal.
 
-It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+It prints a ``{"kernels": [...]}`` line (all nine kernels), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
 import gc
 import json
@@ -578,13 +592,16 @@ def _kernel_counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import graft_select as gs
     from repro_torch.kernels import projection_sweep as ps
+    from repro_torch.kernels import rwkv_scan as rw
     return [("graft_select", gs.graft_select, "launches"),
             ("flash_forward", fa.flash_attention, "forward_launches"),
             ("flash_dq", fa.flash_attention, "dq_launches"),
             ("flash_dkv", fa.flash_attention, "dkv_launches"),
             ("graft_select_batched", gs.graft_select_batched, "launches"),
             ("fast_maxvol", fm.fast_maxvol, "launches"),
-            ("projection_sweep", ps.projection_sweep, "launches")]
+            ("projection_sweep", ps.projection_sweep, "launches"),
+            ("rwkv_scan", rw.rwkv_scan, "launches"),
+            ("rwkv_scan_backward", rw.rwkv_scan_backward, "launches")]
 
 
 def _zero_counts():
@@ -597,17 +614,23 @@ def _read_counts():
 
 
 def _expected_launches(mcfg, cfg):
-    """Launches the slice reckons: per step one flash forward per layer for
-    the subset loss and one more for its remat recompute, one dQ and one
-    dK/dV; per refresh one selection forward per layer and one graft_select.
-    The training path runs no batched refresh and no standalone stage."""
+    """Launches the slice reckons: per step one forward per layer for the
+    subset loss and one more for its remat recompute, and one backward; per
+    refresh one selection forward per layer and one graft_select. The
+    forward and backward kernels are flash (forward; dQ and dK/dV) for the
+    dense family, the RWKV scan (forward; one backward launch) for the ssm
+    family. The training path runs no batched refresh and no standalone
+    stage."""
     steps = cfg.train.steps
     refreshes = sum(1 for s in range(steps) if s % cfg.graft.refresh_every == 0)
     fwd_per_step = 2 if mcfg.remat == "full" else 1
     L = mcfg.num_layers
-    return {"graft_select": refreshes, "flash_forward": L * (steps * fwd_per_step + refreshes),
-            "flash_dq": L * steps, "flash_dkv": L * steps,
-            "graft_select_batched": 0, "fast_maxvol": 0, "projection_sweep": 0}
+    fwd, bwd = L * (steps * fwd_per_step + refreshes), L * steps
+    ssm = mcfg.family == "ssm"
+    return {"graft_select": refreshes, "flash_forward": 0 if ssm else fwd,
+            "flash_dq": 0 if ssm else bwd, "flash_dkv": 0 if ssm else bwd,
+            "graft_select_batched": 0, "fast_maxvol": 0, "projection_sweep": 0,
+            "rwkv_scan": fwd if ssm else 0, "rwkv_scan_backward": bwd if ssm else 0}
 
 
 def phase_slice(ctx):
@@ -805,11 +828,17 @@ def phase_engine(ctx):
 
 
 def phase_profile(ctx):
+    _profile(ctx["trainer"], "profile")
+
+
+def _profile(tr, tag):
+    """Parts of a step timed apart on a trained state, then one whole step
+    under torch.profiler: its kernels by device time."""
     import torch
     from repro_torch.launch import steps as steps_lib
     from repro_torch.optim import make_optimizer
-    tr = ctx["trainer"]
     mcfg, tcfg, state = tr.mcfg, tr.tcfg, tr.state
+    K, S = tr.config.train.batch, tr.config.train.seq
     batch = tr._to_device(tr.data.batch_at(tcfg.graft.refresh_every * 10))
     refresh = steps_lib.make_selection_refresh(mcfg, tcfg)
     opt = make_optimizer(tcfg.optimizer)
@@ -819,9 +848,10 @@ def phase_profile(ctx):
         out[name] = cuda_time_ms(fn, iters=reps, warmup=1)
         return fn()
 
-    graft_state, _ = timed("selection refresh (forward K=16, features, kernel)",
+    graft_state, _ = timed(f"selection refresh (forward K={K}, features, kernel)",
                            lambda: refresh(state["model"].tree(), batch, {}, 0))
-    grads = timed("subset forward+backward (8 x 256 tokens, remat)",
+    grads = timed(f"subset forward+backward ({int(graft_state.rank)} x {S} tokens, "
+                  f"remat={mcfg.remat})",
                   lambda: torch.autograd.grad(
                       steps_lib.subset_loss(mcfg, state, batch, graft_state),
                       state["params"]), reps=2)
@@ -830,7 +860,7 @@ def phase_profile(ctx):
           lambda: opt.update(state["params"], clipped, state["opt"], 6), reps=1)
     del grads, clipped
     for name, ms in out.items():
-        print(f"[profile] {name}: {ms:.1f} ms device")
+        print(f"[{tag}] {name}: {ms:.1f} ms device")
     step_fn = steps_lib.make_train_step(mcfg, tcfg)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -846,15 +876,15 @@ def phase_profile(ctx):
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     total_ms = sum(dev_us(e) for e in events) / 1e3
     if not events or total_ms <= 0:
-        print(f"[profile] one step {wall_ms:.1f} ms wall; device time not measured "
+        print(f"[{tag}] one step {wall_ms:.1f} ms wall; device time not measured "
               "(the profiler saw no CUDA kernels)")
         return
-    print(f"[profile] one {'refresh' if state['step'] % tcfg.graft.refresh_every == 1 else 'subset'} "
+    print(f"[{tag}] one {'refresh' if state['step'] % tcfg.graft.refresh_every == 1 else 'subset'} "
           f"step under the profiler: {wall_ms:.1f} ms wall, {total_ms:.1f} ms of kernels "
           f"(device busy {100 * total_ms / wall_ms:.0f}% of the wall), "
           f"{sum(e.count for e in events)} kernel launches")
     for e in sorted(events, key=lambda e: -dev_us(e))[:12]:
-        print(f"[profile]   {dev_us(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:110]}")
+        print(f"[{tag}]   {dev_us(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:110]}")
 
 
 def phase_depth8(ctx):
@@ -890,6 +920,182 @@ def phase_depth8(ctx):
           f"flash {np.mean(steady['auto']):.1f} ms")
 
 
+# (name, BH, T, D): the JAX kernel test's shapes, rwkv6-7b's selection
+# forward (16 sequences × 64 heads) and subset forward (8 × 64), a long
+# context, a T that is not a multiple of the time tile, and a D the model
+# never uses
+RWKV_SHAPES = [
+    ("jax_1x32x16", 1, 32, 16), ("jax_4x64x32", 4, 64, 32),
+    ("jax_2x128x64", 2, 128, 64), ("jax_3x96x48", 3, 96, 48),
+    ("selection", 1024, 256, 64), ("subset", 512, 256, 64),
+    ("long_context", 64, 4096, 64), ("ragged_T", 64, 250, 64), ("D256", 16, 256, 256),
+]
+RWKV_REPLACES = {
+    "rwkv_scan": "src/repro/kernels/rwkv_scan.py:49",
+    "rwkv_scan_backward": "src/repro/kernels/rwkv_scan.py:49 (its gradient: the JAX "
+                          "package differentiates lax.scan, src/repro/models/ssm.py:86)"}
+
+
+def _rwkv_inputs(BH, T, D, seed=0):
+    """The JAX kernel test's distributions, drawn on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    w = 0.4 + 0.59 * torch.rand((BH, T, D), generator=g, device="cuda")
+    return (rnd(BH, T, D, scale=0.3), rnd(BH, T, D, scale=0.3), rnd(BH, T, D, scale=0.3),
+            w, rnd(BH, D, scale=0.1), rnd(BH, T, D))
+
+
+def _rwkv_bound(kind, BH, T, D):
+    """Least time on an H100 for the function, not for this design. Bytes:
+    each input read and each output written once — forward r, k, v, w, u →
+    o; backward r, k, v, w, u, do → dr, dk, dv, dw, du. The tile states the
+    kernels save and reload are this design's intermediate and not counted.
+    Float32 operations per state element per step: forward 5 (r·S 2, the
+    decay update and k·vᵀ 3) plus 5 per step and k-row for the bonus
+    (Σ r u k, then its multiple of v); backward 14 (one recompute of S, the
+    dS update, and the dr, dk, dv, dw sums) plus 16 per step and row for c,
+    the u terms, du and Σ r u k."""
+    stream, vec = BH * T * D * 4, BH * D * 4
+    if kind == "fwd":
+        return _bound(5 * stream + vec, BH * T * (5 * D * D + 5 * D))
+    return _bound(9 * stream + 2 * vec, BH * T * (14 * D * D + 16 * D))
+
+
+def phase_rwkv(ctx):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv_scan as rw
+    for name, BH, T, D in RWKV_SHAPES:
+        r, k, v, w, u, do = _rwkv_inputs(BH, T, D)
+        o, states = rw.rwkv_scan_forward(r, k, v, w, u, save_states=True)
+        grads = rw.rwkv_scan_backward(r, k, v, w, u, do, states)
+        o_ng, none = rw.rwkv_scan_forward(r, k, v, w, u)
+        o2, states2 = rw.rwkv_scan_forward(r, k, v, w, u, save_states=True)
+        grads2 = rw.rwkv_scan_backward(r, k, v, w, u, do, states2)
+        torch.cuda.synchronize()
+        same = none is None and torch.equal(o, o_ng) and torch.equal(o, o2) and \
+            torch.equal(states, states2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+        want = rw.rwkv_scan_reference(r, k, v, w, u)
+        want_g = rw.rwkv_scan_backward_reference(r, k, v, w, u, do)
+        torch.cuda.synchronize()
+        # tolerance: float32 sums in another order — over D for the output
+        # (1e-5 of its largest value), over D and T for the gradients (1e-4)
+        errs, ok = {}, same
+        for what, a, b in zip(("o", "dr", "dk", "dv", "dw", "du"), (o,) + grads,
+                              (want,) + want_g):
+            errs[what] = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            ok = ok and errs[what] <= (1e-5 if what == "o" else 1e-4) * scale + 1e-6
+        chunks = ""
+        if T % 64 == 0:
+            outs = [ops.rwkv_scan(r, k, v, w, u, chunk=c) for c in (16, 32, 64)]
+            inv = all(torch.equal(x, o) for x in outs)
+            ok = ok and inv
+            chunks = f", ops.rwkv_scan chunk 16/32/64 {'bit-equal' if inv else 'DIFFER'}"
+        print(f"[rwkv] {name}: BH={BH} T={T} D={D}: max|diff| "
+              + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
+              + f"; reruns and the no-grad forward {'bit-equal' if same else 'DIFFER'}"
+              f"{chunks} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"rwkv kernels disagree with their plain versions on {name}")
+        del want, want_g, o2, states2, grads2, o_ng
+        t = {"fwd": _time_auto(lambda: rw.rwkv_scan_forward(r, k, v, w, u)),
+             "fwd_states": _time_auto(lambda: rw.rwkv_scan_forward(r, k, v, w, u,
+                                                                   save_states=True)),
+             "bwd": _time_auto(lambda: rw.rwkv_scan_backward(r, k, v, w, u, do, states))}
+        plain = {"fwd": _time_auto(lambda: rw.rwkv_scan_reference(r, k, v, w, u), max_iters=5),
+                 "bwd": _time_auto(lambda: rw.rwkv_scan_backward_reference(
+                     r, k, v, w, u, do), max_iters=5)}
+        plain["fwd_states"] = plain["fwd"]
+        bounds = {"fwd": _rwkv_bound("fwd", BH, T, D),
+                  "fwd_states": _rwkv_bound("fwd", BH, T, D),
+                  "bwd": _rwkv_bound("bwd", BH, T, D)}
+        for kind in t:
+            b_ms, b_by, nbytes, flops = bounds[kind]
+            print(f"[rwkv] {name} {kind}: kernel {t[kind]:.4f} ms, plain {plain[kind]:.4f} ms, "
+                  f"library none, bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops} flop); "
+                  f"{t[kind] / b_ms:.1f}x the bound", flush=True)
+        # the kernels line: the forward at the selection forward's shape, the
+        # backward at the subset forward's (where each runs on the path)
+        for key, shape, kind, err in (("rwkv_scan", "selection", "fwd", errs["o"]),
+                                      ("rwkv_scan_backward", "subset", "bwd",
+                                       max(errs[x] for x in ("dr", "dk", "dv", "dw", "du")))):
+            if name == shape:
+                ctx["kernels"][key] = {
+                    "name": key, "route": "cuda", "source": "src/repro_torch/csrc/rwkv_scan.cu",
+                    "replaces": RWKV_REPLACES[key], "launches": None, "max_abs_err": err,
+                    "ms": t[kind], "plain_ms": plain[kind], "bound_ms": bounds[kind][0],
+                    "bound_by": bounds[kind][1], "library_ms": None}
+        del r, k, v, w, u, do, o, states, grads
+        torch.cuda.empty_cache()
+
+
+RWKV_LAYERS = 16
+
+
+def phase_rwkv_slice(ctx):
+    """rwkv6-7b at full width, depth cut to RWKV_LAYERS, through Trainer."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExperimentConfig, Trainer
+    from repro_torch.models import ssm
+    ctx.pop("trainer", None)           # minicpm's state: the two do not fit together
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ExperimentConfig().apply_overrides(
+        [o for o in SLICE_OVERRIDES if not o.startswith("model.overrides")]
+        + ["model.arch=rwkv6-7b", f'model.overrides={{"num_layers": {RWKV_LAYERS}}}'])
+    mcfg = cfg.model.build()
+    per_layer = 2 * mcfg.d_model + sum(      # ln1, ln2, time mix, channel mix
+        int(np.prod(s)) for shapes in (ssm.rwkv_time_shapes(mcfg, mcfg.dtype),
+                                       ssm.rwkv_channel_shapes(mcfg, mcfg.dtype))
+        for s, _ in shapes.values())
+    head = mcfg.vocab_size * mcfg.d_model * (1 if mcfg.tie_embeddings else 2)
+    n_params = head + mcfg.d_model + mcfg.num_layers * per_layer
+    full = head + mcfg.d_model + 32 * per_layer
+    print(f"[rwkv_slice] rwkv6-7b full width: d_model {mcfg.d_model}, {mcfg.num_heads} heads x "
+          f"{mcfg.d_model // mcfg.num_heads}, d_ff {mcfg.d_ff}, vocab {mcfg.vocab_size}, "
+          f"untied head, lora rank {ssm.lora_rank(mcfg)}, {mcfg.param_dtype} params, "
+          f"remat={mcfg.remat}; depth cut to {mcfg.num_layers} of 32 layers: "
+          f"{n_params / 1e9:.3f} B params (32 layers: {full / 1e9:.3f} B) -> bf16 params + "
+          f"grads + f32 AdamW moments ~{n_params * 12 / 1e9:.1f} GB (32 layers: "
+          f"~{full * 12 / 1e9:.1f} GB)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg)
+    _zero_counts()
+    t0 = time.perf_counter()
+    report = trainer.fit()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = report["history"]
+    for i, row in enumerate(hist):
+        print(f"[rwkv_slice] step {i}: loss {row['loss']:.6f} rank {row['rank']} "
+              f"proj_error {row['proj_error']:.4f} grad_norm {row['grad_norm']:.4f} "
+              f"step {row['step_time_s'] * 1e3:.1f} ms")
+    expected = _expected_launches(mcfg, cfg)
+    print(f"[rwkv_slice] fit wall {wall:.2f} s, {report['num_params']} params, peak memory "
+          f"allocated {peak_gb:.2f} GB, kernel launches {launches}", flush=True)
+    print(f"[rwkv_slice] expected launches {expected}")
+    assert report["num_params"] == n_params, (report["num_params"], n_params)
+    assert all(np.isfinite(r["loss"]) for r in hist), "non-finite loss"
+    assert all(int(r["rank"]) in cfg.graft.rset for r in hist), "rank outside rset"
+    assert launches == expected, f"launches {launches}, expected {expected}"
+    for name in ("rwkv_scan", "rwkv_scan_backward"):
+        assert launches[name] > 0, f"kernel {name} was never launched on the main path"
+        ctx["kernels"][name]["launches"] = launches[name]
+    steady = [r["step_time_s"] for r in hist[1:]]
+    print(f"[rwkv_slice] steady step time (steps 1-5) mean {np.mean(steady) * 1e3:.1f} ms; "
+          f"refresh steps {[round(r['step_time_s'] * 1e3, 1) for r in hist[2::2]]} ms")
+    _profile(trainer, "rwkv_slice")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_check(ctx):
     import numpy as np
     import torch
@@ -898,7 +1104,7 @@ def phase_check(ctx):
     base = ['model.overrides={"param_dtype": "float32", "attn_backend": "flash"}',
             "train.steps=4", "train.batch=8", "graft.rset=[2,4]",
             "graft.refresh_every=2", "graft.use_pallas=true"]
-    for arch, seq in (("minicpm-2b", 16), ("gemma2-27b", 32)):
+    for arch, seq in (("minicpm-2b", 16), ("gemma2-27b", 32), ("rwkv6-7b", 16)):
         cfg = ExperimentConfig().apply_overrides(
             [f"model.arch={arch}", f"train.seq={seq}"] + base)
         runs = {}
@@ -916,11 +1122,16 @@ def phase_check(ctx):
                 rows.append((m["loss"].item(), int(m["rank"]),
                              state["graft"].pivots.cpu().tolist()))
             counts = _read_counts()
-            assert (counts["flash_forward"] > 0) == (dev == "cuda"), f"{dev}: {counts}"
+            kernel = "rwkv_scan" if mcfg.family == "ssm" else "flash_forward"
+            assert (counts[kernel] > 0) == (dev == "cuda"), f"{dev}: {counts}"
             runs[dev] = rows
-        print(f"[check] {arch} seq {seq} under flash (window {mcfg.sliding_window}, "
-              f"softcap {mcfg.attn_logit_softcap}, GQA {mcfg.num_heads // mcfg.num_kv_heads}, "
-              f"head_dim {mcfg.head_dim})")
+        if mcfg.family == "ssm":
+            print(f"[check] {arch} seq {seq} through the RWKV kernels ({mcfg.num_heads} heads "
+                  f"x {mcfg.d_model // mcfg.num_heads})")
+        else:
+            print(f"[check] {arch} seq {seq} under flash (window {mcfg.sliding_window}, "
+                  f"softcap {mcfg.attn_logit_softcap}, GQA {mcfg.num_heads // mcfg.num_kv_heads}, "
+                  f"head_dim {mcfg.head_dim})")
         for (lg, rg, pg), (lc, rc, pc) in zip(runs["cuda"], runs["cpu"]):
             print(f"[check] loss gpu {lg:.7f} cpu {lc:.7f}; rank {rg}/{rc}; pivots {pg}/{pc}")
             assert abs(lg - lc) <= 1e-4 * abs(lc) and rg == rc and pg == pc, \
@@ -946,8 +1157,9 @@ def main() -> int:
     for name, fn in (("device", phase_device), ("build", phase_build),
                      ("kernels", phase_kernels), ("flash", phase_flash),
                      ("slice", phase_slice), ("engine", phase_engine),
-                     ("profile", phase_profile),
-                     ("depth8", phase_depth8), ("check", phase_check)):
+                     ("profile", phase_profile), ("depth8", phase_depth8),
+                     ("rwkv", phase_rwkv), ("rwkv_slice", phase_rwkv_slice),
+                     ("check", phase_check)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

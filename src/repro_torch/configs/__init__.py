@@ -3,8 +3,8 @@
 ``get_config(arch_id)`` returns the exact published config;
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU tests.
 Ported: ``minicpm-2b``, ``stablelm-12b`` and ``gemma2-27b`` (the dense
-family); the JAX package's other seven architectures raise
-``NotImplementedError`` pointing to ``ROADMAP.md``.
+family) and ``rwkv6-7b`` (the ssm family); the JAX package's other six
+architectures raise ``NotImplementedError`` pointing to ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -14,11 +14,11 @@ from typing import Dict
 
 from repro_torch.models.model import ModelConfig
 
-ARCHS = ("minicpm_2b", "stablelm_12b", "gemma2_27b")
+ARCHS = ("minicpm_2b", "stablelm_12b", "gemma2_27b", "rwkv6_7b")
 
 # the JAX package's architectures that the port does not have yet
 _NOT_PORTED = ("qwen15_32b",
-               "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b", "rwkv6_7b",
+               "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b",
                "musicgen_medium", "internvl2_26b", "hymba_1_5b")
 
 # canonical CLI ids (dashes) → module names

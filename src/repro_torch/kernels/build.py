@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -51,6 +53,38 @@ def find_nvcc() -> str:
         "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
         "port's CUDA kernels are built from csrc/ at first use and need the "
         "CUDA toolkit")
+
+
+def route(name: str, *tensors) -> bool:
+    """True for the kernel (all CUDA, one device), False for the plain
+    version (all CPU); anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"{name} runs on CUDA or CPU tensors on one device, got "
+                     f"{sorted(str(t.device) for t in tensors)}")
+
+
+def check_kernel_operands(**tensors) -> None:
+    """What the float32 kernels take: float32, contiguous."""
+    for arg, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{arg} must be float32 (got {t.dtype})")
+        if not t.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+
+
+def call(fn, what: str, device, pointers, args) -> None:
+    """Call the C entry point ``fn`` with the tensors' device pointers (None
+    → a null pointer), then ``args``, then the current CUDA stream of
+    ``device``; a nonzero cudaError it returns raises."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*[0 if t is None else t.data_ptr() for t in pointers], *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
 def load(name: str) -> BuiltKernel:

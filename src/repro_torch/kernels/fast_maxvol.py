@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import maxvol as maxvol_lib
+from repro_torch.kernels import build
 from repro_torch.kernels import graft_select as gs
 
 V_LIMIT_BYTES = 8 * 1024 * 1024   # the JAX kernel's VMEM guard
@@ -47,9 +48,9 @@ def fast_maxvol(V: torch.Tensor, rank: int, *, plan: Optional[str] = None):
     (float32, contiguous, else it raises); CPU tensors to the plain version.
     ``plan`` forces the shared or global plan; leave it ``None``."""
     _check(V, rank)
-    if not gs.route("fast_maxvol", V):
+    if not build.route("fast_maxvol", V):
         return maxvol_lib.fast_maxvol(V, rank)
-    gs.check_kernel_operands(V=V)
+    build.check_kernel_operands(V=V)
     K, R = V.shape
     plan = gs.resolve_plan(K, R, rank, plan)
     dev = V.device

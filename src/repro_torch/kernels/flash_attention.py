@@ -34,6 +34,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import build
+
 _MASK = -1e30
 _MASK_GUARD = -0.5e30
 MAX_HEAD_DIM = 256
@@ -168,7 +170,6 @@ def _launchers():
     """The C entry points of ``csrc/flash_attention.cu``, built at first use,
     with their signatures: pointers and the stream ``c_void_p`` (a plain int
     would cut them to 32 bits), the softcap and scale ``c_float``."""
-    from repro_torch.kernels import build
     lib = build.load("flash_attention").lib
     ints = [ctypes.c_int] * 8                 # dtype, BH, BHkv, Sq, T, Dh, causal, window
     tail = [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -192,18 +193,6 @@ def _check(q, k, v, group: int) -> Tuple[int, int, int, int, int]:
     if min(BH, Sq, T, Dh) < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     return BH, BHkv, Sq, T, Dh
-
-
-def _route(*tensors) -> bool:
-    """True for the kernel (all CUDA), False for the plain version (all
-    CPU); anything else raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
-    raise ValueError(f"flash attention runs on CUDA or CPU tensors on one device, "
-                     f"got {sorted(str(t.device) for t in tensors)}")
 
 
 def _kernel_args(kind: str, tensors, names, shapes, causal, window, softcap,
@@ -241,12 +230,7 @@ def _kernel_args(kind: str, tensors, names, shapes, causal, window, softcap,
 
 
 def _launch(kind: str, ptrs, args, device) -> None:
-    fn = _launchers()[kind]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[t.data_ptr() for t in ptrs], *args, stream)
-    if err != 0:
-        raise RuntimeError(f"flash {kind} kernel launch failed: cudaError {err}")
+    build.call(_launchers()[kind], f"flash {kind}", device, ptrs, args)
 
 
 def flash_forward(q, k, v, *, causal: bool = True, window=None,
@@ -256,7 +240,7 @@ def flash_forward(q, k, v, *, causal: bool = True, window=None,
     on CPU tensors."""
     shapes = _check(q, k, v, group)
     scale = _defaults(q, scale)
-    if not _route(q, k, v):
+    if not build.route("flash attention", q, k, v):
         return flash_forward_reference(q, k, v, causal=causal, window=window,
                                        softcap=softcap, group=group, scale=scale)
     args = _kernel_args("fwd", (q, k, v), ("q", "k", "v"), shapes, causal, window,
@@ -281,7 +265,7 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
     shapes = _check(q, k, v, group)
     _check_grads_in(q, do, lse, delta)
     scale = _defaults(q, scale)
-    if not _route(q, k, v, do, lse, delta):
+    if not build.route("flash attention", q, k, v, do, lse, delta):
         return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
                                   window=window, softcap=softcap, group=group,
                                   scale=scale)
@@ -302,7 +286,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
     shapes = _check(q, k, v, group)
     _check_grads_in(q, do, lse, delta)
     scale = _defaults(q, scale)
-    if not _route(q, k, v, do, lse, delta):
+    if not build.route("flash attention", q, k, v, do, lse, delta):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal=causal,
                                    window=window, softcap=softcap, group=group,
                                    scale=scale)

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core import maxvol as maxvol_lib
 from repro_torch.core import projection as proj_lib
+from repro_torch.kernels import build
 
 # what one Hopper thread block can address as shared memory (227 KB)
 SMEM_LIMIT_BYTES = 232_448
@@ -133,28 +134,6 @@ def _check_batched(V: torch.Tensor, G: torch.Tensor, g_bar: torch.Tensor,
     return B, K, R, d
 
 
-def route(name: str, *tensors) -> bool:
-    """True for the kernel (all CUDA, one device), False for the plain
-    version (all CPU); anything else raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
-    raise ValueError(f"{name} runs on CUDA or CPU tensors on one device, got "
-                     f"{sorted(str(t.device) for t in tensors)}")
-
-
-def check_kernel_operands(**tensors) -> None:
-    """What every kernel of ``csrc/graft_select.cu`` takes: float32,
-    contiguous."""
-    for arg, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{arg} must be float32 (got {t.dtype})")
-        if not t.is_contiguous():
-            raise ValueError(f"{arg} must be contiguous")
-
-
 def resolve_plan(K: int, R: int, rank: int, plan: Optional[str]) -> str:
     """The plan the shape needs, or the one the caller forces (tests and
     ``chip_smoke.py`` only: the two plans are held bit-equal there)."""
@@ -189,17 +168,12 @@ def launchers():
 def launch(name: str, device: torch.device, pointers, ints) -> None:
     """Call one C entry point on the current stream of ``device``; a
     nonzero cudaError raises."""
-    fn = launchers()[name]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[0 if t is None else t.data_ptr() for t in pointers], *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    build.call(launchers()[name], name, device, pointers, ints)
 
 
 def _launch(V, G, g_bar, rank: int, B: int, K: int, R: int, d: int,
             plan: Optional[str]):
-    check_kernel_operands(V=V, G=G, g_bar=g_bar)
+    build.check_kernel_operands(V=V, G=G, g_bar=g_bar)
     if B > 65535:
         raise ValueError(f"batch stack of {B} refreshes exceeds the grid's 65535 blocks")
     plan = resolve_plan(K, R, rank, plan)
@@ -223,7 +197,7 @@ def graft_select(V: torch.Tensor, G: torch.Tensor, g_bar: torch.Tensor,
     (float32, contiguous, else it raises); CPU tensors to the plain version.
     ``plan`` forces the shared or global plan; leave it ``None``."""
     K, R, d = _check(V, G, g_bar, rank)
-    if not route("graft_select", V, G, g_bar):
+    if not build.route("graft_select", V, G, g_bar):
         return graft_select_reference(V, G, g_bar, rank)
     pivots, errors, logvol, G_sel = _launch(V, G, g_bar, rank, 1, K, R, d, plan)
     graft_select.launches += 1
@@ -237,7 +211,7 @@ def graft_select_batched(V: torch.Tensor, G: torch.Tensor, g_bar: torch.Tensor,
     (B,), G_sel (B, d, rank))``, row ``b`` equal to ``graft_select`` on row
     ``b``. CUDA tensors go to the kernel; CPU tensors to the plain version."""
     B, K, R, d = _check_batched(V, G, g_bar, rank)
-    if not route("graft_select_batched", V, G, g_bar):
+    if not build.route("graft_select_batched", V, G, g_bar):
         return graft_select_batched_reference(V, G, g_bar, rank)
     out = _launch(V, G, g_bar, rank, B, K, R, d, None)
     graft_select_batched.launches += 1

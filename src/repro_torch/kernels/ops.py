@@ -13,6 +13,7 @@ from repro_torch.kernels import fast_maxvol as _fm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import graft_select as _gs
 from repro_torch.kernels import projection_sweep as _ps
+from repro_torch.kernels import rwkv_scan as _rw
 
 
 def _f32(*tensors):
@@ -52,10 +53,14 @@ def fused_graft_select_batched(V: torch.Tensor, G: torch.Tensor,
 
 
 def rwkv_scan(r, k, v, w, u, chunk: int = 32):
-    """The chunked RWKV6 recurrence is not ported yet."""
-    raise NotImplementedError(
-        "rwkv_scan (the RWKV6 WKV kernel) is not ported to repro_torch yet; it "
-        "comes with the RWKV family (see ROADMAP.md, B8 and A12)")
+    """The RWKV6 recurrence over r/k/v/w (BH, T, D) and u (BH, D) → (BH, T,
+    D) float32, differentiable. ``T`` must be divisible by ``chunk``, as in
+    the JAX function; the Hopper kernels choose their own time tiles, so
+    ``chunk`` does not change the result."""
+    T = r.shape[1]
+    if T % chunk:
+        raise ValueError(f"T={T} not divisible by chunk={chunk}")
+    return _rw.rwkv_scan(*_f32(r, k, v, w, u))
 
 
 def flash_attention(q, k, v, causal: bool = True, window=None, softcap=None,

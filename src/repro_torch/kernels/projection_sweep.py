@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import projection as proj_lib
+from repro_torch.kernels import build
 from repro_torch.kernels import graft_select as gs
 
 _WARPS = 8        # csrc/graft_select.cu kThreads / 32
@@ -59,9 +60,9 @@ def projection_sweep(G: torch.Tensor, g_bar: torch.Tensor, *,
     tensors to the plain version. ``plan`` forces the reduction scratch into
     shared or global memory; leave it ``None``."""
     _check(G, g_bar)
-    if not gs.route("projection_sweep", G, g_bar):
+    if not build.route("projection_sweep", G, g_bar):
         return proj_lib.prefix_projection_errors(G, g_bar)
-    gs.check_kernel_operands(G=G, g_bar=g_bar)
+    build.check_kernel_operands(G=G, g_bar=g_bar)
     d, R = G.shape
     dev = G.device
     fits = smem_bytes(R, False) <= gs.SMEM_LIMIT_BYTES

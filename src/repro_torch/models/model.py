@@ -1,5 +1,5 @@
-"""The decoder model, dense family: ``ModelConfig``, the parameter module,
-init, forward, logits and losses.
+"""The decoder model, dense and ssm (RWKV6) families: ``ModelConfig``, the
+parameter module, init, forward, logits and losses.
 
 ``Model`` is an ``nn.Module`` that holds the parameters; the forward
 functions are plain functions of ``(cfg, params, batch)`` like the JAX
@@ -8,7 +8,7 @@ dict of tensors in the JAX layouts, with ``blocks`` a list of per-layer
 dicts (the JAX package stacks them on a leading L axis;
 ``checkpoint/jax_bridge.py`` converts).
 
-The moe / ssm / hybrid / audio / vlm families and ``remat="dots"`` are not
+The moe / hybrid / audio / vlm families and ``remat="dots"`` are not
 ported (``ROADMAP.md``).
 """
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -87,10 +88,12 @@ class ModelConfig:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.frontend is not None or cfg.first_k_dense:
+    if cfg.family not in ("dense", "ssm") or cfg.frontend is not None \
+            or cfg.first_k_dense:
         raise NotImplementedError(
             f"model family '{cfg.family}' (frontend {cfg.frontend}) is not "
-            "ported to repro_torch yet; only the dense family is (see ROADMAP.md)")
+            "ported to repro_torch yet; only the dense and ssm families are "
+            "(see ROADMAP.md)")
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
             f"remat='{cfg.remat}' is not ported (use 'none' or 'full'; see ROADMAP.md)")
@@ -101,7 +104,8 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One dense residual block's parameters (JAX layouts)."""
+    """One residual block's parameters (JAX layouts): attention + MLP
+    (dense), or RWKV time mix + channel mix (ssm)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -114,6 +118,12 @@ class Block(nn.Module):
 
         self.ln1 = w(D, dtype=torch.float32)
         self.ln2 = w(D, dtype=torch.float32)
+        if cfg.family == "ssm":
+            self.time = nn.ParameterDict({n: w(*shape, dtype=t) for n, (shape, t)
+                                          in S.rwkv_time_shapes(cfg, dt).items()})
+            self.channel = nn.ParameterDict({n: w(*shape, dtype=t) for n, (shape, t)
+                                             in S.rwkv_channel_shapes(cfg, dt).items()})
+            return
         self.attn = nn.ParameterDict({"wq": w(D, H, Dh), "wk": w(D, Hkv, Dh),
                                       "wv": w(D, Hkv, Dh), "wo": w(H, Dh, D)})
         if cfg.qkv_bias:
@@ -125,6 +135,9 @@ class Block(nn.Module):
             self.ln2_post = w(D, dtype=torch.float32)
 
     def tree(self) -> Dict[str, Any]:
+        if hasattr(self, "time"):
+            return {"ln1": self.ln1, "time": dict(self.time),
+                    "ln2": self.ln2, "channel": dict(self.channel)}
         out: Dict[str, Any] = {"ln1": self.ln1, "attn": dict(self.attn),
                                "ln2": self.ln2, "mlp": dict(self.mlp)}
         if hasattr(self, "ln1_post"):
@@ -133,7 +146,7 @@ class Block(nn.Module):
 
 
 class Model(nn.Module):
-    """All parameters of one dense decoder. Values are uninitialized until
+    """All parameters of one decoder. Values are uninitialized until
     :func:`init_params` draws them or the JAX bridge loads them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -162,7 +175,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Model:
     """A ``Model`` with values drawn from ``generator`` (on ``device``) with
     the JAX package's distributions: normal weights scaled by fan-in
-    (embed × 0.02), zero norm scales and biases. The draws differ from
+    (embed × 0.02), zero norm scales and biases; the RWKV params as
+    ``models/ssm.py`` draws them. The draws differ from
     ``jax.random``'s; load JAX weights through ``checkpoint/jax_bridge.py``
     where bit-equal weights matter."""
     model = Model(cfg, device)
@@ -180,6 +194,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     for b in model.blocks:
         b.ln1.zero_()
         b.ln2.zero_()
+        if cfg.family == "ssm":
+            S.init_rwkv_time_params(b.time, cfg, generator)
+            S.init_rwkv_channel_params(b.channel, cfg, generator)
+            continue
         for name in ("wq", "wk", "wv"):
             normal_(b.attn[name], D ** -0.5)
         normal_(b.attn["wo"], (H * Dh) ** -0.5)
@@ -204,8 +222,14 @@ def _tree(params) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool):
-    """One dense residual block."""
+    """One residual block of the config's family."""
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+    if cfg.family == "ssm":
+        t_out, _ = S.rwkv_time_mix(cfg, p["time"], h)
+        x = x + t_out
+        c_out, _ = S.rwkv_channel_mix(cfg, p["channel"],
+                                      L.rms_norm(x, p["ln2"], cfg.rms_eps))
+        return x + c_out
     attn_out, _ = L.attention(cfg, p["attn"], h, positions, is_local=is_local)
     if cfg.post_block_norm:
         attn_out = L.rms_norm(attn_out, p["ln1_post"], cfg.rms_eps)

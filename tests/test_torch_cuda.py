@@ -14,7 +14,10 @@ the standalone sweep are bit-equal to the fused single kernel. Flash attention: 
 1e-4·max|plain| and lse within 1e-4 (float32 sums of up to T products in
 another order); bf16 outputs within one bf16 ulp of max|plain| (2^-7·max:
 both round the same float32 value once). Bounded vs exhaustive KV loops
-and two runs on the same inputs are bit-equal.
+and two runs on the same inputs are bit-equal. RWKV scan: the output within
+1e-5·max|plain| and each gradient within 1e-4·max|plain| (float32 sums over
+D and, for the gradients, over T in another order), plus 1e-6; reruns
+bit-equal (fixed summation order, no atomics).
 """
 import numpy as np
 import pytest
@@ -26,8 +29,9 @@ from repro_torch.kernels import fast_maxvol as fm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import graft_select as gs
 from repro_torch.kernels import projection_sweep as ps
+from repro_torch.kernels import rwkv_scan as rw
 from repro_torch.kernels.graft_select import graft_select, graft_select_reference
-from torch_cases import CASES, assert_refresh_match, graft_case
+from torch_cases import CASES, RWKV_SHAPES, assert_refresh_match, graft_case, rwkv_case
 
 
 @pytest.fixture
@@ -342,3 +346,95 @@ def test_flash_refuses_what_it_cannot_take(cuda):
         fa.flash_forward(torch.zeros(3, 64, 32, device=cuda),
                          torch.zeros(2, 64, 32, device=cuda),
                          torch.zeros(2, 64, 32, device=cuda), group=2)
+
+
+# (BH, T, D): the JAX kernel test's shapes, a T that is not a multiple of the
+# kernels' time tile, w down to 0, a D above one register chunk that is not a
+# multiple of it, and D 256, which the model never uses (no-refusal rule)
+RWKV_CASES = {f"jax_{BH}x{T}x{D}": (BH, T, D, 0.4) for BH, T, D, _ in RWKV_SHAPES}
+RWKV_CASES.update({"ragged_T": (3, 37, 64, 0.4), "w_to_zero": (2, 40, 12, 0.0),
+                   "D100": (2, 50, 100, 0.4), "D256": (2, 40, 256, 0.4)})
+
+
+def _rwkv_on(name, dev, seed=0):
+    BH, T, D, w_low = RWKV_CASES[name]
+    return [torch.from_numpy(a).to(dev) for a in rwkv_case(BH, T, D, seed=seed, w_low=w_low)]
+
+
+def _rwkv_kernels(r, k, v, w, u, do):
+    o, states = rw.rwkv_scan_forward(r, k, v, w, u, save_states=True)
+    grads = rw.rwkv_scan_backward(r, k, v, w, u, do, states)
+    torch.cuda.synchronize()
+    return (o,) + grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RWKV_CASES))
+def test_rwkv_kernels_match_plain(cuda, name):
+    r, k, v, w, u, do = _rwkv_on(name, cuda)
+    before = (rw.rwkv_scan.launches, rw.rwkv_scan_backward.launches)
+    got = _rwkv_kernels(r, k, v, w, u, do)
+    assert (rw.rwkv_scan.launches, rw.rwkv_scan_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = (rw.rwkv_scan_reference(r, k, v, w, u),) + \
+        rw.rwkv_scan_backward_reference(r, k, v, w, u, do)
+    for what, a, b in zip(("o", "dr", "dk", "dv", "dw", "du"), got, want):
+        scale = b.abs().max().item()
+        tol = (1e-5 if what == "o" else 1e-4) * scale + 1e-6
+        err = (a - b).abs().max().item()
+        assert a.shape == b.shape and err <= tol, f"{name} {what}: {err:.3g} > {tol:.3g}"
+    # the no-grad forward writes no states and gives the same output
+    o_only, none = rw.rwkv_scan_forward(r, k, v, w, u)
+    assert none is None and torch.equal(o_only, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ragged_T", "D100"])
+def test_rwkv_reruns_are_bit_equal(cuda, name):
+    args = _rwkv_on(name, cuda, seed=1)
+    first, again = _rwkv_kernels(*args), _rwkv_kernels(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_rwkv_autograd_on_card_matches_cpu(cuda):
+    r, k, v, w, u, do = _rwkv_on("ragged_T", "cpu", seed=2)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in (r, k, v, w, u)]
+        out = rw.rwkv_scan(*leaves)
+        (out * do.to(dev)).sum().backward()
+        grads[dev.type] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-6
+
+
+@pytest.mark.cuda
+def test_rwkv_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros(2, 16, 8, device=cuda)
+    u = torch.zeros(2, 8, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        rw.rwkv_scan_forward(x.double(), x, x, x, u)
+    with pytest.raises(ValueError, match="contiguous"):
+        rw.rwkv_scan_forward(x.transpose(1, 2).contiguous().transpose(1, 2), x, x, x, u)
+    with pytest.raises(ValueError, match="tile states"):
+        rw.rwkv_scan_backward(x, x, x, x, u, x, None)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        rw.rwkv_scan_forward(x, x, x, x.cpu(), u)
+
+
+@pytest.mark.cuda
+def test_trainer_on_card_runs_rwkv_kernels(cuda):
+    """rwkv6-7b smoke on the card: 4 steps, refresh every 2, 2 layers, no
+    remat: per layer one forward launch per step and per refresh, one
+    backward launch per step."""
+    from repro_torch.api import ExperimentConfig, Trainer
+    cfg = ExperimentConfig().apply_overrides(
+        ["model.arch=rwkv6-7b", "train.steps=4", "train.batch=8", "train.seq=16",
+         "graft.rset=[2,4]", "graft.refresh_every=2", "graft.use_pallas=true",
+         "train.log_every=0"])
+    before = (rw.rwkv_scan.launches, rw.rwkv_scan_backward.launches, graft_select.launches)
+    report = Trainer(cfg).fit()
+    after = (rw.rwkv_scan.launches, rw.rwkv_scan_backward.launches, graft_select.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2 * (4 + 2), 2 * 4, 2)
+    assert all(np.isfinite(r["loss"]) and r["rank"] in (2, 4) for r in report["history"])

@@ -202,12 +202,6 @@ def test_standalone_shape_errors_match_jax():
                    interpret=True)
 
 
-def test_rwkv_scan_is_not_ported():
-    x = torch.zeros(1, 32, 8)
-    with pytest.raises(NotImplementedError, match="B8"):
-        ops.rwkv_scan(x, x, x, x, torch.zeros(1, 8))
-
-
 def test_flash_attention_matches_jax_ops():
     """The ops-level flash entry point (plain version on the CPU) against
     the JAX one (Pallas in interpret mode), GQA 2 with a window."""

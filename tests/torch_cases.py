@@ -1,6 +1,6 @@
-"""Seeded numpy inputs for the port's GRAFT-refresh tests, shared by the
-JAX-parity tests (CPU) and the kernel-vs-twin tests (card). Imports no JAX,
-so the card-only tests run where JAX is not installed."""
+"""Seeded numpy inputs for the port's GRAFT-refresh and RWKV-scan tests,
+shared by the JAX-parity tests (CPU) and the kernel-vs-twin tests (card).
+Imports no JAX, so the card-only tests run where JAX is not installed."""
 import numpy as np
 
 CASES = ["slice", "tall", "near_square", "odd", "square", "rank_deficient",
@@ -57,3 +57,20 @@ def assert_refresh_match(got, want, err_atol=1e-5, lv_rtol=1e-5):
     np.testing.assert_allclose(err, err_w, atol=err_atol)
     np.testing.assert_allclose(float(lv), float(lv_w), rtol=lv_rtol)
     assert np.all(np.isfinite(err)) and np.isfinite(float(lv))
+
+
+# (BH, T, D, chunk) of tests/test_kernels.py::TestRwkvScanKernel
+RWKV_SHAPES = [(1, 32, 16, 8), (4, 64, 32, 16), (2, 128, 64, 32), (3, 96, 48, 32)]
+
+
+def rwkv_case(BH, T, D, seed=0, w_low=0.4):
+    """(r, k, v, w (BH,T,D), u (BH,D), do (BH,T,D)) float32 numpy with the
+    JAX kernel test's distributions: r/k/v normal × 0.3, w uniform in
+    [w_low, w_low + 0.59), u normal × 0.1, and a normal upstream gradient."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    r, k, v = (rng.normal(size=(BH, T, D)).astype(f) * f(0.3) for _ in range(3))
+    w = (w_low + 0.59 * rng.random(size=(BH, T, D))).astype(f)
+    u = rng.normal(size=(BH, D)).astype(f) * f(0.1)
+    do = rng.normal(size=(BH, T, D)).astype(f)
+    return r, k, v, w, u, do
