@@ -27,11 +27,14 @@ Phases (any failure exits nonzero and prints no result line):
                their plain versions at the slice's shape, minicpm at 4096
                tokens, gemma2-27b's attention (window 4096, softcap 50, GQA 2,
                S 8192), stablelm's Dh 160 with GQA 4, the smoke Dh 12 in f32,
-               window 0 and bidirectional; bounded vs exhaustive KV loops and
+               window 0, bidirectional and Dh 16 in bf16 with GQA 2 (bf16
+               forward and dK/dV run on the tensor cores, the rest on the
+               float32 cores); bounded vs exhaustive KV loops and
                two runs on the same inputs bit-equal; each timed against its
                plain version, its bound and, where it computes the same
-               function, PyTorch's scaled_dot_product_attention (every row
-               also in ``build/chip_smoke_flash.json``).
+               function, PyTorch's scaled_dot_product_attention, with the
+               ratios to SDPA and to the bound (every row also in
+               ``build/chip_smoke_flash.json``).
   5. slice   — the training path through the user entry point
                (``repro_torch.api.Trainer``) on minicpm-2b at full width and
                depth: 6 steps, GRAFT refresh every 2 steps through the
@@ -118,6 +121,7 @@ FLASH_SHAPES = [
     ("smoke_f32", 8, 6, 6, 16, 12, "float32", True, None, None),
     ("window0", 2, 4, 4, 128, 32, "float32", True, 0, None),
     ("bidirectional", 2, 16, 16, 1024, 64, "bfloat16", False, None, None),
+    ("dh16_bf16_gqa2", 8, 6, 3, 256, 16, "bfloat16", True, None, None),
 ]
 
 
@@ -172,11 +176,21 @@ def phase_build(ctx):
         for line in b.ptxas_log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                t = re.search(r"(flash_\w+?_kernel)I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)", m.group(1))
-                entry = (f"{t.group(1)}<{'bf16' if t.group(2) != 'f' else 'f32'}, "
-                         f"NC={t.group(3)}, TILE={t.group(4)}>") if t else m.group(1)[:60]
+                entry = _kernel_instance(m.group(1))
             elif entry and ("registers" in line or "spill" in line):
                 print(f"[{b.name}] {entry}: {line.strip()}")
+
+
+def _kernel_instance(mangled: str) -> str:
+    """A readable name for a flash template instance in the ptxas log: the
+    float32-core kernels by (type, NC, TILE), the tensor-core ones by their
+    padded head dim."""
+    t = re.search(r"(flash_\w+?_kernel)I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)", mangled)
+    if t:
+        return (f"{t.group(1)}<{'bf16' if t.group(2) != 'f' else 'f32'}, "
+                f"NC={t.group(3)}, TILE={t.group(4)}>")
+    t = re.search(r"(flash_\w+?_mma_kernel)ILi(\d+)EE", mangled)
+    return f"{t.group(1)}<bf16, DP={t.group(2)}>" if t else mangled[:60]
 
 
 def _graft_inputs(kind, K, R, d, rank, dev, seed=0):
@@ -510,8 +524,11 @@ def phase_flash(ctx):
                                   group, opts)
         torch.cuda.synchronize()
         # tolerance: float32 sums of up to S products in another order (f32:
-        # 1e-4 of the largest value); in bf16 both sides round the same float32
-        # value once, so they differ by at most one bf16 ulp (2^-7 of the largest)
+        # 1e-4 of the largest value). bf16: 2^-7 of the largest value, one bf16
+        # ulp there. The tensor-core forward and dK/dV round P (and dS) to bf16
+        # once before their products, which adds at most 2^-9 sum_j p_j |v_j|
+        # to o before its own rounding, and far less for random inputs; dQ
+        # rounds the same float32 value as its plain version once
         errs, ok = {}, same and bounded
         for what, a, b in (("o", o, o_r), ("dq", dq, dq_r), ("dk", dk, dk_r),
                            ("dv", dv, dv_r)):
@@ -561,13 +578,17 @@ def phase_flash(ctx):
         for kind in t:
             b_ms, b_by, nbytes, flops = bounds[kind]
             lib_ms = lib["fwd"] if kind == "fwd" else lib["bwd"]
+            vs_lib = "" if lib_ms is None else f", {t[kind] / lib_ms:.2f}x SDPA"
             print(f"[flash] {name} {kind}: kernel {t[kind]:.4f} ms, plain {plain[kind]:.4f} ms, "
                   f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
                   f"{' (SDPA backward: dQ, dK, dV in one call)' if lib_ms is not None and kind != 'fwd' else ''}, "
                   f"bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops} flop); "
-                  f"{t[kind] / b_ms:.1f}x the bound", flush=True)
+                  f"{t[kind] / b_ms:.1f}x the bound{vs_lib}", flush=True)
             rows.append({"shape": name, "kind": kind, "ms": t[kind], "plain_ms": plain[kind],
                          "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+        if lib["bwd"] is not None:
+            print(f"[flash] {name} dq+dkv: {t['dq'] + t['dkv']:.4f} ms, "
+                  f"{(t['dq'] + t['dkv']) / lib['bwd']:.2f}x SDPA backward", flush=True)
         if name == "slice":
             for kind, key in (("fwd", "flash_forward"), ("dq", "flash_dq"), ("dkv", "flash_dkv")):
                 err = {"fwd": max(errs["o"], errs["lse"]), "dq": errs["dq"],

@@ -1,5 +1,5 @@
-"""Flash attention: three hand-written Hopper kernels and their plain
-PyTorch versions.
+"""Flash attention: hand-written Hopper kernels and their plain PyTorch
+versions.
 
 The port of the JAX package's ``repro/kernels/flash_attention.py``: causal
 (or bidirectional) online-softmax attention with a sliding window ``w``
@@ -16,6 +16,12 @@ head-major, so q stream ``i`` reads kv stream ``i // group``.
   ``.dkv_launches``; a refused shape or a failed launch raises, nothing falls
   back to the plain version. CPU tensors run ``flash_forward_reference``,
   ``flash_dq_reference`` and ``flash_dkv_reference``.
+* Which kernel a CUDA launch takes is fixed by the input type, with no
+  fallback between them: bf16 forward and dK/dV run the tensor-core kernels
+  (``flash_fwd_mma_kernel``, ``flash_dkv_mma_kernel``: ``mma.sync`` on bf16
+  tiles staged by ``cp.async``, which round P and dS to bf16 once before
+  their products); float32 forward and dK/dV, and dQ in both types, run the
+  float32 CUDA-core kernels. Both count under the same launch counters.
 * ``flash_attention`` is the differentiable function (``_FlashAttention``,
   the port of ``_make_flash_fn``'s ``custom_vjp``): the forward saves q, k,
   v, o and lse; the backward computes ``delta = Σ o·do`` in float32 and runs
@@ -48,31 +54,68 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' tiling, mirrored from csrc/flash_attention.cu
 # ---------------------------------------------------------------------------
 
+# head dims the bf16 tensor-core kernels are built for; Dh is zero-padded up
+_MMA_HEAD_DIMS = (16, 32, 64, 128, 160, 256)
+_MMA_ROWS = 64               # q rows (forward) or KV rows (dK/dV) of a block
+
+
+def _tensor_cores(kind: str, dtype) -> bool:
+    """The forward and dK/dV take the tensor-core kernels in bf16; dQ and
+    every float32 kernel run on the float32 CUDA cores."""
+    return dtype == torch.bfloat16 and kind in ("fwd", "dkv")
+
+
 def _tile(head_dim: int) -> int:
-    """Rows per tile: 64, or 32 above head dim 160 (``tile_of(nc_class)``)."""
+    """Rows per tile of the float32-core kernels: 64, or 32 above head dim
+    160 (``tile_of(nc_class)``)."""
     return 32 if head_dim > 160 else 64
 
 
-def smem_bytes(kind: str, head_dim: int) -> int:
-    """Dynamic shared memory of one block of ``kind`` (fwd | dq | dkv) — the
-    same sums as ``fwd_smem``/``dq_smem``/``dkv_smem`` in the CUDA source:
-    float32 tiles of (tile + 4) columns, ``head_dim`` rows per staged operand."""
+def _padded(head_dim: int) -> int:
+    """``dp_class``: the head dim the tensor-core kernels compute at."""
+    return next((d for d in _MMA_HEAD_DIMS if head_dim <= d), -(-head_dim // 16) * 16)
+
+
+def smem_bytes(kind: str, head_dim: int, dtype) -> int:
+    """Dynamic shared memory of one block of ``kind`` (fwd | dq | dkv) for
+    inputs of ``dtype`` — the same sums as the CUDA source.
+
+    bf16 forward and dK/dV (``fwd_mma_smem``/``dkv_mma_smem``): bf16 rows of
+    the padded head dim + 8; the forward holds 64 Q rows and two K and two V
+    tiles of 64 rows (32 at 256); dK/dV 64 K and 64 V rows, two Q and two dO
+    tiles of 64 rows (32 at 160 and 256) and two tiles of lse and delta.
+    Otherwise (``fwd_smem``/``dq_smem``/``dkv_smem``): float32 tiles of
+    (tile + 4) columns, ``head_dim`` rows per staged operand."""
+    if kind not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    if _tensor_cores(kind, dtype):
+        dp = _padded(head_dim)
+        if kind == "fwd":
+            kv_rows = 32 if dp > 160 else 64
+            return 2 * (_MMA_ROWS + 4 * kv_rows) * (dp + 8)
+        q_rows = 32 if dp >= 160 else 64
+        return 2 * (2 * _MMA_ROWS + 4 * q_rows) * (dp + 8) + 4 * 4 * q_rows
     t = _tile(head_dim)
     ld = t + 4
     if kind == "fwd":                      # Qt, Kt, Vt; P
         return 4 * (3 * head_dim + t) * ld
     if kind == "dq":                       # Qt, dOt, Kt, Vt; dS
         return 4 * (4 * head_dim + t) * ld
-    if kind == "dkv":                      # Kt, Vt, Qt, dOt; P, dS; lse, delta
-        return 4 * ((4 * head_dim + 2 * t) * ld + 2 * t)
-    raise ValueError(f"unknown kernel kind {kind!r}")
+    return 4 * ((4 * head_dim + 2 * t) * ld + 2 * t)   # Kt, Vt, Qt, dOt; P, dS; lse, delta
+
+
+def _grid_tiles(kind: str, head_dim: int, dtype, rows: int) -> int:
+    """Blocks along the tiled sequence (q for fwd/dq, KV for dkv)."""
+    tile = _MMA_ROWS if _tensor_cores(kind, dtype) else _tile(head_dim)
+    return -(-rows // tile)
 
 
 def supports(head_dim: int) -> bool:
-    """Whether the three kernels take this head dim — the check the router
-    (``models/layers.py``) and the wrappers share."""
+    """Whether the three kernels take this head dim in both types — the
+    check the router (``models/layers.py``) and the wrappers share."""
     return 1 <= head_dim <= MAX_HEAD_DIM and all(
-        smem_bytes(k, head_dim) <= SMEM_LIMIT_BYTES for k in ("fwd", "dq", "dkv"))
+        smem_bytes(k, head_dim, dtype) <= SMEM_LIMIT_BYTES
+        for k in ("fwd", "dq", "dkv") for dtype in _DTYPE_CODES)
 
 
 # ---------------------------------------------------------------------------
@@ -211,12 +254,12 @@ def _kernel_args(kind: str, tensors, names, shapes, causal, window, softcap,
             raise ValueError(f"{name} must be contiguous")
     if Dh > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {Dh} > {MAX_HEAD_DIM}: the Hopper flash kernels "
-                         "keep ceil(head_dim/16) output columns per thread in registers")
-    smem = smem_bytes(kind, Dh)
+                         "keep their output accumulators in registers")
+    smem = smem_bytes(kind, Dh, dtype)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"flash {kind} at head_dim {Dh} needs {smem} bytes of shared "
                          f"memory, above the {SMEM_LIMIT_BYTES} one Hopper block can use")
-    tiles = -(-(T if kind == "dkv" else Sq) // _tile(Dh))
+    tiles = _grid_tiles(kind, Dh, dtype, T if kind == "dkv" else Sq)
     if tiles > 65535:
         raise ValueError(f"sequence too long for the kernel's grid: {tiles} tiles")
     if softcap is not None and not softcap > 0:

@@ -12,8 +12,11 @@ order than PyTorch. The kernels of one source share their device code, so
 the batched kernel's rows, the two MaxVol plans, the standalone MaxVol and
 the standalone sweep are bit-equal to the fused single kernel. Flash attention: float32 outputs and gradients within
 1e-4·max|plain| and lse within 1e-4 (float32 sums of up to T products in
-another order); bf16 outputs within one bf16 ulp of max|plain| (2^-7·max:
-both round the same float32 value once). Bounded vs exhaustive KV loops
+another order); bf16 outputs within one bf16 ulp of max|plain| (2^-7·max).
+The bf16 forward and dK/dV run on the tensor cores and round P (and dS) to
+bf16 once before their products: that adds at most 2^-9·Σ pⱼ|vⱼ| to o
+before its own rounding, and far less for random inputs; dQ rounds the same
+float32 value as its plain version once. Bounded vs exhaustive KV loops
 and two runs on the same inputs are bit-equal. RWKV scan: the output within
 1e-5·max|plain| and each gradient within 1e-4·max|plain| (float32 sums over
 D and, for the gradients, over T in another order), plus 1e-6; reruns
@@ -236,7 +239,10 @@ def test_trainer_on_card_launches_kernel_per_refresh(cuda):
 # (B, H, Hkv, S, Dh, dtype, causal, window, softcap): the training path's
 # shape, gemma2-like (window, softcap, GQA 2, Dh 128), stablelm's Dh 160 with
 # GQA 4, the smoke Dh 12 in f32, Dh 256 (tiles of 32) on a ragged S, and
-# bidirectional
+# bidirectional; then the edges of the bf16 tensor-core kernels: the smoke
+# Dh 12 (zero-padded to 16, element copies) and Dh 16 with GQA 2, a ragged
+# S 200, Dh 256 with a window (KV tiles of 32, dK/dV's columns in two
+# halves), bidirectional
 FLASH_CASES = {
     "slice": (16, 36, 36, 256, 64, torch.bfloat16, True, None, None),
     "gemma2_like": (1, 32, 16, 1024, 128, torch.bfloat16, True, 512, 50.0),
@@ -244,6 +250,11 @@ FLASH_CASES = {
     "smoke_dh12_f32": (8, 6, 6, 16, 12, torch.float32, True, None, None),
     "dh256_f32_ragged": (1, 4, 2, 200, 256, torch.float32, True, 96, None),
     "bidirectional_f32": (2, 4, 4, 192, 64, torch.float32, False, None, None),
+    "smoke_dh12_bf16_gqa2": (8, 6, 3, 16, 12, torch.bfloat16, True, None, None),
+    "dh16_bf16_gqa2": (4, 6, 3, 256, 16, torch.bfloat16, True, None, None),
+    "ragged_bf16_s200": (1, 8, 4, 200, 64, torch.bfloat16, True, None, None),
+    "dh256_bf16_window": (1, 4, 2, 320, 256, torch.bfloat16, True, 96, None),
+    "bidirectional_bf16": (2, 4, 4, 192, 64, torch.bfloat16, False, None, None),
 }
 
 
@@ -296,7 +307,8 @@ def test_flash_kernels_match_plain(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["slice", "gemma2_like", "dh256_f32_ragged"])
+@pytest.mark.parametrize("name", ["slice", "gemma2_like", "dh256_f32_ragged",
+                                  "dh256_bf16_window", "smoke_dh12_bf16_gqa2"])
 def test_flash_bounded_loops_and_reruns_are_bit_equal(cuda, name):
     q, k, v, do, opts = _flash_inputs(name, cuda, seed=1)
     first = _run_kernels(q, k, v, do, opts)
@@ -316,6 +328,19 @@ def test_flash_fully_masked_rows_are_exactly_zero(cuda):
     for t in (o, dq, dk, dv):
         assert torch.equal(t, torch.zeros_like(t))
     assert bool(torch.all(torch.isinf(lse) & (lse > 0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bidirectional_bf16", "smoke_dh12_bf16_gqa2"])
+def test_flash_fully_masked_rows_are_exactly_zero_bf16(cuda, name):
+    """The same guard in the tensor-core kernels, bounded and exhaustive."""
+    q, k, v, do, opts = _flash_inputs(name, cuda, seed=2)
+    opts = dict(opts, causal=True, window=0)
+    for bound_loop in (True, False):
+        o, lse, _, dq, dk, dv = _run_kernels(q, k, v, do, opts, bound_loop=bound_loop)
+        for t in (o, dq, dk, dv):
+            assert torch.equal(t, torch.zeros_like(t))
+        assert bool(torch.all(torch.isinf(lse) & (lse > 0)))
 
 
 @pytest.mark.cuda

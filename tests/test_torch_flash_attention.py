@@ -138,11 +138,101 @@ def test_cpu_tensors_launch_nothing_and_other_devices_raise():
 
 def test_smem_plan_covers_every_config_head_dim():
     """Head dims of the JAX package's configs (12 minicpm smoke, 16, 64
-    minicpm, 112, 128 gemma2, 160 stablelm) fit the kernels' shared-memory
-    plan; above 256 they are refused."""
+    minicpm, 112, 128 gemma2, 160 stablelm, 256) fit the kernels'
+    shared-memory plans in both types; above 256 they are refused."""
     for dh in (12, 16, 64, 112, 128, 160, 256):
         assert tfa.supports(dh), dh
     assert not tfa.supports(257)
-    # the training path's head dim: tiles of 64, 3 staged operands + P
-    assert tfa.smem_bytes("fwd", 64) == 4 * (3 * 64 + 64) * 68
-    assert tfa.smem_bytes("dkv", 256) == 4 * ((4 * 256 + 64) * 36 + 64)
+    # every head dim up to 256 fits one block in both types
+    assert all(tfa.supports(dh) for dh in range(1, tfa.MAX_HEAD_DIM + 1))
+    # float32 (and dQ in bf16): tiles of 64, 3 staged operands + P
+    assert tfa.smem_bytes("fwd", 64, torch.float32) == 4 * (3 * 64 + 64) * 68
+    assert tfa.smem_bytes("dkv", 256, torch.float32) == 4 * ((4 * 256 + 64) * 36 + 64)
+    assert tfa.smem_bytes("dq", 64, torch.bfloat16) == tfa.smem_bytes("dq", 64, torch.float32)
+    # bf16 forward and dK/dV: bf16 rows of the padded head dim + 8; the forward
+    # holds 64 Q rows and two K and two V tiles, dK/dV 64 K and V rows, two Q and
+    # two dO tiles and two tiles of lse and delta (float32)
+    padded = {12: 16, 16: 16, 64: 64, 112: 128, 128: 128, 160: 160, 256: 256}
+    kv_rows = {16: 64, 64: 64, 128: 64, 160: 64, 256: 32}
+    q_rows = {16: 64, 64: 64, 128: 64, 160: 32, 256: 32}
+    for dh, dp in padded.items():
+        assert tfa.smem_bytes("fwd", dh, torch.bfloat16) == 2 * (64 + 4 * kv_rows[dp]) * (dp + 8)
+        assert tfa.smem_bytes("dkv", dh, torch.bfloat16) == (
+            2 * (2 * 64 + 4 * q_rows[dp]) * (dp + 8) + 16 * q_rows[dp])
+    assert tfa.smem_bytes("fwd", 64, torch.bfloat16) == 46_080
+    assert tfa.smem_bytes("dkv", 64, torch.bfloat16) == 56_320
+
+
+# Small versions of the card cases of tests/test_torch_cuda.py (FLASH_CASES):
+# (B·Hkv, group, S, Dh, causal, window, softcap)
+EMULATED = {
+    "slice": (4, 1, 256, 64, True, None, None),
+    "gemma2_like": (2, 2, 192, 128, True, 96, 50.0),
+    "stablelm_dh160_gqa4": (1, 4, 128, 160, True, None, None),
+    "smoke_dh12_gqa2": (3, 2, 16, 12, True, None, None),
+    "ragged_dh256_window": (2, 1, 200, 256, True, 96, None),
+    "bidirectional": (2, 1, 192, 64, False, None, None),
+}
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _emulated_kernels(q, k, v, do, causal, window, softcap, group):
+    """The bf16 tensor-core kernels' arithmetic, densely: scores from bf16
+    inputs with exact products and float32 sums, times the scale after the
+    product; P and dS rounded to bf16 once before the P·V, Pᵀ·dO and dSᵀ·Q
+    products; m, l, lse, delta and the accumulators in float32; dK times the
+    scale at the end; outputs rounded to bf16."""
+    scale = q.shape[-1] ** -0.5
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = v.float().repeat_interleave(group, dim=0)
+    s = (qf @ kf.transpose(1, 2)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = tfa._mask(q.shape[1], k.shape[1], causal, window, q.device)
+    s = torch.where(mask, s, tfa._MASK)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(m > tfa._MASK_GUARD, torch.exp(s - m), 0.0)
+    l = p.sum(-1)
+    o = (_bf16(p) @ vf) / torch.clamp(l, min=1e-30)[..., None]
+    lse = torch.where(l > 0, m[..., 0] + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.full_like(l, float("inf")))
+    o = o.to(torch.bfloat16)
+    delta = (o.float() * dof).sum(-1)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dof @ vf.transpose(1, 2) - delta[..., None])
+    if softcap is not None:
+        t = s / softcap
+        ds = ds * torch.where(mask, 1.0 - t * t, 0.0)
+    BHkv, T, Dh = k.shape
+    dv = (_bf16(p).transpose(1, 2) @ dof).view(BHkv, group, T, Dh).sum(1)
+    dk = (_bf16(ds).transpose(1, 2) @ qf).view(BHkv, group, T, Dh).sum(1) * scale
+    return o, lse, delta, dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", list(EMULATED))
+def test_bf16_rounding_points_stay_within_card_tolerance(name):
+    """Rounding P and dS to bf16 before their products (what the tensor-core
+    kernels do) keeps the forward's o and lse and dK/dV within the card
+    tests' unchanged bf16 tolerance of the plain versions: 2⁻⁷·max|plain|
+    (lse 1e-4). Rounding P adds at most 2⁻⁹·Σ pⱼ|vⱼ| to o before its own
+    rounding to bf16; for random inputs far less."""
+    BHkv, group, S, Dh, causal, window, softcap = EMULATED[name]
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(n, S, Dh)).astype(np.float32))
+                   .to(torch.bfloat16) for n in (BHkv * group, BHkv, BHkv, BHkv * group))
+    opts = dict(causal=causal, window=window, softcap=softcap, group=group)
+    o, lse, delta, dk, dv = _emulated_kernels(q, k, v, do, **opts)
+    o_r, lse_r = tfa.flash_forward_reference(q, k, v, **opts)
+    dk_r, dv_r = tfa.flash_dkv_reference(q, k, v, do, lse, delta, **opts)
+    for got, want, what in ((o, o_r, "o"), (dk, dk_r, "dk"), (dv, dv_r, "dv")):
+        assert got.dtype == want.dtype == torch.bfloat16
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2.0 ** -7 * want.float().abs().max().item()
+        assert err <= tol, f"{what} ({name}): max|diff| {err:.3g} > {tol:.3g}"
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_r))
+    fin = torch.isfinite(lse_r)
+    assert (lse[fin] - lse_r[fin]).abs().max().item() <= 1e-4
