@@ -24,14 +24,15 @@ Phases (any failure exits nonzero and prints no result line):
                against their plain versions and bit-equal to the fused
                kernel's pivots and errors; each timed.
   4. flash   — the flash-attention forward, dQ and dK/dV kernels against
-               their plain versions at the slice's shape, minicpm at 4096
-               tokens, gemma2-27b's attention (window 4096, softcap 50, GQA 2,
-               S 8192), stablelm's Dh 160 with GQA 4, the smoke Dh 12 in f32,
-               window 0, bidirectional and Dh 16 in bf16 with GQA 2 (bf16
-               forward and dK/dV run on the tensor cores, the rest on the
-               float32 cores); bounded vs exhaustive KV loops and
-               two runs on the same inputs bit-equal; each timed against its
-               plain version, its bound and, where it computes the same
+               their plain versions at the slice's selection shape (576
+               streams) and its subset's at rank 2 and 8 (72 and 288
+               streams), minicpm at 4096 tokens, gemma2-27b's attention
+               (window 4096, softcap 50, GQA 2, S 8192), stablelm's Dh 160
+               with GQA 4, the smoke Dh 12 in f32, window 0, bidirectional
+               and Dh 16 in bf16 with GQA 2 (bf16 runs on the tensor cores,
+               float32 on the float32 cores); bounded vs exhaustive KV loops
+               and two runs on the same inputs bit-equal; each timed against
+               its plain version, its bound and, where it computes the same
                function, PyTorch's scaled_dot_product_attention, with the
                ratios to SDPA and to the bound (every row also in
                ``build/chip_smoke_flash.json``).
@@ -112,9 +113,14 @@ FLASH_REPLACES = {"flash_forward": "src/repro/kernels/flash_attention.py:210",
                   "flash_dq": "src/repro/kernels/flash_attention.py:232",
                   "flash_dkv": "src/repro/kernels/flash_attention.py:232"}
 
-# (name, B, H, Hkv, S, Dh, dtype, causal, window, softcap)
+# (name, B, H, Hkv, S, Dh, dtype, causal, window, softcap). "slice" is the
+# selection forward's 16 × 36 streams; "subset" and "subset_r8" the subset's
+# forward and backward, r × 36 streams at the ranks phase slice reports (2
+# and 8)
 FLASH_SHAPES = [
     ("slice", 16, 36, 36, 256, 64, "bfloat16", True, None, None),
+    ("subset", 2, 36, 36, 256, 64, "bfloat16", True, None, None),
+    ("subset_r8", 8, 36, 36, 256, 64, "bfloat16", True, None, None),
     ("minicpm_4096", 1, 36, 36, 4096, 64, "bfloat16", True, None, None),
     ("gemma2_27b", 1, 32, 16, 8192, 128, "bfloat16", True, 4096, 50.0),
     ("stablelm_12b", 1, 32, 8, 2048, 160, "bfloat16", True, None, None),
@@ -183,13 +189,12 @@ def phase_build(ctx):
 
 def _kernel_instance(mangled: str) -> str:
     """A readable name for a flash template instance in the ptxas log: the
-    float32-core kernels by (type, NC, TILE), the tensor-core ones by their
-    padded head dim."""
-    t = re.search(r"(flash_\w+?_kernel)I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)", mangled)
+    float32-core kernels by (NC, TILE), the tensor-core ones by their padded
+    head dim."""
+    t = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)ELi(\d+)", mangled)
     if t:
-        return (f"{t.group(1)}<{'bf16' if t.group(2) != 'f' else 'f32'}, "
-                f"NC={t.group(3)}, TILE={t.group(4)}>")
-    t = re.search(r"(flash_\w+?_mma_kernel)ILi(\d+)EE", mangled)
+        return f"{t.group(1)}<f32, NC={t.group(2)}, TILE={t.group(3)}>"
+    t = re.search(r"(flash_(?:fwd|dq|dkv)_mma_kernel)ILi(\d+)EE", mangled)
     return f"{t.group(1)}<bf16, DP={t.group(2)}>" if t else mangled[:60]
 
 
@@ -528,7 +533,7 @@ def phase_flash(ctx):
         # ulp there. The tensor-core forward and dK/dV round P (and dS) to bf16
         # once before their products, which adds at most 2^-9 sum_j p_j |v_j|
         # to o before its own rounding, and far less for random inputs; dQ
-        # rounds the same float32 value as its plain version once
+        # takes dS into dS.K as bf16 hi + lo (~16 bits), then rounds dQ once
         errs, ok = {}, same and bounded
         for what, a, b in (("o", o, o_r), ("dq", dq, dq_r), ("dk", dk, dk_r),
                            ("dv", dv, dv_r)):

@@ -16,22 +16,20 @@
 // softmax step run in float32 whatever the input type, as on the TPU.
 //
 // Dispatch is by the input type, explicitly, with no fallback:
-//   bf16 forward, bf16 dK/dV -> flash_fwd_mma_kernel, flash_dkv_mma_kernel
-//                               (tensor cores, below);
-//   f32 forward, f32 dK/dV, dQ in both types -> flash_fwd_kernel,
-//                               flash_dkv_kernel, flash_dq_kernel (float32
-//                               CUDA cores; they serve the float32 smoke and
-//                               check models, and dQ until it is redesigned).
+//   bf16 -> flash_fwd_mma_kernel, flash_dq_mma_kernel, flash_dkv_mma_kernel
+//           (tensor cores, below);
+//   f32  -> flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel (float32
+//           CUDA cores; they serve the float32 smoke and check models).
 //
 // What bounds them on this card: at the training path's shape (576 streams,
 // S = 256, Dh = 64, bf16, causal) the forward moves ~76 MB and needs ~5
 // GFLOP, so an ideal kernel is bound by bytes (~23 us at 3.35 TB/s), and
-// dK/dV by bytes too (~34 us); at 4096 tokens both are bound by operations
-// (989 TFLOP/s bf16 on the tensor cores).
+// dQ (~29 us) and dK/dV (~34 us) by bytes too; at 4096 tokens all three are
+// bound by operations (989 TFLOP/s bf16 on the tensor cores).
 //
 // The bf16 kernels (FlashAttention-2's shape on mma.sync.m16n8k16, bf16 x bf16
 // -> f32, inline PTX). A block is 4 warps and owns 64 rows, 16 a warp: q rows
-// in the forward, KV rows in dK/dV. Tiles sit in shared memory as bf16 rows of
+// in the forward and dQ, KV rows in dK/dV. Tiles sit in shared memory as bf16 rows of
 // DP + 8 elements (DP: the head dim zero-padded to 16, 32, 64, 128, 160 or
 // 256); the 16-byte row pad makes the 8 rows that one ldmatrix reads fall in
 // 8 different bank groups, so ldmatrix has no bank conflicts. Copies are
@@ -46,6 +44,19 @@
 //   P becomes the A operand of P.V straight from the S accumulators, rounded
 //   to bf16 once; V comes through ldmatrix.trans; l sums the float32 p. KV
 //   tiles of 64 rows (32 at DP 256).
+//   dQ: the forward's grid, row order and KV loop; Q and dO go to shared
+//   memory once, each thread keeps the lse and delta of its two rows in
+//   registers, and Q's and dO's A fragments stay in registers up to DP 64
+//   (re-read from shared memory above). Each KV tile is taken 16 keys at a
+//   time, so that only a 16 x 16 S and dP live beside the dQ accumulator:
+//   S = Q.K^T and dP = dO.V^T with K and V as B operands (ldmatrix, no
+//   .trans); p = exp(scale S - lse) (mask, softcap) and dS = p (dP - delta)
+//   (1 - t^2) in registers; dQ += dS.K with dS straight from its
+//   accumulators as the A operand and K through ldmatrix.trans, times scale
+//   at the end. dS goes in as hi + lo, hi = bf16(dS) and lo = bf16(dS - hi),
+//   two products that keep ~16 bits of it: dQ = sum_j dS_j k_j cancels
+//   heavily (sum_j dS_j ~ 0 on each row), so a single bf16 rounding of dS
+//   comes close to the bf16 tolerance at 1024 tokens.
 //   dK/dV: K and V stay A fragments in registers (DP <= 64; re-read from
 //   shared memory above). The block loops the group's q heads and the q
 //   tiles that can see it (64 rows, 32 at DP >= 160); Q, dO, lse and delta
@@ -59,14 +70,14 @@
 //   are split in two halves over blockIdx.z; each half recomputes S and dP.
 //   Outputs leave through the block's own rows of shared memory as 16-byte
 //   row stores.
-//   Both: a tile wholly inside the unmasked region skips the per-element mask
-//   test, and the causal forward runs its longest q tiles first. Up to DP 64
-//   the forward is held to 128 registers (4 blocks an SM) and dK/dV to 168
-//   (3 blocks); chip_smoke.py's build phase prints every instance's registers
-//   and spills. Rounding P to bf16 adds at most 2^-9 sum_j p_j |v_j| to o
-//   before o's own rounding (dS likewise to dK), far less for random inputs;
-//   the tests hold the bf16 outputs to 2^-7 of the largest value of the
-//   plain float32 versions.
+//   All three: a tile wholly inside the unmasked region skips the
+//   per-element mask test, and the causal forward and dQ run their longest
+//   q tiles first. Up to DP 64 the forward and dQ are held to 128 registers
+//   (4 blocks an SM) and dK/dV to 168 (3 blocks); chip_smoke.py's build
+//   phase prints every instance's registers and spills. Rounding P to bf16
+//   adds at most 2^-9 sum_j p_j |v_j| to o before o's own rounding (dS
+//   likewise to dK), far less for random inputs; the tests hold the bf16
+//   outputs to 2^-7 of the largest value of the plain float32 versions.
 // The float32 kernels stage tiles of TILE rows in shared memory as float32,
 // stored d-major (x[d * LD + row], LD = TILE + 4), and each of 256 threads
 // keeps a (TILE/16) x (TILE/16) block of the score tile and its share of the
@@ -74,10 +85,10 @@
 // All kernels tile KV (the TPU kernel keeps the whole K/V stream in VMEM
 // under a 12 MB guard), which puts no limit on T. Causal and window tile
 // bounds skip tiles with no unmasked entry; a skipped tile would contribute
-// alpha = 1 and p = 0 exactly, so bound_loop = 0 (scan every tile) gives
-// bit-equal results. dK/dV owns one KV tile per block and loops over every q
-// head of its GQA group, so no atomics are needed and every run gives the
-// same bits.
+// alpha = 1 and p = 0 (in the backward dS = 0) exactly, so bound_loop = 0
+// (scan every tile) gives bit-equal results. dK/dV owns one KV tile per
+// block and loops over every q head of its GQA group, so no atomics are
+// needed and every run gives the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,11 +107,6 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxHeadDim = 256;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB, one Hopper block
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 // R neighbouring floats from 8- or 16-byte-aligned shared memory
 __device__ __forceinline__ void ld(float (&x)[4], const float* p) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -118,8 +124,9 @@ __host__ __device__ inline int nc_class(int Dh) {
 }
 __host__ __device__ inline int tile_of(int nc) { return nc == 16 ? 32 : 64; }
 
-// Dynamic shared memory of each kernel, in bytes (the Python wrapper's
-// smem_bytes() computes the same sums).
+// Dynamic shared memory of each float32 kernel, in bytes (the Python
+// wrapper's f32_smem_bytes() computes the same sums, for supports() on a
+// machine without the library; flash_smem_bytes() below returns every plan).
 inline size_t fwd_smem(int Dh, int tile) {      // Qt, Kt, Vt; Pt
   return 4 * (size_t)(3 * Dh + tile) * (tile + 4);
 }
@@ -137,14 +144,14 @@ __device__ __forceinline__ bool valid(int qi, int kj, int Sq, int Tk, int causal
 
 // Rows [row0, row0 + TILE) of a (nrows, Dh) row-major stream into shared
 // memory as dst[d * LD + r], times `mul`; rows past nrows are zero.
-template <typename T, int TILE>
-__device__ void load_t(float* dst, const T* __restrict__ src, int row0, int nrows,
+template <int TILE>
+__device__ void load_t(float* dst, const float* __restrict__ src, int row0, int nrows,
                        int Dh, float mul) {
   constexpr int LD = TILE + 4;
   for (int e = threadIdx.x; e < TILE * Dh; e += kThreads) {
     const int r = e / Dh, d = e - r * Dh;
     const int row = row0 + r;
-    dst[d * LD + r] = row < nrows ? to_f32(src[(size_t)row * Dh + d]) * mul : 0.f;
+    dst[d * LD + r] = row < nrows ? src[(size_t)row * Dh + d] * mul : 0.f;
   }
 }
 
@@ -254,12 +261,12 @@ __device__ __forceinline__ void q_bounds(int k0, int KR, int QR, int Sq, int Tk,
 // ---------------------------------------------------------------------------
 // float32 forward: one block per (q stream, q tile)
 // ---------------------------------------------------------------------------
-template <typename T, int NC, int TILE>
+template <int NC, int TILE>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int Sq, int Tk, int Dh, int group, int causal, int window,
-                 float softcap, float scale, int bound_loop) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Tk, int Dh, int group, int causal,
+                 int window, float softcap, float scale, int bound_loop) {
   constexpr int R = TILE / 16, LD = TILE + 4;
   extern __shared__ float4 smem_f4[];
   float* Qt = reinterpret_cast<float*>(smem_f4);
@@ -275,7 +282,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   k += (size_t)(bh / group) * Tk * Dh;
   v += (size_t)(bh / group) * Tk * Dh;
 
-  load_t<T, TILE>(Qt, q, q0, Sq, Dh, scale);
+  load_t<TILE>(Qt, q, q0, Sq, Dh, scale);
   float m[R], l[R], acc[R][NC];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -290,8 +297,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = lo; it < hi; ++it) {
     const int k0 = it * TILE;
     __syncthreads();  // the previous tile's readers are done
-    load_t<T, TILE>(Kt, k, k0, Tk, Dh, 1.f);
-    load_t<T, TILE>(Vt, v, k0, Tk, Dh, 1.f);
+    load_t<TILE>(Kt, k, k0, Tk, Dh, 1.f);
+    load_t<TILE>(Vt, v, k0, Tk, Dh, 1.f);
     __syncthreads();
     float s[R][R];
     tile_dot<TILE>(s, Qt, Kt, ra, cb, Dh);
@@ -332,21 +339,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int d = tx + 16 * j;
-      if (d < Dh) store(o + (size_t)qi * Dh + d, acc[i][j] / den);
+      if (d < Dh) o[(size_t)qi * Dh + d] = acc[i][j] / den;
     }
     if (tx == 0) lse[(size_t)bh * Sq + qi] = l[i] > 0.f ? m[i] + logf(den) : CUDART_INF_F;
   }
 }
 
 // ---------------------------------------------------------------------------
-// dQ (float32 and bf16): the float32 forward's grid and KV loop
+// float32 dQ: the float32 forward's grid and KV loop
 // ---------------------------------------------------------------------------
-template <typename T, int NC, int TILE>
+template <int NC, int TILE>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int Sq, int Tk, int Dh, int group, int causal,
+                float* __restrict__ dq, int Sq, int Tk, int Dh, int group, int causal,
                 int window, float softcap, float scale, int bound_loop) {
   constexpr int R = TILE / 16, LD = TILE + 4;
   extern __shared__ float4 smem_f4[];
@@ -363,8 +370,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   k += (size_t)(bh / group) * Tk * Dh;
   v += (size_t)(bh / group) * Tk * Dh;
 
-  load_t<T, TILE>(Qt, q + qoff, q0, Sq, Dh, scale);
-  load_t<T, TILE>(dOt, dout + qoff, q0, Sq, Dh, 1.f);
+  load_t<TILE>(Qt, q + qoff, q0, Sq, Dh, scale);
+  load_t<TILE>(dOt, dout + qoff, q0, Sq, Dh, 1.f);
   float row_lse[R], row_delta[R], acc[R][NC];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -380,8 +387,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = lo; it < hi; ++it) {
     const int k0 = it * TILE;
     __syncthreads();
-    load_t<T, TILE>(Kt, k, k0, Tk, Dh, 1.f);
-    load_t<T, TILE>(Vt, v, k0, Tk, Dh, 1.f);
+    load_t<TILE>(Kt, k, k0, Tk, Dh, 1.f);
+    load_t<TILE>(Vt, v, k0, Tk, Dh, 1.f);
     __syncthreads();
     float s[R][R], dp[R][R];
     tile_dot<TILE>(s, Qt, Kt, ra, cb, Dh);
@@ -406,7 +413,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int d = tx + 16 * j;
-      if (d < Dh) store(dq + qoff + (size_t)qi * Dh + d, acc[i][j] * scale);
+      if (d < Dh) dq[qoff + (size_t)qi * Dh + d] = acc[i][j] * scale;
     }
   }
 }
@@ -415,12 +422,12 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // float32 dK/dV: one block per (kv stream, KV tile); loops the group's q heads and
 // their q tiles, so each output element is written by one thread, once
 // ---------------------------------------------------------------------------
-template <typename T, int NC, int TILE>
+template <int NC, int TILE>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dk, T* __restrict__ dv, int Sq, int Tk, int Dh,
+                 float* __restrict__ dk, float* __restrict__ dv, int Sq, int Tk, int Dh,
                  int group, int causal, int window, float softcap, float scale,
                  int bound_loop) {
   constexpr int R = TILE / 16, LD = TILE + 4;
@@ -439,8 +446,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ra = ty * R, cb = tx * R;  // this thread's KV rows ra.., q rows cb..
   const size_t kvoff = (size_t)bkv * Tk * Dh;
 
-  load_t<T, TILE>(Kt, k + kvoff, k0, Tk, Dh, 1.f);
-  load_t<T, TILE>(Vt, v + kvoff, k0, Tk, Dh, 1.f);
+  load_t<TILE>(Kt, k + kvoff, k0, Tk, Dh, 1.f);
+  load_t<TILE>(Vt, v + kvoff, k0, Tk, Dh, 1.f);
   float dk_acc[R][NC], dv_acc[R][NC];
 #pragma unroll
   for (int i = 0; i < R; ++i)
@@ -455,8 +462,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int it = lo; it < hi; ++it) {
       const int q0 = it * TILE;
       __syncthreads();
-      load_t<T, TILE>(Qt, q + qoff, q0, Sq, Dh, scale);
-      load_t<T, TILE>(dOt, dout + qoff, q0, Sq, Dh, 1.f);
+      load_t<TILE>(Qt, q + qoff, q0, Sq, Dh, scale);
+      load_t<TILE>(dOt, dout + qoff, q0, Sq, Dh, 1.f);
       for (int r = threadIdx.x; r < TILE; r += kThreads) {
         const int qi = q0 + r;
         s_lse[r] = qi < Sq ? lse[(size_t)bh * Sq + qi] : CUDART_INF_F;
@@ -491,38 +498,43 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NC; ++j) {
       const int d = tx + 16 * j;
       if (d < Dh) {
-        store(dk + kvoff + (size_t)kj * Dh + d, dk_acc[i][j]);
-        store(dv + kvoff + (size_t)kj * Dh + d, dv_acc[i][j]);
+        dk[kvoff + (size_t)kj * Dh + d] = dk_acc[i][j];
+        dv[kvoff + (size_t)kj * Dh + d] = dv_acc[i][j];
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward and dK/dV on the tensor cores (mma.sync.m16n8k16 bf16 -> f32)
+// bf16 forward, dQ and dK/dV on the tensor cores (mma.sync.m16n8k16 bf16 -> f32)
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
 constexpr int kMmaThreads = 128;  // 4 warps
-constexpr int kBlockRows = 64;    // q rows (forward) or KV rows (dK/dV): 16 a warp
+constexpr int kBlockRows = 64;    // q rows (forward, dQ) or KV rows (dK/dV): 16 a warp
 
-// Padded head dim, and the tile plans (the Python wrapper mirrors them).
+// Padded head dim, and the tile plans.
 __host__ __device__ inline int dp_class(int Dh) {
   return Dh <= 16 ? 16 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : Dh <= 128 ? 128 : Dh <= 160 ? 160 : 256;
 }
+// KV rows a tile of the forward and of dQ
 __host__ __device__ constexpr int fwd_kv_rows(int dp) { return dp > 160 ? 32 : 64; }
 __host__ __device__ constexpr int dkv_q_rows(int dp) { return dp >= 160 ? 32 : 64; }
 __host__ __device__ constexpr int dkv_splits(int dp) { return dp > 160 ? 2 : 1; }
 // Blocks an SM the register allocation must allow: up to DP 64 the forward
-// is capped at 128 registers (4 blocks) and dK/dV at 168 (3 blocks), so that
-// more blocks share an SM at the training path's shape; under its cap the
-// forward at DP 64 spills 44 bytes (chip_smoke.py prints each instance's
-// registers and spills). Above DP 64 neither is capped.
+// and dQ are capped at 128 registers (4 blocks) and dK/dV at 168 (3 blocks),
+// so that more blocks share an SM at the training path's shape; under their
+// caps the forward at DP 64 spills 44 bytes and dQ 8 (chip_smoke.py prints
+// each instance's registers and spills). Above DP 64 none is capped.
 __host__ __device__ constexpr int fwd_min_blocks(int dp) { return dp <= 64 ? 4 : 1; }
+__host__ __device__ constexpr int dq_min_blocks(int dp) { return dp <= 64 ? 4 : 1; }
 __host__ __device__ constexpr int dkv_min_blocks(int dp) { return dp <= 64 ? 3 : 1; }
 
 inline size_t fwd_mma_smem(int dp) {  // Q; K, V double-buffered (bf16 rows of dp + 8)
   return 2 * (size_t)(kBlockRows + 4 * fwd_kv_rows(dp)) * (dp + 8);
+}
+inline size_t dq_mma_smem(int dp) {   // Q, dO; K, V double-buffered
+  return 2 * (size_t)(2 * kBlockRows + 4 * fwd_kv_rows(dp)) * (dp + 8);
 }
 inline size_t dkv_mma_smem(int dp) {  // K, V; Q, dO double-buffered; lse, delta double-buffered
   const int bq = dkv_q_rows(dp);
@@ -578,6 +590,18 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
+}
+// The same A fragment as hi + lo: hi = bf16(x), lo = bf16(x - hi) (the
+// difference is exact in f32), ~16 significant bits of x between the two.
+__device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                               const float (&c0)[4], const float (&c1)[4]) {
+  const float x[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = pack_bf16(x[2 * i] - __low2float(h), x[2 * i + 1] - __high2float(h));
+  }
 }
 // Reduce over the 4 threads of a quad (the lanes that share an accumulator
 // row); the xor butterfly leaves the same bits in every lane.
@@ -817,6 +841,149 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// dQ: one block per (q stream, 64 q rows), a warp per 16 rows; the forward's
+// grid and KV loop, each KV tile taken 16 keys at a time
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads, dq_min_blocks(DP))
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int Sq, int Tk, int Dh, int group, int causal,
+                    int window, float softcap, float scale, int bound_loop, int vec) {
+  constexpr int BK = fwd_kv_rows(DP), LDS = DP + 8;
+  constexpr int KD = DP / 16, NO = DP / 8;
+  constexpr bool kRegs = DP <= 64;  // Q's and dO's A fragments live in registers
+  extern __shared__ uint4 smem_u4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_u4);
+  bf16* sdO = sQ + kBlockRows * LDS;
+  bf16* sK = sdO + kBlockRows * LDS;  // two tiles of BK rows
+  bf16* sV = sK + 2 * BK * LDS;       // two tiles of BK rows
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;  // longest causal rows first
+  const int row0 = warp * 16;
+  const int qr[2] = {q0 + row0 + g, q0 + row0 + g + 8};  // this thread's two q rows
+  const size_t qoff = (size_t)bh * Sq * Dh;
+  k += (size_t)(bh / group) * Tk * Dh;
+  v += (size_t)(bh / group) * Tk * Dh;
+
+  int lo, hi;
+  kv_bounds(q0, kBlockRows, BK, Sq, Tk, causal, window, bound_loop, &lo, &hi);
+  load_rows<kBlockRows, DP>(sQ, q + qoff, q0, Sq, Dh, vec);
+  load_rows<kBlockRows, DP>(sdO, dout + qoff, q0, Sq, Dh, vec);
+  if (lo < hi) {
+    load_rows<BK, DP>(sK, k, lo * BK, Tk, Dh, vec);
+    load_rows<BK, DP>(sV, v, lo * BK, Tk, Dh, vec);
+  }
+  cp_async_commit();
+  // rows past Sq: lse = +inf, so p = 0 and dS = 0
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_lse[h] = qr[h] < Sq ? lse[(size_t)bh * Sq + qr[h]] : CUDART_INF_F;
+    row_delta[h] = qr[h] < Sq ? delta[(size_t)bh * Sq + qr[h]] : 0.f;
+  }
+
+  const uint32_t q_a = smem_u32(sQ + (row0 + a_row(lane)) * LDS + a_col(lane));
+  const uint32_t do_a = smem_u32(sdO + (row0 + a_row(lane)) * LDS + a_col(lane));
+  uint32_t qf[kRegs ? KD : 1][4], df[kRegs ? KD : 1][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = lo; it < hi; ++it) {
+    const int buf = (it - lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile `it` landed; every warp is done with tile it - 1
+    if (it + 1 < hi) {
+      load_rows<BK, DP>(sK + (buf ^ 1) * BK * LDS, k, (it + 1) * BK, Tk, Dh, vec);
+      load_rows<BK, DP>(sV + (buf ^ 1) * BK * LDS, v, (it + 1) * BK, Tk, Dh, vec);
+    }
+    cp_async_commit();
+    if constexpr (kRegs) {
+      if (it == lo) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          ldsm_x4(qf[kk], q_a + kk * 32);
+          ldsm_x4(df[kk], do_a + kk * 32);
+        }
+      }
+    }
+    const bf16* cK = sK + buf * BK * LDS;
+    const bf16* cV = sV + buf * BK * LDS;
+    const int k0 = it * BK;
+    const bool edge = !interior(q0, kBlockRows, k0, BK, Sq, Tk, causal, window);
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {  // 16 keys at a time
+      // S = Q K^T and dP = dO V^T (16 q rows x 16 keys a warp)
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t aq[4], ad[4], b[4];
+        if constexpr (kRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            aq[e] = qf[kk][e];
+            ad[e] = df[kk][e];
+          }
+        } else {
+          ldsm_x4(aq, q_a + kk * 32);
+          ldsm_x4(ad, do_a + kk * 32);
+        }
+        ldsm_x4(b, smem_u32(cK + (c * 16 + b_row(lane)) * LDS + kk * 16 + b_col(lane)));
+        mma_bf16(s[0], aq, b[0], b[1]);
+        mma_bf16(s[1], aq, b[2], b[3]);
+        ldsm_x4(b, smem_u32(cV + (c * 16 + b_row(lane)) * LDS + kk * 16 + b_col(lane)));
+        mma_bf16(dp[0], ad, b[0], b[1]);
+        mma_bf16(dp[1], ad, b[2], b[3]);
+      }
+      // dS in place of dP: scale, softcap, mask, p = exp(s - lse)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const bool ok = !edge || valid(qr[h], k0 + c * 16 + j * 8 + 2 * t + (e & 1), Sq, Tk,
+                                         causal, window);
+          const float x = score(s[j][e] * scale, ok, softcap);
+          const float p = expf(x - row_lse[h]);  // normalized; 0 where masked
+          dp[j][e] = dscore(x, p, dp[j][e], row_delta[h], ok, softcap);
+        }
+      // dQ += dS K, dS as hi + lo; K through ldmatrix.trans
+      uint32_t ds_hi[4], ds_lo[4];
+      acc_to_a_split(ds_hi, ds_lo, dp[0], dp[1]);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t b[4];
+        ldsm_x4_t(b, smem_u32(cK + (c * 16 + a_row(lane)) * LDS + n * 8 + a_col(lane)));
+        mma_bf16(acc[n], ds_hi, b[0], b[1]);
+        mma_bf16(acc[n + 1], ds_hi, b[2], b[3]);
+        mma_bf16(acc[n], ds_lo, b[0], b[1]);
+        mma_bf16(acc[n + 1], ds_lo, b[2], b[3]);
+      }
+    }
+  }
+
+  cp_async_wait_all();
+  __syncthreads();  // every copy has landed and every warp is done with sQ
+  bf16* sO = sQ + row0 * LDS;  // this warp's own rows of the Q tile
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(sO + (g + 8 * h) * LDS + n * 8 + 2 * t) =
+          pack_bf16(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+  __syncwarp();
+  store_rows<DP, DP>(dq + qoff, sO, q0 + row0, Sq, 0, Dh, vec, lane);
+}
+
 // dK/dV: one block per (kv stream, 64 KV rows, output half), a warp per 16
 // KV rows; loops the group's q heads and their q tiles, so each output
 // element is written by one thread, once
@@ -980,13 +1147,32 @@ struct Args {
   float softcap, scale;
 };
 
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+
+// Dynamic shared memory of one block of `kind` for dtype 0 (float32) or 1
+// (bf16): the one place the plans are summed.
+size_t plan_smem(int kind, int dtype, int Dh) {
+  if (dtype == 1) {
+    const int dp = dp_class(Dh);
+    return kind == kFwd ? fwd_mma_smem(dp) : kind == kDq ? dq_mma_smem(dp) : dkv_mma_smem(dp);
+  }
+  const int tile = tile_of(nc_class(Dh));
+  return kind == kFwd ? fwd_smem(Dh, tile) : kind == kDq ? dq_smem(Dh, tile) : dkv_smem(Dh, tile);
+}
+
+// Blocks along the tiled sequence: q rows for the forward and dQ, KV rows
+// for dK/dV.
+int grid_rows(int kind, int dtype, const Args& a) {
+  const int rows = kind == kDkv ? a.Tk : a.Sq;
+  const int tile = dtype == 1 ? kBlockRows : tile_of(nc_class(a.Dh));
+  return (rows + tile - 1) / tile;
+}
+
 // Nonzero (a cudaError_t) for arguments the kernels do not take.
-int check(const Args& a, int dtype, size_t need, int smem_bytes, int grid_y) {
+int check(const Args& a, int kind, int dtype) {
   if (a.BH < 1 || a.BHkv < 1 || a.BH % a.BHkv || a.Sq < 1 || a.Tk < 1 || a.Dh < 1 ||
       a.Dh > kMaxHeadDim || (dtype != 0 && dtype != 1) || !(a.softcap >= 0.f) ||
-      grid_y > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (smem_bytes < 0 || (size_t)smem_bytes != need || need > (size_t)kMaxSmemBytes)
+      grid_rows(kind, dtype, a) > 65535 || plan_smem(kind, dtype, a.Dh) > (size_t)kMaxSmemBytes)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -1005,14 +1191,15 @@ int vec_ok(int Dh, std::initializer_list<const void*> ptrs) {
   return 1;
 }
 
-template <typename T, int NC>
+template <int NC>
 int fwd(const Args& a, const void* q, const void* k, const void* v, void* o, void* lse,
-        size_t smem, cudaStream_t st) {
+        cudaStream_t st) {
   constexpr int TILE = NC == 16 ? 32 : 64;
-  auto kern = flash_fwd_kernel<T, NC, TILE>;
+  const size_t smem = plan_smem(kFwd, 0, a.Dh);
+  auto kern = flash_fwd_kernel<NC, TILE>;
   if (int e = prepare(kern, smem)) return e;
-  dim3 grid(a.BH, (a.Sq + TILE - 1) / TILE);
-  kern<<<grid, kThreads, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
+  dim3 grid(a.BH, grid_rows(kFwd, 0, a));
+  kern<<<grid, kThreads, smem, st>>>((const float*)q, (const float*)k, (const float*)v, (float*)o,
                                      (float*)lse, a.Sq, a.Tk, a.Dh, a.BH / a.BHkv,
                                      a.causal, a.window, a.softcap, a.scale, a.bound_loop);
   return (int)cudaGetLastError();
@@ -1020,10 +1207,11 @@ int fwd(const Args& a, const void* q, const void* k, const void* v, void* o, voi
 
 template <int DP>
 int fwd_mma(const Args& a, const void* q, const void* k, const void* v, void* o, void* lse,
-            size_t smem, cudaStream_t st) {
+            cudaStream_t st) {
+  const size_t smem = fwd_mma_smem(DP);
   auto kern = flash_fwd_mma_kernel<DP>;
   if (int e = prepare(kern, smem)) return e;
-  dim3 grid(a.BH, (a.Sq + kBlockRows - 1) / kBlockRows);
+  dim3 grid(a.BH, grid_rows(kFwd, 1, a));
   kern<<<grid, kMmaThreads, smem, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
                                         (bf16*)o, (float*)lse, a.Sq, a.Tk, a.Dh,
                                         a.BH / a.BHkv, a.causal, a.window, a.softcap,
@@ -1031,32 +1219,47 @@ int fwd_mma(const Args& a, const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NC>
+template <int NC>
 int dq(const Args& a, const void* q, const void* k, const void* v, const void* dout,
-       const void* lse, const void* delta, void* dqp, size_t smem, cudaStream_t st) {
+       const void* lse, const void* delta, void* dqp, cudaStream_t st) {
   constexpr int TILE = NC == 16 ? 32 : 64;
-  auto kern = flash_dq_kernel<T, NC, TILE>;
+  const size_t smem = plan_smem(kDq, 0, a.Dh);
+  auto kern = flash_dq_kernel<NC, TILE>;
   if (int e = prepare(kern, smem)) return e;
-  dim3 grid(a.BH, (a.Sq + TILE - 1) / TILE);
-  kern<<<grid, kThreads, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                     (const T*)dout, (const float*)lse,
-                                     (const float*)delta, (T*)dqp, a.Sq, a.Tk, a.Dh,
+  dim3 grid(a.BH, grid_rows(kDq, 0, a));
+  kern<<<grid, kThreads, smem, st>>>((const float*)q, (const float*)k, (const float*)v,
+                                     (const float*)dout, (const float*)lse,
+                                     (const float*)delta, (float*)dqp, a.Sq, a.Tk, a.Dh,
                                      a.BH / a.BHkv, a.causal, a.window, a.softcap,
                                      a.scale, a.bound_loop);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NC>
-int dkv(const Args& a, const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* delta, void* dkp, void* dvp, size_t smem,
-        cudaStream_t st) {
-  constexpr int TILE = NC == 16 ? 32 : 64;
-  auto kern = flash_dkv_kernel<T, NC, TILE>;
+template <int DP>
+int dq_mma(const Args& a, const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dqp, cudaStream_t st) {
+  const size_t smem = dq_mma_smem(DP);
+  auto kern = flash_dq_mma_kernel<DP>;
   if (int e = prepare(kern, smem)) return e;
-  dim3 grid(a.BHkv, (a.Tk + TILE - 1) / TILE);
-  kern<<<grid, kThreads, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                     (const T*)dout, (const float*)lse,
-                                     (const float*)delta, (T*)dkp, (T*)dvp, a.Sq, a.Tk,
+  dim3 grid(a.BH, grid_rows(kDq, 1, a));
+  kern<<<grid, kMmaThreads, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dqp, a.Sq, a.Tk, a.Dh, a.BH / a.BHkv, a.causal, a.window,
+      a.softcap, a.scale, a.bound_loop, vec_ok(a.Dh, {q, k, v, dout, dqp}));
+  return (int)cudaGetLastError();
+}
+
+template <int NC>
+int dkv(const Args& a, const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, void* dkp, void* dvp, cudaStream_t st) {
+  constexpr int TILE = NC == 16 ? 32 : 64;
+  const size_t smem = plan_smem(kDkv, 0, a.Dh);
+  auto kern = flash_dkv_kernel<NC, TILE>;
+  if (int e = prepare(kern, smem)) return e;
+  dim3 grid(a.BHkv, grid_rows(kDkv, 0, a));
+  kern<<<grid, kThreads, smem, st>>>((const float*)q, (const float*)k, (const float*)v,
+                                     (const float*)dout, (const float*)lse,
+                                     (const float*)delta, (float*)dkp, (float*)dvp, a.Sq, a.Tk,
                                      a.Dh, a.BH / a.BHkv, a.causal, a.window, a.softcap,
                                      a.scale, a.bound_loop);
   return (int)cudaGetLastError();
@@ -1064,11 +1267,11 @@ int dkv(const Args& a, const void* q, const void* k, const void* v, const void* 
 
 template <int DP>
 int dkv_mma(const Args& a, const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* delta, void* dkp, void* dvp, size_t smem,
-            cudaStream_t st) {
+            const void* lse, const void* delta, void* dkp, void* dvp, cudaStream_t st) {
+  const size_t smem = dkv_mma_smem(DP);
   auto kern = flash_dkv_mma_kernel<DP>;
   if (int e = prepare(kern, smem)) return e;
-  dim3 grid(a.BHkv, (a.Tk + kBlockRows - 1) / kBlockRows, dkv_splits(DP));
+  dim3 grid(a.BHkv, grid_rows(kDkv, 1, a), dkv_splits(DP));
   kern<<<grid, kMmaThreads, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
       (const float*)delta, (bf16*)dkp, (bf16*)dvp, a.Sq, a.Tk, a.Dh, a.BH / a.BHkv,
@@ -1077,15 +1280,14 @@ int dkv_mma(const Args& a, const void* q, const void* k, const void* v, const vo
   return (int)cudaGetLastError();
 }
 
-// Returns CALL(T, NC) for the element type T and the head-dim class of Dh
-// (the float32 CUDA-core kernels).
-#define NC_DISPATCH(T, Dh, CALL)              \
+// Returns CALL(NC) for the head-dim class of Dh (the float32 CUDA-core kernels).
+#define NC_DISPATCH(Dh, CALL)                 \
   switch (nc_class(Dh)) {                     \
-    case 2: return CALL(T, 2);                \
-    case 4: return CALL(T, 4);                \
-    case 8: return CALL(T, 8);                \
-    case 10: return CALL(T, 10);              \
-    default: return CALL(T, 16);              \
+    case 2: return CALL(2);                   \
+    case 4: return CALL(4);                   \
+    case 8: return CALL(8);                   \
+    case 10: return CALL(10);                 \
+    default: return CALL(16);                 \
   }
 // Returns CALL(DP) for the padded head dim of Dh (the bf16 tensor-core kernels).
 #define DP_DISPATCH(Dh, CALL)                 \
@@ -1107,71 +1309,67 @@ extern "C" {
 // are device pointers to contiguous buffers: q, dout, o, dq (BH, Sq, Dh) and
 // k, v, dk, dv (BHkv, T, Dh) in the input type (dtype 0 float32, 1 bf16),
 // lse and delta (BH, Sq) float32. `window` is the sliding window (a value
-// >= Sq + T turns it off); `softcap` 0 means none. `smem_bytes` is the
-// dynamic shared memory the caller sized; it must equal the kernel's own sum.
-// The forward and dK/dV take the tensor-core kernels for bf16 and the
-// float32 kernels for float32; dQ takes the float32-core kernel for both.
+// >= Sq + T turns it off); `softcap` 0 means none. Each sizes its kernel's
+// shared memory itself. bf16 takes the tensor-core kernels, float32 the
+// float32-core kernels.
 
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                      int dtype, int BH, int BHkv, int Sq, int T, int Dh, int causal,
-                     int window, float softcap, float scale, int bound_loop,
-                     int smem_bytes, void* stream) {
+                     int window, float softcap, float scale, int bound_loop, void* stream) {
   const Args a{BH, BHkv, Sq, T, Dh, causal, window, bound_loop, softcap, scale};
   const cudaStream_t st = (cudaStream_t)stream;
+  if (int e = check(a, kFwd, dtype)) return e;
   if (dtype == 1) {
-    const size_t need = fwd_mma_smem(dp_class(Dh));
-    if (int e = check(a, dtype, need, smem_bytes, (Sq + kBlockRows - 1) / kBlockRows))
-      return e;
-#define FWD_MMA_CALL(DP) fwd_mma<DP>(a, q, k, v, o, lse, need, st)
+#define FWD_MMA_CALL(DP) fwd_mma<DP>(a, q, k, v, o, lse, st)
     DP_DISPATCH(Dh, FWD_MMA_CALL)
 #undef FWD_MMA_CALL
   }
-  const int tile = tile_of(nc_class(Dh));
-  const size_t need = fwd_smem(Dh, tile);
-  if (int e = check(a, dtype, need, smem_bytes, (Sq + tile - 1) / tile)) return e;
-#define FWD_CALL(Tp, NC) fwd<Tp, NC>(a, q, k, v, o, lse, need, st)
-  NC_DISPATCH(float, Dh, FWD_CALL)
+#define FWD_CALL(NC) fwd<NC>(a, q, k, v, o, lse, st)
+  NC_DISPATCH(Dh, FWD_CALL)
 #undef FWD_CALL
 }
 
 int flash_dq_launch(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dq_out, int dtype, int BH,
                     int BHkv, int Sq, int T, int Dh, int causal, int window,
-                    float softcap, float scale, int bound_loop, int smem_bytes,
-                    void* stream) {
+                    float softcap, float scale, int bound_loop, void* stream) {
   const Args a{BH, BHkv, Sq, T, Dh, causal, window, bound_loop, softcap, scale};
-  const int tile = tile_of(nc_class(Dh));
-  const size_t need = dq_smem(Dh, tile);
-  if (int e = check(a, dtype, need, smem_bytes, (Sq + tile - 1) / tile)) return e;
-#define DQ_CALL(Tp, NC) \
-  dq<Tp, NC>(a, q, k, v, dout, lse, delta, dq_out, need, (cudaStream_t)stream)
-  if (dtype == 1) NC_DISPATCH(__nv_bfloat16, Dh, DQ_CALL)
-  NC_DISPATCH(float, Dh, DQ_CALL)
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (int e = check(a, kDq, dtype)) return e;
+  if (dtype == 1) {
+#define DQ_MMA_CALL(DP) dq_mma<DP>(a, q, k, v, dout, lse, delta, dq_out, st)
+    DP_DISPATCH(Dh, DQ_MMA_CALL)
+#undef DQ_MMA_CALL
+  }
+#define DQ_CALL(NC) dq<NC>(a, q, k, v, dout, lse, delta, dq_out, st)
+  NC_DISPATCH(Dh, DQ_CALL)
 #undef DQ_CALL
 }
 
 int flash_dkv_launch(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dk_out, void* dv_out,
                      int dtype, int BH, int BHkv, int Sq, int T, int Dh, int causal,
-                     int window, float softcap, float scale, int bound_loop,
-                     int smem_bytes, void* stream) {
+                     int window, float softcap, float scale, int bound_loop, void* stream) {
   const Args a{BH, BHkv, Sq, T, Dh, causal, window, bound_loop, softcap, scale};
   const cudaStream_t st = (cudaStream_t)stream;
+  if (int e = check(a, kDkv, dtype)) return e;
   if (dtype == 1) {
-    const size_t need = dkv_mma_smem(dp_class(Dh));
-    if (int e = check(a, dtype, need, smem_bytes, (T + kBlockRows - 1) / kBlockRows))
-      return e;
-#define DKV_MMA_CALL(DP) dkv_mma<DP>(a, q, k, v, dout, lse, delta, dk_out, dv_out, need, st)
+#define DKV_MMA_CALL(DP) dkv_mma<DP>(a, q, k, v, dout, lse, delta, dk_out, dv_out, st)
     DP_DISPATCH(Dh, DKV_MMA_CALL)
 #undef DKV_MMA_CALL
   }
-  const int tile = tile_of(nc_class(Dh));
-  const size_t need = dkv_smem(Dh, tile);
-  if (int e = check(a, dtype, need, smem_bytes, (T + tile - 1) / tile)) return e;
-#define DKV_CALL(Tp, NC) \
-  dkv<Tp, NC>(a, q, k, v, dout, lse, delta, dk_out, dv_out, need, st)
-  NC_DISPATCH(float, Dh, DKV_CALL)
+#define DKV_CALL(NC) dkv<NC>(a, q, k, v, dout, lse, delta, dk_out, dv_out, st)
+  NC_DISPATCH(Dh, DKV_CALL)
 #undef DKV_CALL
+}
+
+// Bytes of dynamic shared memory one block of `kind` (0 forward, 1 dQ, 2
+// dK/dV) takes at head dim Dh in dtype 0 (float32) or 1 (bf16); -1 for
+// arguments no kernel takes.
+int flash_smem_bytes(int kind, int dtype, int Dh) {
+  if (kind < kFwd || kind > kDkv || (dtype != 0 && dtype != 1) || Dh < 1 || Dh > kMaxHeadDim)
+    return -1;
+  return (int)plan_smem(kind, dtype, Dh);
 }
 
 }  // extern "C"

@@ -17,11 +17,17 @@ head-major, so q stream ``i`` reads kv stream ``i // group``.
   back to the plain version. CPU tensors run ``flash_forward_reference``,
   ``flash_dq_reference`` and ``flash_dkv_reference``.
 * Which kernel a CUDA launch takes is fixed by the input type, with no
-  fallback between them: bf16 forward and dK/dV run the tensor-core kernels
-  (``flash_fwd_mma_kernel``, ``flash_dkv_mma_kernel``: ``mma.sync`` on bf16
-  tiles staged by ``cp.async``, which round P and dS to bf16 once before
-  their products); float32 forward and dK/dV, and dQ in both types, run the
-  float32 CUDA-core kernels. Both count under the same launch counters.
+  fallback between them: bf16 runs the tensor-core kernels
+  (``flash_fwd_mma_kernel``, ``flash_dq_mma_kernel``,
+  ``flash_dkv_mma_kernel``: ``mma.sync`` on bf16 tiles staged by
+  ``cp.async``; the forward and dK/dV round P and dS to bf16 once before
+  their products, dQ feeds dS·K with dS as a bf16 hi + lo pair); float32
+  runs the float32 CUDA-core kernels. Both count under the same launch
+  counters.
+* The CUDA source owns the kernels' tile plans and sizes each launch's
+  shared memory itself (``plan_smem_bytes`` asks it, on the card). This
+  module keeps only the float32 plans' sums (``f32_smem_bytes``), which
+  ``supports`` checks without the library.
 * ``flash_attention`` is the differentiable function (``_FlashAttention``,
   the port of ``_make_flash_fn``'s ``custom_vjp``): the forward saves q, k,
   v, o and lse; the backward computes ``delta = Σ o·do`` in float32 and runs
@@ -51,18 +57,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # ---------------------------------------------------------------------------
-# the kernels' tiling, mirrored from csrc/flash_attention.cu
+# the float32 kernels' tiling, mirrored from csrc/flash_attention.cu
 # ---------------------------------------------------------------------------
 
-# head dims the bf16 tensor-core kernels are built for; Dh is zero-padded up
-_MMA_HEAD_DIMS = (16, 32, 64, 128, 160, 256)
-_MMA_ROWS = 64               # q rows (forward) or KV rows (dK/dV) of a block
-
-
-def _tensor_cores(kind: str, dtype) -> bool:
-    """The forward and dK/dV take the tensor-core kernels in bf16; dQ and
-    every float32 kernel run on the float32 CUDA cores."""
-    return dtype == torch.bfloat16 and kind in ("fwd", "dkv")
+_KINDS = ("fwd", "dq", "dkv")          # the C source's Kind: 0, 1, 2
 
 
 def _tile(head_dim: int) -> int:
@@ -71,30 +69,13 @@ def _tile(head_dim: int) -> int:
     return 32 if head_dim > 160 else 64
 
 
-def _padded(head_dim: int) -> int:
-    """``dp_class``: the head dim the tensor-core kernels compute at."""
-    return next((d for d in _MMA_HEAD_DIMS if head_dim <= d), -(-head_dim // 16) * 16)
-
-
-def smem_bytes(kind: str, head_dim: int, dtype) -> int:
-    """Dynamic shared memory of one block of ``kind`` (fwd | dq | dkv) for
-    inputs of ``dtype`` — the same sums as the CUDA source.
-
-    bf16 forward and dK/dV (``fwd_mma_smem``/``dkv_mma_smem``): bf16 rows of
-    the padded head dim + 8; the forward holds 64 Q rows and two K and two V
-    tiles of 64 rows (32 at 256); dK/dV 64 K and 64 V rows, two Q and two dO
-    tiles of 64 rows (32 at 160 and 256) and two tiles of lse and delta.
-    Otherwise (``fwd_smem``/``dq_smem``/``dkv_smem``): float32 tiles of
-    (tile + 4) columns, ``head_dim`` rows per staged operand."""
-    if kind not in ("fwd", "dq", "dkv"):
+def f32_smem_bytes(kind: str, head_dim: int) -> int:
+    """Dynamic shared memory of one block of the float32 kernel ``kind``
+    (fwd | dq | dkv) — the sums of ``fwd_smem``/``dq_smem``/``dkv_smem``:
+    float32 tiles of (tile + 4) columns, ``head_dim`` rows per staged
+    operand."""
+    if kind not in _KINDS:
         raise ValueError(f"unknown kernel kind {kind!r}")
-    if _tensor_cores(kind, dtype):
-        dp = _padded(head_dim)
-        if kind == "fwd":
-            kv_rows = 32 if dp > 160 else 64
-            return 2 * (_MMA_ROWS + 4 * kv_rows) * (dp + 8)
-        q_rows = 32 if dp >= 160 else 64
-        return 2 * (2 * _MMA_ROWS + 4 * q_rows) * (dp + 8) + 4 * 4 * q_rows
     t = _tile(head_dim)
     ld = t + 4
     if kind == "fwd":                      # Qt, Kt, Vt; P
@@ -104,18 +85,26 @@ def smem_bytes(kind: str, head_dim: int, dtype) -> int:
     return 4 * ((4 * head_dim + 2 * t) * ld + 2 * t)   # Kt, Vt, Qt, dOt; P, dS; lse, delta
 
 
-def _grid_tiles(kind: str, head_dim: int, dtype, rows: int) -> int:
-    """Blocks along the tiled sequence (q for fwd/dq, KV for dkv)."""
-    tile = _MMA_ROWS if _tensor_cores(kind, dtype) else _tile(head_dim)
-    return -(-rows // tile)
-
-
 def supports(head_dim: int) -> bool:
-    """Whether the three kernels take this head dim in both types — the
-    check the router (``models/layers.py``) and the wrappers share."""
+    """Whether the kernels take this head dim — the check the router
+    (``models/layers.py``) and the wrappers share. On the CPU it holds the
+    float32 plans against one block's shared memory; the bf16 plans fit at
+    every head dim up to ``MAX_HEAD_DIM`` (held on the card by
+    ``tests/test_torch_cuda.py`` through ``plan_smem_bytes``)."""
     return 1 <= head_dim <= MAX_HEAD_DIM and all(
-        smem_bytes(k, head_dim, dtype) <= SMEM_LIMIT_BYTES
-        for k in ("fwd", "dq", "dkv") for dtype in _DTYPE_CODES)
+        f32_smem_bytes(k, head_dim) <= SMEM_LIMIT_BYTES for k in _KINDS)
+
+
+def plan_smem_bytes(kind: str, head_dim: int, dtype) -> int:
+    """Dynamic shared memory of one block of ``kind`` for inputs of
+    ``dtype``, as the CUDA source plans it (``flash_smem_bytes``; builds the
+    library at first use, so it needs ``nvcc``)."""
+    if kind not in _KINDS or dtype not in _DTYPE_CODES:
+        raise ValueError(f"no flash kernel for kind {kind!r} in {dtype}")
+    n = _launchers()["smem"](_KINDS.index(kind), _DTYPE_CODES[dtype], int(head_dim))
+    if n < 0:
+        raise ValueError(f"no flash plan at head_dim {head_dim}")
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -215,13 +204,15 @@ def _launchers():
     would cut them to 32 bits), the softcap and scale ``c_float``."""
     lib = build.load("flash_attention").lib
     ints = [ctypes.c_int] * 8                 # dtype, BH, BHkv, Sq, T, Dh, causal, window
-    tail = [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    tail = [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fns = {"fwd": (lib.flash_fwd_launch, 5), "dq": (lib.flash_dq_launch, 7),
            "dkv": (lib.flash_dkv_launch, 8)}
     for fn, n_ptrs in fns.values():
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + ints + tail
         fn.restype = ctypes.c_int
-    return {name: fn for name, (fn, _) in fns.items()}
+    lib.flash_smem_bytes.argtypes = [ctypes.c_int] * 3      # kind, dtype, Dh
+    lib.flash_smem_bytes.restype = ctypes.c_int
+    return dict({name: fn for name, (fn, _) in fns.items()}, smem=lib.flash_smem_bytes)
 
 
 def _check(q, k, v, group: int) -> Tuple[int, int, int, int, int]:
@@ -238,10 +229,11 @@ def _check(q, k, v, group: int) -> Tuple[int, int, int, int, int]:
     return BH, BHkv, Sq, T, Dh
 
 
-def _kernel_args(kind: str, tensors, names, shapes, causal, window, softcap,
-                 scale, bound_loop) -> list:
+def _kernel_args(tensors, names, shapes, causal, window, softcap, scale,
+                 bound_loop) -> list:
     """The wrapper's checks before a launch, then the C arguments after the
-    pointers. Raises on what the kernel does not take."""
+    pointers. Raises on what the kernel does not take; the C entry point
+    refuses a grid or a tile plan past the card's limits."""
     BH, BHkv, Sq, T, Dh = shapes
     dtype = tensors[0].dtype
     if dtype not in _DTYPE_CODES:
@@ -255,13 +247,6 @@ def _kernel_args(kind: str, tensors, names, shapes, causal, window, softcap,
     if Dh > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {Dh} > {MAX_HEAD_DIM}: the Hopper flash kernels "
                          "keep their output accumulators in registers")
-    smem = smem_bytes(kind, Dh, dtype)
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"flash {kind} at head_dim {Dh} needs {smem} bytes of shared "
-                         f"memory, above the {SMEM_LIMIT_BYTES} one Hopper block can use")
-    tiles = _grid_tiles(kind, Dh, dtype, T if kind == "dkv" else Sq)
-    if tiles > 65535:
-        raise ValueError(f"sequence too long for the kernel's grid: {tiles} tiles")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
     # a window past Sq + T masks nothing, so clamping keeps the int32 exact
@@ -269,7 +254,7 @@ def _kernel_args(kind: str, tensors, names, shapes, causal, window, softcap,
     w = no_window if window is None else max(-no_window, min(int(window), no_window))
     return [_DTYPE_CODES[dtype], BH, BHkv, Sq, T, Dh, int(bool(causal)), w,
             0.0 if softcap is None else float(softcap), float(scale),
-            int(bool(bound_loop)), smem]
+            int(bool(bound_loop))]
 
 
 def _launch(kind: str, ptrs, args, device) -> None:
@@ -286,7 +271,7 @@ def flash_forward(q, k, v, *, causal: bool = True, window=None,
     if not build.route("flash attention", q, k, v):
         return flash_forward_reference(q, k, v, causal=causal, window=window,
                                        softcap=softcap, group=group, scale=scale)
-    args = _kernel_args("fwd", (q, k, v), ("q", "k", "v"), shapes, causal, window,
+    args = _kernel_args((q, k, v), ("q", "k", "v"), shapes, causal, window,
                         softcap, scale, bound_loop)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
@@ -312,7 +297,7 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
         return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
                                   window=window, softcap=softcap, group=group,
                                   scale=scale)
-    args = _kernel_args("dq", (q, k, v, do, lse, delta),
+    args = _kernel_args((q, k, v, do, lse, delta),
                         ("q", "k", "v", "do", "lse", "delta"), shapes, causal,
                         window, softcap, scale, bound_loop)
     dq = torch.empty_like(q)
@@ -333,7 +318,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
         return flash_dkv_reference(q, k, v, do, lse, delta, causal=causal,
                                    window=window, softcap=softcap, group=group,
                                    scale=scale)
-    args = _kernel_args("dkv", (q, k, v, do, lse, delta),
+    args = _kernel_args((q, k, v, do, lse, delta),
                         ("q", "k", "v", "do", "lse", "delta"), shapes, causal,
                         window, softcap, scale, bound_loop)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

@@ -13,11 +13,12 @@ the batched kernel's rows, the two MaxVol plans, the standalone MaxVol and
 the standalone sweep are bit-equal to the fused single kernel. Flash attention: float32 outputs and gradients within
 1e-4·max|plain| and lse within 1e-4 (float32 sums of up to T products in
 another order); bf16 outputs within one bf16 ulp of max|plain| (2^-7·max).
-The bf16 forward and dK/dV run on the tensor cores and round P (and dS) to
-bf16 once before their products: that adds at most 2^-9·Σ pⱼ|vⱼ| to o
-before its own rounding, and far less for random inputs; dQ rounds the same
-float32 value as its plain version once. Bounded vs exhaustive KV loops
-and two runs on the same inputs are bit-equal. RWKV scan: the output within
+The bf16 kernels run on the tensor cores. The forward and dK/dV round P
+(and dS) to bf16 once before their products: that adds at most
+2^-9·Σ pⱼ|vⱼ| to o before its own rounding, and far less for random inputs;
+dQ feeds dS·K with dS as bf16 hi + lo (~16 bits), because Σⱼ dSⱼ kⱼ cancels
+heavily. Bounded vs exhaustive KV loops and two runs on the same inputs are
+bit-equal. RWKV scan: the output within
 1e-5·max|plain| and each gradient within 1e-4·max|plain| (float32 sums over
 D and, for the gradients, over T in another order), plus 1e-6; reruns
 bit-equal (fixed summation order, no atomics).
@@ -242,7 +243,8 @@ def test_trainer_on_card_launches_kernel_per_refresh(cuda):
 # bidirectional; then the edges of the bf16 tensor-core kernels: the smoke
 # Dh 12 (zero-padded to 16, element copies) and Dh 16 with GQA 2, a ragged
 # S 200, Dh 256 with a window (KV tiles of 32, dK/dV's columns in two
-# halves), bidirectional
+# halves), bidirectional, and Dh 32 (the padded class no other case takes)
+# with GQA 2, a window and a ragged S 300
 FLASH_CASES = {
     "slice": (16, 36, 36, 256, 64, torch.bfloat16, True, None, None),
     "gemma2_like": (1, 32, 16, 1024, 128, torch.bfloat16, True, 512, 50.0),
@@ -255,6 +257,7 @@ FLASH_CASES = {
     "ragged_bf16_s200": (1, 8, 4, 200, 64, torch.bfloat16, True, None, None),
     "dh256_bf16_window": (1, 4, 2, 320, 256, torch.bfloat16, True, 96, None),
     "bidirectional_bf16": (2, 4, 4, 192, 64, torch.bfloat16, False, None, None),
+    "dh32_bf16_gqa2_window": (2, 8, 4, 300, 32, torch.bfloat16, True, 128, None),
 }
 
 
@@ -354,6 +357,38 @@ def test_flash_autograd_on_card_matches_cpu(cuda):
         grads[dev.type] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
     for got, want in zip(grads["cuda"], grads["cpu"]):
         _assert_close(got, want, "autograd")
+
+
+@pytest.mark.cuda
+def test_flash_smem_plans_fit_one_block(cuda):
+    """Every tile plan of the CUDA source fits one Hopper block at every
+    head dim up to 256; its float32 sums equal the wrapper's
+    ``f32_smem_bytes`` (what ``supports`` checks without the library). The
+    bf16 plans: bf16 rows of the padded head dim + 8; the forward holds 64 Q
+    rows and two K and two V tiles of 64 rows (32 at 256), dQ 64 Q and 64 dO
+    rows and the forward's K and V tiles, dK/dV 64 K and V rows, two Q and
+    two dO tiles of 64 rows (32 at 160 and 256) and two tiles of lse and
+    delta (float32)."""
+    for kind in ("fwd", "dq", "dkv"):
+        for dh in range(1, fa.MAX_HEAD_DIM + 1):
+            for dtype in (torch.bfloat16, torch.float32):
+                assert 0 < fa.plan_smem_bytes(kind, dh, dtype) <= fa.SMEM_LIMIT_BYTES, \
+                    (kind, dh, dtype)
+            assert fa.plan_smem_bytes(kind, dh, torch.float32) == fa.f32_smem_bytes(kind, dh)
+    padded = {12: 16, 16: 16, 32: 32, 64: 64, 112: 128, 128: 128, 160: 160, 256: 256}
+    for dh, dp in padded.items():
+        kv_rows = 32 if dp == 256 else 64
+        q_rows = 32 if dp >= 160 else 64
+        assert fa.plan_smem_bytes("fwd", dh, torch.bfloat16) == 2 * (64 + 4 * kv_rows) * (dp + 8)
+        assert fa.plan_smem_bytes("dq", dh, torch.bfloat16) == (
+            2 * (2 * 64 + 4 * kv_rows) * (dp + 8))
+        assert fa.plan_smem_bytes("dkv", dh, torch.bfloat16) == (
+            2 * (2 * 64 + 4 * q_rows) * (dp + 8) + 16 * q_rows)
+    assert fa.plan_smem_bytes("fwd", 64, torch.bfloat16) == 46_080
+    assert fa.plan_smem_bytes("dq", 64, torch.bfloat16) == 55_296
+    assert fa.plan_smem_bytes("dkv", 64, torch.bfloat16) == 56_320
+    with pytest.raises(ValueError, match="head_dim 257"):
+        fa.plan_smem_bytes("dq", 257, torch.bfloat16)
 
 
 @pytest.mark.cuda

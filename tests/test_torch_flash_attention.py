@@ -138,29 +138,18 @@ def test_cpu_tensors_launch_nothing_and_other_devices_raise():
 
 def test_smem_plan_covers_every_config_head_dim():
     """Head dims of the JAX package's configs (12 minicpm smoke, 16, 64
-    minicpm, 112, 128 gemma2, 160 stablelm, 256) fit the kernels'
-    shared-memory plans in both types; above 256 they are refused."""
+    minicpm, 112, 128 gemma2, 160 stablelm, 256) fit the float32 kernels'
+    shared-memory plans; above 256 they are refused. The bf16 plans are the
+    CUDA source's own and are held on the card
+    (``tests/test_torch_cuda.py::test_flash_smem_plans_fit_one_block``)."""
     for dh in (12, 16, 64, 112, 128, 160, 256):
         assert tfa.supports(dh), dh
     assert not tfa.supports(257)
-    # every head dim up to 256 fits one block in both types
+    # every head dim up to 256 fits one block
     assert all(tfa.supports(dh) for dh in range(1, tfa.MAX_HEAD_DIM + 1))
-    # float32 (and dQ in bf16): tiles of 64, 3 staged operands + P
-    assert tfa.smem_bytes("fwd", 64, torch.float32) == 4 * (3 * 64 + 64) * 68
-    assert tfa.smem_bytes("dkv", 256, torch.float32) == 4 * ((4 * 256 + 64) * 36 + 64)
-    assert tfa.smem_bytes("dq", 64, torch.bfloat16) == tfa.smem_bytes("dq", 64, torch.float32)
-    # bf16 forward and dK/dV: bf16 rows of the padded head dim + 8; the forward
-    # holds 64 Q rows and two K and two V tiles, dK/dV 64 K and V rows, two Q and
-    # two dO tiles and two tiles of lse and delta (float32)
-    padded = {12: 16, 16: 16, 64: 64, 112: 128, 128: 128, 160: 160, 256: 256}
-    kv_rows = {16: 64, 64: 64, 128: 64, 160: 64, 256: 32}
-    q_rows = {16: 64, 64: 64, 128: 64, 160: 32, 256: 32}
-    for dh, dp in padded.items():
-        assert tfa.smem_bytes("fwd", dh, torch.bfloat16) == 2 * (64 + 4 * kv_rows[dp]) * (dp + 8)
-        assert tfa.smem_bytes("dkv", dh, torch.bfloat16) == (
-            2 * (2 * 64 + 4 * q_rows[dp]) * (dp + 8) + 16 * q_rows[dp])
-    assert tfa.smem_bytes("fwd", 64, torch.bfloat16) == 46_080
-    assert tfa.smem_bytes("dkv", 64, torch.bfloat16) == 56_320
+    # float32: tiles of 64 (32 above 160), 3 staged operands + P
+    assert tfa.f32_smem_bytes("fwd", 64) == 4 * (3 * 64 + 64) * 68
+    assert tfa.f32_smem_bytes("dkv", 256) == 4 * ((4 * 256 + 64) * 36 + 64)
 
 
 # Small versions of the card cases of tests/test_torch_cuda.py (FLASH_CASES):
@@ -172,6 +161,7 @@ EMULATED = {
     "smoke_dh12_gqa2": (3, 2, 16, 12, True, None, None),
     "ragged_dh256_window": (2, 1, 200, 256, True, 96, None),
     "bidirectional": (2, 1, 192, 64, False, None, None),
+    "causal_1024": (2, 1, 1024, 64, True, None, None),
 }
 
 
@@ -183,8 +173,9 @@ def _emulated_kernels(q, k, v, do, causal, window, softcap, group):
     """The bf16 tensor-core kernels' arithmetic, densely: scores from bf16
     inputs with exact products and float32 sums, times the scale after the
     product; P and dS rounded to bf16 once before the P·V, Pᵀ·dO and dSᵀ·Q
-    products; m, l, lse, delta and the accumulators in float32; dK times the
-    scale at the end; outputs rounded to bf16."""
+    products; dS split into bf16 hi + lo (lo = bf16(dS − hi)) for dS·K, two
+    products; m, l, lse, delta and the accumulators in float32; dQ and dK
+    times the scale at the end; outputs rounded to bf16."""
     scale = q.shape[-1] ** -0.5
     qf, dof = q.float(), do.float()
     kf = k.float().repeat_interleave(group, dim=0)
@@ -210,25 +201,32 @@ def _emulated_kernels(q, k, v, do, causal, window, softcap, group):
     BHkv, T, Dh = k.shape
     dv = (_bf16(p).transpose(1, 2) @ dof).view(BHkv, group, T, Dh).sum(1)
     dk = (_bf16(ds).transpose(1, 2) @ qf).view(BHkv, group, T, Dh).sum(1) * scale
-    return o, lse, delta, dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+    ds_hi = _bf16(ds)
+    dq = (ds_hi @ kf + _bf16(ds - ds_hi) @ kf) * scale
+    return (o, lse, delta, dq.to(torch.bfloat16), dk.to(torch.bfloat16),
+            dv.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("name", list(EMULATED))
 def test_bf16_rounding_points_stay_within_card_tolerance(name):
     """Rounding P and dS to bf16 before their products (what the tensor-core
-    kernels do) keeps the forward's o and lse and dK/dV within the card
+    kernels do) keeps the forward's o and lse, dQ and dK/dV within the card
     tests' unchanged bf16 tolerance of the plain versions: 2⁻⁷·max|plain|
     (lse 1e-4). Rounding P adds at most 2⁻⁹·Σ pⱼ|vⱼ| to o before its own
-    rounding to bf16; for random inputs far less."""
+    rounding to bf16; for random inputs far less. dQ = Σⱼ dSⱼ kⱼ cancels
+    heavily (Σⱼ dSⱼ ≈ 0 on each row), so dS goes into dS·K as hi + lo:
+    rounded once, it comes close to the line at 1024 tokens."""
     BHkv, group, S, Dh, causal, window, softcap = EMULATED[name]
     rng = np.random.default_rng(7)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(n, S, Dh)).astype(np.float32))
                    .to(torch.bfloat16) for n in (BHkv * group, BHkv, BHkv, BHkv * group))
     opts = dict(causal=causal, window=window, softcap=softcap, group=group)
-    o, lse, delta, dk, dv = _emulated_kernels(q, k, v, do, **opts)
+    o, lse, delta, dq, dk, dv = _emulated_kernels(q, k, v, do, **opts)
     o_r, lse_r = tfa.flash_forward_reference(q, k, v, **opts)
+    dq_r = tfa.flash_dq_reference(q, k, v, do, lse, delta, **opts)
     dk_r, dv_r = tfa.flash_dkv_reference(q, k, v, do, lse, delta, **opts)
-    for got, want, what in ((o, o_r, "o"), (dk, dk_r, "dk"), (dv, dv_r, "dv")):
+    for got, want, what in ((o, o_r, "o"), (dq, dq_r, "dq"), (dk, dk_r, "dk"),
+                            (dv, dv_r, "dv")):
         assert got.dtype == want.dtype == torch.bfloat16
         err = (got.float() - want.float()).abs().max().item()
         tol = 2.0 ** -7 * want.float().abs().max().item()

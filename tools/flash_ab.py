@@ -12,10 +12,14 @@ imports ``repro_torch`` from its root and times ``flash_forward``,
 ``flash_dq`` and ``flash_dkv`` on the same seeded inputs twice: with CUDA
 events around the wrapper calls (``ms``: device time and the host time
 between launches), and under ``torch.profiler`` (``device_ms``: the device
-time of the flash kernels alone, per call). Prints the card's name and
-power limit, one row per (shape, kernel) with the four times of each kind
-and B's mean over A's, and writes every time to FILE as JSON. Needs one
-card; imports nothing of JAX.
+time of the flash kernels alone, per call). At the shapes without a window
+or softcap each turn also times PyTorch's scaled_dot_product_attention
+forward (``sdpa_fwd``) and one backward call for dQ, dK and dV
+(``sdpa_bwd``), the yardsticks, whose ``device_ms`` sums every kernel of
+the call; the same library runs in both turns, so their B/A is the noise.
+Prints the card's name and power limit, one row per (shape, kernel) with
+the four times of each kind and B's mean over A's, and writes every time
+to FILE as JSON. Needs one card; imports nothing of JAX.
 """
 import json
 import os
@@ -35,9 +39,10 @@ def _inputs(B, H, Hkv, S, Dh, dtype, seed=0):
     return rnd(B * H), rnd(B * Hkv), rnd(B * Hkv), rnd(B * H)
 
 
-def _times(fn, cuda_time_ms, budget_ms=300.0, max_iters=50):
-    """(CUDA-event ms per call, profiler device ms of the flash kernels per
-    call), over an iteration count sized to the budget."""
+def _times(fn, cuda_time_ms, match="flash_", budget_ms=300.0, max_iters=50):
+    """(CUDA-event ms per call, profiler device ms per call of the kernels
+    whose name holds ``match``), over an iteration count sized to the
+    budget."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     ms = cuda_time_ms(fn, iters=2, warmup=1)
@@ -49,9 +54,9 @@ def _times(fn, cuda_time_ms, budget_ms=300.0, max_iters=50):
         torch.cuda.synchronize()
     us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
              for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and "flash_" in e.key)
+             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key)
     if us <= 0:
-        raise RuntimeError("the profiler saw no flash kernel")
+        raise RuntimeError(f"the profiler saw no kernel matching {match!r}")
     return ms, us / 1e3 / iters
 
 
@@ -60,6 +65,7 @@ def _worker(root: str, build_only: bool) -> None:
     from chip_smoke import FLASH_SHAPES, cuda_time_ms
     sys.path.insert(0, os.path.join(root, "src"))   # this root's repro_torch
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     assert os.path.dirname(fa.__file__).startswith(os.path.abspath(root)), fa.__file__
@@ -79,6 +85,18 @@ def _worker(root: str, build_only: bool) -> None:
                          ("dkv", lambda: fa.flash_dkv(q, k, v, do, lse, delta, **kw))):
             ms, device_ms = _times(fn, cuda_time_ms)
             rows.append({"shape": name, "kind": kind, "ms": ms, "device_ms": device_ms})
+        if window is None and softcap is None:
+            q4, k4, v4 = (x.view(B, -1, S, Dh).detach().requires_grad_() for x in (q, k, v))
+            sdpa = dict(is_causal=causal, enable_gqa=H != Hkv, scale=Dh ** -0.5)
+            o4 = F.scaled_dot_product_attention(q4, k4, v4, **sdpa)
+            do4 = do.view(B, H, S, Dh)
+            for kind, fn in (("sdpa_fwd", lambda: F.scaled_dot_product_attention(
+                                 q4, k4, v4, **sdpa)),
+                             ("sdpa_bwd", lambda: torch.autograd.grad(
+                                 o4, (q4, k4, v4), do4, retain_graph=True))):
+                ms, device_ms = _times(fn, cuda_time_ms, match="")
+                rows.append({"shape": name, "kind": kind, "ms": ms, "device_ms": device_ms})
+            del q4, k4, v4, o4
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "rows": rows}))
@@ -125,7 +143,7 @@ def main() -> int:
             a, b = sum(ab["A"]) / 2, sum(ab["B"]) / 2
             cols.append(f"{m} A {ab['A'][0]:.4f} B {ab['B'][0]:.4f} B {ab['B'][1]:.4f} "
                         f"A {ab['A'][1]:.4f} B/A {b / a:.3f}")
-        print(f"{shape:16s} {kind:4s} " + " | ".join(cols))
+        print(f"{shape:16s} {kind:8s} " + " | ".join(cols))
         table.append({"shape": shape, "kind": kind, **t})
     if len(sys.argv) == 4:
         os.makedirs(os.path.dirname(os.path.abspath(sys.argv[3])), exist_ok=True)
