@@ -64,12 +64,15 @@ Phases (any failure exits nonzero and prints no result line):
   9. rwkv    — the RWKV6 recurrence's forward and backward kernels against
                their plain versions: the JAX kernel test's four shapes, the
                rwkv6-7b selection forward (BH 1024 = 16 × 64 heads, T 256,
-               D 64) and subset forward (BH 512), a long context (BH 64,
-               T 4096), a T that is not a multiple of the time tile and D
-               256, which the model never uses; reruns bit-equal, the no-grad
-               forward equal to the one that saves states, ``ops.rwkv_scan``
-               equal for every chunk. Each timed against its plain version
-               and its bound (no single PyTorch call computes it).
+               D 64), the subset's forward and backward at rank 8 (BH 512)
+               and at rank 2 (BH 128), again with decays down to 0, a long
+               context (BH 64, T 4096), a T that is not a multiple of the
+               time tile and D 256, which the model never uses; reruns
+               bit-equal, the no-grad forward equal to the one that saves
+               states, ``ops.rwkv_scan`` equal for every chunk. Each timed
+               against its plain version and its bound (no single PyTorch
+               call computes it); the kernels line takes the forward at BH
+               1024 and the backward at BH 128.
  10. rwkv_slice — ``Trainer`` on rwkv6-7b at full width with depth cut to
                16 of 32 layers: 6 steps, the slice's GRAFT settings, exact
                launch counts (rwkv_scan 16 × (6·2 + 3), its backward 16 × 6,
@@ -857,6 +860,11 @@ def phase_profile(ctx):
     _profile(ctx["trainer"], "profile")
 
 
+# substrings of the port's own kernels' names, for their share of a profiled step
+PORT_KERNEL_NAMES = ("rwkv_fwd", "rwkv_bwd", "flash_fwd", "flash_dq", "flash_dkv",
+                     "graft_select_kernel", "fast_maxvol_kernel", "projection_sweep_kernel")
+
+
 def _profile(tr, tag):
     """Parts of a step timed apart on a trained state, then one whole step
     under torch.profiler: its kernels by device time."""
@@ -911,6 +919,9 @@ def _profile(tr, tag):
           f"{sum(e.count for e in events)} kernel launches")
     for e in sorted(events, key=lambda e: -dev_us(e))[:12]:
         print(f"[{tag}]   {dev_us(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:110]}")
+    own = [e for e in events if any(n in e.key for n in PORT_KERNEL_NAMES)]
+    for e in sorted(own, key=lambda e: -dev_us(e)):
+        print(f"[{tag}]   the port's kernel {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:80]}")
 
 
 def phase_depth8(ctx):
@@ -946,15 +957,19 @@ def phase_depth8(ctx):
           f"flash {np.mean(steady['auto']):.1f} ms")
 
 
-# (name, BH, T, D): the JAX kernel test's shapes, rwkv6-7b's selection
-# forward (16 sequences × 64 heads) and subset forward (8 × 64), a long
-# context, a T that is not a multiple of the time tile, and a D the model
-# never uses
+# (name, BH, T, D, w_low): the JAX kernel test's shapes, rwkv6-7b's
+# selection forward (16 sequences × 64 heads), its subset forward and
+# backward at rank 8 (8 × 64) and at rank 2 (2 × 64, the rank phase
+# rwkv_slice picks), the rank-2 shape again with w in [0, 0.59) (decays down
+# to 0), a long context, a T that is not a multiple of the time tile, and a
+# D the model never uses; w uniform in [w_low, w_low + 0.59)
 RWKV_SHAPES = [
-    ("jax_1x32x16", 1, 32, 16), ("jax_4x64x32", 4, 64, 32),
-    ("jax_2x128x64", 2, 128, 64), ("jax_3x96x48", 3, 96, 48),
-    ("selection", 1024, 256, 64), ("subset", 512, 256, 64),
-    ("long_context", 64, 4096, 64), ("ragged_T", 64, 250, 64), ("D256", 16, 256, 256),
+    ("jax_1x32x16", 1, 32, 16, 0.4), ("jax_4x64x32", 4, 64, 32, 0.4),
+    ("jax_2x128x64", 2, 128, 64, 0.4), ("jax_3x96x48", 3, 96, 48, 0.4),
+    ("selection", 1024, 256, 64, 0.4), ("subset", 512, 256, 64, 0.4),
+    ("subset_r2", 128, 256, 64, 0.4), ("subset_w0", 128, 256, 64, 0.0),
+    ("long_context", 64, 4096, 64, 0.4), ("ragged_T", 64, 250, 64, 0.4),
+    ("D256", 16, 256, 256, 0.4),
 ]
 RWKV_REPLACES = {
     "rwkv_scan": "src/repro/kernels/rwkv_scan.py:49",
@@ -962,14 +977,15 @@ RWKV_REPLACES = {
                           "package differentiates lax.scan, src/repro/models/ssm.py:86)"}
 
 
-def _rwkv_inputs(BH, T, D, seed=0):
-    """The JAX kernel test's distributions, drawn on the card."""
+def _rwkv_inputs(BH, T, D, seed=0, w_low=0.4):
+    """The JAX kernel test's distributions, drawn on the card: w uniform in
+    [w_low, w_low + 0.59)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device="cuda") * scale
-    w = 0.4 + 0.59 * torch.rand((BH, T, D), generator=g, device="cuda")
+    w = w_low + 0.59 * torch.rand((BH, T, D), generator=g, device="cuda")
     return (rnd(BH, T, D, scale=0.3), rnd(BH, T, D, scale=0.3), rnd(BH, T, D, scale=0.3),
             w, rnd(BH, D, scale=0.1), rnd(BH, T, D))
 
@@ -994,8 +1010,8 @@ def phase_rwkv(ctx):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv_scan as rw
-    for name, BH, T, D in RWKV_SHAPES:
-        r, k, v, w, u, do = _rwkv_inputs(BH, T, D)
+    for name, BH, T, D, w_low in RWKV_SHAPES:
+        r, k, v, w, u, do = _rwkv_inputs(BH, T, D, w_low=w_low)
         o, states = rw.rwkv_scan_forward(r, k, v, w, u, save_states=True)
         grads = rw.rwkv_scan_backward(r, k, v, w, u, do, states)
         o_ng, none = rw.rwkv_scan_forward(r, k, v, w, u)
@@ -1045,9 +1061,9 @@ def phase_rwkv(ctx):
                   f"library none, bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops} flop); "
                   f"{t[kind] / b_ms:.1f}x the bound", flush=True)
         # the kernels line: the forward at the selection forward's shape, the
-        # backward at the subset forward's (where each runs on the path)
+        # backward at the subset's at rank 2 (where each runs on the path)
         for key, shape, kind, err in (("rwkv_scan", "selection", "fwd", errs["o"]),
-                                      ("rwkv_scan_backward", "subset", "bwd",
+                                      ("rwkv_scan_backward", "subset_r2", "bwd",
                                        max(errs[x] for x in ("dr", "dk", "dv", "dw", "du")))):
             if name == shape:
                 ctx["kernels"][key] = {

@@ -26,6 +26,14 @@ float32, o (BH, T, D) float32.
   forward saves the inputs and the tile states, the backward runs the
   backward kernel.
 
+The kernels walk T one step at a time, a block per stream (and per 64
+columns of S): the forward in 4 warps, a thread holding 8 rows × 4 columns
+of the state, with the bonus ``Σ r u k`` summed once per step; the backward
+in 8 warps, a thread holding 2 rows × 8 columns of S and dS, recomputing 8
+steps' states at a time from the tile state into registers (never dividing
+by w). Both sum across lanes and warps in a fixed order, without atomics,
+so reruns are bit-equal. ``csrc/rwkv_scan.cu`` says what bounds each.
+
 CPU tensors run the plain versions, ``rwkv_scan_reference`` (the per-step
 loop of ``ref.rwkv_chunk_ref``) and ``rwkv_scan_backward_reference`` (the
 explicit reverse loop); anything else raises. The kernels take any T and
@@ -42,8 +50,8 @@ import torch
 
 from repro_torch.kernels import build
 
-# time steps per tile: the kernels stage this many steps in shared memory
-# and the forward saves the state at the start of each tile (kTile in
+# time steps per tile: the forward saves the state at the start of each
+# tile and the backward stages this many steps in shared memory (kTile in
 # csrc/rwkv_scan.cu)
 TIME_TILE = 16
 # the JAX package's per-program VMEM budget (analysis/vmem.py)
@@ -52,6 +60,16 @@ VMEM_BUDGET_BYTES = 12 * 1024 * 1024
 
 def n_tiles(T: int) -> int:
     return -(-T // TIME_TILE)
+
+
+def backward_smem_bytes() -> int:
+    """Dynamic shared memory of one backward block (``BwdSmem`` in
+    csrc/rwkv_scan.cu): two buffers of the tile's r, k, w (as float4 rows),
+    v, do and start state, the per-step c and Σ r u k, u, the 8 warps' dv
+    partial sums and the tile's dr, dk, dw."""
+    tile, rows, cols, warps = TIME_TILE, 64, 64, 8
+    return (2 * tile * rows * 16 + 2 * 2 * tile * cols * 4 + 2 * rows * cols * 4
+            + 2 * tile * 8 + rows * 4 + tile * warps * cols * 4 + 3 * tile * rows * 4)
 
 
 def vmem_bytes(D: int, chunk: int = 32) -> int:
@@ -142,7 +160,11 @@ def _launchers():
     for fn, n_ptrs in sigs.values():
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return {name: fn for name, (fn, _) in sigs.items()}
+    lib.rwkv_scan_backward_smem_bytes.argtypes = []
+    lib.rwkv_scan_backward_smem_bytes.restype = ctypes.c_int
+    launchers = {name: fn for name, (fn, _) in sigs.items()}
+    launchers["backward_smem_bytes"] = lib.rwkv_scan_backward_smem_bytes
+    return launchers
 
 
 def rwkv_scan_forward(r, k, v, w, u, *, save_states: bool = False

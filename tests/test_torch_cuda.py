@@ -20,8 +20,9 @@ dQ feeds dS·K with dS as bf16 hi + lo (~16 bits), because Σⱼ dSⱼ kⱼ canc
 heavily. Bounded vs exhaustive KV loops and two runs on the same inputs are
 bit-equal. RWKV scan: the output within
 1e-5·max|plain| and each gradient within 1e-4·max|plain| (float32 sums over
-D and, for the gradients, over T in another order), plus 1e-6; reruns
-bit-equal (fixed summation order, no atomics).
+D and, for the gradients, over T in another order), plus 1e-6; reruns, and
+inputs that take the 4-byte copies instead of the 16-byte ones, bit-equal
+(fixed summation order, no atomics).
 """
 import numpy as np
 import pytest
@@ -408,12 +409,20 @@ def test_flash_refuses_what_it_cannot_take(cuda):
                          torch.zeros(2, 64, 32, device=cuda), group=2)
 
 
-# (BH, T, D): the JAX kernel test's shapes, a T that is not a multiple of the
-# kernels' time tile, w down to 0, a D above one register chunk that is not a
-# multiple of it, and D 256, which the model never uses (no-refusal rule)
+# (BH, T, D, w_low): the JAX kernel test's shapes, a T that is not a multiple
+# of the kernels' time tile, w down to 0, a D above one 64-row pass that is
+# not a multiple of it, and D 256, which the model never uses (no-refusal
+# rule); the grids of one, a few and the subset's 128 streams at D 64 (a
+# block per stream: 4 warps forward, 8 backward); D 48; T of one step, one
+# short of a tile, one past it and ragged at the path's width; w down to 0 at
+# BH 128
 RWKV_CASES = {f"jax_{BH}x{T}x{D}": (BH, T, D, 0.4) for BH, T, D, _ in RWKV_SHAPES}
 RWKV_CASES.update({"ragged_T": (3, 37, 64, 0.4), "w_to_zero": (2, 40, 12, 0.0),
-                   "D100": (2, 50, 100, 0.4), "D256": (2, 40, 256, 0.4)})
+                   "D100": (2, 50, 100, 0.4), "D256": (2, 40, 256, 0.4),
+                   "BH1_D64": (1, 64, 64, 0.4), "BH3_D64": (3, 64, 64, 0.4),
+                   "BH128_D64": (128, 256, 64, 0.4), "D48": (2, 40, 48, 0.4),
+                   "T1": (2, 1, 64, 0.4), "T15": (2, 15, 64, 0.4), "T17": (2, 17, 64, 0.4),
+                   "T250": (2, 250, 64, 0.4), "w_to_zero_BH128": (128, 256, 64, 0.0)})
 
 
 def _rwkv_on(name, dev, seed=0):
@@ -449,11 +458,31 @@ def test_rwkv_kernels_match_plain(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["ragged_T", "D100"])
+@pytest.mark.parametrize("name", ["ragged_T", "D100", "BH128_D64"])
 def test_rwkv_reruns_are_bit_equal(cuda, name):
     args = _rwkv_on(name, cuda, seed=1)
     first, again = _rwkv_kernels(*args), _rwkv_kernels(*args)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ragged_T", "T17"])
+def test_rwkv_unaligned_inputs_give_the_same_bits(cuda, name):
+    """Inputs that do not start on 16 bytes take the kernels' 4-byte copies
+    instead of the 16-byte ones: the same values land in shared memory, so
+    the outputs are bit-equal."""
+    r, k, v, w, u, do = _rwkv_on(name, cuda, seed=3)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=t.device)[1:].view_as(t).copy_(t)
+    aligned = _rwkv_kernels(r, k, v, w, u, do)
+    moved = _rwkv_kernels(*(shifted(t) for t in (r, k, v, w)), u, shifted(do))
+    assert all(torch.equal(a, b) for a, b in zip(aligned, moved))
+
+
+@pytest.mark.cuda
+def test_rwkv_backward_shared_memory_matches_its_plan(cuda):
+    assert rw._launchers()["backward_smem_bytes"]() == rw.backward_smem_bytes()
 
 
 @pytest.mark.cuda

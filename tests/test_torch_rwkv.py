@@ -23,6 +23,10 @@ on the CPU.
 * An 8-step GRAFT run against ``jax.jit(make_train_step)`` (no mesh): loss
   rtol 1e-4 (AdamW compounds the reassociation over 8 updates), ranks,
   pivots and weights EXACTLY equal, under ``use_pallas`` true and false.
+* The card kernels' order of sums (``csrc/rwkv_scan.cu``), emulated in
+  float32, against ``rwkv_chunk_ref`` and its ``jax.vjp`` at the card's
+  tolerances (o 1e-5·max + 1e-6, gradients 1e-4·max + 1e-6), and the
+  backward block's shared-memory plan.
 """
 import dataclasses
 import json
@@ -371,3 +375,177 @@ def test_cli_trains_rwkv_on_cpu(capsys):
     report = json.loads(capsys.readouterr().out)
     assert report["steps"] == 3 and np.isfinite(report["final_loss"])
     assert report["device"] == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the kernels' order of sums, emulated in float32 on the CPU
+# ---------------------------------------------------------------------------
+
+_F = np.float32
+
+
+def _fma(a, b, c):
+    """a·b + c rounded to float32 (the product is exact in float64; the sum
+    rounds there first, which can differ from one rounding in the last bit)."""
+    return (np.float64(1) * a * b + c).astype(_F)
+
+
+def _tree(x, masks):
+    """The kernels' shuffle sums over the last axis (lanes): at each mask m
+    every lane adds lane ``l ^ m``; float32 addition commutes, so every lane
+    ends with the same value. Returns lane 0's."""
+    lanes = np.arange(x.shape[-1])
+    for m in masks:
+        x = (x + x[..., lanes ^ m]).astype(_F)
+    return x[..., 0]
+
+
+def _fwd_rows(rg):
+    return [4 * rg + a for a in range(4)] + [32 + 4 * rg + a for a in range(4)]
+
+
+def _bwd_cols(cg):
+    return [4 * cg + a for a in range(4)] + [32 + 4 * cg + a for a in range(4)]
+
+
+def _emulate_forward(r, k, v, w, u):
+    """``csrc/rwkv_scan.cu``'s forward order of sums: per 64-row pass, each
+    of 8 row groups sums its 8 rows by FMA; the groups add by lane bits 2, 1,
+    0; the bonus Σ r u k is summed in 16 groups of 4 rows (lane bits 0-3);
+    o = fma(bonus, v, sum); passes add in order."""
+    BH, T, D = r.shape
+    o = np.zeros((BH, T, D), _F)
+    for i0 in range(0, D, 64):
+        rows = min(64, D - i0)
+        pad = lambda x: np.pad(x[..., i0:i0 + rows], [(0, 0)] * (x.ndim - 1) + [(0, 64 - rows)])
+        rp, kp, wp, up = pad(r), pad(k), pad(w), pad(u)
+        S = np.zeros((BH, 64, D), _F)
+        for t in range(T):
+            part = np.zeros((BH, D, 8), _F)
+            for rg in range(8):
+                for i in _fwd_rows(rg):
+                    part[..., rg] = _fma(rp[:, t, i, None], S[:, i, :], part[..., rg])
+            total = _tree(part, (4, 2, 1))
+            ru = (rp[:, t] * up).astype(_F)
+            bon = np.zeros((BH, 16), _F)
+            for lane in range(16):
+                i = 4 * lane
+                bon[:, lane] = (ru[:, i] * kp[:, t, i]).astype(_F)
+                for a in range(1, 4):
+                    bon[:, lane] = _fma(ru[:, i + a], kp[:, t, i + a], bon[:, lane])
+            bonus = _tree(bon, (1, 2, 4, 8))
+            val = _fma(bonus[:, None], v[:, t], total)
+            o[:, t] = val if i0 == 0 else (val + o[:, t]).astype(_F)
+            kv = (kp[:, t, :, None] * v[:, t, None, :]).astype(_F)
+            S = _fma(S, wp[:, t, :, None], kv)
+    return o
+
+
+def _emulate_backward(r, k, v, w, u, do):
+    """The backward's order of sums: per (64-row, 64-column) pass, dr, dk, dw
+    summed over a lane's 8 columns by FMA, then over the row's 8 lanes (lane
+    bits 0, 1, 2); dv over a lane's 2 rows, then its warp's 4 row groups
+    (lane bits 4, 3), then the 8 warps in order, then + (Σ r u k)·do; c and
+    Σ r u k by warp-wide sums (lane bits 4 to 0); passes add in order."""
+    BH, T, D = r.shape
+    dr, dk, dv, dw = (np.zeros((BH, T, D), _F) for _ in range(4))
+    du = np.zeros((BH, D), _F)
+    # c_t = v_t · do_t over all D: lane l sums columns l, l + 32, ...
+    cl = np.zeros((BH, T, 32), _F)
+    for lane in range(32):
+        for j in range(lane, max(D, 64), 32):
+            if j < D:
+                cl[..., lane] = _fma(v[..., j], do[..., j], cl[..., lane])
+    c = _tree(cl, (16, 8, 4, 2, 1))
+    for i0 in range(0, D, 64):
+        nr = min(64, D - i0)
+        du_acc = np.zeros((BH, 64), _F)
+        for j0 in range(0, D, 64):
+            nc = min(64, D - j0)
+
+            def pad(x, lo, n, axis=-1):
+                x = np.take(x, np.arange(lo, lo + n), axis=axis)
+                widths = [(0, 0)] * x.ndim
+                widths[axis] = (0, 64 - n)
+                return np.pad(x, widths)
+            rp, kp, wp = (pad(x, i0, nr) for x in (r, k, w))
+            up = pad(u, i0, nr)
+            vp, dop = pad(v, j0, nc), pad(do, j0, nc)
+            # the states S_{t-1} of the pass, by the forward's expression
+            prev, S = [], np.zeros((BH, 64, 64), _F)
+            for t in range(T):
+                prev.append(S)
+                S = _fma(S, wp[:, t, :, None], (kp[:, t, :, None] * vp[:, t, None, :]).astype(_F))
+            ru = (rp * up[:, None, :]).astype(_F)
+            bl = np.zeros((BH, T, 32), _F)
+            for lane in range(32):
+                bl[..., lane] = (ru[..., lane] * kp[..., lane]).astype(_F)
+                bl[..., lane] = _fma(ru[..., lane + 32], kp[..., lane + 32], bl[..., lane])
+            bonus = _tree(bl, (16, 8, 4, 2, 1))
+            dS = np.zeros((BH, 64, 64), _F)
+            for t in reversed(range(T)):
+                P = prev[t]
+                parts = np.zeros((3, BH, 64, 8), _F)
+                for cg in range(8):
+                    for j in _bwd_cols(cg):
+                        parts[0, ..., cg] = _fma(P[:, :, j], dop[:, t, None, j], parts[0, ..., cg])
+                        parts[1, ..., cg] = _fma(dS[:, :, j], vp[:, t, None, j], parts[1, ..., cg])
+                        parts[2, ..., cg] = _fma(dS[:, :, j], P[:, :, j], parts[2, ..., cg])
+                drp, dkp, dwp = _tree(parts, (1, 2, 4))
+                # dv: thread (warp wp, row group rg) holds rows 8 wp + rg and 8 wp + rg + 4
+                q = np.zeros((BH, 8, 4, 64), _F)
+                for wpi in range(8):
+                    for rg in range(4):
+                        i_a, i_b = 8 * wpi + rg, 8 * wpi + rg + 4
+                        x = (dS[:, i_a] * kp[:, t, i_a, None]).astype(_F)
+                        q[:, wpi, rg] = _fma(dS[:, i_b], kp[:, t, i_b, None], x)
+                per_warp = ((q[:, :, 0] + q[:, :, 2]).astype(_F)
+                            + (q[:, :, 1] + q[:, :, 3]).astype(_F)).astype(_F)
+                acc = per_warp[:, 0]
+                for wpi in range(1, 8):
+                    acc = (acc + per_warp[:, wpi]).astype(_F)
+                dvt = _fma(bonus[:, t, None], dop[:, t], acc)[:, :nc]
+                dv[:, t, j0:j0 + nc] = dvt if i0 == 0 else (dv[:, t, j0:j0 + nc] + dvt).astype(_F)
+                if j0 == 0:
+                    ct = c[:, t, None]
+                    drp = _fma((up * kp[:, t]).astype(_F), ct, drp)
+                    dkp = _fma((up * rp[:, t]).astype(_F), ct, dkp)
+                    du_acc = _fma((rp[:, t] * kp[:, t]).astype(_F), ct, du_acc)
+                for out, val in ((dr, drp), (dk, dkp), (dw, dwp)):
+                    val = val[:, :nr]
+                    out[:, t, i0:i0 + nr] = val if j0 == 0 else (out[:, t, i0:i0 + nr] + val).astype(_F)
+                dS = _fma(dS, wp[:, t, :, None], (rp[:, t, :, None] * dop[:, t, None, :]).astype(_F))
+        du[:, i0:i0 + nr] = du_acc[:, :nr]
+    return dr, dk, dv, dw, du
+
+
+@pytest.mark.parametrize("BH,T_,D,w_low", [(2, 40, 12, 0.0), (3, 33, 64, 0.4),
+                                          (2, 48, 64, 0.0), (1, 20, 100, 0.4)])
+def test_kernel_order_of_sums_within_card_tolerance(BH, T_, D, w_low):
+    """The card's kernels sum in another order than the JAX oracle: their
+    order, emulated in float32, holds o within 1e-5·max + 1e-6 and every
+    gradient within 1e-4·max + 1e-6 of ``rwkv_chunk_ref`` and its
+    ``jax.vjp`` (phase rwkv's tolerances), with decays down to 0 (w_low 0),
+    a T that is no multiple of the tiles, and D over one 64-row pass."""
+    r, k, v, w, u, do = rwkv_case(BH, T_, D, seed=4, w_low=w_low)
+    want_o = np.stack([np.asarray(jref.rwkv_chunk_ref(*map(jnp.asarray, (r[b], k[b], v[b], w[b],
+                                                                         u[b]))))
+                       for b in range(BH)])
+    got_o = _emulate_forward(r, k, v, w, u)
+    assert np.abs(got_o - want_o).max() <= 1e-5 * np.abs(want_o).max() + 1e-6
+    for name, g, e in zip(("dr", "dk", "dv", "dw", "du"), _emulate_backward(r, k, v, w, u, do),
+                          _jax_vjp(r, k, v, w, u, do)):
+        assert g.shape == e.shape
+        assert np.abs(g - e).max() <= 1e-4 * np.abs(e).max() + 1e-6, name
+
+
+def test_backward_shared_memory_plan_fits_one_block():
+    """The backward block's shared memory (``BwdSmem``): two buffers of 16
+    steps of r, k, w (float4 rows), v and do, two 64 × 64 start states, the
+    8 warps' dv partial sums and the tile's dr, dk, dw; under the 227 KB a
+    block can take, over the 48 KB of static shared memory."""
+    n = trw.backward_smem_bytes()
+    assert n == 2 * 16 * 64 * 16 + 2 * 2 * 16 * 64 * 4 + 2 * 64 * 64 * 4 + 2 * 16 * 8 \
+        + 64 * 4 + 16 * 8 * 64 * 4 + 3 * 16 * 64 * 4 == 127488
+    assert 48 * 1024 < n <= 232448
+    assert trw.TIME_TILE == 16 and trw.n_tiles(256) == 16 and trw.n_tiles(250) == 16

@@ -39,7 +39,7 @@ def _inputs(B, H, Hkv, S, Dh, dtype, seed=0):
     return rnd(B * H), rnd(B * Hkv), rnd(B * Hkv), rnd(B * H)
 
 
-def _times(fn, cuda_time_ms, match="flash_", budget_ms=300.0, max_iters=50):
+def times(fn, cuda_time_ms, match="flash_", budget_ms=300.0, max_iters=50):
     """(CUDA-event ms per call, profiler device ms per call of the kernels
     whose name holds ``match``), over an iteration count sized to the
     budget."""
@@ -83,7 +83,7 @@ def _worker(root: str, build_only: bool) -> None:
         for kind, fn in (("fwd", lambda: fa.flash_forward(q, k, v, **kw)),
                          ("dq", lambda: fa.flash_dq(q, k, v, do, lse, delta, **kw)),
                          ("dkv", lambda: fa.flash_dkv(q, k, v, do, lse, delta, **kw))):
-            ms, device_ms = _times(fn, cuda_time_ms)
+            ms, device_ms = times(fn, cuda_time_ms)
             rows.append({"shape": name, "kind": kind, "ms": ms, "device_ms": device_ms})
         if window is None and softcap is None:
             q4, k4, v4 = (x.view(B, -1, S, Dh).detach().requires_grad_() for x in (q, k, v))
@@ -94,7 +94,7 @@ def _worker(root: str, build_only: bool) -> None:
                                  q4, k4, v4, **sdpa)),
                              ("sdpa_bwd", lambda: torch.autograd.grad(
                                  o4, (q4, k4, v4), do4, retain_graph=True))):
-                ms, device_ms = _times(fn, cuda_time_ms, match="")
+                ms, device_ms = times(fn, cuda_time_ms, match="")
                 rows.append({"shape": name, "kind": kind, "ms": ms, "device_ms": device_ms})
             del q4, k4, v4, o4
         del q, k, v, do, o, lse, delta
@@ -102,48 +102,59 @@ def _worker(root: str, build_only: bool) -> None:
     print(json.dumps({"root": root, "rows": rows}))
 
 
-def _run(root: str, *flags: str) -> str:
-    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
-                          *flags], capture_output=True, text=True, timeout=900)
+def _run(script: str, root: str, *flags: str) -> str:
+    out = subprocess.run([sys.executable, os.path.abspath(script), "--worker", root, *flags],
+                         capture_output=True, text=True, timeout=900)
     if out.returncode:
         raise RuntimeError(f"worker for {root} failed:\n{out.stdout}\n{out.stderr}")
     return out.stdout
 
 
-def main() -> int:
+def run_ab(script: str, worker, doc: str) -> int:
+    """The A/B driver shared by the tools of this directory: ``script
+    OTHER_ROOT [--out FILE]`` builds both roots in parallel (``worker(root,
+    True)`` in a subprocess of ``script``, whose printed lines it repeats),
+    runs the turns A B B A (one subprocess each, ``worker(root, False)``
+    printing ``{"rows": [{"shape", "kind", "ms", "device_ms"}, ...]}`` as
+    its last line), prints the card's name and power limit and one row per
+    (shape, kind) with B's mean over A's, and writes every time to FILE as
+    JSON."""
     if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
-        _worker(sys.argv[2], "--build" in sys.argv[3:])
+        worker(sys.argv[2], "--build" in sys.argv[3:])
         return 0
     if len(sys.argv) not in (2, 4) or (len(sys.argv) == 4 and sys.argv[2] != "--out"):
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
-        print("no CUDA device: flash_ab.py needs an NVIDIA GPU", file=sys.stderr)
+        print(f"no CUDA device: {os.path.basename(script)} needs an NVIDIA GPU", file=sys.stderr)
         return 2
     roots = {"A": os.path.abspath(sys.argv[1]), "B": HERE}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
     with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda r: _run(r, "--build"), roots.values()))
-    times = {}
+        built = list(pool.map(lambda r: _run(script, r, "--build"), roots.values()))
+    for turn, out in zip(roots, built):
+        for line in out.strip().splitlines():
+            print(f"build {turn}: {line}")
+    by_row = {}
     for turn in "ABBA":
-        res = json.loads(_run(roots[turn]).strip().splitlines()[-1])
+        res = json.loads(_run(script, roots[turn]).strip().splitlines()[-1])
         for row in res["rows"]:
-            t = times.setdefault((row["shape"], row["kind"]),
+            t = by_row.setdefault((row["shape"], row["kind"]),
                                  {m: {"A": [], "B": []} for m in ("ms", "device_ms")})
             for m in t:
                 t[m][turn].append(row[m])
     print(f"A = {roots['A']}, B = {roots['B']}; ms in turns A B B A")
     table = []
-    for (shape, kind), t in times.items():
+    for (shape, kind), t in by_row.items():
         cols = []
         for m, ab in t.items():
             a, b = sum(ab["A"]) / 2, sum(ab["B"]) / 2
             cols.append(f"{m} A {ab['A'][0]:.4f} B {ab['B'][0]:.4f} B {ab['B'][1]:.4f} "
                         f"A {ab['A'][1]:.4f} B/A {b / a:.3f}")
-        print(f"{shape:16s} {kind:8s} " + " | ".join(cols))
+        print(f"{shape:16s} {kind:10s} " + " | ".join(cols))
         table.append({"shape": shape, "kind": kind, **t})
     if len(sys.argv) == 4:
         os.makedirs(os.path.dirname(os.path.abspath(sys.argv[3])), exist_ok=True)
@@ -154,4 +165,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_ab(__file__, _worker, __doc__))
