@@ -12,12 +12,14 @@ Phases (any failure exits nonzero and prints no result line):
                together), with ``-Xptxas -v``: registers, shared memory,
                spills and build seconds.
   3. kernels — graft_select against its plain PyTorch twin on the card, at
-               the training path's shapes and on degenerate inputs (exact
-               equality where the arithmetic is the same, a stated tolerance
-               where only the summation order differs), then timed with CUDA
-               events against the twin and its bound; its global-W plan at
-               V 1024×64 against the twin and bit-equal to the shared plan
-               where both fit; the batched kernel's rows bit-equal to the
+               the training paths' shapes (d 2304 and 4096) and on
+               degenerate inputs (exact equality where the arithmetic is the
+               same, a stated tolerance where only the summation order
+               differs), then timed with CUDA events and by the profiler's
+               device time against the twin and its bound; its global-W plan
+               at V 1024×64 against the twin; every pair of W plan and basis
+               plan (shared or global) that fits bit-equal to the pair the
+               wrapper picks; the batched kernel's rows bit-equal to the
                single kernel; fast_maxvol at (K,R,rank) (16,8,8),
                (256,32,32), (1024,64,64), (2048,256,256) and
                projection_sweep at (d,R) (2304,8), (1024,32), (16384,64)
@@ -243,13 +245,26 @@ def _graft_bound(K, R, d, rank, B=1):
     return _bound(nbytes, B * (_maxvol_flops(K, R, rank) + _sweep_flops(d, rank)))
 
 
-def _entry(name, replaces, launches, err, ms, plain_ms, bound):
+def _entry(name, replaces, launches, err, ms, plain_ms, bound, device_ms=None):
     """A kernels-line entry for a kernel of graft_select.cu: no single
-    PyTorch call computes any of them, so there is no library time."""
-    return {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/graft_select.cu",
-            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": None}
+    PyTorch call computes any of them, so there is no library time. The
+    refresh's entries also carry the profiler's device time."""
+    entry = {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/graft_select.cu",
+             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": None}
+    if device_ms is not None:
+        entry["device_ms"] = device_ms
+    return entry
+
+
+def _device_times(fn, match):
+    """(CUDA-event ms, profiler device ms) per call of ``fn``, the device
+    time summed over the kernels whose names hold ``match``
+    (``tools/flash_ab.py``'s ``times``)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from flash_ab import times
+    return times(fn, cuda_time_ms, match=match, max_iters=500)
 
 
 def phase_kernels(ctx):
@@ -257,7 +272,7 @@ def phase_kernels(ctx):
     import torch
     from repro_torch.kernels.graft_select import graft_select, graft_select_reference
     dev = torch.device("cuda")
-    cases = [("slice", 16, 8, 2304, 8), ("wide", 256, 64, 4096, 64),
+    cases = [("slice", 16, 8, 2304, 8), ("rwkv", 16, 8, 4096, 8), ("wide", 256, 64, 4096, 64),
              ("square", 16, 16, 2304, 16), ("rank_deficient", 64, 8, 2304, 6),
              ("ties", 12, 6, 512, 6)]
     err_atol, lv_rtol = 1e-5, 1e-5
@@ -280,18 +295,22 @@ def phase_kernels(ctx):
             raise AssertionError(f"graft_select disagrees with its twin on {kind}")
         if kind == "slice":
             ctx["graft_max_abs_err"] = max(err_d, lv_d)
-    # time at the training path's shapes
-    K, R, d, rank = 16, 8, 2304, 8
-    args = _graft_inputs("slice", K, R, d, rank, dev, seed=1)
-    ms = cuda_time_ms(lambda: graft_select(*args), iters=500, warmup=20)
-    plain_ms = cuda_time_ms(lambda: graft_select_reference(*args), iters=50, warmup=5)
-    bound_ms, bound_by, nbytes, flops = _graft_bound(K, R, d, rank)
-    print(f"[graft_select] K={K} R={R} d={d} rank={rank}: kernel {ms:.4f} ms, "
-          f"twin {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
-          f"({nbytes} bytes, {flops} flop); {ms / bound_ms:.0f}x the bound")
-    ctx["kernels"] = {"graft_select": _entry(
-        "graft_select", "src/repro/kernels/graft_select.py:137", None,
-        ctx["graft_max_abs_err"], ms, plain_ms, (bound_ms, bound_by))}
+    # time at the training paths' shapes: minicpm-2b's d 2304 (the kernels
+    # line) and rwkv6-7b's d 4096
+    for K, R, d, rank in ((16, 8, 2304, 8), (16, 8, 4096, 8)):
+        args = _graft_inputs("slice", K, R, d, rank, dev, seed=1)
+        ms = cuda_time_ms(lambda: graft_select(*args), iters=500, warmup=20)
+        _, device_ms = _device_times(lambda: graft_select(*args), "graft_select")
+        plain_ms = cuda_time_ms(lambda: graft_select_reference(*args), iters=50, warmup=5)
+        bound_ms, bound_by, nbytes, flops = _graft_bound(K, R, d, rank)
+        print(f"[graft_select] K={K} R={R} d={d} rank={rank}: kernel {ms:.4f} ms "
+              f"(events), {device_ms:.4f} ms (profiler device time), twin {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms by {bound_by} ({nbytes} bytes, {flops} flop); "
+              f"{device_ms / bound_ms:.0f}x the bound by device time", flush=True)
+        if d == 2304:
+            ctx["kernels"] = {"graft_select": _entry(
+                "graft_select", "src/repro/kernels/graft_select.py:137", None,
+                ctx["graft_max_abs_err"], ms, plain_ms, (bound_ms, bound_by), device_ms)}
     _kernels_wide_and_global(dev)
     _kernels_standalone(ctx, dev)
 
@@ -345,20 +364,28 @@ def _kernels_wide_and_global(dev):
               f"{flops} flop); {ms / b_ms:.0f}x the bound", flush=True)
         if not ok:
             raise AssertionError(f"graft_select disagrees with its twin at K={K} R={R}")
-    for K, R, d, rank in ((16, 8, 2304, 8), (256, 64, 4096, 64), (64, 8, 2304, 6)):
+    # every pair of W plan (MaxVol's working set) and basis plan (Qᵀ and ĝ)
+    # that fits the block, against the pair the wrapper picks
+    for K, R, d, rank in ((16, 8, 2304, 8), (16, 8, 4096, 8), (256, 64, 4096, 64),
+                          (64, 8, 2304, 6)):
         args = _random_refresh(K, R, d, dev, seed=3) + [rank]
-        shared = gs.graft_select(*args, plan="shared")
-        glob = gs.graft_select(*args, plan="global")
-        same = _all_equal(shared, glob)
-        t = {p: _time_auto(lambda p=p: gs.graft_select(*args, plan=p), max_iters=500)
-             for p in ("shared", "global")}
-        print(f"[graft_select] K={K} R={R} d={d} rank={rank}: global plan "
-              f"{'bit-equal to' if same else 'DIFFERS from'} shared plan "
-              f"(pivots, errors, logvol, G_sel); shared {t['shared']:.4f} ms, "
-              f"global {t['global']:.4f} ms", flush=True)
-        if not same:
-            raise AssertionError("graft_select's two plans disagree")
-    for B, K, R, d, rank in ((4, 16, 8, 2304, 8), (8, 256, 32, 1024, 32)):
+        want = gs.graft_select(*args)
+        pairs = [(p, q) for p in gs.PLANS for q in gs.PLANS
+                 if gs.smem_bytes(K, R, rank, p, d if q == "shared" else 0)
+                 <= gs.SMEM_LIMIT_BYTES]
+        same = {pq: _all_equal(gs.graft_select(*args, plan=pq[0], basis=pq[1]), want)
+                for pq in pairs}
+        t = {pq: _time_auto(lambda pq=pq: gs.graft_select(*args, plan=pq[0], basis=pq[1]),
+                            max_iters=500) for pq in pairs}
+        print(f"[graft_select] K={K} R={R} d={d} rank={rank}: picks W plan "
+              f"{gs.choose_plan(K, R, rank)}, basis plan "
+              f"{gs.choose_basis(K, R, d, rank, gs.choose_plan(K, R, rank))}; "
+              + ", ".join(f"W {p} / basis {q} {'bit-equal' if same[(p, q)] else 'DIFFERS'} "
+                          f"{t[(p, q)]:.4f} ms" for p, q in pairs)
+              + " (pivots, errors, logvol, G_sel)", flush=True)
+        if not all(same.values()):
+            raise AssertionError("graft_select's plans disagree")
+    for B, K, R, d, rank in ((4, 16, 8, 2304, 8), (4, 16, 8, 4096, 8), (8, 256, 32, 1024, 32)):
         Vs, Gs, gbs = _random_refresh(K, R, d, dev, B=B, seed=4)
         got = gs.graft_select_batched(Vs, Gs, gbs, rank)
         rows = all(_all_equal([t[b] for t in got], gs.graft_select(Vs[b], Gs[b], gbs[b], rank))
@@ -760,6 +787,8 @@ def _engine_times(cfg, Vs, Gs, gbs, scores, step, what):
     B, r = Vs.shape[0], cfg.r_max
     plain_cfg = dataclasses.replace(cfg, use_pallas=False)
     t = {"batched": _time_auto(lambda: gs.graft_select_batched(Vs, Gs, gbs, r), max_iters=500),
+         "batched_device": _device_times(lambda: gs.graft_select_batched(Vs, Gs, gbs, r),
+                                         "graft_select")[1],
          "singles": _time_auto(lambda: [gs.graft_select(Vs[b], Gs[b], gbs[b], r)
                                         for b in range(B)], max_iters=500),
          "plain": _time_auto(lambda: gs.graft_select_batched_reference(Vs, Gs, gbs, r)),
@@ -770,7 +799,8 @@ def _engine_times(cfg, Vs, Gs, gbs, scores, step, what):
     K, R, d = Vs.shape[1], Vs.shape[2], Gs.shape[1]
     bound = _graft_bound(K, R, d, r, B=B)
     print(f"[engine] {what} B={B} K={K} R={R} d={d} rank={r}: one batched launch "
-          f"{t['batched']:.4f} ms, {B} single launches {t['singles']:.4f} ms, plain chain "
+          f"{t['batched']:.4f} ms (events), {t['batched_device']:.4f} ms (profiler device "
+          f"time), {B} single launches {t['singles']:.4f} ms, plain chain "
           f"{t['plain']:.4f} ms; select_multi_batch with the epilogue {t['engine']:.4f} ms "
           f"(use_pallas) vs {t['engine_plain']:.4f} ms (plain); bound {bound[0]:.6f} ms by "
           f"{bound[1]} ({bound[2]} bytes, {bound[3]} flop); batched "
@@ -842,7 +872,7 @@ def phase_engine(ctx):
     ctx["kernels"]["graft_select_batched"] = _entry(
         "graft_select_batched", "src/repro/kernels/graft_select.py:175",
         launches["graft_select_batched"],
-        max(err_d, lv_d), t["batched"], t["plain"], bound)
+        max(err_d, lv_d), t["batched"], t["plain"], bound, t["batched_device"])
     # the selection benchmark's shape (benchmarks/bench_selection_overhead.py)
     bcfg = GraftConfig(rset=(8, 16, 32), eps=0.25, use_pallas=True)
     Vs, Gs, gbs = _random_refresh(256, 32, 1024, "cuda", B=8, seed=5)

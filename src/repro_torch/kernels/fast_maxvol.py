@@ -58,8 +58,7 @@ def fast_maxvol(V: torch.Tensor, rank: int, *, plan: Optional[str] = None):
     logvol = torch.empty(1, dtype=torch.float32, device=dev)
     work = torch.empty(gs.work_words(K, R), dtype=torch.float32, device=dev) \
         if plan == "global" else None
-    gs.launch("fast_maxvol", dev, (V, pivots, logvol, work),
-              (K, R, rank, int(plan == "global"), gs.smem_bytes(K, R, rank, plan)))
+    gs.launch("fast_maxvol", dev, (V, pivots, logvol, work), (K, R, rank, int(plan == "global")))
     fast_maxvol.launches += 1
     return pivots, logvol[0]
 

@@ -20,10 +20,13 @@ f32, G_sel (d, rank) f32)``. ``graft_select_batched`` is the port of
 
 Both refuse what the JAX kernel refuses: the 12 MB VMEM estimate of
 ``fused_select_vmem`` (``K·R + d·K + 2·d·rank + K·rank`` float32 words).
-Below it, MaxVol's working copy of V runs in shared memory when
-``smem_bytes(K, R, rank)`` fits one block (the "shared" plan) and in a
-global scratch otherwise (the "global" plan): the same kernel on another
-pointer, with bit-equal results.
+Below it, two plans put the refresh's state in shared memory where it fits
+one block and in a global scratch where it does not, each the same kernel
+on another pointer with bit-equal results: MaxVol's working copy of V (the
+W plan, ``choose_plan``) and the Gram-Schmidt basis ``Qᵀ (rank, d)`` with
+``ĝ`` (the basis plan, ``choose_basis``, beside the W plan's choice).
+``smem_bytes`` is the block's shared-memory sum, which the C library's
+``graft_select_smem_bytes`` computes too.
 """
 from __future__ import annotations
 
@@ -41,7 +44,9 @@ from repro_torch.kernels import build
 SMEM_LIMIT_BYTES = 232_448
 # the JAX package's per-program VMEM budget (analysis/vmem.py)
 VMEM_BUDGET_BYTES = 12 * 1024 * 1024
-_WARPS = 8        # csrc/graft_select.cu kThreads / 32
+_THREADS = 256    # csrc/graft_select.cu kThreads
+_WARPS = _THREADS // 32
+TILE_COLS = 16    # csrc/graft_select.cu kTileCols
 PLANS = ("shared", "global")
 
 
@@ -52,19 +57,41 @@ def work_words(K: int, R: int) -> int:
     return K * R + 2 * K + R
 
 
-def smem_bytes(K: int, R: int, rank: int, plan: str = "shared") -> int:
+def basis_words(d: int, rank: int) -> int:
+    """The Gram-Schmidt basis in float32 words: ``Qᵀ (rank, d)`` and ``ĝ``
+    as one more row — ``basis_words`` in the CUDA source."""
+    return (rank + 1) * d
+
+
+def tile_words(cols: int) -> int:
+    """The warps' tiles that stage rows of ``cols`` floats of G (32 rows of
+    ``cols + 1`` floats a warp, up to ``TILE_COLS`` columns) — ``tile_words``
+    in the CUDA source."""
+    return _THREADS * (cols + 1) if cols <= TILE_COLS else 0
+
+
+def smem_bytes(K: int, R: int, rank: int, plan: str = "shared", basis_d: int = 0) -> int:
     """Dynamic shared memory of one refresh block — the same sum as
-    ``smem_words`` in ``csrc/graft_select.cu``: under the shared plan V's
-    working copy (K·R floats) dominates; the rest is per-rank and per-warp
-    scratch, which stays in shared memory under both plans."""
-    rest = (_WARPS + 2) * rank + 2 * _WARPS + 2
-    return 4 * ((work_words(K, R) if plan == "shared" else 0) + rest)
+    ``smem_words`` in ``csrc/graft_select.cu``: V's working copy (K·R
+    floats and per-row scratch) under the shared W plan, the basis of
+    ``basis_d`` columns (0: the basis is global), and under every plan the
+    per-rank and per-warp scratch (two reduction slots) and G's staging
+    tiles."""
+    rest = (2 * _WARPS + 2) * rank + 2 * _WARPS + 2 + tile_words(K)
+    work = work_words(K, R) if plan == "shared" else 0
+    return 4 * (work + (basis_words(basis_d, rank) if basis_d else 0) + rest)
 
 
 def choose_plan(K: int, R: int, rank: int) -> str:
-    """``"shared"`` when the working set fits one block's shared memory,
-    else ``"global"``."""
+    """The W plan: ``"shared"`` when V's working set fits one block's
+    shared memory, else ``"global"``."""
     return "shared" if smem_bytes(K, R, rank) <= SMEM_LIMIT_BYTES else "global"
+
+
+def choose_basis(K: int, R: int, d: int, rank: int, plan: str) -> str:
+    """The basis plan beside W plan ``plan``: ``"shared"`` when the basis
+    fits the block's shared memory with the rest, else ``"global"``."""
+    return "shared" if smem_bytes(K, R, rank, plan, d) <= SMEM_LIMIT_BYTES else "global"
 
 
 def fused_budget_bytes(K: int, R: int, d: int, rank: int) -> int:
@@ -135,7 +162,7 @@ def _check_batched(V: torch.Tensor, G: torch.Tensor, g_bar: torch.Tensor,
 
 
 def resolve_plan(K: int, R: int, rank: int, plan: Optional[str]) -> str:
-    """The plan the shape needs, or the one the caller forces (tests and
+    """The W plan the shape needs, or the one the caller forces (tests and
     ``chip_smoke.py`` only: the two plans are held bit-equal there)."""
     if plan is None:
         return choose_plan(K, R, rank)
@@ -149,6 +176,23 @@ def resolve_plan(K: int, R: int, rank: int, plan: Optional[str]) -> str:
     return plan
 
 
+def resolve_basis(K: int, R: int, d: int, rank: int, plan: str,
+                  basis: Optional[str]) -> str:
+    """The basis plan the shape needs beside W plan ``plan``, or the one the
+    caller forces (tests and ``chip_smoke.py`` only, as ``plan``)."""
+    if basis is None:
+        return choose_basis(K, R, d, rank, plan)
+    if basis not in PLANS:
+        raise ValueError(f"basis {basis!r} not in {PLANS}")
+    need = smem_bytes(K, R, rank, plan, d)
+    if basis == "shared" and need > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"the shared basis keeps Qᵀ and ĝ (rank={rank}, d={d}) in shared memory "
+            f"and needs {need} bytes beside the {plan} W plan, above the "
+            f"{SMEM_LIMIT_BYTES} bytes (227 KB) one Hopper thread block can use")
+    return basis
+
+
 @functools.lru_cache(maxsize=None)
 def launchers():
     """The C entry points of ``csrc/graft_select.cu``, built at first use,
@@ -157,12 +201,22 @@ def launchers():
     from repro_torch.kernels import build
     lib = build.load("graft_select").lib
     sigs = {"graft_select": (lib.graft_select_launch, 9, 7),
-            "fast_maxvol": (lib.fast_maxvol_launch, 4, 5),
-            "projection_sweep": (lib.projection_sweep_launch, 5, 4)}
+            "fast_maxvol": (lib.fast_maxvol_launch, 4, 4),
+            "projection_sweep": (lib.projection_sweep_launch, 5, 3)}
     for fn, n_ptrs, n_ints in sigs.values():
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return {name: fn for name, (fn, _, _) in sigs.items()}
+    lib.graft_select_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.graft_select_smem_bytes.restype = ctypes.c_int
+    return {"smem_bytes": lib.graft_select_smem_bytes,
+            **{name: fn for name, (fn, _, _) in sigs.items()}}
+
+
+def library_smem_bytes(K: int, R: int, d: int, rank: int, plan: str, basis: str) -> int:
+    """The C library's own sum for one refresh block under the two plans
+    (-1 above 227 KB); ``smem_bytes`` mirrors it."""
+    return launchers()["smem_bytes"](K, R, d, rank, int(plan == "global"),
+                                     int(basis == "global"))
 
 
 def launch(name: str, device: torch.device, pointers, ints) -> None:
@@ -172,34 +226,38 @@ def launch(name: str, device: torch.device, pointers, ints) -> None:
 
 
 def _launch(V, G, g_bar, rank: int, B: int, K: int, R: int, d: int,
-            plan: Optional[str]):
+            plan: Optional[str], basis: Optional[str]):
     build.check_kernel_operands(V=V, G=G, g_bar=g_bar)
     if B > 65535:
         raise ValueError(f"batch stack of {B} refreshes exceeds the grid's 65535 blocks")
     plan = resolve_plan(K, R, rank, plan)
+    basis = resolve_basis(K, R, d, rank, plan, basis)
     dev = V.device
     pivots = torch.empty((B, rank), dtype=torch.int32, device=dev)
     errors = torch.empty((B, rank), dtype=torch.float32, device=dev)
     logvol = torch.empty(B, dtype=torch.float32, device=dev)
     G_sel = torch.empty((B, d, rank), dtype=torch.float32, device=dev)
-    Qt = torch.empty((B, rank, d), dtype=torch.float32, device=dev)  # Qᵀ scratch
+    Qt = torch.empty(B * basis_words(d, rank), dtype=torch.float32, device=dev) \
+        if basis == "global" else None                                # Qᵀ and ĝ
     work = torch.empty(B * work_words(K, R), dtype=torch.float32, device=dev) \
         if plan == "global" else None
     launch("graft_select", dev, (V, G, g_bar, pivots, errors, logvol, G_sel, Qt, work),
-           (B, K, R, d, rank, int(plan == "global"), smem_bytes(K, R, rank, plan)))
+           (B, K, R, d, rank, int(plan == "global"), int(basis == "global")))
     return pivots, errors, logvol, G_sel
 
 
 def graft_select(V: torch.Tensor, G: torch.Tensor, g_bar: torch.Tensor,
-                 rank: int, *, plan: Optional[str] = None):
+                 rank: int, *, plan: Optional[str] = None,
+                 basis: Optional[str] = None):
     """One refresh. V: (K, R); G: (d, K); g_bar: (d,). Returns
     ``(pivots, errors, logvol, G_sel)``. CUDA tensors go to the kernel
     (float32, contiguous, else it raises); CPU tensors to the plain version.
-    ``plan`` forces the shared or global plan; leave it ``None``."""
+    ``plan`` and ``basis`` force the shared or global W and basis plans;
+    leave them ``None``."""
     K, R, d = _check(V, G, g_bar, rank)
     if not build.route("graft_select", V, G, g_bar):
         return graft_select_reference(V, G, g_bar, rank)
-    pivots, errors, logvol, G_sel = _launch(V, G, g_bar, rank, 1, K, R, d, plan)
+    pivots, errors, logvol, G_sel = _launch(V, G, g_bar, rank, 1, K, R, d, plan, basis)
     graft_select.launches += 1
     return pivots[0], errors[0], logvol[0], G_sel[0]
 
@@ -213,7 +271,7 @@ def graft_select_batched(V: torch.Tensor, G: torch.Tensor, g_bar: torch.Tensor,
     B, K, R, d = _check_batched(V, G, g_bar, rank)
     if not build.route("graft_select_batched", V, G, g_bar):
         return graft_select_batched_reference(V, G, g_bar, rank)
-    out = _launch(V, G, g_bar, rank, B, K, R, d, None)
+    out = _launch(V, G, g_bar, rank, B, K, R, d, None, None)
     graft_select_batched.launches += 1
     return out
 

@@ -11,8 +11,9 @@ zeroed). Returns ``errors (R,) f32``.
 * For CUDA tensors it launches ``projection_sweep_kernel`` of
   ``csrc/graft_select.cu`` (stage 3 of the fused refresh, one thread block
   looping over d in strides, the basis in a global scratch) and counts the
-  launch in ``projection_sweep.launches``. Its errors are bit-equal to the
-  fused kernel's on the same gathered columns. A build or launch failure
+  launch in ``projection_sweep.launches``. It stages G's columns and ĝ into
+  the basis first, as the fused kernel does, so its errors are bit-equal to
+  the fused kernel's on the same gathered columns. A build or launch failure
   raises; nothing falls back to the plain version.
 * For CPU tensors it runs ``core.projection.prefix_projection_errors``.
 
@@ -34,13 +35,15 @@ _WARPS = 8        # csrc/graft_select.cu kThreads / 32
 
 
 def red_words(R: int) -> int:
-    """The reduction scratch, ``sweep_red_words`` in the CUDA source."""
-    return (_WARPS + 1) * R
+    """The reduction scratch (two slots of per-warp partials and the
+    coefficients), ``sweep_red_words`` in the CUDA source."""
+    return (2 * _WARPS + 1) * R
 
 
 def smem_bytes(R: int, global_red: bool) -> int:
-    """Dynamic shared memory of the sweep block (``sweep_smem_words``)."""
-    return 4 * ((0 if global_red else red_words(R)) + _WARPS)
+    """Dynamic shared memory of the sweep block (``sweep_smem_words``): the
+    reduction scratch unless ``global_red``, and G's staging tiles."""
+    return 4 * ((0 if global_red else red_words(R)) + gs.tile_words(R))
 
 
 def _check(G: torch.Tensor, g_bar: torch.Tensor) -> None:
@@ -70,10 +73,10 @@ def projection_sweep(G: torch.Tensor, g_bar: torch.Tensor, *,
         raise ValueError(f"plan {plan!r} is not one of {gs.PLANS} that R={R} fits")
     global_red = plan == "global" or not fits
     errors = torch.empty(R, dtype=torch.float32, device=dev)
-    Qt = torch.empty((R, d), dtype=torch.float32, device=dev)   # Qᵀ scratch
+    Qt = torch.empty(gs.basis_words(d, R), dtype=torch.float32, device=dev)   # Qᵀ and ĝ
     red = torch.empty(red_words(R), dtype=torch.float32, device=dev) if global_red else None
     gs.launch("projection_sweep", dev, (G, g_bar, errors, Qt, red),
-              (d, R, int(global_red), smem_bytes(R, global_red)))
+              (d, R, int(global_red)))
     projection_sweep.launches += 1
     return errors
 

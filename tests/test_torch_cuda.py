@@ -7,10 +7,13 @@ that has only PyTorch and the CUDA toolkit:
 
 Tolerances: graft_select's pivots and ``G_sel`` bit-equal (same
 single-rounding elimination; the gather is a copy); errors atol 1e-5 and
-logvol rtol 1e-5, because the kernel's block reductions sum in another
-order than PyTorch. The kernels of one source share their device code, so
-the batched kernel's rows, the two MaxVol plans, the standalone MaxVol and
-the standalone sweep are bit-equal to the fused single kernel. Flash attention: float32 outputs and gradients within
+logvol rtol 1e-5, because the kernel sums in another order than PyTorch:
+each Gram-Schmidt coefficient, norm and dot over a thread's rows in order,
+then over a warp's lanes by a xor butterfly, then over the 8 warps in warp
+order (the log-volume in pivot order by one thread). The kernels of one
+source share their device code, so the batched kernel's rows, the two
+MaxVol (W) plans, the two basis plans, the standalone MaxVol and the
+standalone sweep are bit-equal to the fused single kernel. Flash attention: float32 outputs and gradients within
 1e-4·max|plain| and lse within 1e-4 (float32 sums of up to T products in
 another order); bf16 outputs within one bf16 ulp of max|plain| (2^-7·max).
 The bf16 kernels run on the tensor cores. The forward and dK/dV round P
@@ -134,17 +137,35 @@ def test_batched_kernel_rows_equal_single_kernel(cuda, B, K, R, d, rank):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,R,d,rank", [(16, 8, 2304, 8), (256, 64, 512, 64),
-                                        (64, 8, 32, 6)])
-def test_global_plan_bit_equal_to_shared_plan(cuda, K, R, d, rank):
+@pytest.mark.parametrize("basis", gs.PLANS)
+@pytest.mark.parametrize("K,R,d,rank", [(16, 8, 2304, 8), (16, 8, 4096, 8),
+                                        (256, 64, 512, 64), (64, 8, 32, 6)])
+def test_global_plan_bit_equal_to_shared_plan(cuda, K, R, d, rank, basis):
+    """Both W plans under either basis plan give the bits of the plans the
+    wrapper picks (at these shapes every pair fits one block)."""
     V, G, gb = _on(cuda, *(x[0] for x in _random_stack(1, K, R, d, seed=K)))
-    shared = graft_select(V, G, gb, rank, plan="shared")
-    glob = graft_select(V, G, gb, rank, plan="global")
-    for a, b in zip(shared, glob):
-        assert torch.equal(a, b)
+    picked = graft_select(V, G, gb, rank)
+    shared = graft_select(V, G, gb, rank, plan="shared", basis=basis)
+    glob = graft_select(V, G, gb, rank, plan="global", basis=basis)
+    for a, b, c in zip(shared, glob, picked):
+        assert torch.equal(a, b) and torch.equal(a, c)
     for plan in ("shared", "global"):
         p, lv = fm.fast_maxvol(V, rank, plan=plan)
         assert torch.equal(p, shared[0]) and torch.equal(lv, shared[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,R,d,rank", [(16, 8, 2304, 8), (16, 8, 4096, 8),
+                                        (16, 8, 5120, 8), (256, 64, 4096, 64),
+                                        (1024, 64, 1024, 64), (64, 8, 32, 6)])
+def test_refresh_shared_memory_matches_the_library(cuda, K, R, d, rank):
+    """The C library's shared-memory sum of a refresh block equals the
+    wrapper's mirror under every pair of plans (-1 above 227 KB)."""
+    for plan in gs.PLANS:
+        for basis in gs.PLANS:
+            want = gs.smem_bytes(K, R, rank, plan, d if basis == "shared" else 0)
+            got = gs.library_smem_bytes(K, R, d, rank, plan, basis)
+            assert got == (want if want <= gs.SMEM_LIMIT_BYTES else -1), (plan, basis)
 
 
 @pytest.mark.cuda

@@ -55,13 +55,39 @@ def test_shape_validation():
                      torch.zeros(4, device="meta"), 4)
 
 
-def test_shared_memory_budget_formula():
-    """V's K·R·4 bytes dominate the block's shared memory; the slice's and
-    the wide test shape fit, a 1024×64 V does not."""
+# (K, R, d, rank, W plan, basis plan) the wrapper picks: the minicpm-2b and
+# rwkv6-7b refreshes, gemma2-27b's and stablelm-12b's widths at rank 8, a
+# wide refresh whose basis does not fit, and a V that does not fit either
+PLAN_CASES = [(16, 8, 2304, 8, "shared", "shared"), (16, 8, 4096, 8, "shared", "shared"),
+              (16, 8, 4608, 8, "shared", "shared"), (16, 8, 5120, 8, "shared", "shared"),
+              (256, 64, 4096, 64, "shared", "global"),
+              (1024, 64, 1024, 64, "global", "global")]
+
+
+@pytest.mark.parametrize("K,R,d,rank,plan,basis", PLAN_CASES)
+def test_shared_memory_budget_formula(K, R, d, rank, plan, basis):
+    """V's K·R·4 bytes (shared W plan) and the basis's (rank+1)·d·4 bytes
+    (shared basis plan) dominate the block's shared memory; the rest is the
+    per-rank and per-warp scratch with its two reduction slots, and for
+    K <= 16 the warps' tiles that stage G's rows. The slice's
+    and the wide test shape's V fit, a 1024×64 V does not."""
+    from repro_torch.kernels.graft_select import basis_words, work_words
+    tiles = 256 * (K + 1) if K <= 16 else 0        # G's staging tiles, 32 rows a warp
+    rest = 4 * ((2 * 8 + 2) * rank + 2 * 8 + 2 + tiles)
+    for p in ("shared", "global"):
+        work = 4 * work_words(K, R) if p == "shared" else 0
+        assert smem_bytes(K, R, rank, p) == work + rest
+        assert smem_bytes(K, R, rank, p, d) == work + 4 * basis_words(d, rank) + rest
+    assert basis_words(d, rank) == (rank + 1) * d
+    on_chip = smem_bytes(K, R, rank, plan, d if basis == "shared" else 0)
+    assert on_chip <= SMEM_LIMIT_BYTES
+    assert (smem_bytes(K, R, rank, plan, d) <= SMEM_LIMIT_BYTES) == (basis == "shared")
     assert smem_bytes(16, 8, 8) < SMEM_LIMIT_BYTES
     assert smem_bytes(256, 64, 64) < SMEM_LIMIT_BYTES
     assert smem_bytes(1024, 64, 64) > SMEM_LIMIT_BYTES
     assert smem_bytes(256, 64, 64) >= 256 * 64 * 4
+    # the slice's basis: 9 rows of 2304 floats, 73.7 KB of Qᵀ and 9.2 KB of ĝ
+    assert smem_bytes(16, 8, 8, "shared", 2304) - smem_bytes(16, 8, 8) == 4 * 9 * 2304
 
 
 def test_unfused_chain_vs_pallas_reference_chain():
@@ -80,19 +106,33 @@ def test_unfused_chain_vs_pallas_reference_chain():
     np.testing.assert_allclose(np.asarray(je), te.numpy(), atol=1e-5)
 
 
-def test_plan_choice_and_the_fused_budget_refusal():
-    """The wrapper keeps V's working copy in shared memory where it fits
-    and in a global scratch where it does not (1024×64 runs now); it
+@pytest.mark.parametrize("K,R,d,rank,plan,basis", PLAN_CASES)
+def test_plan_choice_and_the_fused_budget_refusal(K, R, d, rank, plan, basis):
+    """The wrapper keeps V's working copy and the Gram-Schmidt basis in
+    shared memory where they fit and in a global scratch where they do not
+    (1024×64 runs now); forcing a shared plan that does not fit raises. It
     refuses exactly what the JAX kernel's 12 MB estimate refuses, with the
     same message."""
-    from repro_torch.kernels.graft_select import (VMEM_BUDGET_BYTES, choose_plan,
-                                                  fused_budget_bytes)
+    from repro_torch.kernels.graft_select import (VMEM_BUDGET_BYTES, choose_basis,
+                                                  choose_plan, fused_budget_bytes,
+                                                  resolve_basis, resolve_plan)
+    assert choose_plan(K, R, rank) == plan
+    assert choose_basis(K, R, d, rank, plan) == basis
+    assert resolve_basis(K, R, d, rank, plan, None) == basis
+    assert resolve_basis(K, R, d, rank, plan, "global") == "global"
+    if basis == "global":
+        with pytest.raises(ValueError, match="shared basis"):
+            resolve_basis(K, R, d, rank, plan, "shared")
+    if plan == "global":
+        with pytest.raises(ValueError, match="shared plan"):
+            resolve_plan(K, R, rank, "shared")
+    assert fused_budget_bytes(K, R, d, rank) < VMEM_BUDGET_BYTES
     assert choose_plan(16, 8, 8) == "shared"
     assert choose_plan(256, 64, 64) == "shared"
     assert choose_plan(1024, 64, 64) == "global"
     assert choose_plan(2048, 256, 256) == "global"
-    # the global plan keeps only the per-rank and per-warp scratch in a block
-    assert smem_bytes(1024, 64, 64, "global") == 4 * ((8 + 2) * 64 + 2 * 8 + 2)
+    # the global plans keep only the per-rank and per-warp scratch in a block
+    assert smem_bytes(1024, 64, 64, "global") == 4 * ((2 * 8 + 2) * 64 + 2 * 8 + 2)
     assert fused_budget_bytes(1024, 64, 8, 64) < VMEM_BUDGET_BYTES
     V = torch.zeros(1024, 64)
     got = graft_select(V, torch.zeros(8, 1024), torch.zeros(8), 64)   # plain version
