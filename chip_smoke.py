@@ -38,15 +38,25 @@ Phases (any failure exits nonzero and prints no result line):
                function, PyTorch's scaled_dot_product_attention, with the
                ratios to SDPA and to the bound (every row also in
                ``build/chip_smoke_flash.json``).
-  5. slice   — the training path through the user entry point
+  5. optim   — the optimizer step's kernels on minicpm-2b's leaves at full
+               depth (2.725 B params): grad_norm (A) against its plain
+               version at rtol 1e-6, reruns bit-equal; optimizer_update (B)
+               bit-equal to its plain version over 3 steps for AdamW, SGD and
+               Lion, bf16 and float32 params, float32 and bf16 state, given
+               A's clip factor (in batches of leaves that fit twice); then A
+               and B timed on the slice's dtypes by CUDA events and profiler
+               device time beside their bounds, their plain versions and
+               torch.nn.utils.get_total_norm / torch.optim.AdamW(fused=True).
+  6. slice   — the training path through the user entry point
                (``repro_torch.api.Trainer``) on minicpm-2b at full width and
                depth: 6 steps, GRAFT refresh every 2 steps through the
                kernel, attention ``auto``, which must resolve to flash. The
                kernels' launch counts are zeroed just before and read just
                after; each must equal what the path reckons (0 for the
                selection kernels the training path does not run; those are
-               counted where phase engine drives them).
-  6. engine  — the multi-batch selection engine on the slice's trained
+               counted where phase engine drives them; grad_norm one a step,
+               optimizer_update one a step per dtype group).
+  7. engine  — the multi-batch selection engine on the slice's trained
                params: a 4-microbatch stack (16 × 256 each, ``SyntheticLM.
                microbatch_stack``) through ``selection_inputs`` (flash) and
                ``select_multi_batch`` (GRAFT, ``use_pallas``): exactly one
@@ -56,14 +66,14 @@ Phases (any failure exits nonzero and prints no result line):
                projection_sweep on the same stack, bit-equal to the fused
                kernel; all three timed, and again at the selection
                benchmark's shape B=8, K=256, R=32, d=1024, rank 32.
-  7. profile — where a steady step's time goes: the selection refresh, the
-               subset forward/backward, clipping and the AdamW update timed
+  8. profile — where a steady step's time goes: the selection refresh, the
+               subset forward/backward, grad norm and the AdamW update timed
                apart with CUDA events on the trained state, and the top
                kernels of one whole step by device time (torch.profiler).
-  8. depth8  — the same slice with depth cut to 8 layers, dense attention
+  9. depth8  — the same slice with depth cut to 8 layers, dense attention
                beside flash from the same seed, run dense, flash, flash,
                dense: steady step times from one call.
-  9. rwkv    — the RWKV6 recurrence's forward and backward kernels against
+ 10. rwkv    — the RWKV6 recurrence's forward and backward kernels against
                their plain versions: the JAX kernel test's four shapes, the
                rwkv6-7b selection forward (BH 1024 = 16 × 64 heads, T 256,
                D 64), the subset's forward and backward at rank 8 (BH 512)
@@ -75,18 +85,30 @@ Phases (any failure exits nonzero and prints no result line):
                against its plain version and its bound (no single PyTorch
                call computes it); the kernels line takes the forward at BH
                1024 and the backward at BH 128.
- 10. rwkv_slice — ``Trainer`` on rwkv6-7b at full width with depth cut to
+ 11. rwkv_slice — ``Trainer`` on rwkv6-7b at full width with depth cut to
                16 of 32 layers: 6 steps, the slice's GRAFT settings, exact
                launch counts (rwkv_scan 16 × (6·2 + 3), its backward 16 × 6,
                graft_select 3, flash 0), peak memory; then the profile of
                phase 7 on its trained state.
- 11. check   — the same path at smoke size on the card against the port's
+ 12. check   — the same path at smoke size on the card against the port's
                CPU run (which the CPU tests hold against the JAX package):
                minicpm and gemma2 (seq 32, so that its window of 16 bites)
                under flash attention, and rwkv6-7b through the RWKV kernels.
-               Per-step losses rtol 1e-4, ranks and pivots equal.
+               Per-step losses rtol 1e-4, ranks and pivots equal; one
+               grad_norm and one optimizer_update per dtype group a step.
+ 13. shell   — the Trainer shell at minicpm-2b's full width with depth cut
+               to 2 layers (~405 M params, ~4 GB a checkpoint): an
+               uninterrupted 6-step run with eval every 2 steps and a JSONL
+               stream, then one that stops at step 3 with a checkpoint under
+               ``build/`` and ``Trainer.from_checkpoint`` to step 6; the
+               restored state bit-equal to the saved one, the resumed losses
+               within rtol 1e-5 of the uninterrupted run's (PyTorch's own
+               backward kernels may sum in another order), the JSONL rows
+               with the JAX row keys, eval_loss and an mfu against the
+               H100's 989 TFLOP/s; checkpoint bytes and save and restore
+               seconds. Free disk is checked first; the directory is deleted.
 
-It prints a ``{"kernels": [...]}`` line (all nine kernels), the
+It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -646,6 +668,7 @@ def _kernel_counters():
     """(name, holder, attribute) of every kernel's launch count."""
     from repro_torch.kernels import fast_maxvol as fm
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_optim as fo
     from repro_torch.kernels import graft_select as gs
     from repro_torch.kernels import projection_sweep as ps
     from repro_torch.kernels import rwkv_scan as rw
@@ -657,7 +680,9 @@ def _kernel_counters():
             ("fast_maxvol", fm.fast_maxvol, "launches"),
             ("projection_sweep", ps.projection_sweep, "launches"),
             ("rwkv_scan", rw.rwkv_scan, "launches"),
-            ("rwkv_scan_backward", rw.rwkv_scan_backward, "launches")]
+            ("rwkv_scan_backward", rw.rwkv_scan_backward, "launches"),
+            ("grad_norm", fo.grad_norm, "launches"),
+            ("optimizer_update", fo.optimizer_update, "launches")]
 
 
 def _zero_counts():
@@ -669,14 +694,20 @@ def _read_counts():
     return {name: getattr(holder, attr) for name, holder, attr in _kernel_counters()}
 
 
-def _expected_launches(mcfg, cfg):
+def _optim_groups(params):
+    """Kernel B's launches a step: one per (param dtype, state dtype) group."""
+    return len({p.dtype for p in params})
+
+
+def _expected_launches(mcfg, cfg, groups):
     """Launches the slice reckons: per step one forward per layer for the
     subset loss and one more for its remat recompute, and one backward; per
     refresh one selection forward per layer and one graft_select. The
     forward and backward kernels are flash (forward; dQ and dK/dV) for the
     dense family, the RWKV scan (forward; one backward launch) for the ssm
     family. The training path runs no batched refresh and no standalone
-    stage."""
+    stage. The optimizer step is one grad_norm launch a step and, on a
+    healthy step, one optimizer_update launch per dtype group."""
     steps = cfg.train.steps
     refreshes = sum(1 for s in range(steps) if s % cfg.graft.refresh_every == 0)
     fwd_per_step = 2 if mcfg.remat == "full" else 1
@@ -686,7 +717,8 @@ def _expected_launches(mcfg, cfg):
     return {"graft_select": refreshes, "flash_forward": 0 if ssm else fwd,
             "flash_dq": 0 if ssm else bwd, "flash_dkv": 0 if ssm else bwd,
             "graft_select_batched": 0, "fast_maxvol": 0, "projection_sweep": 0,
-            "rwkv_scan": fwd if ssm else 0, "rwkv_scan_backward": bwd if ssm else 0}
+            "rwkv_scan": fwd if ssm else 0, "rwkv_scan_backward": bwd if ssm else 0,
+            "grad_norm": steps, "optimizer_update": steps * groups}
 
 
 def phase_slice(ctx):
@@ -724,12 +756,14 @@ def phase_slice(ctx):
               f"grad_norm {row['grad_norm']:.4f} step {row['step_time_s'] * 1e3:.1f} ms")
     print(f"[slice] fit wall {wall:.2f} s, peak memory allocated {peak_gb:.2f} GB, "
           f"kernel launches {launches}, config_hash {report['config_hash']}")
-    expected = _expected_launches(mcfg, cfg)
+    expected = _expected_launches(mcfg, cfg, _optim_groups(trainer.state["params"]))
     print(f"[slice] expected launches {expected}")
-    assert all(np.isfinite(r["loss"]) for r in hist), "non-finite loss"
+    assert all(np.isfinite(r["loss"]) and r["healthy"] == 1.0 for r in hist), \
+        "non-finite loss or a vetoed step"
     assert all(int(r["rank"]) in cfg.graft.rset for r in hist), "rank outside rset"
     assert launches == expected, f"launches {launches}, expected {expected}"
-    for name in ("graft_select", "flash_forward", "flash_dq", "flash_dkv"):
+    for name in ("graft_select", "flash_forward", "flash_dq", "flash_dkv", "grad_norm",
+                 "optimizer_update"):
         assert launches[name] > 0, f"kernel {name} was never launched on the main path"
         ctx["kernels"][name]["launches"] = launches[name]
     steady = [r["step_time_s"] for r in hist[1:]]
@@ -892,6 +926,7 @@ def phase_profile(ctx):
 
 # substrings of the port's own kernels' names, for their share of a profiled step
 PORT_KERNEL_NAMES = ("rwkv_fwd", "rwkv_bwd", "flash_fwd", "flash_dq", "flash_dkv",
+                     "fused_norm_kernel", "norm_finish_kernel", "fused_update_kernel",
                      "graft_select_kernel", "fast_maxvol_kernel", "projection_sweep_kernel")
 
 
@@ -1148,12 +1183,13 @@ def phase_rwkv_slice(ctx):
         print(f"[rwkv_slice] step {i}: loss {row['loss']:.6f} rank {row['rank']} "
               f"proj_error {row['proj_error']:.4f} grad_norm {row['grad_norm']:.4f} "
               f"step {row['step_time_s'] * 1e3:.1f} ms")
-    expected = _expected_launches(mcfg, cfg)
+    expected = _expected_launches(mcfg, cfg, _optim_groups(trainer.state["params"]))
     print(f"[rwkv_slice] fit wall {wall:.2f} s, {report['num_params']} params, peak memory "
           f"allocated {peak_gb:.2f} GB, kernel launches {launches}", flush=True)
     print(f"[rwkv_slice] expected launches {expected}")
     assert report["num_params"] == n_params, (report["num_params"], n_params)
-    assert all(np.isfinite(r["loss"]) for r in hist), "non-finite loss"
+    assert all(np.isfinite(r["loss"]) and r["healthy"] == 1.0 for r in hist), \
+        "non-finite loss or a vetoed step"
     assert all(int(r["rank"]) in cfg.graft.rset for r in hist), "rank outside rset"
     assert launches == expected, f"launches {launches}, expected {expected}"
     for name in ("rwkv_scan", "rwkv_scan_backward"):
@@ -1196,6 +1232,10 @@ def phase_check(ctx):
             counts = _read_counts()
             kernel = "rwkv_scan" if mcfg.family == "ssm" else "flash_forward"
             assert (counts[kernel] > 0) == (dev == "cuda"), f"{dev}: {counts}"
+            steps = cfg.train.steps if dev == "cuda" else 0
+            optim = {"grad_norm": steps,
+                     "optimizer_update": steps * _optim_groups(state["params"])}
+            assert {k: counts[k] for k in optim} == optim, f"{dev}: {counts}, want {optim}"
             runs[dev] = rows
         if mcfg.family == "ssm":
             print(f"[check] {arch} seq {seq} through the RWKV kernels ({mcfg.num_heads} heads "
@@ -1208,6 +1248,316 @@ def phase_check(ctx):
             print(f"[check] loss gpu {lg:.7f} cpu {lc:.7f}; rank {rg}/{rc}; pivots {pg}/{pc}")
             assert abs(lg - lc) <= 1e-4 * abs(lc) and rg == rc and pg == pc, \
                 "GPU run disagrees with the CPU run"
+
+
+# ---------------------------------------------------------------------------
+# the optimizer step: kernel A (global norm and clip factor), kernel B (update)
+# ---------------------------------------------------------------------------
+
+OPTIM_REPLACES = {
+    "grad_norm": "no TPU kernel: src/repro/optim/optimizers.py:43-52 (global_norm, "
+                 "clip_by_global_norm, jitted by XLA)",
+    "optimizer_update": "no TPU kernel: src/repro/optim/optimizers.py:83-107 (AdamW; SGD "
+                        ":117-133, Lion :143-161, jitted by XLA)"}
+# bytes of device memory one batch of leaves may take in the bit-equality
+# check (two copies of p, m, v and the gradients)
+OPTIM_CHECK_BYTES = 36e9
+
+
+def _minicpm_leaves():
+    """(shape, dtype) of every parameter of minicpm-2b at full depth, from
+    the port's model on the meta device (nothing allocated)."""
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.models.model import Model
+    mcfg = ExperimentConfig().apply_overrides(SLICE_OVERRIDES).model.build()
+    return mcfg, [(tuple(p.shape), p.dtype) for p in Model(mcfg, device="meta").parameters()]
+
+
+def _randn(shapes, dtype, seed, scale, positive=False):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for shape, dt in shapes:
+        x = torch.randn(shape, generator=g, device="cuda", dtype=torch.float32) * scale
+        out.append((x.abs() if positive else x).to(dtype or dt))
+    return out
+
+
+def _hyper(step):
+    import numpy as np
+    from repro_torch.kernels import fused_optim as fo
+    t = np.float32(step + 1)
+    return fo.Hyper(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.01,
+                    momentum=0.9, bc1=float(np.float32(1) - np.float32(0.9) ** t),
+                    bc2=float(np.float32(1) - np.float32(0.95) ** t))
+
+
+def _optim_bit_equal(shapes, rule, pdt, sdt):
+    """Three steps of kernel B and of its plain version from the same state
+    on every leaf, in batches of leaves that fit; returns the largest
+    |difference| of p, m, v (0.0 when bit-equal)."""
+    import torch
+    from repro_torch.kernels import fused_optim as fo
+    per = 2 * (pdt.itemsize + sdt.itemsize * (2 if rule == "adamw" else 1)) + pdt.itemsize
+    batches, cur, used = [], [], 0.0
+    for shape, _ in shapes:
+        n = 1
+        for d in shape:
+            n *= d
+        if cur and used + n * per > OPTIM_CHECK_BYTES:
+            batches.append(cur)
+            cur, used = [], 0.0
+        cur.append((shape, pdt))
+        used += n * per
+    batches.append(cur)
+    worst = 0.0
+    for bi, batch in enumerate(batches):
+        p = _randn(batch, pdt, 100 + bi, 0.02)
+        m = _randn(batch, sdt, 200 + bi, 1e-3)
+        v = _randn(batch, sdt, 300 + bi, 1e-6, positive=True) if rule == "adamw" else None
+        twin = [[t.clone() for t in x] if x is not None else None for x in (p, m, v)]
+        for step in range(3):
+            g = _randn(batch, pdt, 400 + 10 * bi + step, 1e-3)
+            _, scale = fo.grad_norm(g, 1.0)
+            fo.optimizer_update(rule, p, g, m, v, _hyper(step), scale)
+            fo.update_reference(rule, twin[0], g, twin[1], twin[2], _hyper(step), scale)
+            del g
+        torch.cuda.synchronize()
+        for got, want in zip((p, m, v), twin):
+            for a, b in zip(got or [], want or []):
+                if not torch.equal(a, b):
+                    worst = max(worst, (a.float() - b.float()).abs().max().item())
+        del p, m, v, twin
+        torch.cuda.empty_cache()
+    return worst, len(batches)
+
+
+def phase_optim(ctx):
+    """Kernels A and B on minicpm-2b's leaves at full depth: A against its
+    plain version (rtol 1e-6) with reruns bit-equal, B bit-equal to its plain
+    version for every rule, state dtype and param dtype over 3 steps, then
+    both timed on the slice's dtypes beside their bounds, their plain
+    versions and one PyTorch call each."""
+    import torch
+    from repro_torch.kernels import fused_optim as fo
+    mcfg, shapes = _minicpm_leaves()
+    n = sum(int(torch.Size(s).numel()) for s, _ in shapes)
+    print(f"[optim] minicpm-2b full depth: {len(shapes)} leaves, {n} params "
+          f"({sum(1 for _, d in shapes if d == torch.bfloat16)} bf16, the rest float32)",
+          flush=True)
+    grads = _randn(shapes, None, 1, 1e-3)
+    norm, scale = fo.grad_norm(grads, 1.0)
+    again = fo.grad_norm(grads, 1.0)
+    want_norm, want_scale = fo.grad_norm_reference(grads, 1.0)
+    torch.cuda.synchronize()
+    err = abs(norm.item() - want_norm.item())
+    rerun_eq = torch.equal(norm, again[0]) and torch.equal(scale, again[1])
+    scale_err = abs(scale.item() - want_scale.item())
+    print(f"[optim] grad_norm {norm.item():.9g} vs plain {want_norm.item():.9g}: |diff| "
+          f"{err:.3g} (rtol 1e-6: float32 sums in another order); scale {scale.item():.9g} "
+          f"vs {want_scale.item():.9g}; rerun {'bit-equal' if rerun_eq else 'DIFFERS'}",
+          flush=True)
+    assert err <= 1e-6 * want_norm.item() and rerun_eq, "grad_norm vs its plain version"
+    assert scale_err <= 1e-6 * want_scale.item(), "clip factor vs the plain version's"
+    del grads, again
+    torch.cuda.empty_cache()
+    update_err = 0.0
+    for rule in ("adamw", "sgd", "lion"):
+        for pdt in (torch.bfloat16, torch.float32):
+            for sdt in (torch.float32, torch.bfloat16):
+                t0 = time.perf_counter()
+                worst, nb = _optim_bit_equal(shapes, rule, pdt, sdt)
+                print(f"[optim] {rule} params {str(pdt)[6:]} state {str(sdt)[6:]}: p, m, v "
+                      f"after 3 steps {'bit-equal' if worst == 0.0 else f'DIFFER by {worst:.3g}'}"
+                      f" to the plain version ({nb} batch(es) of leaves, "
+                      f"{time.perf_counter() - t0:.1f} s)", flush=True)
+                assert worst == 0.0, f"optimizer_update {rule} {pdt} {sdt} vs plain"
+                update_err = max(update_err, worst)
+    _optim_times(ctx, shapes, err, update_err)
+
+
+def _optim_times(ctx, shapes, norm_err, update_err):
+    """The slice's optimizer step (bf16 matrices, float32 norms, float32
+    moments, AdamW) timed by CUDA events and profiler device time."""
+    import torch
+    from repro_torch.kernels import fused_optim as fo
+    p = _randn(shapes, None, 11, 0.02)
+    g = _randn(shapes, None, 12, 1e-3)
+    m = _randn(shapes, torch.float32, 13, 1e-3)
+    v = _randn(shapes, torch.float32, 14, 1e-6, positive=True)
+    _, scale = fo.grad_norm(g, 1.0)
+    hp = _hyper(5)
+    g_bytes = sum(t.numel() * t.element_size() for t in g)
+    # p read and written, g read, float32 m and v read and written
+    upd_bytes = sum(t.numel() * (3 * t.element_size() + 16) for t in p)
+    n = sum(t.numel() for t in p)
+    t = {}
+    t["A"], t["A_device"] = _device_times(lambda: fo.grad_norm(g, 1.0), "norm_")
+    t["A_plain"] = _time_auto(lambda: fo.grad_norm_reference(g, 1.0))
+    get_total_norm = getattr(torch.nn.utils, "get_total_norm", None)
+    t["A_library"] = _time_auto(lambda: get_total_norm(g, 2.0, foreach=True)) \
+        if get_total_norm is not None else None
+    t["B"], t["B_device"] = _device_times(
+        lambda: fo.optimizer_update("adamw", p, g, m, v, hp, scale), "fused_update_kernel")
+    t["B_plain"] = _time_auto(lambda: fo.update_reference("adamw", p, g, m, v, hp, scale),
+                              max_iters=5)
+    for rule in ("sgd", "lion"):
+        t[rule] = _time_auto(lambda: fo.optimizer_update(rule, p, g, m, None, hp, scale),
+                             max_iters=50)
+    del m, v
+    torch.cuda.empty_cache()
+    # the library's fused AdamW keeps its moments in the params' dtype and
+    # decays weights in another order: a time only
+    leaves = [torch.nn.Parameter(x) for x in p]
+    for leaf, gx in zip(leaves, g):
+        leaf.grad = gx
+    lib = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.01,
+                            fused=True)
+    t["B_library"] = _time_auto(lib.step, max_iters=20)
+    del lib, leaves
+    a_bound = _bound(g_bytes + 8, 2 * n)
+    b_bound = _bound(upd_bytes + 4, 16 * n)
+    print(f"[optim] {ctx['smi']}", flush=True)
+    print(f"[optim] grad_norm (A) over {n} params: {t['A']:.4f} ms (events), "
+          f"{t['A_device']:.4f} ms (profiler device time); plain {t['A_plain']:.4f} ms; "
+          f"torch.nn.utils.get_total_norm(foreach) {t['A_library']} ms; bound {a_bound[0]:.4f} "
+          f"ms by {a_bound[1]} ({a_bound[2]} bytes, {a_bound[3]} flop); "
+          f"{t['A_device'] / a_bound[0]:.2f}x the bound", flush=True)
+    print(f"[optim] optimizer_update (B) AdamW, 2 launches (bf16 and float32 params), float32 "
+          f"moments: {t['B']:.4f} ms (events), {t['B_device']:.4f} ms (profiler device time); "
+          f"plain {t['B_plain']:.4f} ms; torch.optim.AdamW(fused=True) {t['B_library']:.4f} ms; "
+          f"bound {b_bound[0]:.4f} ms by {b_bound[1]} ({b_bound[2]} bytes, {b_bound[3]} flop); "
+          f"{t['B_device'] / b_bound[0]:.2f}x the bound; SGD {t['sgd']:.4f} ms, Lion "
+          f"{t['lion']:.4f} ms (events)", flush=True)
+    src = "src/repro_torch/csrc/fused_optim.cu"
+    ctx["kernels"]["grad_norm"] = {
+        "name": "grad_norm", "route": "cuda", "source": src,
+        "replaces": OPTIM_REPLACES["grad_norm"], "launches": None, "max_abs_err": norm_err,
+        "ms": t["A"], "plain_ms": t["A_plain"], "bound_ms": a_bound[0],
+        "bound_by": a_bound[1], "library_ms": t["A_library"], "device_ms": t["A_device"]}
+    ctx["kernels"]["optimizer_update"] = {
+        "name": "optimizer_update", "route": "cuda", "source": src,
+        "replaces": OPTIM_REPLACES["optimizer_update"], "launches": None, "max_abs_err": update_err,
+        "ms": t["B"], "plain_ms": t["B_plain"], "bound_ms": b_bound[0],
+        "bound_by": b_bound[1], "library_ms": t["B_library"], "device_ms": t["B_device"]}
+    del p, g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the JAX package's JSONL row keys on a GRAFT step with the sentinel
+JSONL_KEYS = {"step", "time", "tokens_seen", "step_time_s", "tokens_per_s", "mfu",
+              "mfu_source", "host_overhead_s", "loss", "grad_norm", "lr", "rank",
+              "proj_error", "alignment", "healthy", "bad_streak"}
+SHELL_LAYERS = 2
+
+
+def phase_shell(ctx):
+    """The Trainer shell at minicpm-2b's full width, depth cut to
+    SHELL_LAYERS: an uninterrupted 6-step run, then a run that stops at
+    step 3 with a checkpoint and its resume to step 6; restored state
+    bit-equal to the saved one, resumed losses against the uninterrupted
+    run's, the JSONL rows' keys, eval and mfu."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.api import ExperimentConfig, Trainer
+    from repro_torch.api.callbacks import Callback
+    from repro_torch.checkpoint import (CheckpointManager, load_train_state, train_state_spec,
+                                        train_state_to_host)
+    from repro_torch.launch.metrics import PEAK_FLOPS_PER_CHIP, read_metrics, train_step_flops
+    ctx.pop("trainer", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = os.path.join(ROOT, "build", "chip_smoke_shell")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ck = os.path.join(work, "ckpt")
+    base = ([o for o in SLICE_OVERRIDES if not o.startswith("model.overrides")]
+            + [f'model.overrides={{"attn_backend": "auto", "num_layers": {SHELL_LAYERS}}}',
+               "train.eval_every=2", "train.checkpoint_every=3", "train.log_every=0"])
+    try:
+        full_cfg = ExperimentConfig().apply_overrides(
+            base + [f"train.metrics_path={work}/full.jsonl"])
+        full = Trainer(full_cfg)
+        rep_full = full.fit()
+        spec = train_state_spec(full.state)
+        ckpt_bytes = sum(int(np.prod(s)) * d.itemsize for s, d in spec.values())
+        free = shutil.disk_usage(work).free
+        print(f"[shell] minicpm-2b full width, {SHELL_LAYERS} of 40 layers: {full.num_params} "
+              f"params; a checkpoint holds {ckpt_bytes} bytes; {free} bytes free on disk",
+              flush=True)
+        if free < 3 * ckpt_bytes:
+            raise RuntimeError(f"phase shell needs ~{3 * ckpt_bytes} bytes of disk under "
+                               f"{work} (two checkpoints kept and one more written), has {free}")
+
+        class Snapshot(Callback):
+            priority = 95          # after the checkpointer's restore
+
+            def on_train_start(self, trainer):
+                self.host = train_state_to_host(trainer.state)
+
+        stop_cfg = ExperimentConfig().apply_overrides(
+            base + ["train.stop_after=3", f"train.checkpoint_dir={ck}",
+                    f"train.metrics_path={work}/resumed.jsonl"])
+        stopped = Trainer(stop_cfg)
+        rep_stop = stopped.fit()
+        saved = train_state_to_host(stopped.state)
+        t0 = time.perf_counter()
+        flat = train_state_to_host(stopped.state)
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        CheckpointManager(os.path.join(work, "timed"), async_save=False).save(3, flat)
+        t_write = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(work, "timed"))
+        del flat
+        t0 = time.perf_counter()
+        _, flat, _ = CheckpointManager(ck).restore_latest_good(spec)
+        t_read = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_train_state(stopped.state, flat)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        del flat
+        snap = Snapshot()
+        resumed = Trainer.from_checkpoint(ck, callbacks=[snap])
+        rep_res = resumed.fit()
+        same = set(snap.host) == set(saved) and all(
+            torch.equal(snap.host[k], saved[k]) for k in saved)
+        print(f"[shell] {ctx['smi']}", flush=True)
+        print(f"[shell] checkpoint {ckpt_bytes} bytes: device->host copy {t_host:.3f} s, "
+              f"write {t_write:.3f} s (sync); restore: read + verify {t_read:.3f} s, load "
+              f"onto the card {t_load:.3f} s; the resumed run's restored state "
+              f"{'bit-equal' if same else 'DIFFERS from'} the saved one", flush=True)
+        assert same, "restored state differs from the saved one"
+        assert rep_stop["stopped"] == "stop_after" and resumed.start_step == 3
+        want = [r["loss"] for r in rep_full["history"]]
+        got = [r["loss"] for r in rep_stop["history"]] + [r["loss"] for r in rep_res["history"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"[shell] losses uninterrupted {want}; stopped + resumed {got}; max rel diff "
+              f"{rel:.3g} (rtol 1e-5); {'bit-equal' if got == want else 'not bit-equal'}; "
+              f"config_hash {rep_full['config_hash']} / {rep_res['config_hash']}", flush=True)
+        assert len(got) == 6 and rel <= 1e-5, "resumed losses differ from the uninterrupted run"
+        assert rep_full["config_hash"] == rep_res["config_hash"]
+        rows = read_metrics(f"{work}/full.jsonl")
+        flops = train_step_flops(full.num_params, 16 * 256, remat=True, mcfg=full.mcfg, seq=256)
+        for r in rows:
+            missing = JSONL_KEYS - set(r) - ({"host_overhead_s"} if r["step"] == 0 else set())
+            assert not missing, f"row {r['step']} lacks {missing}"
+            assert ("eval_loss" in r) == (r["step"] % 2 == 1), r
+            if r.get("mfu_source") == "device":
+                assert abs(r["mfu"] - flops / (r["device_step_time_s"] * PEAK_FLOPS_PER_CHIP)) \
+                    <= 1e-9 * r["mfu"]
+        print(f"[shell] JSONL: {len(rows)} rows with the JAX row keys; eval_loss "
+              f"{[round(r['eval_loss'], 5) for r in rows if 'eval_loss' in r]}; mfu against "
+              f"{PEAK_FLOPS_PER_CHIP:.3g} FLOP/s {[(r['mfu_source'], round(r['mfu'], 4)) for r in rows]}",
+              flush=True)
+        assert [r["step"] for r in rows] == list(range(6))
+        assert any(r["mfu_source"] == "device" for r in rows), "no device-timed row"
+        resumed_rows = read_metrics(f"{work}/resumed.jsonl")
+        assert [r["step"] for r in resumed_rows] == list(range(6)), resumed_rows
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -1228,10 +1578,10 @@ def main() -> int:
     failed = []
     for name, fn in (("device", phase_device), ("build", phase_build),
                      ("kernels", phase_kernels), ("flash", phase_flash),
-                     ("slice", phase_slice), ("engine", phase_engine),
+                     ("optim", phase_optim), ("slice", phase_slice), ("engine", phase_engine),
                      ("profile", phase_profile), ("depth8", phase_depth8),
                      ("rwkv", phase_rwkv), ("rwkv_slice", phase_rwkv_slice),
-                     ("check", phase_check)):
+                     ("check", phase_check), ("shell", phase_shell)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

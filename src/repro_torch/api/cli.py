@@ -8,8 +8,10 @@ Input sources, later ones winning:
      (``--graft=none`` disables selection; values are JSON, falling back
      to strings)
 
+``--resume DIR`` ignores all of the above and reconstructs the experiment
+from the manifest embedded in ``DIR``'s latest checkpoint.
+
 Training runs on the GPU; ``--device=cpu`` runs on the CPU on purpose.
-``--resume`` (checkpoints) is not ported yet.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ def _split_args(argv: List[str]):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default=None,
                     help="path to an ExperimentConfig JSON file")
+    ap.add_argument("--resume", default=None, metavar="CKPT_DIR",
+                    help="resume from a checkpoint directory's embedded config")
     ap.add_argument("--dump-config", action="store_true",
                     help="print the finalized config JSON and exit (no training)")
     ap.add_argument("--device", default=None,
@@ -46,11 +50,22 @@ def _split_args(argv: List[str]):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args, overrides = _split_args(sys.argv[1:] if argv is None else argv)
-    cfg = ExperimentConfig.load(args.config) if args.config else ExperimentConfig()
-    cfg = cfg.apply_overrides(overrides)
-    if args.dump_config:
-        print(cfg.finalized().to_json(indent=1))
-        return 0
-    report = Trainer(cfg, device=args.device).fit()
+    if args.resume:
+        if overrides or args.config:
+            print("error: --resume reconstructs the experiment from the "
+                  "manifest alone; drop the other flags", file=sys.stderr)
+            return 2
+        trainer = Trainer.from_checkpoint(args.resume, device=args.device)
+        if args.dump_config:
+            print(trainer.config.to_json(indent=1))
+            return 0
+    else:
+        cfg = ExperimentConfig.load(args.config) if args.config else ExperimentConfig()
+        cfg = cfg.apply_overrides(overrides)
+        if args.dump_config:
+            print(cfg.finalized().to_json(indent=1))
+            return 0
+        trainer = Trainer(cfg, device=args.device)
+    report = trainer.fit()
     print(json.dumps({k: v for k, v in report.items() if k != "history"}, indent=1))
     return 0

@@ -10,6 +10,15 @@
   there as their raw ``uint16`` bits with the logical dtype in the manifest;
   they are rebuilt as ``torch.bfloat16`` by viewing the bits, never by
   rounding through float. Every leaf's adler32 checksum is verified.
+* ``train_state_to_host(state)`` / ``load_train_state(state, flat)`` map the
+  port's train state to and from the JAX train state's flat leaf paths
+  (``repro.launch.steps.init_train_state`` flattened as the JAX
+  checkpointer flattens it): ``params/…`` and the optimizer state
+  ``opt/m/…``, ``opt/v/…`` (Adafactor: ``opt/v/…/vr``, ``…/vc`` or
+  ``…/v``) with the blocks stacked on L, ``step`` (int32), ``graft/.<field>``
+  (the ``SelectionState`` fields), ``sampler_carry/…`` and ``health/…``
+  (float32 EMA, int32 counts). Leaves keep their dtypes, so a checkpoint
+  crosses between the packages bit for bit.
 """
 from __future__ import annotations
 
@@ -17,12 +26,12 @@ import json
 import os
 import re
 import zlib
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, stacked_leaves
 
 
 def _to_tensor(value) -> torch.Tensor:
@@ -121,3 +130,139 @@ def load_jax_checkpoint(directory: str) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = t
     return tree
+
+
+# ---------------------------------------------------------------------------
+# the train state ↔ the JAX train state's flat leaves
+# ---------------------------------------------------------------------------
+
+# state sections a checkpoint may lack (added to the JAX state after some
+# checkpoints were written): restore keeps the fresh value, as JAX does
+OPTIONAL_SECTIONS = ("health", "sampler_carry")
+
+
+def _param_leaves(state) -> List[Tuple[str, List[int]]]:
+    """(JAX leaf path under ``params/``, indices into ``state["params"]``)
+    for every JAX param leaf, blocks stacked in block order."""
+    index = {id(p): i for i, p in enumerate(state["params"])}
+    return [(path, [index[id(t)] for t in ts]) for path, ts in stacked_leaves(state["model"])]
+
+
+def _stack_to_host(tensors: List[torch.Tensor], stacked: bool) -> torch.Tensor:
+    """A copy on the host that has finished when this returns (the port
+    updates its tensors in place)."""
+    if not stacked:
+        return tensors[0].detach().to("cpu", copy=True)
+    out = torch.empty((len(tensors),) + tuple(tensors[0].shape), dtype=tensors[0].dtype)
+    for i, t in enumerate(tensors):
+        out[i].copy_(t.detach())
+    return out
+
+
+def _state_leaves(state) -> Dict[str, Tuple[List[torch.Tensor], bool]]:
+    """path → (the port tensors that make the leaf, stacked on a new axis 0
+    or not), for params and optimizer state."""
+    out: Dict[str, Tuple[List[torch.Tensor], bool]] = {}
+    params, opt = state["params"], state["opt"]
+    leaves = _param_leaves(state)
+    stacked = {path: len(idx) > 1 or path.startswith("blocks/") for path, idx in leaves}
+    for path, idx in leaves:
+        out[f"params/{path}"] = ([params[i] for i in idx], stacked[path])
+    if "groups" in opt:                         # Adafactor: one entry per JAX leaf
+        for (path, idx), g, entry in zip(leaves, opt["groups"], opt["v"], strict=True):
+            if (g if isinstance(g, list) else [g]) != idx:
+                raise ValueError(f"Adafactor group {g} is not the JAX leaf {path} ({idx})")
+            for k, t in entry.items():
+                out[f"opt/v/{path}/{k}"] = ([t], False)
+    else:
+        for name, ts in opt.items():
+            for path, idx in leaves:
+                out[f"opt/{name}/{path}"] = ([ts[i] for i in idx], stacked[path])
+    return out
+
+
+def _scalar(value, dtype) -> torch.Tensor:
+    return torch.tensor(value, dtype=dtype)
+
+
+def train_state_to_host(state) -> Dict[str, torch.Tensor]:
+    """The train state as CPU tensors keyed by the JAX checkpoint's leaf
+    paths. Every device→host copy has finished when this returns."""
+    flat = {path: _stack_to_host(ts, st) for path, (ts, st) in _state_leaves(state).items()}
+    flat["step"] = _scalar(state["step"], torch.int32)
+    if "graft" in state:
+        for field, t in state["graft"]._asdict().items():
+            flat[f"graft/.{field}"] = t.detach().to("cpu", copy=True)
+    for k, t in (state.get("sampler_carry") or {}).items():
+        flat[f"sampler_carry/{k}"] = t.detach().to("cpu", copy=True)
+    if "health" in state:
+        h = state["health"]
+        flat.update({"health/ema_mean": _scalar(float(h["ema_mean"]), torch.float32),
+                     "health/ema_var": _scalar(float(h["ema_var"]), torch.float32),
+                     "health/count": _scalar(int(h["count"]), torch.int32),
+                     "health/bad_streak": _scalar(int(h["bad_streak"]), torch.int32)})
+    return flat
+
+
+def train_state_spec(state) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """path → (shape, dtype) of every leaf ``train_state_to_host`` writes,
+    without copying anything."""
+    spec = {}
+    for path, (ts, st) in _state_leaves(state).items():
+        shape = ((len(ts),) if st else ()) + tuple(ts[0].shape)
+        spec[path] = (shape, ts[0].dtype)
+    spec["step"] = ((), torch.int32)
+    if "graft" in state:
+        for field, t in state["graft"]._asdict().items():
+            spec[f"graft/.{field}"] = (tuple(t.shape), t.dtype)
+    for k, t in (state.get("sampler_carry") or {}).items():
+        spec[f"sampler_carry/{k}"] = (tuple(t.shape), t.dtype)
+    if "health" in state:
+        spec.update({"health/ema_mean": ((), torch.float32), "health/ema_var": ((), torch.float32),
+                     "health/count": ((), torch.int32), "health/bad_streak": ((), torch.int32)})
+    return spec
+
+
+def check_against_spec(flat: Dict[str, torch.Tensor], spec) -> None:
+    """Raise ``KeyError`` for a leaf the state needs that ``flat`` lacks
+    (outside the optional sections) and ``ValueError`` for a shape or dtype
+    that differs."""
+    for path, (shape, dtype) in spec.items():
+        if path not in flat:
+            if path.split("/", 1)[0] in OPTIONAL_SECTIONS:
+                continue
+            raise KeyError(f"checkpoint missing leaf '{path}'")
+        got = flat[path]
+        if tuple(got.shape) != tuple(shape):
+            raise ValueError(f"shape mismatch for '{path}': ckpt {tuple(got.shape)} "
+                             f"vs target {tuple(shape)}")
+        if got.dtype != dtype:
+            raise ValueError(f"dtype mismatch for '{path}': ckpt {got.dtype} vs target {dtype}")
+
+
+@torch.no_grad()
+def load_train_state(state, flat: Dict[str, torch.Tensor]):
+    """Load a flat checkpoint (``train_state_to_host``'s or the JAX
+    checkpointer's layout) into ``state``: parameters and optimizer state
+    in place, the rest replaced. Raises as ``check_against_spec``."""
+    check_against_spec(flat, train_state_spec(state))
+    for path, (ts, st) in _state_leaves(state).items():
+        src = flat[path]
+        for i, t in enumerate(ts):
+            t.copy_(src[i] if st else src)
+    state["step"] = int(flat["step"])
+    if "graft" in state:
+        g = state["graft"]
+        dev = g.pivots.device
+        state["graft"] = g._replace(**{f: flat[f"graft/.{f}"].to(dev) for f in g._fields})
+    carry = state.get("sampler_carry")
+    if carry:
+        state["sampler_carry"] = {k: flat[f"sampler_carry/{k}"].to(v.device)
+                                  if f"sampler_carry/{k}" in flat else v
+                                  for k, v in carry.items()}
+    if "health" in state and "health/count" in flat:
+        state["health"] = {"ema_mean": np.float32(flat["health/ema_mean"].item()),
+                           "ema_var": np.float32(flat["health/ema_var"].item()),
+                           "count": int(flat["health/count"]),
+                           "bad_streak": int(flat["health/bad_streak"])}
+    return state

@@ -14,7 +14,7 @@ numpy; the train loop moves them to the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, Iterator, NamedTuple, Tuple
 
 import numpy as np
 
@@ -28,10 +28,11 @@ class ArraySpec(NamedTuple):
 class DataSourceBase:
     """Shared protocol of every data source: ``spec()`` declares the local
     batch layout, ``batch_at(step)``/``__call__(step)`` produce the
-    host-local shard. The JAX package's resumable iterator state (one
-    integer, checkpointed) waits for the port's checkpointing."""
+    host-local shard, and the resumable iterator's state is one integer
+    (``state_dict``, checkpointed beside the train state)."""
 
     cfg: "object"
+    _step: int = 0
 
     def spec(self) -> Dict[str, ArraySpec]:
         raise NotImplementedError
@@ -41,6 +42,19 @@ class DataSourceBase:
 
     def __call__(self, step: int) -> Dict[str, np.ndarray]:
         return self.batch_at(step)
+
+    # ---- resumable iterator state (one integer) ----
+    def state_dict(self) -> Dict[str, int]:
+        return {"step": self._step}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        self._step = int(state["step"])
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            b = self.batch_at(self._step)
+            self._step += 1
+            yield b
 
     def microbatch_stack(self, step: int, num_micro: int) -> Dict[str, np.ndarray]:
         """``num_micro`` consecutive batches stacked on a new leading axis —

@@ -9,7 +9,9 @@ Three step families, as in the JAX package:
 
 The train state is a dict that the steps update IN PLACE and return:
 ``model`` (the parameters), ``params`` (the same parameters as a list, in
-the optimizer's order), ``opt`` (AdamW moments), ``step`` (a Python int),
+the optimizer's order), ``opt`` (the state the optimizer's ``init`` builds:
+AdamW's moments, SGD's and Lion's momentum, Adafactor's factored second
+moments per JAX leaf), ``step`` (a Python int),
 ``graft`` (``SelectionState``), ``sampler_carry`` and ``health`` (the
 divergence sentinel's host-side EMA). Where the JAX step takes
 ``lax.cond`` on the device step counter, the port takes a host ``if`` on the
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import model as model_lib
-from repro_torch.optim import OptimizerConfig, make_optimizer
+from repro_torch.optim import Optimizer, OptimizerConfig, make_optimizer
 from repro_torch.selection import base as selection_base
 from repro_torch.selection import registry as sampler_registry
 from repro_torch.selection import sources as sources_lib
@@ -88,10 +90,15 @@ def state_for_model(mcfg, tcfg: TrainConfig, model: model_lib.Model,
             "repro_torch yet (see ROADMAP.md)")
     device = model.embed.device
     params = list(model.parameters())
+    index = {id(p): i for i, p in enumerate(params)}
+    # the JAX leaves, for Adafactor's factoring: a block leaf stacks its
+    # blocks on a new axis 0 (a list), any other leaf is one param (an int)
+    groups = [[index[id(t)] for t in ts] if path.startswith("blocks/") else index[id(ts[0])]
+              for path, ts in model_lib.stacked_leaves(model)]
     state: Dict[str, Any] = {
         "model": model,
         "params": params,
-        "opt": make_optimizer(tcfg.optimizer).init(params),
+        "opt": make_optimizer(tcfg.optimizer).init(params, groups),
         "step": 0,
     }
     if tcfg.use_graft:
@@ -228,10 +235,9 @@ def apply_sentinel(tcfg: TrainConfig, state, metrics) -> Tuple[bool, Dict[str, A
 
 
 def _finish(tcfg: TrainConfig, state, loss: torch.Tensor, grads, metrics,
-            updates: Dict[str, Any], sentinel: bool):
-    """Clip, let the sentinel veto, apply AdamW in place, commit
-    ``updates`` to the state and advance the step counter."""
-    opt = make_optimizer(tcfg.optimizer)
+            updates: Dict[str, Any], sentinel: bool, opt: Optimizer):
+    """Grad norm and clip, let the sentinel veto, apply the optimizer in
+    place, commit ``updates`` to the state and advance the step counter."""
     step = state["step"]
     grads, opt_metrics = opt.preprocess(grads)
     metrics = dict(opt_metrics, loss=loss.detach(), **metrics)
@@ -251,10 +257,11 @@ def _finish(tcfg: TrainConfig, state, loss: torch.Tensor, grads, metrics,
     return state, metrics
 
 
-def baseline_train_step(mcfg, tcfg: TrainConfig, state, batch, sentinel: bool = False):
+def baseline_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
+                        sentinel: bool = False):
     loss, _ = model_lib.loss_fn(mcfg, state["model"], batch)
     grads = torch.autograd.grad(loss, state["params"])
-    return _finish(tcfg, state, loss, grads, {}, {}, sentinel)
+    return _finish(tcfg, state, loss, grads, {}, {}, sentinel, opt)
 
 
 def subset_loss(mcfg, state, batch, graft_state) -> torch.Tensor:
@@ -264,7 +271,8 @@ def subset_loss(mcfg, state, batch, graft_state) -> torch.Tensor:
     return torch.sum(pel * graft_state.weights)
 
 
-def graft_train_step(mcfg, tcfg: TrainConfig, state, batch, sentinel: bool = False):
+def graft_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
+                     sentinel: bool = False):
     """Alg. 1 as one step, sampler-generic: the subset strategy is resolved
     from the registry by ``tcfg.sampler``."""
     gcfg = tcfg.graft
@@ -285,10 +293,11 @@ def graft_train_step(mcfg, tcfg: TrainConfig, state, batch, sentinel: bool = Fal
     updates: Dict[str, Any] = {"graft": graft_state}
     if "sampler_carry" in state:
         updates["sampler_carry"] = carry
-    return _finish(tcfg, state, loss, grads, metrics, updates, sentinel)
+    return _finish(tcfg, state, loss, grads, metrics, updates, sentinel, opt)
 
 
-def subset_train_step(mcfg, tcfg: TrainConfig, state, batch, sentinel: bool = False):
+def subset_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
+                      sentinel: bool = False):
     """Alg. 1 'else' branch: train on the STORED subset, no selection."""
     graft_state = state["graft"]
     loss = subset_loss(mcfg, state, batch, graft_state)
@@ -296,7 +305,7 @@ def subset_train_step(mcfg, tcfg: TrainConfig, state, batch, sentinel: bool = Fa
     step1 = torch.tensor(state["step"] + 1, dtype=torch.int32,
                          device=graft_state.step.device)
     return _finish(tcfg, state, loss, grads, {},
-                   {"graft": graft_state._replace(step=step1)}, sentinel)
+                   {"graft": graft_state._replace(step=step1)}, sentinel, opt)
 
 
 def selection_step(mcfg, tcfg: TrainConfig, state, batch):
@@ -313,14 +322,16 @@ def selection_step(mcfg, tcfg: TrainConfig, state, batch):
 def make_train_step(mcfg, tcfg: TrainConfig, kind: Optional[str] = None):
     """``(state, batch) → (state, metrics)`` for ``kind`` (default: graft
     when ``tcfg.graft`` is set, else baseline), with the sentinel wired in
-    when ``tcfg.sentinel`` is on."""
+    when ``tcfg.sentinel`` is on. The optimizer is built once here, for
+    every step the function takes."""
     step = {None: graft_train_step if tcfg.use_graft else baseline_train_step,
             "graft": graft_train_step, "baseline": baseline_train_step,
             "subset": subset_train_step, "select": None}[kind]
     if step is None:
         return lambda state, batch: selection_step(mcfg, tcfg, state, batch)
     sentinel = tcfg.sentinel
+    opt = make_optimizer(tcfg.optimizer)
 
     def fn(state, batch):
-        return step(mcfg, tcfg, state, batch, sentinel=sentinel)
+        return step(mcfg, tcfg, state, batch, sentinel=sentinel, opt=opt)
     return fn

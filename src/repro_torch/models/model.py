@@ -14,7 +14,7 @@ ported (``ROADMAP.md``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -168,6 +168,21 @@ class Model(nn.Module):
         if not self.cfg.tie_embeddings:
             out["lm_head"] = self.lm_head
         return out
+
+
+def stacked_leaves(model: Model) -> List[Tuple[str, List[torch.Tensor]]]:
+    """The JAX param tree's leaves as ``(path, tensors)``: a
+    ``blocks/<name>[/<leaf>]`` path holds one tensor per block (the JAX tree
+    stacks them on a leading L axis), every other path one tensor."""
+    tree = model.tree()
+    out = [(k, [v]) for k, v in tree.items() if k != "blocks"]
+    blocks = tree["blocks"]
+    for name, sub in blocks[0].items():
+        if isinstance(sub, dict):
+            out += [(f"blocks/{name}/{leaf}", [b[name][leaf] for b in blocks]) for leaf in sub]
+        else:
+            out.append((f"blocks/{name}", [b[name] for b in blocks]))
+    return out
 
 
 @torch.no_grad()

@@ -548,3 +548,166 @@ def test_trainer_on_card_runs_rwkv_kernels(cuda):
     after = (rw.rwkv_scan.launches, rw.rwkv_scan_backward.launches, graft_select.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (2 * (4 + 2), 2 * 4, 2)
     assert all(np.isfinite(r["loss"]) and r["rank"] in (2, 4) for r in report["history"])
+
+
+# ---------------------------------------------------------------------------
+# the optimizer step: kernel A (global norm + clip factor), kernel B (update)
+# ---------------------------------------------------------------------------
+
+# leaf shapes: a 16-byte-aligned matrix, a ragged vector (numel % 8 != 0), a
+# leaf longer than one 4096-element chunk with a ragged tail, and one that
+# starts 1 element past its buffer (not 16-byte aligned: the element path)
+OPT_LEAVES = [((33, 64), True), ((7,), True), ((4099,), True), ((5, 13), False)]
+
+
+def _opt_leaves(dev, dtype, seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for shape, aligned in OPT_LEAVES:
+        x = (torch.randn(shape, generator=g) * scale).to(dtype).to(dev)
+        if not aligned:
+            x = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view(shape).copy_(x)
+        out.append(x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grad_norm_kernel_matches_plain(cuda, dtype):
+    from repro_torch.kernels import fused_optim as fo
+    grads = _opt_leaves(cuda, dtype, seed=1) + _opt_leaves(cuda, torch.float32, seed=2)
+    assert grads[-1].data_ptr() % 16 != 0
+    norm, scale = fo.grad_norm(grads, 1.0)
+    want_norm, want_scale = fo.grad_norm_reference(grads, 1.0)
+    assert abs(norm.item() - want_norm.item()) <= 1e-6 * want_norm.item()
+    assert abs(scale.item() - want_scale.item()) <= 1e-6 * want_scale.item()
+    again = fo.grad_norm(grads, 1.0)
+    assert torch.equal(again[0], norm) and torch.equal(again[1], scale)
+    n0, s0 = fo.grad_norm(grads, None)
+    assert torch.equal(n0, norm) and s0.item() == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["adamw", "sgd", "lion"])
+@pytest.mark.parametrize("pdt,sdt", [(torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+def test_update_kernel_is_bit_equal_to_plain(cuda, rule, pdt, sdt):
+    """Three steps of kernel B against the plain per-leaf code on the card,
+    given kernel A's clip factor: p, m and v bit-equal, also for the ragged
+    and the misaligned leaf."""
+    from repro_torch.kernels import fused_optim as fo
+    params = {k: _opt_leaves(cuda, pdt, seed=3) for k in ("kernel", "plain")}
+    moments = {k: [_opt_leaves(cuda, sdt, seed=4, scale=0.1),
+                   [x.abs() for x in _opt_leaves(cuda, sdt, seed=5, scale=0.01)]]
+               for k in ("kernel", "plain")}
+    for step in range(3):
+        grads = _opt_leaves(cuda, pdt, seed=10 + step, scale=3.0)
+        _, scale = fo.grad_norm(grads, 1.0)
+        t = np.float32(step + 1)
+        hp = fo.Hyper(lr=1e-2 / (step + 1), beta1=0.9, beta2=0.95, eps=1e-8,
+                      weight_decay=0.01, momentum=0.9,
+                      bc1=float(np.float32(1) - np.float32(0.9) ** t),
+                      bc2=float(np.float32(1) - np.float32(0.95) ** t))
+        for key, fn in (("kernel", fo.optimizer_update), ("plain", fo.update_reference)):
+            m, v = moments[key]
+            fn(rule, params[key], grads, m, v if rule == "adamw" else None, hp, scale)
+    torch.cuda.synchronize()
+    for name, a, b in [("p", params["kernel"], params["plain"]),
+                       ("m", moments["kernel"][0], moments["plain"][0]),
+                       ("v", moments["kernel"][1], moments["plain"][1])]:
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert torch.equal(x, y), (name, i, (x.float() - y.float()).abs().max().item())
+
+
+@pytest.mark.cuda
+def test_optimizer_kernels_refuse_what_they_cannot_take(cuda):
+    from repro_torch.kernels import fused_optim as fo
+    x = torch.zeros(8, 8, device=cuda)
+    hp = fo.Hyper(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.0, momentum=0.9)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fo.grad_norm([x.double()], 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fo.grad_norm([x.t()], 1.0)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fo.optimizer_update("sgd", [x], [x.cpu()], [x.clone()], None, hp)
+    with pytest.raises(ValueError, match="match the param"):
+        fo.optimizer_update("sgd", [x], [x.bfloat16()], [x.clone()], None, hp)
+    with pytest.raises(ValueError, match="v must be given"):
+        fo.optimizer_update("adamw", [x], [x], [x.clone()], None, hp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adamw", "sgd", "lion"])
+def test_trainer_on_card_launches_the_optimizer_kernels_once_a_step(cuda, name):
+    """A 2-step Trainer run on the card: one norm launch per step and one
+    update launch per step and (param dtype, state dtype) group (minicpm
+    smoke: bf16 matrices and float32 norm scales, 2 groups)."""
+    from repro_torch.api import ExperimentConfig, Trainer
+    from repro_torch.kernels import fused_optim as fo
+    cfg = ExperimentConfig().apply_overrides(
+        ["train.steps=2", "train.batch=8", "train.seq=16", "graft.rset=[2,4]",
+         "graft.refresh_every=2", "graft.use_pallas=true", "train.log_every=0",
+         f"optimizer.name={name}"])
+    before = (fo.grad_norm.launches, fo.optimizer_update.launches)
+    trainer = Trainer(cfg)
+    report = trainer.fit()
+    after = (fo.grad_norm.launches, fo.optimizer_update.launches)
+    groups = len({p.dtype for p in trainer.state["params"]})
+    assert groups == 2
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 2 * groups)
+    assert all(np.isfinite(r["loss"]) for r in report["history"])
+    assert report["host_loop"]["device_timed_steps"] == 1      # CUDA-event clock
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adamw", "sgd", "lion"])
+def test_optimizer_step_on_card_writes_no_clipped_copy_and_never_syncs(cuda, name):
+    """``preprocess`` returns the gradients themselves with the clip factor
+    on the device; ``preprocess`` + ``update`` are one launch of each kernel
+    and no host sync (PyTorch's sync debug mode raises on one)."""
+    from repro_torch.kernels import fused_optim as fo
+    from repro_torch.optim import ClippedGrads, OptimizerConfig, make_optimizer
+    opt = make_optimizer(OptimizerConfig(name=name, clip_norm=1.0))
+    params = _opt_leaves(cuda, torch.bfloat16, seed=1)
+    grads = _opt_leaves(cuda, torch.bfloat16, seed=2, scale=3.0)
+    state = opt.init(params)
+    opt.apply(params, grads, state, 0)              # build and warm up first
+    before = (fo.grad_norm.launches, fo.optimizer_update.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        clipped, metrics = opt.preprocess(grads)
+        opt.update(params, clipped, state, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert isinstance(clipped, ClippedGrads) and clipped.clip_scale.is_cuda
+    assert all(c is g for c, g in zip(clipped, grads))
+    assert metrics["grad_norm"].is_cuda
+    assert (fo.grad_norm.launches - before[0], fo.optimizer_update.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_vetoed_step_on_card_launches_no_update(cuda):
+    """The sentinel reads the norm kernel's result and vetoes a non-finite
+    step before the update: one grad_norm launch, no optimizer_update, the
+    parameters untouched."""
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.kernels import fused_optim as fo
+    from repro_torch.launch import steps as steps_lib
+    cfg = ExperimentConfig().apply_overrides(
+        ["train.batch=8", "train.seq=16", "graft.rset=[2,4]", "graft.use_pallas=true"])
+    mcfg, tcfg, data = cfg.build()
+    state = steps_lib.init_train_state(mcfg, tcfg, torch.Generator(device=cuda).manual_seed(0),
+                                       8, cuda)
+    with torch.no_grad():
+        state["model"].blocks[0].mlp["w_up"][0, 0] = float("nan")
+    before = [p.detach().clone() for p in state["params"]]
+    counts = (fo.grad_norm.launches, fo.optimizer_update.launches)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in data.batch_at(0).items()}
+    state, metrics = steps_lib.make_train_step(mcfg, tcfg)(state, batch)
+    assert metrics["healthy"] == 0.0 and state["step"] == 1
+    assert (fo.grad_norm.launches - counts[0], fo.optimizer_update.launches - counts[1]) == (1, 0)
+    assert all(torch.equal(a.nan_to_num(), b.nan_to_num()) and torch.equal(a.isnan(), b.isnan())
+               for a, b in zip(before, state["params"]))

@@ -149,9 +149,9 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("override", [
-    "train.checkpoint_dir=/nonexistent", "train.eval_every=5", "graft.overlap=true",
+    "train.audit=true", "graft.streaming=true", "graft.overlap=true",
     "train.fault_plan=x", "backend.kind=multiprocess", "data.source=synthetic_vision",
-    "train.sampler=random", "optimizer.name=lion", "model.arch=qwen1.5-32b"])
+    "train.sampler=random", "train.microbatches=2", "model.arch=qwen1.5-32b"])
 def test_not_ported_parts_raise_pointing_to_roadmap(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cfg = ExperimentConfig().apply_overrides(SMALL + [override])
