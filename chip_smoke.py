@@ -66,14 +66,31 @@ Phases (any failure exits nonzero and prints no result line):
                projection_sweep on the same stack, bit-equal to the fused
                kernel; all three timed, and again at the selection
                benchmark's shape B=8, K=256, R=32, d=1024, rank 32.
-  8. profile — where a steady step's time goes: the selection refresh, the
+  8. samplers — the selection breadth on the slice's trained params at full
+               width (d 2304, K 16, R 8), one 16 × 256 batch: every feature
+               source (svd, sketch_svd, pca_sketch, pooled_raw, ica; V up to
+               column sign within 1e-4 of max|V|) and the probe and
+               logit_embed grad sources (G within 1e-5 of max|G|, logit_embed's
+               peak memory) against the CPU on the same inputs; the eight
+               samplers through ``select_batch`` against the CPU (pivots
+               equal, CRAIG's up to an exact tie of its gains; weights
+               bit-equal, GradMatch's within rtol 1e-4; errors within 1e-5);
+               streaming_graft over 4 refreshes with its carry (one
+               graft_select launch a refresh, the carry against the CPU's,
+               ``fd_update`` timed); each timed by CUDA events. Then the
+               Trainer at 8 layers, 6 steps: streaming_graft (3 graft_select
+               launches, the carry's count 3) and ``graft.overlap`` (which
+               runs the sequential step) beside the sequential step from the
+               same seed: losses, ranks, pivots and flash launches equal,
+               steady step times.
+  9. profile — where a steady step's time goes: the selection refresh, the
                subset forward/backward, grad norm and the AdamW update timed
                apart with CUDA events on the trained state, and the top
                kernels of one whole step by device time (torch.profiler).
-  9. depth8  — the same slice with depth cut to 8 layers, dense attention
+ 10. depth8  — the same slice with depth cut to 8 layers, dense attention
                beside flash from the same seed, run dense, flash, flash,
                dense: steady step times from one call.
- 10. rwkv    — the RWKV6 recurrence's forward and backward kernels against
+ 11. rwkv    — the RWKV6 recurrence's forward and backward kernels against
                their plain versions: the JAX kernel test's four shapes, the
                rwkv6-7b selection forward (BH 1024 = 16 × 64 heads, T 256,
                D 64), the subset's forward and backward at rank 8 (BH 512)
@@ -85,18 +102,24 @@ Phases (any failure exits nonzero and prints no result line):
                against its plain version and its bound (no single PyTorch
                call computes it); the kernels line takes the forward at BH
                1024 and the backward at BH 128.
- 11. rwkv_slice — ``Trainer`` on rwkv6-7b at full width with depth cut to
+ 12. rwkv_slice — ``Trainer`` on rwkv6-7b at full width with depth cut to
                16 of 32 layers: 6 steps, the slice's GRAFT settings, exact
                launch counts (rwkv_scan 16 × (6·2 + 3), its backward 16 × 6,
                graft_select 3, flash 0), peak memory; then the profile of
-               phase 7 on its trained state.
- 12. check   — the same path at smoke size on the card against the port's
+               phase 9 on its trained state.
+ 13. check   — the same path at smoke size on the card against the port's
                CPU run (which the CPU tests hold against the JAX package):
                minicpm and gemma2 (seq 32, so that its window of 16 bites)
-               under flash attention, and rwkv6-7b through the RWKV kernels.
+               under flash attention, and rwkv6-7b through the RWKV kernels;
+               then minicpm under every other sampler (random, loss_topk,
+               full, el2n, gradmatch, craig, glister, streaming_graft) and
+               with sketch_svd or ica features, logit_embed or full grads.
                Per-step losses rtol 1e-4, ranks and pivots equal; one
                grad_norm and one optimizer_update per dtype group a step.
- 13. shell   — the Trainer shell at minicpm-2b's full width with depth cut
+               For each of those selection cases one refresh is also run
+               alone and counted: one flash forward a layer, and under full
+               grads one flash dQ and dK/dV a layer for each example.
+ 14. shell   — the Trainer shell at minicpm-2b's full width with depth cut
                to 2 layers (~405 M params, ~4 GB a checkpoint): an
                uninterrupted 6-step run with eval every 2 steps and a JSONL
                stream, then one that stops at step 3 with a checkpoint under
@@ -920,6 +943,265 @@ def phase_engine(ctx):
           f"projection_sweep) for the 8 refreshes {unfused:.4f} ms", flush=True)
 
 
+# the samplers phase's batches: the slice's stream past its 6 training steps
+SAMPLER_STEP = 6
+# the slice at 8 of 40 layers (phase depth8's cut), attention auto → flash
+DEPTH8_OVERRIDES = [o for o in SLICE_OVERRIDES if not o.startswith("model.overrides")] + [
+    'model.overrides={"attn_backend": "auto", "num_layers": 8}', "train.log_every=0"]
+
+
+def _max_rel(got, want) -> float:
+    """max|got − want| over max|want|, in float64 on the host."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = want.abs().max().item()
+    diff = (got - want).abs().max().item()
+    return diff / scale if scale else diff
+
+
+def _max_rel_up_to_sign(got, want) -> float:
+    """``_max_rel`` after flipping each column of ``got`` to ``want``'s sign
+    (eigenvector signs are the eigensolver's choice)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    signs = (got * want).sum(0).sign()
+    signs[signs == 0] = 1.0
+    return _max_rel(got * signs, want)
+
+
+def _craig_first_tie(G, pivots):
+    """The first pick of CRAIG's greedy (after pick 0, whose gains are all
+    +inf) at which the best two float64 gains tie to 1e-6, or None."""
+    import numpy as np
+    G = G.detach().double().cpu().numpy()
+    n = np.linalg.norm(G, axis=0) + 1e-12
+    S = (G.T @ G) / (n[:, None] * n[None, :])
+    best = np.full(S.shape[0], -np.inf)
+    for j, p in enumerate(pivots):
+        gain = np.sum(np.maximum(S - best[:, None], 0.0), axis=0)
+        gain[list(pivots[:j])] = -np.inf
+        top = np.sort(gain[np.isfinite(gain)])[::-1]
+        if j and len(top) > 1 and top[0] - top[1] <= 1e-6 * abs(top[0]):
+            return j
+        best = np.maximum(best, S[:, p])
+    return None
+
+
+def _pivots_agree(name, G, got, want):
+    """Pivots equal; for CRAIG, equal up to its first exact tie of gains
+    (two mutually nearest columns tie in exact arithmetic and float32
+    rounding picks one, ROADMAP C), after which they may part. Returns a
+    note for the log."""
+    got, want = got.tolist(), want.tolist()
+    if got == want:
+        return "equal"
+    tie = _craig_first_tie(G, want) if name == "craig" else None
+    assert tie is not None and got[:tie] == want[:tie], \
+        f"{name}: pivots {got} on the card, {want} on the CPU"
+    return f"equal up to the exact tie of gains at pick {tie}"
+
+
+def _selection_parts(mcfg, tcfg, model, batch):
+    """What ``selection_inputs`` feeds the sources, for one batch: the
+    pooled hiddens and the probe positions' logits, labels, hiddens, mask."""
+    import torch
+    from repro_torch.models import model as model_lib
+    with torch.no_grad():
+        h, mask = model_lib.forward_hiddens(mcfg, model, batch)
+        stride = max(1, h.shape[1] // tcfg.probe_positions) if tcfg.probe_positions else 1
+        hp, lp, mp = h[:, ::stride], batch["labels"][:, ::stride], mask[:, ::stride].float()
+        logits = model_lib.logits_from_hiddens(mcfg, model, hp)
+        pooled = torch.sum(h.float() * mask[..., None], dim=1) / \
+            torch.clamp(torch.sum(mask, dim=1), min=1.0)[:, None]
+    return pooled, logits, lp, hp, mp
+
+
+def _state_agree(name, got, want, G):
+    """One refresh's state on the card against the CPU's: pivots (CRAIG up
+    to a tie), rank and step equal; weights bit-equal (GradMatch's rtol
+    1e-4: a float32 solve); last_error and alignment within 1e-5 relative
+    (+1e-6 absolute). Returns the log note."""
+    import torch
+    note = _pivots_agree(name, G, got.pivots, want.pivots)
+    if note != "equal":
+        return note
+    assert int(got.rank) == int(want.rank) and int(got.step) == int(want.step), name
+    gw, ww = got.weights.cpu(), want.weights
+    if name in ("gradmatch", "streaming_graft"):
+        assert torch.allclose(gw, ww, rtol=1e-4 if name == "gradmatch" else 1e-5, atol=1e-6), \
+            f"{name}: weights {gw.tolist()} vs {ww.tolist()}"
+    else:
+        assert torch.equal(gw, ww), f"{name}: weights {gw.tolist()} vs {ww.tolist()}"
+    for f in ("last_error", "alignment"):
+        a, b = float(getattr(got, f)), float(getattr(want, f))
+        assert abs(a - b) <= 1e-5 * abs(b) + 1e-6, f"{name}: {f} {a} vs {b}"
+    return note
+
+
+def phase_samplers(ctx):
+    """The seven baselines, GRAFT, streaming over 4 refreshes, the five
+    feature sources and two grad sources on the slice's trained params at
+    full width, each against the CPU on the same inputs and timed; then the
+    streaming and overlapped Trainer at 8 layers."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.selection import engine, registry, sources, streaming
+    tr = ctx["trainer"]
+    mcfg, tcfg = tr.mcfg, tr.tcfg
+    cfg, r, model = tcfg.graft, tcfg.graft.r_max, tr.state["model"]
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in tr.data.batch_at(
+        SAMPLER_STEP + i).items()} for i in range(4)]
+    pooled, logits, lp, hp, mp = _selection_parts(mcfg, tcfg, model, batches[0])
+    print(f"[samplers] one {tuple(batches[0]['tokens'].shape)} batch of the trained minicpm-2b "
+          f"(step {SAMPLER_STEP}): pooled hiddens {tuple(pooled.shape)}, probe logits "
+          f"{tuple(logits.shape)}; rank {r}", flush=True)
+    with torch.no_grad():
+        for name in sources.available_features():
+            fx = sources.resolve_features(name)
+            V, V_cpu = fx(pooled, r), fx(pooled.cpu(), r)
+            err = _max_rel_up_to_sign(V, V_cpu)
+            ms = _time_auto(lambda: fx(pooled, r), max_iters=200)
+            print(f"[samplers] features {name}: V {tuple(V.shape)}, max|V - V_cpu| (up to "
+                  f"column sign) / max|V_cpu| {err:.3g} (limit 1e-4); {ms:.4f} ms", flush=True)
+            assert V.shape == (pooled.shape[0], r) and bool(torch.isfinite(V).all())
+            assert err <= 1e-4, f"features {name} differ from the CPU's"
+        host_params = {k: v.detach().cpu() for k, v in model.tree().items() if k != "blocks"}
+        for name in ("probe", "logit_embed"):
+            src = sources.resolve_grad_source(name)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            G = src(sources.GradSourceInputs(logits, lp, hp, mcfg=mcfg, params=model.tree(),
+                                             mask=mp))
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            G_cpu = src(sources.GradSourceInputs(logits.cpu(), lp.cpu(), hp.cpu(), mcfg=mcfg,
+                                                 params=host_params, mask=mp.cpu()))
+            err = _max_rel(G, G_cpu)
+            ms = _time_auto(lambda: src(sources.GradSourceInputs(
+                logits, lp, hp, mcfg=mcfg, params=model.tree(), mask=mp)), max_iters=50)
+            print(f"[samplers] grad source {name}: G {tuple(G.shape)}, max|G - G_cpu| / "
+                  f"max|G_cpu| {err:.3g} (limit 1e-5); {ms:.4f} ms; peak memory above the "
+                  f"inputs {peak:.3f} GB (the logits themselves {logits.numel() * 4 / 1e9:.3f} "
+                  f"GB)", flush=True)
+            assert bool(torch.isfinite(G).all()) and err <= 1e-5, f"grad source {name}"
+        del logits, hp, G, G_cpu
+        per = [steps_lib.selection_inputs(mcfg, tcfg, model, b) for b in batches]
+        V, G, gb, scores = per[0]
+        host = [x.cpu() for x in per[0]]
+        for name in registry.available():
+            if name == "streaming_graft":
+                continue
+            st, _ = engine.select_batch(cfg, name, V, G, gb, scores=scores, step=SAMPLER_STEP)
+            want, _ = engine.select_batch(cfg, name, *host[:3], scores=host[3],
+                                          step=SAMPLER_STEP)
+            note = _state_agree(name, st, want, host[1])
+            ms = _time_auto(lambda: engine.select_batch(cfg, name, V, G, gb, scores=scores,
+                                                        step=SAMPLER_STEP), max_iters=200)
+            print(f"[samplers] {name}: pivots {st.pivots.tolist()} ({note} to the CPU's), rank "
+                  f"{int(st.rank)}, last_error {float(st.last_error):.6f}, alignment "
+                  f"{float(st.alignment):.6f}; select_batch {ms:.4f} ms (d {G.shape[0]})",
+                  flush=True)
+        carry, carry_cpu, states = None, None, []
+        _zero_counts()
+        for i, (V, G, gb, sc) in enumerate(per):
+            st, carry = engine.select_batch(cfg, "streaming_graft", V, G, gb, scores=sc,
+                                            carry=carry, step=SAMPLER_STEP + i)
+            states.append(st)
+        torch.cuda.synchronize()
+        launches = _read_counts()["graft_select"]
+        for i, (st, x) in enumerate(zip(states, per)):
+            want, carry_cpu = engine.select_batch(cfg, "streaming_graft",
+                                                  *(t.cpu() for t in x[:3]), scores=x[3].cpu(),
+                                                  carry=carry_cpu, step=SAMPLER_STEP + i)
+            note = _state_agree("streaming_graft", st, want, x[1].cpu())
+            print(f"[samplers] streaming_graft refresh {i + 1}: pivots {st.pivots.tolist()} "
+                  f"({note}), rank {int(st.rank)}, weights {[round(w, 5) for w in st.weights.tolist()]}",
+                  flush=True)
+        sk, sk_cpu = carry.sketch.double().cpu(), carry_cpu.sketch.double()
+        carry_err = {"sketch^T sketch": _max_rel(sk.T @ sk, sk_cpu.T @ sk_cpu),
+                     "g_ema": _max_rel(carry.g_ema, carry_cpu.g_ema),
+                     "agreement": abs(float(carry.agreement) - float(carry_cpu.agreement))}
+        nbytes = sum(t.numel() * t.element_size() for t in carry)
+        fd_ms = _time_auto(lambda: streaming.fd_update(cfg, carry.sketch, per[0][1]))
+        refresh_ms = _time_auto(lambda: engine.select_batch(
+            cfg, "streaming_graft", *per[0][:3], scores=per[0][3], carry=carry,
+            step=SAMPLER_STEP + 4), max_iters=200)
+        print(f"[samplers] streaming_graft: {launches} graft_select launches for 4 refreshes; "
+              f"carry {nbytes} B (L {cfg.sketch_rows} x d {carry.g_ema.numel()}), count "
+              f"{float(carry.count)}; vs the CPU {carry_err} (limit 1e-5 each); a refresh "
+              f"{refresh_ms:.4f} ms, its fd_update {fd_ms:.4f} ms", flush=True)
+        assert launches == 4, f"streaming launched graft_select {launches} times for 4 refreshes"
+        assert float(carry.count) == float(carry_cpu.count) == 4.0
+        assert all(v <= 1e-5 for v in carry_err.values()), carry_err
+        assert all(bool(torch.isfinite(t).all()) for t in carry)
+    _samplers_trainer_runs()
+
+
+def _samplers_trainer_runs():
+    """The streaming Trainer, and ``graft.overlap`` beside the sequential
+    Trainer, at minicpm-2b's full width, 8 layers, 6 steps each."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Callback, ExperimentConfig, Trainer
+    from repro_torch.selection import streaming
+
+    class PivotRecorder(Callback):
+        priority = 95
+
+        def __init__(self):
+            self.pivots = []
+
+        def on_step_end(self, trainer, step, metrics):
+            self.pivots.append(trainer.state["graft"].pivots.tolist())
+
+    _zero_counts()
+    trainer = Trainer(ExperimentConfig().apply_overrides(
+        DEPTH8_OVERRIDES + ["train.sampler=streaming_graft"]))
+    report = trainer.fit()
+    counts = _read_counts()
+    carry = trainer.state["sampler_carry"]
+    hist = report["history"]
+    print(f"[samplers] Trainer streaming_graft, 8 layers, 6 steps: losses "
+          f"{[round(row['loss'], 5) for row in hist]}, ranks {[int(row['rank']) for row in hist]}; "
+          f"graft_select launches {counts['graft_select']}; carry count {float(carry.count)}, "
+          f"agreement {float(carry.agreement):.6f}; steady step "
+          f"{np.mean([row['step_time_s'] for row in hist[1:]]) * 1e3:.1f} ms", flush=True)
+    assert isinstance(carry, streaming.SketchCarry) and float(carry.count) == 3.0
+    assert counts["graft_select"] == 3, counts
+    assert all(bool(torch.isfinite(t).all()) for t in carry)
+    assert all(np.isfinite(row["loss"]) and row["healthy"] == 1.0 for row in hist)
+    del trainer, report, carry
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = []
+    for overlap in (False, True):
+        rec = PivotRecorder()
+        _zero_counts()
+        report = Trainer(ExperimentConfig().apply_overrides(
+            DEPTH8_OVERRIDES + [f"graft.overlap={str(overlap).lower()}"]),
+            callbacks=[rec]).fit()
+        counts = _read_counts()
+        hist = report["history"]
+        runs.append({"overlap": overlap, "losses": [row["loss"] for row in hist],
+                     "ranks": [int(row["rank"]) for row in hist], "pivots": rec.pivots,
+                     "flash": (counts["flash_forward"], counts["flash_dq"], counts["flash_dkv"]),
+                     "steady_ms": float(np.mean([row["step_time_s"] for row in hist[1:]])) * 1e3,
+                     "steps_ms": [round(row["step_time_s"] * 1e3, 1) for row in hist]})
+        del report
+        gc.collect()
+        torch.cuda.empty_cache()
+    first = runs[0]
+    for run in runs:
+        same = all(run[k] == first[k] for k in ("losses", "ranks", "pivots", "flash"))
+        print(f"[samplers] Trainer overlap={run['overlap']}: step ms {run['steps_ms']}, steady "
+              f"(steps 1-5) {run['steady_ms']:.1f} ms; flash launches {run['flash']}; losses, "
+              f"ranks, pivots {'bit-equal to' if same else 'DIFFER from'} the first sequential "
+              f"run's", flush=True)
+        assert same, f"overlap={run['overlap']} differs from the sequential run"
+    print(f"[samplers] steady step: sequential {runs[0]['steady_ms']:.1f} ms, graft.overlap "
+          f"{runs[1]['steady_ms']:.1f} ms (the same step function, launch.steps.make_run_step)")
+
+
 def phase_profile(ctx):
     _profile(ctx["trainer"], "profile")
 
@@ -1204,17 +1486,50 @@ def phase_rwkv_slice(ctx):
     torch.cuda.empty_cache()
 
 
+# the minicpm smoke runs phase check adds: every sampler besides graft, and
+# the feature and grad sources whose arithmetic is new in the port
+CHECK_SELECTION = ["train.sampler=" + s for s in (
+    "random", "loss_topk", "full", "el2n", "gradmatch", "craig", "glister",
+    "streaming_graft")] + ["graft.feature_mode=sketch_svd", "graft.feature_mode=ica",
+                           "graft.grad_mode=logit_embed", "graft.grad_mode=full"]
+
+
+def _check_refresh_launches(mcfg, tcfg, state, batch, extra):
+    """One selection refresh alone, counted: its forward runs the flash
+    kernel once per layer, and under ``grad_mode=full`` each example's
+    backward runs flash dQ and dK/dV once per layer (the training step's
+    own launches are not in these counts)."""
+    import torch
+    from repro_torch.launch import steps as steps_lib
+    refresh = steps_lib.make_selection_refresh(mcfg, tcfg)
+    _zero_counts()
+    refresh(state["model"].tree(), batch, state.get("sampler_carry", {}), 0)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    L, K = mcfg.num_layers, batch["tokens"].shape[0]
+    full = extra == "graft.grad_mode=full"
+    want_bwd = K * L if full else 0
+    print(f"[check] {extra}: one refresh alone launched flash forward "
+          f"{counts['flash_forward']}, dq {counts['flash_dq']}, dkv {counts['flash_dkv']}")
+    assert (counts["flash_forward"] >= L * (K + 1)) if full else \
+        (counts["flash_forward"] == L), f"{extra}: refresh launches {counts}"
+    assert counts["flash_dq"] == counts["flash_dkv"] == want_bwd, \
+        f"{extra}: refresh launches {counts}, want {want_bwd} backward launches"
+
+
 def phase_check(ctx):
-    import numpy as np
     import torch
     from repro_torch.api import ExperimentConfig
     from repro_torch.launch import steps as steps_lib
     base = ['model.overrides={"param_dtype": "float32", "attn_backend": "flash"}',
             "train.steps=4", "train.batch=8", "graft.rset=[2,4]",
             "graft.refresh_every=2", "graft.use_pallas=true"]
-    for arch, seq in (("minicpm-2b", 16), ("gemma2-27b", 32), ("rwkv6-7b", 16)):
+    cases = [(arch, seq, None) for arch, seq in (("minicpm-2b", 16), ("gemma2-27b", 32),
+                                                 ("rwkv6-7b", 16))]
+    cases += [("minicpm-2b", 16, extra) for extra in CHECK_SELECTION]
+    for arch, seq, extra in cases:
         cfg = ExperimentConfig().apply_overrides(
-            [f"model.arch={arch}", f"train.seq={seq}"] + base)
+            [f"model.arch={arch}", f"train.seq={seq}"] + base + ([extra] if extra else []))
         runs = {}
         for dev in ("cuda", "cpu"):
             mcfg, tcfg, data = cfg.build()
@@ -1236,8 +1551,12 @@ def phase_check(ctx):
             optim = {"grad_norm": steps,
                      "optimizer_update": steps * _optim_groups(state["params"])}
             assert {k: counts[k] for k in optim} == optim, f"{dev}: {counts}, want {optim}"
+            if extra and dev == "cuda":
+                _check_refresh_launches(mcfg, tcfg, state, batch, extra)
             runs[dev] = rows
-        if mcfg.family == "ssm":
+        if extra:
+            print(f"[check] {arch} seq {seq} under flash with {extra}")
+        elif mcfg.family == "ssm":
             print(f"[check] {arch} seq {seq} through the RWKV kernels ({mcfg.num_heads} heads "
                   f"x {mcfg.d_model // mcfg.num_heads})")
         else:
@@ -1579,7 +1898,7 @@ def main() -> int:
     for name, fn in (("device", phase_device), ("build", phase_build),
                      ("kernels", phase_kernels), ("flash", phase_flash),
                      ("optim", phase_optim), ("slice", phase_slice), ("engine", phase_engine),
-                     ("profile", phase_profile), ("depth8", phase_depth8),
+                     ("samplers", phase_samplers), ("profile", phase_profile), ("depth8", phase_depth8),
                      ("rwkv", phase_rwkv), ("rwkv_slice", phase_rwkv_slice),
                      ("check", phase_check), ("shell", phase_shell)):
         print(f"=== phase {name}", flush=True)

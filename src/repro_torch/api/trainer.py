@@ -18,9 +18,11 @@ rides in the manifest::
 
     report = Trainer.from_checkpoint("/ckpts/run1").fit()
 
-The overlapped refresh, streaming selection, the audit and the chaos
-harness of the JAX ``Trainer`` are still to port; a config that asks for
-one of them is refused with ``NotImplementedError`` (``ROADMAP.md``).
+Steps dispatch through ``launch.steps.make_run_step``, which runs
+``graft.overlap`` as the sequential step (its docstring says why). The
+audit and the chaos harness of the JAX ``Trainer`` are still to port; a
+config that asks for one of them is refused with ``NotImplementedError``
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -37,11 +39,8 @@ from repro_torch.checkpoint import load_train_state, train_state_spec
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.metrics import DeviceClock, MetricsFuture, materialize_metrics
 
-# train/graft fields whose machinery is not ported, with their inert value
-_NOT_PORTED = (
-    ("train", "audit", False), ("train", "fault_plan", None),
-    ("graft", "overlap", False), ("graft", "streaming", False),
-)
+# train fields whose machinery is not ported, with their inert value
+_NOT_PORTED = (("train", "audit", False), ("train", "fault_plan", None))
 
 
 def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
@@ -228,7 +227,7 @@ class Trainer:
         self.state = steps_lib.init_train_state(self.mcfg, self.tcfg, gen, tr.batch,
                                                 self.device)
         self.num_params = sum(p.numel() for p in self.state["params"])
-        step_fn = steps_lib.make_train_step(self.mcfg, self.tcfg)
+        run_step = steps_lib.make_run_step(self.mcfg, self.tcfg)
         history = HistoryBuffer(cap=tr.history_cap)
         if tr.device_timing and self.device.type == "cuda":
             self.device_clock = DeviceClock(stall_timeout_s=tr.device_timeout_s or None)
@@ -245,7 +244,7 @@ class Trainer:
             while step < tr.steps:
                 batch = self._to_device(next(it))
                 t0 = time.perf_counter()
-                self.state, dev_metrics = step_fn(self.state, batch)
+                self.state, dev_metrics = run_step(self.state, batch)
                 if self.device_clock is not None:
                     self.device_clock.observe(step)
                 self._sync()

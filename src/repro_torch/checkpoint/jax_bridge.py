@@ -185,6 +185,17 @@ def _scalar(value, dtype) -> torch.Tensor:
     return torch.tensor(value, dtype=dtype)
 
 
+def _carry_items(carry) -> List[Tuple[str, torch.Tensor]]:
+    """The sampler carry's leaves under their JAX path below
+    ``sampler_carry/``: a NamedTuple's fields as ``.{field}`` (the JAX
+    checkpointer's ``GetAttrKey``), a dict's keys as they are."""
+    if not carry:
+        return []
+    if hasattr(carry, "_fields"):
+        return [(f".{f}", getattr(carry, f)) for f in carry._fields]
+    return list(carry.items())
+
+
 def train_state_to_host(state) -> Dict[str, torch.Tensor]:
     """The train state as CPU tensors keyed by the JAX checkpoint's leaf
     paths. Every device→host copy has finished when this returns."""
@@ -193,7 +204,7 @@ def train_state_to_host(state) -> Dict[str, torch.Tensor]:
     if "graft" in state:
         for field, t in state["graft"]._asdict().items():
             flat[f"graft/.{field}"] = t.detach().to("cpu", copy=True)
-    for k, t in (state.get("sampler_carry") or {}).items():
+    for k, t in _carry_items(state.get("sampler_carry")):
         flat[f"sampler_carry/{k}"] = t.detach().to("cpu", copy=True)
     if "health" in state:
         h = state["health"]
@@ -215,7 +226,7 @@ def train_state_spec(state) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     if "graft" in state:
         for field, t in state["graft"]._asdict().items():
             spec[f"graft/.{field}"] = (tuple(t.shape), t.dtype)
-    for k, t in (state.get("sampler_carry") or {}).items():
+    for k, t in _carry_items(state.get("sampler_carry")):
         spec[f"sampler_carry/{k}"] = (tuple(t.shape), t.dtype)
     if "health" in state:
         spec.update({"health/ema_mean": ((), torch.float32), "health/ema_var": ((), torch.float32),
@@ -257,9 +268,10 @@ def load_train_state(state, flat: Dict[str, torch.Tensor]):
         state["graft"] = g._replace(**{f: flat[f"graft/.{f}"].to(dev) for f in g._fields})
     carry = state.get("sampler_carry")
     if carry:
-        state["sampler_carry"] = {k: flat[f"sampler_carry/{k}"].to(v.device)
-                                  if f"sampler_carry/{k}" in flat else v
-                                  for k, v in carry.items()}
+        loaded = {k: flat[f"sampler_carry/{k}"].to(v.device)
+                  if f"sampler_carry/{k}" in flat else v for k, v in _carry_items(carry)}
+        state["sampler_carry"] = (carry._replace(**{k[1:]: v for k, v in loaded.items()})
+                                  if hasattr(carry, "_fields") else loaded)
     if "health" in state and "health/count" in flat:
         state["health"] = {"ema_mean": np.float32(flat["health/ema_mean"].item()),
                            "ema_var": np.float32(flat["health/ema_var"].item()),

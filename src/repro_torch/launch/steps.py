@@ -48,7 +48,7 @@ _F = np.float32
 class TrainConfig:
     optimizer: OptimizerConfig = OptimizerConfig()
     graft: Optional[GraftConfig] = None
-    sampler: str = "graft"          # registry name (the port has 'graft')
+    sampler: str = "graft"          # registry name; any repro_torch.selection sampler
     probe_positions: int = 256      # positions per sequence for grad embeddings
                                     # (0 = all)
     microbatches: int = 1           # >1 (accumulation) is not ported
@@ -71,12 +71,16 @@ def init_health() -> Dict[str, Any]:
     return {"ema_mean": _F(0.0), "ema_var": _F(0.0), "count": 0, "bad_streak": 0}
 
 
-def init_sampler_carry(mcfg, tcfg: TrainConfig, params, batch_size: int):
-    """The registry sampler's initial cross-step state (``{}`` for graft)."""
+def init_sampler_carry(mcfg, tcfg: TrainConfig, params, batch_size: int,
+                       device=None):
+    """The registry sampler's initial cross-step state on ``device``: ``{}``
+    for the stateless strategies, the (L, d) sketch reservoir for
+    ``streaming_graft``, with d the registered grad source's ``embed_dim``."""
     smp = sampler_registry.get_sampler(tcfg.sampler)
     grad_source = sources_lib.resolve_grad_source(tcfg.graft.grad_mode)
     spec = selection_base.CarrySpec(
-        batch_size=batch_size, grad_dim=grad_source.embed_dim(mcfg, params))
+        batch_size=batch_size, grad_dim=grad_source.embed_dim(mcfg, params),
+        device=device or "cpu")
     return smp.init_carry(tcfg.graft, spec)
 
 
@@ -104,7 +108,7 @@ def state_for_model(mcfg, tcfg: TrainConfig, model: model_lib.Model,
     if tcfg.use_graft:
         state["graft"] = selection_base.init_state(tcfg.graft, batch_size, device)
         state["sampler_carry"] = init_sampler_carry(mcfg, tcfg, model.tree(),
-                                                    batch_size)
+                                                    batch_size, device)
     if tcfg.sentinel:
         state["health"] = init_health()
     return state
@@ -168,9 +172,9 @@ def make_selection_refresh(mcfg, tcfg: TrainConfig):
     @torch.no_grad()
     def refresh(params, batch, carry, step: int):
         V, G, g_bar, scores = selection_inputs(mcfg, tcfg, params, batch)
-        # no stochastic sampler is ported, so no PRNG key is derived
+        key = selection_base.default_select_generator(step) if smp.needs_key else None
         return smp.select(gcfg, selection_base.SelectionInputs(
-            V, G, g_bar, scores), carry, step)
+            V, G, g_bar, scores, key), carry, step)
 
     return refresh
 
@@ -335,3 +339,16 @@ def make_train_step(mcfg, tcfg: TrainConfig, kind: Optional[str] = None):
     def fn(state, batch):
         return step(mcfg, tcfg, state, batch, sentinel=sentinel, opt=opt)
     return fn
+
+
+def make_run_step(mcfg, tcfg: TrainConfig):
+    """The training loop's ``(state, batch) → (state, metrics)``, the twin
+    of the JAX package's ``make_run_step``. ``graft.overlap`` is accepted so
+    that the JAX package's configs load, and selects the same sequential
+    step: what the JAX overlap buys there (a host-side step index, no host
+    sync between the refresh and the train dispatch) the eager port already
+    has. ``state["step"]`` is a host int, the refresh dispatches without a
+    sync, and steps between refreshes run no selection code. The subset step
+    needs the refresh's pivots, so a side stream would only reorder the
+    same work (``ROADMAP.md``, B7)."""
+    return make_train_step(mcfg, tcfg)

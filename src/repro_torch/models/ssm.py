@@ -10,7 +10,7 @@ type; the recurrence runs in float32 on (B·H, S, Dh) streams with
 ``Dh = D // H``.
 
 The decode state (``state`` not None) and Hymba's selective SSM heads
-(``ssm_heads``) are not ported (``ROADMAP.md``, A12).
+(``ssm_heads``) are not ported (``ROADMAP.md``: A7 decode, A6 ``ssm_heads``).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import rwkv_scan as rwkv_lib
 
 _NO_DECODE = ("the RWKV decode state (models/decode.py, serving) is not ported to "
-              "repro_torch yet (see ROADMAP.md, A12)")
+              "repro_torch yet (see ROADMAP.md, A7)")
 
 
 def _token_shift(x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +92,7 @@ def ssm_heads(cfg, p, x: torch.Tensor, state=None):
     """Hymba's selective SSM heads are not ported yet."""
     raise NotImplementedError(
         "ssm_heads (Hymba's selective SSM, the hybrid family) is not ported to "
-        "repro_torch yet (see ROADMAP.md, A12)")
+        "repro_torch yet (see ROADMAP.md, A6)")
 
 
 # ---------------------------------------------------------------------------

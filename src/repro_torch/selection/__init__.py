@@ -1,5 +1,6 @@
-"""Subset selection: the GRAFT sampler, its protocol, its input sources and
-the single- and multi-batch engines.
+"""Subset selection: the samplers (GRAFT, the baselines the paper compares
+against, the streaming sketch reservoir), their protocol, their input
+sources and the single- and multi-batch engines.
 
     from repro_torch.selection import GraftConfig, engine
 
@@ -8,11 +9,14 @@ the single- and multi-batch engines.
     states, cs = engine.select_multi_batch(cfg, "graft", Vs, Gs, gbs)   # a stack
 
 Under ``use_pallas`` the multi-batch GRAFT path is one launch of the batched
-kernel. The sharded engine, the overlap scheduler, the streaming reservoir
-and the baseline samplers of the JAX package are still to port
+kernel, and ``graft`` and ``streaming_graft`` refresh through the
+``graft_select`` kernel. ``registry.available()`` lists the samplers,
+``sources.available_features()`` / ``sources.available_grad_sources()`` the
+input paths. The sharded engine of the JAX package is still to port
 (``ROADMAP.md``).
 """
-from repro_torch.selection import engine, registry, sources
+from repro_torch.selection import samplers as _samplers  # noqa: F401 (registers defaults)
+from repro_torch.selection import engine, registry, sources, streaming
 from repro_torch.selection.base import (Carry, CarrySpec, GraftConfig, Sampler,
                                         SamplerConfig, SelectionInputs,
                                         SelectionState, init_state)
@@ -26,5 +30,5 @@ __all__ = [
     "SelectionState", "GraftState", "Carry", "CarrySpec", "init_state",
     "graft_select", "graft_select_batched", "pivot_and_sweep",
     "select_batch", "select_multi_batch", "available", "get_sampler",
-    "register", "engine", "registry", "sources",
+    "register", "engine", "registry", "sources", "streaming",
 ]

@@ -6,9 +6,9 @@ Every subset sampler implements one v2 signature —
 
 The *carry* is the sampler's cross-step state, created once by
 ``init_carry(cfg, spec)`` and threaded through every ``select`` call.
-Stateless samplers carry the empty dict ``{}`` and return it unchanged.
-Only the ``graft`` sampler is ported; the others of the JAX package are
-listed in ``ROADMAP.md``.
+Stateless samplers carry the empty dict ``{}`` and return it unchanged;
+the streaming sampler carries a ``SketchCarry`` (``selection/streaming.py``).
+Non-GRAFT samplers read only ``r_max`` and ``use_pallas`` from the config.
 """
 from __future__ import annotations
 
@@ -34,11 +34,12 @@ class GraftConfig:
     overlap: bool = False                      # double-buffered refresh/train
                                               # overlap; excluded from
                                               # config_hash
-    # -- streaming (not ported; inert unless streaming_graft is selected) --
-    streaming: bool = False
-    sketch_rows: int = 64
-    sketch_decay: float = 0.99
-    stream_mix: float = 0.5
+    # -- streaming (selection/streaming.py); inert unless the
+    # streaming_graft sampler is selected --
+    streaming: bool = False                    # upgrade 'graft' → 'streaming_graft'
+    sketch_rows: int = 64                      # L — reservoir rows, (L, d) footprint
+    sketch_decay: float = 0.99                 # per-refresh reservoir/EMA decay
+    stream_mix: float = 0.5                    # β cap on the stream-target blend
 
     def __post_init__(self):
         if tuple(sorted(self.rset)) != tuple(self.rset):
@@ -70,14 +71,31 @@ class SelectionState(NamedTuple):
 
 class SelectionInputs(NamedTuple):
     """Per-batch selection inputs. ``scores`` are per-sample scalars for
-    score-ranked samplers; ``key`` drives stochastic samplers. The engines
-    pass a caller's ``key``/``keys`` through per lane and derive none (no
-    ported sampler draws random numbers), so it is ``None`` unless given."""
+    score-ranked samplers; ``key`` is the ``torch.Generator`` stochastic
+    samplers draw from (the engines and the train step derive one with
+    :func:`default_select_generator` when none is given)."""
     V: torch.Tensor                        # (K, R_max) relevance-ordered features
     G: torch.Tensor                        # (d, K) per-sample grad embeddings
     g_bar: torch.Tensor                    # (d,) batch mean gradient
     scores: Optional[torch.Tensor] = None  # (K,) per-sample scores
-    key: Optional[Any] = None
+    key: Optional[torch.Generator] = None
+
+
+def default_select_generator(step) -> torch.Generator:
+    """The generator stochastic samplers draw from when the caller supplies
+    none, seeded from ``step`` — the ONE derivation shared by the engine
+    paths and the in-step refresh, so they sample identically. It is a CPU
+    generator (what it draws is copied to the device), so a card run and a
+    CPU run pick the same rows. Its draws are not ``jax.random``'s: the JAX
+    package folds ``step`` into ``PRNGKey(0)``."""
+    return torch.Generator(device="cpu").manual_seed(int(step))
+
+
+def lane_generators(step, lanes: int):
+    """One generator per microbatch lane, seeded from draws of
+    :func:`default_select_generator` (the JAX engine splits its key)."""
+    seeds = torch.randint(0, 2 ** 62, (lanes,), generator=default_select_generator(step))
+    return [torch.Generator(device="cpu").manual_seed(int(s)) for s in seeds]
 
 
 def init_state(cfg: GraftConfig, batch_size: int,
@@ -95,16 +113,34 @@ def init_state(cfg: GraftConfig, batch_size: int,
     )
 
 
+def finalize_state(cfg: GraftConfig, pivots: torch.Tensor, weights: torch.Tensor,
+                   rank, G: torch.Tensor, g_bar: torch.Tensor,
+                   step: torch.Tensor) -> SelectionState:
+    """Fill the diagnostic fields every sampler shares: the projection error
+    of the ACTIVE selected gradients (zeroed columns capture no energy in
+    the sweep) and the subset/batch alignment."""
+    from repro_torch.core import projection as proj_lib
+    G_sel = G.to(torch.float32).index_select(1, pivots.long())   # (d, R_max)
+    active = (weights > 0).to(torch.float32)
+    err = proj_lib.prefix_projection_errors(G_sel * active[None, :], g_bar)[-1]
+    align = proj_lib.cosine_alignment(G_sel @ weights, g_bar)
+    return SelectionState(pivots=pivots.to(torch.int32), weights=weights,
+                          rank=torch.as_tensor(rank, dtype=torch.int32, device=G.device),
+                          last_error=err, alignment=align, step=step)
+
+
 class CarrySpec(NamedTuple):
     """Static shape info a sampler needs to size its carry before the first
-    batch exists: ``batch_size`` is K, ``grad_dim`` is d."""
+    batch exists: ``batch_size`` is K, ``grad_dim`` is d. ``device`` (the
+    port's addition) is where the carry lives."""
     batch_size: int
     grad_dim: int
+    device: Any = "cpu"
 
     @classmethod
     def from_inputs(cls, inputs: SelectionInputs) -> "CarrySpec":
         return cls(batch_size=int(inputs.V.shape[0]),
-                   grad_dim=int(inputs.G.shape[0]))
+                   grad_dim=int(inputs.G.shape[0]), device=inputs.V.device)
 
 
 EMPTY_CARRY: dict = {}

@@ -13,10 +13,11 @@ stateless samplers carry ``{}`` untouched.
 
 These are plain functions: PyTorch runs eagerly, so there is no compile
 cache to key. ``carry=None`` means "initialize a fresh carry from the input
-shapes". ``key``/``keys`` are passed through to the sampler per lane; no
-sampler of the port draws random numbers, so none is derived when they are
-left ``None``. The sharded engine (``make_sharded_selector``,
-``select_sharded``) waits for the port's distributed backend (ROADMAP A11).
+shapes". ``key``/``keys`` (``torch.Generator``s) are passed to the sampler
+per lane; when a stochastic sampler gets none, one is derived from ``step``
+(``base.default_select_generator``, one per lane for a stack). The sharded
+engine (``make_sharded_selector``, ``select_sharded``) waits for the port's
+distributed backend (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ import torch
 from repro_torch.selection import graft as graft_lib
 from repro_torch.selection import registry
 from repro_torch.selection.base import (Carry, CarrySpec, GraftConfig, Sampler,
-                                        SelectionInputs)
+                                        SelectionInputs, default_select_generator,
+                                        lane_generators)
 
 SamplerLike = Union[str, Sampler]
 
@@ -46,7 +48,7 @@ def _resolve(cfg: GraftConfig, sampler: SamplerLike, scores) -> Sampler:
 def _fresh_carry(smp: Sampler, cfg: GraftConfig, V: torch.Tensor,
                  G: torch.Tensor) -> Carry:
     return smp.init_carry(cfg, CarrySpec(batch_size=int(V.shape[-2]),
-                                         grad_dim=int(G.shape[-2])))
+                                         grad_dim=int(G.shape[-2]), device=V.device))
 
 
 def _tree_map(fn: Callable[..., Any], tree, *rest):
@@ -73,13 +75,15 @@ def _stack_trees(trees):
 
 def select_batch(cfg: GraftConfig, sampler: SamplerLike, V: torch.Tensor,
                  G: torch.Tensor, g_bar: torch.Tensor, *,
-                 scores: Optional[torch.Tensor] = None, key: Any = None,
-                 carry: Carry = None, step=0):
+                 scores: Optional[torch.Tensor] = None,
+                 key: Optional[torch.Generator] = None, carry: Carry = None, step=0):
     """Run ``sampler`` on one (K, R_max) batch. Returns ``(SelectionState,
     carry')``; feed ``carry'`` back in to stream across calls."""
     smp = _resolve(cfg, sampler, scores)
     if scores is None:
         scores = torch.zeros(V.shape[0], dtype=torch.float32, device=V.device)
+    if key is None and smp.needs_key:
+        key = default_select_generator(step)
     if carry is None:
         carry = _fresh_carry(smp, cfg, V, G)
     return smp.select(cfg, SelectionInputs(V, G, g_bar, scores, key), carry, step)
@@ -96,7 +100,7 @@ def select_multi_batch(cfg: GraftConfig, sampler: SamplerLike, V: torch.Tensor,
     """Select for a STACK of microbatches.
 
     ``V``: (B, K, R_max); ``G``: (B, d, K); ``g_bar``: (B, d); optional
-    ``scores``: (B, K) and ``keys``: per-lane keys (indexed ``keys[b]``).
+    ``scores``: (B, K) and ``keys``: per-lane generators (``keys[b]``).
     Returns ``(SelectionState, carry')`` whose leaves carry a leading B axis
     — the same as a Python loop of :func:`select_batch` calls. A stateful
     sampler's carry is B-stacked (``carry=None`` broadcasts one fresh carry
@@ -106,6 +110,8 @@ def select_multi_batch(cfg: GraftConfig, sampler: SamplerLike, V: torch.Tensor,
     B = V.shape[0]
     if scores is None:
         scores = torch.zeros(V.shape[:2], dtype=torch.float32, device=V.device)
+    if keys is None and smp.needs_key:
+        keys = lane_generators(step, B)
     if carry is None:
         carry = _tree_map(lambda x: x.expand((B,) + tuple(x.shape)),
                           _fresh_carry(smp, cfg, V, G))
@@ -129,21 +135,21 @@ def select_multi_batch(cfg: GraftConfig, sampler: SamplerLike, V: torch.Tensor,
 
 def make_sharded_selector(cfg: GraftConfig, mesh, *, sampler: SamplerLike = "graft",
                           batch_logical: str = "act_batch", rules=None):
-    """Not ported: needs the distributed backend (ROADMAP A11)."""
+    """Not ported: needs the distributed backend (ROADMAP A10)."""
     raise NotImplementedError(
         "make_sharded_selector (data-parallel selection over a mesh) is not "
         "ported to repro_torch yet: it waits for the distributed backend "
-        "(see ROADMAP.md, A11)")
+        "(see ROADMAP.md, A10)")
 
 
 def select_sharded(cfg: GraftConfig, mesh, V: torch.Tensor, G: torch.Tensor, *,
                    sampler: SamplerLike = "graft", scores=None, carry: Carry = None,
                    step=0, batch_logical: str = "act_batch", rules=None):
-    """Not ported: needs the distributed backend (ROADMAP A11)."""
+    """Not ported: needs the distributed backend (ROADMAP A10)."""
     raise NotImplementedError(
         "select_sharded (data-parallel selection over a mesh) is not ported "
         "to repro_torch yet: it waits for the distributed backend (see "
-        "ROADMAP.md, A11)")
+        "ROADMAP.md, A10)")
 
 
 __all__ = ["select_batch", "select_multi_batch", "make_sharded_selector",

@@ -1,15 +1,24 @@
-"""Name → Sampler registry (the port has the ``graft`` sampler only)."""
+"""Name → Sampler registry.
+
+A thin skin over the generic :class:`repro_torch.registry.Registry`: the
+default samplers (``selection/samplers.py``, ``selection/streaming.py``)
+register themselves on import and are loaded lazily on the first lookup,
+as in the JAX package; external code adds strategies with :func:`register`.
+"""
 from __future__ import annotations
 
 from typing import Tuple, Union
 
 from repro_torch.registry import Registry
 from repro_torch.selection.base import Sampler
-from repro_torch.selection.graft import graft_sampler_fn
 
-_REGISTRY: Registry = Registry(
-    "sampler", not_ported=("random", "loss_topk", "full", "el2n", "gradmatch",
-                           "craig", "glister", "streaming_graft"))
+
+def _load_defaults() -> None:
+    from repro_torch.selection import samplers as _  # noqa: F401
+    from repro_torch.selection import streaming as _s  # noqa: F401
+
+
+_REGISTRY: Registry = Registry("sampler", ensure_defaults=_load_defaults)
 
 
 def register(sampler: Sampler, *, overwrite: bool = False) -> Sampler:
@@ -24,6 +33,3 @@ def get_sampler(name_or_sampler: Union[str, Sampler]) -> Sampler:
 
 def available() -> Tuple[str, ...]:
     return _REGISTRY.available()
-
-
-GRAFT = register(Sampler("graft", graft_sampler_fn))

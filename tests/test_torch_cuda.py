@@ -27,6 +27,8 @@ D and, for the gradients, over T in another order), plus 1e-6; reruns, and
 inputs that take the 4-byte copies instead of the 16-byte ones, bit-equal
 (fixed summation order, no atomics).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -711,3 +713,152 @@ def test_vetoed_step_on_card_launches_no_update(cuda):
     assert (fo.grad_norm.launches - counts[0], fo.optimizer_update.launches - counts[1]) == (1, 0)
     assert all(torch.equal(a.nan_to_num(), b.nan_to_num()) and torch.equal(a.isnan(), b.isnan())
                for a, b in zip(before, state["params"]))
+
+
+# ---------------------------------------------------------------------------
+# the baseline samplers, the sources, streaming and graft.overlap
+# ---------------------------------------------------------------------------
+
+SAMPLER_NAMES = ("graft", "random", "loss_topk", "full", "el2n", "gradmatch", "craig",
+                 "glister")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SAMPLER_NAMES)
+def test_sampler_on_card_matches_cpu(cuda, name):
+    """d 2304, K 16, R 8 (seed 0 keeps CRAIG's gains apart): pivots, rank and
+    step equal; weights bit-equal (GradMatch rtol 1e-4, a float32 solve);
+    last_error and alignment within 1e-5 relative."""
+    from repro_torch.selection import engine
+    from repro_torch.selection.base import GraftConfig
+    from torch_cases import sampler_case
+    cfg = GraftConfig(rset=(2, 4, 8), use_pallas=True)
+    host = [torch.from_numpy(a) for a in sampler_case(2304, 16, 8, seed=0)]
+    dev = [t.to(cuda) for t in host]
+    got, _ = engine.select_batch(cfg, name, *dev[:3], scores=dev[3], step=3)
+    want, _ = engine.select_batch(cfg, name, *host[:3], scores=host[3], step=3)
+    assert got.pivots.tolist() == want.pivots.tolist()
+    assert int(got.rank) == int(want.rank) and int(got.step) == int(want.step) == 3
+    if name == "gradmatch":
+        torch.testing.assert_close(got.weights.cpu(), want.weights, rtol=1e-4, atol=1e-7)
+    else:
+        assert torch.equal(got.weights.cpu(), want.weights)
+    for f in ("last_error", "alignment"):
+        a, b = float(getattr(got, f)), float(getattr(want, f))
+        assert abs(a - b) <= 1e-5 * abs(b) + 1e-6, f
+
+
+@pytest.mark.cuda
+def test_sources_on_card_match_cpu(cuda):
+    """Every feature source up to column sign within 1e-4 of max|V|, and the
+    probe and logit_embed grad sources within 1e-5 of max|G|."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.selection import sources
+    g = torch.Generator().manual_seed(0)
+    A = torch.randn(16, 2304, generator=g)
+    for name in sources.available_features():
+        fx = sources.resolve_features(name)
+        got, want = fx(A.to(cuda), 8).cpu().double(), fx(A, 8).double()
+        signs = (got * want).sum(0).sign()
+        assert (got * signs - want).abs().max() <= 1e-4 * want.abs().max(), name
+    mcfg = get_smoke_config("minicpm-2b", param_dtype="float32")
+    model = model_lib.init_params(mcfg, torch.Generator().manual_seed(0))
+    logits = torch.randn(8, 5, mcfg.vocab_size, generator=g)
+    labels = torch.randint(0, mcfg.vocab_size, (8, 5), generator=g)
+    hiddens = torch.randn(8, 5, mcfg.d_model, generator=g)
+    mask = (torch.rand(8, 5, generator=g) > 0.3).float()
+    card_model = copy.deepcopy(model).to(cuda)
+    for name in ("probe", "logit_embed"):
+        src = sources.resolve_grad_source(name)
+        with torch.no_grad():
+            want = src(sources.GradSourceInputs(logits, labels, hiddens, mcfg=mcfg,
+                                                params=model.tree(), mask=mask))
+            got = src(sources.GradSourceInputs(logits.to(cuda), labels.to(cuda),
+                                               hiddens.to(cuda), mcfg=mcfg,
+                                               params=card_model.tree(), mask=mask.to(cuda)))
+        assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max(), name
+
+
+@pytest.mark.cuda
+def test_streaming_on_card_launches_the_refresh_kernel_once_a_refresh(cuda):
+    """Four refreshes at d 2304: four graft_select launches, every refresh
+    equal to the CPU's (pivots; weights, errors and carry within 1e-5)."""
+    from repro_torch.selection import engine
+    from repro_torch.selection.base import GraftConfig
+    from torch_cases import sampler_case
+    cfg = GraftConfig(rset=(2, 4, 8), use_pallas=True)
+    carry = carry_cpu = None
+    before = graft_select.launches
+    for i in range(4):
+        host = [torch.from_numpy(a) for a in sampler_case(2304, 16, 8, seed=10 + i)]
+        got, carry = engine.select_batch(cfg, "streaming_graft", *(t.to(cuda) for t in host[:3]),
+                                         carry=carry, step=i)
+        want, carry_cpu = engine.select_batch(cfg, "streaming_graft", *host[:3],
+                                              carry=carry_cpu, step=i)
+        assert got.pivots.tolist() == want.pivots.tolist() and int(got.rank) == int(want.rank)
+        torch.testing.assert_close(got.weights.cpu(), want.weights, rtol=1e-5, atol=1e-6)
+        assert abs(float(got.last_error) - float(want.last_error)) <= 1e-5
+    assert graft_select.launches - before == 4
+    sk, skc = carry.sketch.cpu().double(), carry_cpu.sketch.double()
+    assert ((sk.T @ sk) - (skc.T @ skc)).abs().max() <= 1e-5 * (skc.T @ skc).abs().max()
+    assert float(carry.count) == 4.0 and carry.sketch.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["graft", "streaming_graft"])
+def test_overlap_on_card_is_bit_identical_to_sequential(cuda, sampler):
+    """``graft.overlap`` on the card: the same losses, ranks and pivots as
+    the sequential step, bit for bit, and the same launches."""
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.launch import steps as steps_lib
+    runs = {}
+    for overlap in (False, True):
+        cfg = ExperimentConfig().apply_overrides(
+            ["train.steps=6", "train.batch=8", "train.seq=16", "graft.rset=[2,4]",
+             "graft.refresh_every=2", "graft.use_pallas=true", f"train.sampler={sampler}",
+             f"graft.overlap={str(overlap).lower()}",
+             'model.overrides={"attn_backend": "flash"}'])
+        mcfg, tcfg, data = cfg.build()
+        state = steps_lib.init_train_state(mcfg, tcfg, torch.Generator(cuda).manual_seed(0), 8,
+                                           cuda)
+        run_step = steps_lib.make_run_step(mcfg, tcfg)
+        before = (graft_select.launches, fa.flash_attention.forward_launches)
+        rows = []
+        for step in range(6):
+            batch = {k: torch.from_numpy(v).to(cuda) for k, v in data.batch_at(step).items()}
+            state, m = run_step(state, batch)
+            rows.append((m["loss"].item(), int(m["rank"]), state["graft"].pivots.tolist()))
+        launches = (graft_select.launches - before[0],
+                    fa.flash_attention.forward_launches - before[1])
+        runs[overlap] = (rows, launches, [p.detach().clone() for p in state["params"]])
+    assert runs[True][0] == runs[False][0] and runs[True][1] == runs[False][1]
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][2], runs[False][2]))
+
+
+@pytest.mark.cuda
+def test_full_grad_source_on_card_runs_the_flash_kernels(cuda):
+    """The ``full`` grad source differentiates each example through the
+    flash kernels: dQ and dK/dV launch once a layer an example, and G is
+    within 1e-4 of max|G| of the CPU's dense-attention run (float32; the
+    online softmax sums in another order)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.selection import sources
+    mcfg = get_smoke_config("minicpm-2b", param_dtype="float32", attn_backend="flash")
+    model = model_lib.init_params(mcfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, mcfg.vocab_size, (4, 16), generator=g),
+             "labels": torch.randint(0, mcfg.vocab_size, (4, 16), generator=g)}
+    src = sources.resolve_grad_source("full")
+    with torch.no_grad():
+        want = src(sources.GradSourceInputs(None, None, None, mcfg=mcfg, params=model.tree(),
+                                            batch=batch))
+        before = _flash_counts()
+        got = src(sources.GradSourceInputs(
+            None, None, None, mcfg=mcfg, params=model.to(cuda).tree(),
+            batch={k: v.to(cuda) for k, v in batch.items()}))
+        after = _flash_counts()
+    fwd, dq, dkv = (a - b for a, b in zip(after, before))
+    assert dq == dkv == 4 * mcfg.num_layers and fwd >= 4 * mcfg.num_layers
+    assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()

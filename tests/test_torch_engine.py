@@ -149,9 +149,9 @@ def test_needs_scores_raises_and_scores_pass_through(toy_samplers):
 
 def test_sharded_engine_is_not_ported():
     V = torch.zeros(16, 8)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A10"):
         engine.select_sharded(GraftConfig(**GC), None, V, torch.zeros(4, 16))
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A10"):
         engine.make_sharded_selector(GraftConfig(**GC), None)
 
 

@@ -282,11 +282,11 @@ def test_init_params_distributions():
 def test_decode_state_and_ssm_heads_are_refused():
     tm = tsmoke("rwkv6-7b")
     x = torch.zeros(1, 4, tm.d_model)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A7"):
         tssm.rwkv_time_mix(tm, {}, x, state={"shift": x[:, :1]})
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A7"):
         tssm.rwkv_channel_mix(tm, {}, x, state={"shift": x[:, :1]})
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A6"):
         tssm.ssm_heads(tm, {}, x)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.Model(dataclasses.replace(tm, family="hybrid"))

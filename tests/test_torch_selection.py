@@ -21,6 +21,8 @@ from repro.core import maxvol as jmaxvol
 from repro.core import projection as jproj
 from repro.selection import base as jbase
 from repro.selection import graft as jgraft
+from repro.selection import registry as jregistry
+from repro.selection import sources as jsources
 from repro_torch.core import features as tfeat
 from repro_torch.core import grad_features as tgf
 from repro_torch.core import maxvol as tmaxvol
@@ -125,15 +127,14 @@ def test_sampler_protocol_and_registry():
     assert carry == {} and int(state.step) == 5 and int(state.rank) in (2, 4, 8)
     init = smp.init_state(cfg, 16)
     assert init.pivots.tolist() == list(range(8)) and float(init.weights.sum()) == 1.0
-    assert tregistry.available() == ("graft",)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tregistry.get_sampler("craig")
+    assert tregistry.available() == jregistry.available()
+    assert tregistry.get_sampler("craig").name == "craig"
     with pytest.raises(KeyError, match="available"):
         tregistry.get_sampler("nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsources.resolve_features("sketch_svd")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsources.resolve_grad_source("full")
+    assert tsources.available_features() == jsources.available_features()
+    assert tsources.resolve_features("sketch_svd").name == "sketch_svd"
+    assert tsources.available_grad_sources() == jsources.available_grad_sources()
+    assert tsources.resolve_grad_source("full").needs_batch
     with pytest.raises(ValueError, match="ascending"):
         tbase.GraftConfig(rset=(4, 2))
     with pytest.raises(ValueError, match="r_max"):

@@ -149,9 +149,10 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("override", [
-    "train.audit=true", "graft.streaming=true", "graft.overlap=true",
-    "train.fault_plan=x", "backend.kind=multiprocess", "data.source=synthetic_vision",
-    "train.sampler=random", "train.microbatches=2", "model.arch=qwen1.5-32b"])
+    "train.audit=true", 'model.overrides={"remat": "dots"}',
+    "data.source=synthetic_classification", "train.fault_plan=x", "backend.kind=multiprocess",
+    "data.source=synthetic_vision", "model.arch=hymba-1.5b", "train.microbatches=2",
+    "model.arch=qwen1.5-32b"])
 def test_not_ported_parts_raise_pointing_to_roadmap(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cfg = ExperimentConfig().apply_overrides(SMALL + [override])

@@ -47,6 +47,17 @@ def graft_case(name, seed=0):
     return V, G, G.mean(axis=1).astype(f), rank
 
 
+def sampler_case(d, K, R, seed=0):
+    """(V (K,R), G (d,K), g_bar (d,), scores (K,)) float32 numpy for the
+    sampler tests: G's columns share a common direction (as gradients do)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    V = rng.normal(size=(K, R)).astype(f)
+    G = (rng.normal(size=(d, K)) + 0.3 * rng.normal(size=(d, 1))).astype(f)
+    scores = rng.random(K).astype(f)
+    return V, G, G.mean(axis=1).astype(f), scores
+
+
 def assert_refresh_match(got, want, err_atol=1e-5, lv_rtol=1e-5):
     """Pivots and G_sel exactly equal; errors atol / logvol rtol (float32
     reassociation of the reductions)."""
