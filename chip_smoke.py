@@ -12,7 +12,7 @@ Phases (any failure exits nonzero and prints no result line):
                together), with ``-Xptxas -v``: registers, shared memory,
                spills and build seconds.
   3. kernels — graft_select against its plain PyTorch twin on the card, at
-               the training paths' shapes (d 2304 and 4096) and on
+               the training paths' widths (d 2304, 4096, 1600 and 5120) and on
                degenerate inputs (exact equality where the arithmetic is the
                same, a stated tolerance where only the summation order
                differs), then timed with CUDA events and by the profiler's
@@ -31,7 +31,9 @@ Phases (any failure exits nonzero and prints no result line):
                streams), minicpm at 4096 tokens, gemma2-27b's attention
                (window 4096, softcap 50, GQA 2, S 8192), stablelm's Dh 160
                with GQA 4, the smoke Dh 12 in f32, window 0, bidirectional
-               and Dh 16 in bf16 with GQA 2 (bf16 runs on the tensor cores,
+               and Dh 16 in bf16 with GQA 2, qwen3-moe's GQA 16 at Dh 128
+               (64 heads over 4), qwen1.5-32b's 40 heads at Dh 128, hymba's GQA 5 (25 heads over 5, Dh 64) at
+               S 256 and with its window 1024 at S 2048 (bf16 runs on the tensor cores,
                float32 on the float32 cores); bounded vs exhaustive KV loops
                and two runs on the same inputs bit-equal; each timed against
                its plain version, its bound and, where it computes the same
@@ -87,9 +89,15 @@ Phases (any failure exits nonzero and prints no result line):
                subset forward/backward, grad norm and the AdamW update timed
                apart with CUDA events on the trained state, and the top
                kernels of one whole step by device time (torch.profiler).
- 10. depth8  — the same slice with depth cut to 8 layers, dense attention
-               beside flash from the same seed, run dense, flash, flash,
-               dense: steady step times from one call.
+ 10. depth8  — the same slice with depth cut to 8 layers, same seed, one
+               call: dense attention beside flash (dense, flash, flash,
+               dense), steady step times; remat full beside dots under flash
+               (full, dots, dots, full): exact launch counts, steady step
+               times, peak memory, the GEMM kernels of a profiled refresh
+               step (fewer under dots) and the losses (bit-equal); the
+               baseline step (GRAFT off, batch 16) with train.microbatches 1
+               beside 4 (1, 4, 4, 1): the step-0 losses (rtol 1e-5), the
+               later losses (rtol 1e-3), steady step times and peak memory.
  11. rwkv    — the RWKV6 recurrence's forward and backward kernels against
                their plain versions: the JAX kernel test's four shapes, the
                rwkv6-7b selection forward (BH 1024 = 16 × 64 heads, T 256,
@@ -107,10 +115,23 @@ Phases (any failure exits nonzero and prints no result line):
                launch counts (rwkv_scan 16 × (6·2 + 3), its backward 16 × 6,
                graft_select 3, flash 0), peak memory; then the profile of
                phase 9 on its trained state.
- 13. check   — the same path at smoke size on the card against the port's
+ 13. families — Trainer at full width, 6 steps at the slice's GRAFT
+               settings from seed 0: qwen3-moe-235b-a22b (moe: 128 experts
+               top-8, GQA 16) at 2 of 94 layers with bf16 moments,
+               hymba-1.5b (hybrid: attention ∥ SSM heads, GQA 5, window
+               1024) at full depth, qwen1.5-32b (dense, QKV bias, d 5120) at
+               4 of 64 layers: exact launch counts (flash forward 3·L +
+               6·2·L, dQ and dK/dV 6·L, graft_select 3, grad_norm 6,
+               optimizer_update 6 a dtype group), finite losses, ranks in
+               rset, steady step time and peak memory; for hymba the profile
+               of phase 9 and the SSM loop's calls of one refresh step run
+               alone (launches, device time).
+ 14. check   — the same path at smoke size on the card against the port's
                CPU run (which the CPU tests hold against the JAX package):
                minicpm and gemma2 (seq 32, so that its window of 16 bites)
-               under flash attention, and rwkv6-7b through the RWKV kernels;
+               under flash attention, rwkv6-7b through the RWKV kernels,
+               qwen1.5-32b, qwen3-moe, kimi-k2 (its dense first block) and
+               hymba (seq 32: window 16) under flash;
                then minicpm under every other sampler (random, loss_topk,
                full, el2n, gradmatch, craig, glister, streaming_graft) and
                with sketch_svd or ica features, logit_embed or full grads.
@@ -119,7 +140,7 @@ Phases (any failure exits nonzero and prints no result line):
                For each of those selection cases one refresh is also run
                alone and counted: one flash forward a layer, and under full
                grads one flash dQ and dK/dV a layer for each example.
- 14. shell   — the Trainer shell at minicpm-2b's full width with depth cut
+ 15. shell   — the Trainer shell at minicpm-2b's full width with depth cut
                to 2 layers (~405 M params, ~4 GB a checkpoint): an
                uninterrupted 6-step run with eval every 2 steps and a JSONL
                stream, then one that stops at step 3 with a checkpoint under
@@ -178,6 +199,10 @@ FLASH_SHAPES = [
     ("window0", 2, 4, 4, 128, 32, "float32", True, 0, None),
     ("bidirectional", 2, 16, 16, 1024, 64, "bfloat16", False, None, None),
     ("dh16_bf16_gqa2", 8, 6, 3, 256, 16, "bfloat16", True, None, None),
+    ("qwen3_moe_gqa16", 16, 64, 4, 256, 128, "bfloat16", True, None, None),
+    ("qwen15_32b", 16, 40, 40, 256, 128, "bfloat16", True, None, None),
+    ("hymba_gqa5", 16, 25, 5, 256, 64, "bfloat16", True, None, None),
+    ("hymba_window", 4, 25, 5, 2048, 64, "bfloat16", True, 1024, None),
 ]
 
 
@@ -317,7 +342,10 @@ def phase_kernels(ctx):
     import torch
     from repro_torch.kernels.graft_select import graft_select, graft_select_reference
     dev = torch.device("cuda")
-    cases = [("slice", 16, 8, 2304, 8), ("rwkv", 16, 8, 4096, 8), ("wide", 256, 64, 4096, 64),
+    # the training paths' widths: minicpm-2b's d 2304, rwkv6-7b's and
+    # qwen3-moe's 4096, hymba-1.5b's 1600, qwen1.5-32b's 5120
+    cases = [("slice", 16, 8, 2304, 8), ("rwkv", 16, 8, 4096, 8), ("hymba", 16, 8, 1600, 8),
+             ("qwen15", 16, 8, 5120, 8), ("wide", 256, 64, 4096, 64),
              ("square", 16, 16, 2304, 16), ("rank_deficient", 64, 8, 2304, 6),
              ("ties", 12, 6, 512, 6)]
     err_atol, lv_rtol = 1e-5, 1e-5
@@ -724,7 +752,10 @@ def _optim_groups(params):
 
 def _expected_launches(mcfg, cfg, groups):
     """Launches the slice reckons: per step one forward per layer for the
-    subset loss and one more for its remat recompute, and one backward; per
+    subset loss and, for the stacked layers, one more for their remat
+    recompute (full or dots: a kernel is no matrix product that dots keeps;
+    the ``first_k_dense`` blocks are never recomputed, as in JAX), and one
+    backward; per
     refresh one selection forward per layer and one graft_select. The
     forward and backward kernels are flash (forward; dQ and dK/dV) for the
     dense family, the RWKV scan (forward; one backward launch) for the ssm
@@ -733,9 +764,9 @@ def _expected_launches(mcfg, cfg, groups):
     healthy step, one optimizer_update launch per dtype group."""
     steps = cfg.train.steps
     refreshes = sum(1 for s in range(steps) if s % cfg.graft.refresh_every == 0)
-    fwd_per_step = 2 if mcfg.remat == "full" else 1
     L = mcfg.num_layers
-    fwd, bwd = L * (steps * fwd_per_step + refreshes), L * steps
+    recomputed = L - mcfg.first_k_dense if mcfg.remat in ("full", "dots") else 0
+    fwd, bwd = L * (steps + refreshes) + recomputed * steps, L * steps
     ssm = mcfg.family == "ssm"
     return {"graft_select": refreshes, "flash_forward": 0 if ssm else fwd,
             "flash_dq": 0 if ssm else bwd, "flash_dkv": 0 if ssm else bwd,
@@ -1271,37 +1302,119 @@ def _profile(tr, tag):
         print(f"[{tag}]   the port's kernel {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:80]}")
 
 
-def phase_depth8(ctx):
-    """Dense vs flash attention on the slice at 8 layers, same seed, one call."""
+GEMM_KERNEL_NAMES = ("gemm", "nvjet", "cutlass")    # cuBLAS's Hopper GEMMs are nvjet_*
+def _gemm_launches(fn):
+    """(GEMM kernels, every kernel) of one call of fn, counted by
+    torch.profiler: kernels whose names are cuBLAS's or CUTLASS's GEMMs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    gemm = sum(e.count for e in cuda if any(n in e.key.lower() for n in GEMM_KERNEL_NAMES))
+    return gemm, sum(e.count for e in cuda)
+
+
+def _depth8_run(extra, tag):
+    """One 6-step Trainer run of the slice at 8 layers: (losses, steady step
+    ms, peak GB, launch counts, trainer)."""
     import numpy as np
     import torch
     from repro_torch.api import ExperimentConfig, Trainer
-    ctx.pop("trainer", None)           # the full-depth state: free its ~46 GB
+    cfg = ExperimentConfig().apply_overrides(
+        [o for o in SLICE_OVERRIDES if not o.startswith("model.overrides")] + extra
+        + ["train.log_every=0"])
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    trainer = Trainer(cfg)
+    report = trainer.fit()
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = report["history"]
+    assert all(np.isfinite(r["loss"]) for r in hist), f"{tag}: non-finite loss"
+    times = [r["step_time_s"] * 1e3 for r in hist]
+    steady = float(np.mean(times[1:]))
+    print(f"[depth8] {tag}: step ms {[round(x, 1) for x in times]}; steady (steps 1-5) mean "
+          f"{steady:.1f} ms; peak {peak:.2f} GB; losses {[r['loss'] for r in hist]}", flush=True)
+    return [r["loss"] for r in hist], steady, peak, counts, trainer
+
+
+def phase_depth8(ctx):
+    """The slice at 8 layers, same seed, one call: dense vs flash attention
+    (dense, flash, flash, dense), then remat full vs dots under flash (full,
+    dots, dots, full) with a profiled refresh step's GEMM launches and the
+    losses compared; then the baseline step (GRAFT off, batch 16) with
+    train.microbatches 1 vs 4 (1, 4, 4, 1)."""
+    import numpy as np
+    import torch
+    ctx.pop("trainer", None)           # the full-depth state: free its ~46 GB
     steady = {"dense": [], "auto": []}
     for backend in ("dense", "auto", "auto", "dense"):
-        cfg = ExperimentConfig().apply_overrides(
-            [o for o in SLICE_OVERRIDES if not o.startswith("model.overrides")]
-            + [f'model.overrides={{"attn_backend": "{backend}", "num_layers": 8}}',
-               "train.log_every=0"])
-        _zero_counts()
-        report = Trainer(cfg).fit()
-        counts = _read_counts()
-        flash_ran = counts["flash_forward"] > 0
-        assert flash_ran == (backend == "auto"), f"{backend}: launches {counts}"
-        hist = report["history"]
-        assert all(np.isfinite(r["loss"]) for r in hist), "non-finite loss"
-        times = [r["step_time_s"] * 1e3 for r in hist]
-        steady[backend].append(float(np.mean(times[1:])))
-        print(f"[depth8] attn {backend}{' (flash)' if flash_ran else ''}: step ms "
-              f"{[round(x, 1) for x in times]}; steady (steps 1-5) mean {steady[backend][-1]:.1f} ms; "
-              f"losses {[round(r['loss'], 5) for r in hist]}", flush=True)
-        del report
-        gc.collect()
-        torch.cuda.empty_cache()
+        _, ms, _, counts, tr = _depth8_run(
+            [f'model.overrides={{"attn_backend": "{backend}", "num_layers": 8}}'], f"attn {backend}")
+        assert (counts["flash_forward"] > 0) == (backend == "auto"), f"{backend}: launches {counts}"
+        steady[backend].append(ms)
+        del tr
     print(f"[depth8] steady step mean over both runs: dense {np.mean(steady['dense']):.1f} ms, "
           f"flash {np.mean(steady['auto']):.1f} ms")
+
+    remat = {"full": [], "dots": []}
+    for mode in ("full", "dots", "dots", "full"):
+        losses, ms, peak, counts, tr = _depth8_run(
+            [f'model.overrides={{"num_layers": 8, "remat": "{mode}"}}'], f"remat {mode}")
+        want = _expected_launches(tr.mcfg, tr.config, _optim_groups(tr.state["params"]))
+        assert counts == want, f"remat {mode}: launches {counts}, expected {want}"
+        if not remat[mode]:
+            from repro_torch.launch import steps as steps_lib
+            step_fn = steps_lib.make_train_step(tr.mcfg, tr.tcfg)
+            batch = tr._to_device(tr.data.batch_at(tr.tcfg.graft.refresh_every * 10))
+            tr.state["step"] = 0                       # a refresh step
+            gemm, total = _gemm_launches(lambda: step_fn(tr.state, batch))
+            print(f"[depth8] remat {mode}: one refresh step launched {gemm} GEMM kernels "
+                  f"of {total} kernels", flush=True)
+        else:
+            gemm = remat[mode][0][3]
+        remat[mode].append((losses, ms, peak, gemm))
+        del tr
+    lf, ld = remat["full"][0][0], remat["dots"][0][0]
+    diff = max(abs(a - b) for a, b in zip(lf, ld))
+    print(f"[depth8] remat full vs dots: steady step mean full "
+          f"{np.mean([r[1] for r in remat['full']]):.1f} ms, dots "
+          f"{np.mean([r[1] for r in remat['dots']]):.1f} ms; peak full "
+          f"{max(r[2] for r in remat['full']):.2f} GB, dots {max(r[2] for r in remat['dots']):.2f} GB; "
+          f"GEMM launches in a refresh step full {remat['full'][0][3]}, dots "
+          f"{remat['dots'][0][3]}; losses {'bit-equal' if lf == ld else f'differ by at most {diff:.3g}'}")
+    assert remat["dots"][0][3] < remat["full"][0][3], "dots re-ran the forward GEMMs"
+    # dots keeps the products that full recomputes from the same inputs by
+    # the same kernels, so every loss is the same float
+    assert lf == ld, f"remat dots losses differ from full's by up to {diff:.3g}"
+
+    acc = {1: [], 4: []}
+    for n in (1, 4, 4, 1):
+        losses, ms, peak, counts, tr = _depth8_run(
+            ['model.overrides={"num_layers": 8}', "graft=none", f"train.microbatches={n}"],
+            f"baseline microbatches={n}")
+        assert counts["flash_dq"] == 8 * 6 * n and counts["graft_select"] == 0, counts
+        acc[n].append((losses, ms, peak))
+        del tr
+    l1, l4 = acc[1][0][0], acc[4][0][0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l4[1:], l1[1:]))
+    print(f"[depth8] accumulation: step-0 loss microbatches=1 {l1[0]!r}, =4 {l4[0]!r} "
+          f"(rel diff {abs(l4[0] - l1[0]) / abs(l1[0]):.3g}); later losses' largest relative "
+          f"difference {rel:.3g}; steady step mean 1: {np.mean([r[1] for r in acc[1]]):.1f} ms, "
+          f"4: {np.mean([r[1] for r in acc[4]]):.1f} ms; peak 1: "
+          f"{max(r[2] for r in acc[1]):.2f} GB, 4: {max(r[2] for r in acc[4]):.2f} GB")
+    # step 0 takes the same params: the four microbatch means' mean is the
+    # whole batch's up to float32 rounding (a quarter batch alone is ~1e-3
+    # off). Later steps train on gradients summed in bf16, one rounding per
+    # microbatch, so their losses drift apart by far less than 1e-3
+    assert abs(l4[0] - l1[0]) <= 1e-5 * abs(l1[0]), \
+        f"step-0 loss of 4 microbatches differs by {abs(l4[0] - l1[0]) / abs(l1[0]):.3g}"
+    assert rel <= 1e-3, f"later losses of 4 microbatches differ by up to {rel:.3g} relative"
 
 
 # (name, BH, T, D, w_low): the JAX kernel test's shapes, rwkv6-7b's
@@ -1486,6 +1599,119 @@ def phase_rwkv_slice(ctx):
     torch.cuda.empty_cache()
 
 
+# (arch, depth or None for full depth, extra overrides): the slice's GRAFT
+# settings at full width
+FAMILY_RUNS = [
+    ("qwen3-moe-235b-a22b", 2, ["optimizer.state_dtype=bfloat16"]),
+    ("hymba-1.5b", None, []),
+    ("qwen1.5-32b", 4, []),
+]
+
+
+def _ssm_share(tr, batch):
+    """The SSM heads' part of one refresh step on the trained hymba state:
+    the same calls the step makes (the selection forward over the batch, and
+    for the subset its forward, the remat recompute and the backward), run
+    alone through ``ssm_heads`` on one layer's weights at the step's shapes
+    and profiled: (launches, device ms) for all layers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import ssm
+    mcfg, state = tr.mcfg, tr.state
+    p = state["model"].blocks[1].tree()["ssm"]
+    K, S = batch["tokens"].shape
+    rank = int(state["graft"].rank)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h_sel = torch.randn((K, S, mcfg.d_model), generator=g, device="cuda").to(mcfg.dtype)
+    h_sub = h_sel[:rank].clone().requires_grad_()
+
+    def one_layer():
+        with torch.no_grad():
+            ssm.ssm_heads(mcfg, p, h_sel)
+        with torch.no_grad():                              # the remat forward
+            ssm.ssm_heads(mcfg, p, h_sub)
+        out, _ = ssm.ssm_heads(mcfg, p, h_sub)              # the recompute + backward
+        torch.autograd.grad(out, [h_sub] + list(p.values()), torch.ones_like(out))
+
+    one_layer()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one_layer()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                 for e in events)
+    wall = cuda_time_ms(one_layer, iters=2, warmup=0)
+    L = mcfg.num_layers
+    return L * sum(e.count for e in events), L * dev_us / 1e3, L * wall
+
+
+def phase_families(ctx):
+    """The moe, hybrid and QKV-bias dense families through Trainer at full
+    width, 6 steps each at the slice's GRAFT settings from seed 0: exact
+    launch counts (flash forward 3·L + 6·2·L, dQ and dK/dV 6·L, graft_select
+    3, one grad_norm a step, one optimizer_update a dtype group a step),
+    finite losses, ranks in rset, steady step time and peak memory; the
+    hybrid's SSM loop's share of a refresh step."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExperimentConfig, Trainer
+    ctx.pop("trainer", None)
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    for arch, layers, extra in FAMILY_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ov = {"attn_backend": "auto"} | ({"num_layers": layers} if layers else {})
+        cfg = ExperimentConfig().apply_overrides(
+            [o for o in SLICE_OVERRIDES if not o.startswith("model.overrides")]
+            + [f"model.arch={arch}", f"model.overrides={json.dumps(ov)}"] + extra)
+        mcfg = cfg.model.build()
+        sdt = cfg.optimizer.state_dtype
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg)
+        _zero_counts()
+        t0 = time.perf_counter()
+        report = tr.fit()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n = report["num_params"]
+        state_gb = n * (2 + 2 + 2 * (2 if sdt == "bfloat16" else 4)) / 1e9
+        hist = report["history"]
+        print(f"[families] {arch}: {mcfg.family}, d_model {mcfg.d_model}, {mcfg.num_heads} heads "
+              f"over {mcfg.num_kv_heads} KV x {mcfg.head_dim}, d_ff {mcfg.d_ff}, vocab "
+              f"{mcfg.vocab_size}, experts {mcfg.num_experts} top-{mcfg.num_experts_per_tok}, "
+              f"ssm_state {mcfg.ssm_state}, window {mcfg.sliding_window}, qkv_bias "
+              f"{mcfg.qkv_bias}; {mcfg.num_layers} layers "
+              f"({'full depth' if layers is None else 'depth cut'}), {n} params, {sdt} moments "
+              f"-> bf16 params + grads + moments ~{state_gb:.1f} GB of {total_gb:.1f} GB; "
+              f"peak allocated {peak:.2f} GB; fit wall {wall:.1f} s", flush=True)
+        for i, r in enumerate(hist):
+            print(f"[families] {arch} step {i}: loss {r['loss']:.6f} rank {r['rank']} "
+                  f"grad_norm {r['grad_norm']:.4f} step {r['step_time_s'] * 1e3:.1f} ms")
+        expected = _expected_launches(mcfg, cfg, _optim_groups(tr.state["params"]))
+        print(f"[families] {arch}: launches {launches}, expected {expected}")
+        assert all(np.isfinite(r["loss"]) and r["healthy"] == 1.0 for r in hist), \
+            f"{arch}: non-finite loss or a vetoed step"
+        assert all(int(r["rank"]) in cfg.graft.rset for r in hist), f"{arch}: rank outside rset"
+        assert launches == expected, f"{arch}: launches {launches}, expected {expected}"
+        steady = [r["step_time_s"] * 1e3 for r in hist[1:]]
+        print(f"[families] {arch}: steady step time (steps 1-5) mean {np.mean(steady):.1f} ms; "
+              f"refresh steps {[round(r['step_time_s'] * 1e3, 1) for r in hist[2::2]]} ms")
+        if mcfg.family == "hybrid":
+            batch = tr._to_device(tr.data.batch_at(tr.tcfg.graft.refresh_every * 10))
+            _profile(tr, f"families {arch}")
+            n_l, dev_ms, ev_ms = _ssm_share(tr, batch)
+            print(f"[families] {arch}: the SSM loop's calls of one refresh step run alone "
+                  f"(rank {int(tr.state['graft'].rank)}): {n_l} kernel launches, {dev_ms:.1f} ms "
+                  f"of kernels, {ev_ms:.1f} ms by CUDA events; the steady step is "
+                  f"{np.mean(steady):.1f} ms", flush=True)
+        del tr, report
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # the minicpm smoke runs phase check adds: every sampler besides graft, and
 # the feature and grad sources whose arithmetic is new in the port
 CHECK_SELECTION = ["train.sampler=" + s for s in (
@@ -1524,8 +1750,9 @@ def phase_check(ctx):
     base = ['model.overrides={"param_dtype": "float32", "attn_backend": "flash"}',
             "train.steps=4", "train.batch=8", "graft.rset=[2,4]",
             "graft.refresh_every=2", "graft.use_pallas=true"]
-    cases = [(arch, seq, None) for arch, seq in (("minicpm-2b", 16), ("gemma2-27b", 32),
-                                                 ("rwkv6-7b", 16))]
+    cases = [(arch, seq, None) for arch, seq in (
+        ("minicpm-2b", 16), ("gemma2-27b", 32), ("rwkv6-7b", 16), ("qwen1.5-32b", 16),
+        ("qwen3-moe-235b-a22b", 16), ("kimi-k2-1t-a32b", 16), ("hymba-1.5b", 32))]
     cases += [("minicpm-2b", 16, extra) for extra in CHECK_SELECTION]
     for arch, seq, extra in cases:
         cfg = ExperimentConfig().apply_overrides(
@@ -1560,9 +1787,11 @@ def phase_check(ctx):
             print(f"[check] {arch} seq {seq} through the RWKV kernels ({mcfg.num_heads} heads "
                   f"x {mcfg.d_model // mcfg.num_heads})")
         else:
-            print(f"[check] {arch} seq {seq} under flash (window {mcfg.sliding_window}, "
-                  f"softcap {mcfg.attn_logit_softcap}, GQA {mcfg.num_heads // mcfg.num_kv_heads}, "
-                  f"head_dim {mcfg.head_dim})")
+            print(f"[check] {arch} ({mcfg.family}) seq {seq} under flash (window "
+                  f"{mcfg.sliding_window}, softcap {mcfg.attn_logit_softcap}, GQA "
+                  f"{mcfg.num_heads // mcfg.num_kv_heads}, head_dim {mcfg.head_dim}, qkv_bias "
+                  f"{mcfg.qkv_bias}, experts {mcfg.num_experts}, first_k_dense "
+                  f"{mcfg.first_k_dense}, ssm_state {mcfg.ssm_state})")
         for (lg, rg, pg), (lc, rc, pc) in zip(runs["cuda"], runs["cpu"]):
             print(f"[check] loss gpu {lg:.7f} cpu {lc:.7f}; rank {rg}/{rc}; pivots {pg}/{pc}")
             assert abs(lg - lc) <= 1e-4 * abs(lc) and rg == rc and pg == pc, \
@@ -1900,7 +2129,8 @@ def main() -> int:
                      ("optim", phase_optim), ("slice", phase_slice), ("engine", phase_engine),
                      ("samplers", phase_samplers), ("profile", phase_profile), ("depth8", phase_depth8),
                      ("rwkv", phase_rwkv), ("rwkv_slice", phase_rwkv_slice),
-                     ("check", phase_check), ("shell", phase_shell)):
+                     ("families", phase_families), ("check", phase_check),
+                     ("shell", phase_shell)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

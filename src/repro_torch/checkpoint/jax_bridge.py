@@ -2,7 +2,8 @@
 
 * ``params_from_numpy(tree, model)`` loads the JAX param pytree — nested
   dicts of numpy arrays, with the blocks stacked on a leading L axis as the
-  JAX ``init_params`` builds them — into a port ``Model``.
+  JAX ``init_params`` builds them, and ``first_blocks`` a list of unstacked
+  blocks — into a port ``Model``.
 * ``params_to_numpy(model)`` is the inverse (blocks re-stacked), for
   comparing the port's tensors with the JAX package's.
 * ``load_jax_checkpoint(directory)`` reads the ``.npy`` + ``manifest.json``
@@ -17,8 +18,10 @@
   ``opt/m/…``, ``opt/v/…`` (Adafactor: ``opt/v/…/vr``, ``…/vc`` or
   ``…/v``) with the blocks stacked on L, ``step`` (int32), ``graft/.<field>``
   (the ``SelectionState`` fields), ``sampler_carry/…`` and ``health/…``
-  (float32 EMA, int32 counts). Leaves keep their dtypes, so a checkpoint
-  crosses between the packages bit for bit.
+  (float32 EMA, int32 counts). ``first_blocks`` leaves are one path per
+  block (``params/first_blocks/<i>/…``), unstacked, as the JAX checkpointer
+  writes a list. Leaves keep their dtypes, so a checkpoint crosses between
+  the packages bit for bit.
 """
 from __future__ import annotations
 
@@ -54,6 +57,12 @@ def _assign(param: torch.nn.Parameter, value, where: str) -> None:
         param.copy_(t.to(device=param.device, dtype=param.dtype))
 
 
+def _item(seq, i: int):
+    """Element ``i`` of a list, or of a dict keyed by the index as a string
+    (how ``load_jax_checkpoint`` nests a list's leaves)."""
+    return seq[i] if isinstance(seq, (list, tuple)) else seq[str(i)]
+
+
 def params_from_numpy(tree: Dict[str, Any], model: Model) -> Model:
     """Load a JAX-layout param tree (blocks stacked on axis 0) into
     ``model``, in place; raises on a missing leaf or a shape mismatch."""
@@ -61,6 +70,14 @@ def params_from_numpy(tree: Dict[str, Any], model: Model) -> Model:
     _assign(model.final_norm, tree["final_norm"], "final_norm")
     if not model.cfg.tie_embeddings:
         _assign(model.lm_head, tree["lm_head"], "lm_head")
+    for i, blk in enumerate(getattr(model, "first_blocks", [])):
+        src = _item(tree["first_blocks"], i)
+        for name, sub in blk.tree().items():
+            if isinstance(sub, dict):
+                for leaf, p in sub.items():
+                    _assign(p, src[name][leaf], f"first_blocks/{i}/{name}/{leaf}")
+            else:
+                _assign(sub, src[name], f"first_blocks/{i}/{name}")
     blocks = tree["blocks"]
     for i, blk in enumerate(model.blocks):
         for name, sub in blk.tree().items():
@@ -75,14 +92,20 @@ def params_from_numpy(tree: Dict[str, Any], model: Model) -> Model:
 def params_to_numpy(model_or_tree) -> Dict[str, Any]:
     """The port's parameters (or any tensors in the same tree shape, such
     as gradients) as a JAX-layout tree of float32/int numpy arrays with the
-    blocks stacked on axis 0."""
+    blocks stacked on axis 0 and ``first_blocks`` a list."""
     tree = model_or_tree.tree() if isinstance(model_or_tree, Model) else model_or_tree
 
     def np_(t):
         t = t.detach().cpu()
         return (t.float() if t.is_floating_point() else t).numpy()
 
-    out = {k: np_(v) for k, v in tree.items() if k != "blocks"}
+    def block_np(b):
+        return {name: ({leaf: np_(t) for leaf, t in sub.items()} if isinstance(sub, dict)
+                       else np_(sub)) for name, sub in b.items()}
+
+    out = {k: np_(v) for k, v in tree.items() if k not in ("blocks", "first_blocks")}
+    if "first_blocks" in tree:
+        out["first_blocks"] = [block_np(b) for b in tree["first_blocks"]]
     blocks = tree["blocks"]
     out["blocks"] = {}
     for name, sub in blocks[0].items():
@@ -165,7 +188,7 @@ def _state_leaves(state) -> Dict[str, Tuple[List[torch.Tensor], bool]]:
     out: Dict[str, Tuple[List[torch.Tensor], bool]] = {}
     params, opt = state["params"], state["opt"]
     leaves = _param_leaves(state)
-    stacked = {path: len(idx) > 1 or path.startswith("blocks/") for path, idx in leaves}
+    stacked = {path: path.startswith("blocks/") for path, idx in leaves}
     for path, idx in leaves:
         out[f"params/{path}"] = ([params[i] for i in idx], stacked[path])
     if "groups" in opt:                         # Adafactor: one entry per JAX leaf

@@ -11,8 +11,9 @@
   softmax error signal with no extra backward (the ``probe`` source).
 
 A gradient pytree flattens in the JAX package's leaf order
-(``jax.tree_util.tree_leaves``: dict keys sorted), with the port's list of
-per-block dicts read as the JAX tree's blocks stacked on a leading axis.
+(``jax.tree_util.tree_leaves``: dict keys sorted), with the port's
+``blocks`` list of per-block dicts read as the JAX tree's blocks stacked on
+a leading axis (``first_blocks`` stays a list, as in the JAX tree).
 """
 from __future__ import annotations
 
@@ -23,20 +24,21 @@ import torch
 
 def _jax_leaves(tree) -> List[torch.Tensor]:
     """The leaves of a params-shaped tree in ``jax.tree_util.tree_leaves``
-    order: dict keys sorted; a list of same-keyed dicts (the port's blocks)
+    order: dict keys sorted; the list of per-block dicts under ``blocks``
     becomes one dict of leaves stacked on a new axis 0."""
     if isinstance(tree, torch.Tensor):
         return [tree]
-    if isinstance(tree, (list, tuple)) and tree and isinstance(tree[0], dict):
-        return _jax_leaves({k: _stack([b[k] for b in tree]) for k in tree[0]})
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _jax_leaves(tree[k])]
+        return [leaf for k in sorted(tree) for leaf in _jax_leaves(
+            _stack(tree[k]) if k == "blocks" and isinstance(tree[k], (list, tuple))
+            else tree[k])]
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in _jax_leaves(v)]
     raise TypeError(f"unexpected pytree node {type(tree).__name__}")
 
 
 def _stack(items):
+    """A list of same-keyed dicts as one dict of leaves stacked on axis 0."""
     if isinstance(items[0], dict):
         return {k: _stack([it[k] for it in items]) for k in items[0]}
     return torch.stack(items)

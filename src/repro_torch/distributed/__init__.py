@@ -1,2 +1,3 @@
-"""Distribution helpers. Only the host-side straggler monitor is ported;
-the rest waits for the distribution item of ``ROADMAP.md``."""
+"""Distribution helpers: the host-side straggler monitor and microbatch
+gradient accumulation. The rest waits for the distribution item of
+``ROADMAP.md``."""

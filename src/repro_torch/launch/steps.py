@@ -34,6 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.accumulate import accumulated_grads
 from repro_torch.models import model as model_lib
 from repro_torch.optim import Optimizer, OptimizerConfig, make_optimizer
 from repro_torch.selection import base as selection_base
@@ -51,7 +52,7 @@ class TrainConfig:
     sampler: str = "graft"          # registry name; any repro_torch.selection sampler
     probe_positions: int = 256      # positions per sequence for grad embeddings
                                     # (0 = all)
-    microbatches: int = 1           # >1 (accumulation) is not ported
+    microbatches: int = 1           # >1: gradient accumulation (baseline step)
     sentinel: bool = True           # divergence sentinel + skip-update
     spike_z: float = 6.0            # loss-spike z-score (0 = finite-only)
 
@@ -88,15 +89,12 @@ def state_for_model(mcfg, tcfg: TrainConfig, model: model_lib.Model,
                     batch_size: int) -> Dict[str, Any]:
     """A fresh train state around existing parameters (drawn by
     ``init_params`` or loaded through the JAX bridge)."""
-    if tcfg.microbatches != 1:
-        raise NotImplementedError(
-            "gradient accumulation (microbatches > 1) is not ported to "
-            "repro_torch yet (see ROADMAP.md)")
     device = model.embed.device
     params = list(model.parameters())
     index = {id(p): i for i, p in enumerate(params)}
-    # the JAX leaves, for Adafactor's factoring: a block leaf stacks its
-    # blocks on a new axis 0 (a list), any other leaf is one param (an int)
+    # the JAX leaves, for Adafactor's factoring: a blocks/ leaf stacks its
+    # blocks on a new axis 0 (a list), any other leaf — first_blocks/ ones
+    # too — is one param (an int)
     groups = [[index[id(t)] for t in ts] if path.startswith("blocks/") else index[id(ts[0])]
               for path, ts in model_lib.stacked_leaves(model)]
     state: Dict[str, Any] = {
@@ -124,6 +122,13 @@ def init_train_state(mcfg, tcfg: TrainConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # GRAFT selection inputs at LM scale
 # ---------------------------------------------------------------------------
+
+def pooled_hiddens(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, D) float32 mean of the final hiddens over the loss mask: the
+    matrix the feature sources factor."""
+    return torch.sum(h.to(torch.float32) * mask[..., None], dim=1) / \
+        torch.clamp(torch.sum(mask, dim=1), min=1.0)[:, None]
+
 
 @torch.no_grad()
 def selection_inputs(mcfg, tcfg: TrainConfig, params, batch
@@ -154,9 +159,7 @@ def selection_inputs(mcfg, tcfg: TrainConfig, params, batch
     del logits
     nll = -torch.gather(logp, -1, lp[..., None].long())[..., 0]
     scores = torch.sum(nll * mp, dim=-1) / torch.clamp(torch.sum(mp, dim=-1), min=1.0)
-    pooled = torch.sum(h.to(torch.float32) * mask[..., None], dim=1) / \
-        torch.clamp(torch.sum(mask, dim=1), min=1.0)[:, None]
-    V = extractor(pooled, gcfg.r_max)
+    V = extractor(pooled_hiddens(h, mask), gcfg.r_max)
     G = emb.T                                      # (d=E, K)
     g_bar = torch.mean(emb, dim=0)
     return V, G, g_bar, scores
@@ -263,6 +266,15 @@ def _finish(tcfg: TrainConfig, state, loss: torch.Tensor, grads, metrics,
 
 def baseline_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
                         sentinel: bool = False):
+    """Full-batch step; with ``microbatches`` > 1 the loss and grads are
+    the means over that many sequential microbatches
+    (``distributed/accumulate.py``). As in the JAX package, only this step
+    reads ``microbatches``."""
+    if tcfg.microbatches > 1:
+        loss, grads = accumulated_grads(
+            lambda mb: model_lib.loss_fn(mcfg, state["model"], mb)[0],
+            state["params"], batch, tcfg.microbatches)
+        return _finish(tcfg, state, loss, grads, {}, {}, sentinel, opt)
     loss, _ = model_lib.loss_fn(mcfg, state["model"], batch)
     grads = torch.autograd.grad(loss, state["params"])
     return _finish(tcfg, state, loss, grads, {}, {}, sentinel, opt)

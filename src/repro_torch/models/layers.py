@@ -10,13 +10,14 @@ Attention runs one of three backends: ``flash`` (the hand-written Hopper
 kernels of ``kernels/flash_attention.py``, one forward launch per layer and
 a dQ and a dK/dV launch in its backward), or the dense or KV-chunked path
 as plain tensor ops, which is what the JAX package leaves to XLA outside
-the flash kernel. The KV-cache (decode) branch and the MoE layer are not
-ported (``ROADMAP.md``).
+the flash kernel. ``moe`` is the capacity-factor MoE layer with sort-based
+dispatch. The KV-cache (decode) branch and the MoE layer's dropless decode
+path are not ported (``ROADMAP.md``, A7).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -220,3 +221,164 @@ def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
     """Gated MLP (SwiGLU / GeGLU per cfg.mlp_activation)."""
     act = _activation(cfg.mlp_activation)
     return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity-factor dispatch, sort-based)
+# ---------------------------------------------------------------------------
+
+def moe_shapes(cfg, dtype: torch.dtype):
+    """Name → (shape, dtype) of the MoE params: the router (D, E) in
+    float32, the experts' (E, D, F) and (E, F, D) in the params' type."""
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {"router": ((D, E), torch.float32), "w_gate": ((E, D, Fd), dtype),
+            "w_up": ((E, D, Fd), dtype), "w_down": ((E, Fd, D), dtype)}
+
+
+class _Route(torch.autograd.Function):
+    """``out[g, i] = x[g, index[g, i]]`` where ``valid[g, i]``, else 0 —
+    a row gather whose backward is a gather too: ``grad_x[g, r]`` adds
+    ``grad_out[g, inv_index[g, r, m]]`` over the ``m`` with
+    ``inv_valid[g, r, m]``, in float32 and in order of ``m``, then casts.
+    PyTorch's own gather backward scatter-adds with atomics on the card, so
+    its sums change order from run to run; this one does not."""
+
+    @staticmethod
+    def forward(ctx, x, index, valid, inv_index, inv_valid):
+        ctx.save_for_backward(inv_index, inv_valid)
+        ctx.dtype = x.dtype
+        return _gather_rows(x, index, valid)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inv_index, inv_valid = ctx.saved_tensors
+        g = grad.to(torch.float32)
+        acc = None
+        for m in range(inv_index.shape[2]):
+            term = _gather_rows(g, inv_index[:, :, m], inv_valid[:, :, m])
+            acc = term if acc is None else acc + term
+        return acc.to(ctx.dtype), None, None, None, None
+
+
+def _gather_rows(x: torch.Tensor, index: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(G, N, D) rows at (G, M) indices, zero where not ``valid``."""
+    rows = torch.gather(x, 1, index[..., None].expand(-1, -1, x.shape[-1]))
+    return torch.where(valid[..., None], rows, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Routing(NamedTuple):
+    """One MoE layer's token ↔ buffer assignment over G groups of gs tokens,
+    k slots a token (flat index f = token·k + slot), E experts of capacity
+    C: ``gate`` (G, gs, k) float32 (normalized over the k), ``ids`` (G, gs,
+    k) the experts, ``keep`` (G, gs·k) the assignments within capacity,
+    ``slot_of`` (G, gs·k) the buffer slot e·C + c of each kept assignment
+    (0 if dropped), ``token_of_slot`` / ``src_flat`` / ``slot_valid`` (G,
+    E·C) each buffer slot's token, flat assignment and whether it is
+    filled."""
+    gate: torch.Tensor
+    ids: torch.Tensor
+    keep: torch.Tensor
+    slot_of: torch.Tensor
+    token_of_slot: torch.Tensor
+    src_flat: torch.Tensor
+    slot_valid: torch.Tensor
+
+
+def moe_capacity(cfg, tokens: int) -> Tuple[int, int]:
+    """(group size, capacity per (group, expert)) for ``tokens`` tokens."""
+    gs = min(cfg.moe_group_size, tokens)
+    return gs, int(gs * cfg.num_experts_per_tok / cfg.num_experts * cfg.moe_capacity_factor) + 1
+
+
+def moe_groups(cfg, x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """(B, S, D) → ((G, gs, D) token groups, chunk-major or not): flat by
+    default; under ``moe_local_groups`` (and S a multiple of gs) contiguous
+    sequence chunks ordered (chunk, batch)."""
+    B, S, D = x.shape
+    gs, _ = moe_capacity(cfg, B * S)
+    G = B * S // gs
+    if cfg.moe_local_groups and S % gs == 0 and S >= gs:
+        return x.reshape(B, S // gs, gs, D).transpose(0, 1).reshape(G, gs, D), True
+    return x.reshape(G, gs, D), False
+
+
+def moe_routing(cfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
+    """The top-k routing and the sort-based dispatch plan of token groups
+    ``xt`` (G, gs, D). The top k come from a stable descending sort, so
+    that equal probabilities go to the lower expert index as
+    ``jax.lax.top_k`` gives them; each expert's queue is a stable argsort
+    of the expert ids, and the assignments past its capacity are dropped in
+    queue order."""
+    G, gs, _ = xt.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    _, cap = moe_capacity(cfg, G * gs)
+    dev = xt.device
+    logits = xt @ router.to(xt.dtype)                               # (G, gs, E)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    ids = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
+    gate = torch.gather(probs, -1, ids)
+    gate = gate / (torch.sum(gate, -1, keepdim=True) + 1e-9)
+
+    Fk = gs * k
+    ids_flat = ids.reshape(G, Fk)
+    counts = torch.zeros((G, E), dtype=torch.int64, device=dev).scatter_add_(
+        1, ids_flat, torch.ones_like(ids_flat))
+    starts = torch.cumsum(counts, dim=1) - counts                   # (G, E) exclusive
+    order = torch.argsort(ids_flat, dim=1, stable=True)
+    pos_sorted = torch.arange(Fk, device=dev) - torch.gather(
+        starts, 1, torch.gather(ids_flat, 1, order))
+    pos_flat = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+    keep = pos_flat < cap                                           # (G, Fk)
+
+    b_e = torch.arange(E * cap, device=dev) // cap
+    b_c = torch.arange(E * cap, device=dev) % cap
+    slot_valid = b_c < torch.clamp(counts[:, b_e], max=cap)         # (G, E·C)
+    src_flat = torch.gather(order, 1, torch.clamp(starts[:, b_e] + b_c, 0, Fk - 1))
+    return Routing(gate=gate, ids=ids, keep=keep,
+                   slot_of=torch.where(keep, ids_flat * cap + pos_flat, 0),
+                   token_of_slot=torch.where(slot_valid, src_flat // k, 0),
+                   src_flat=src_flat, slot_valid=slot_valid)
+
+
+def moe(cfg, p, x: torch.Tensor, dropless: bool = False) -> torch.Tensor:
+    """Top-k routed MoE with static capacity, sort-based dispatch — the twin
+    of the JAX package's ``moe``. x: (B, S, D) → (B, S, D).
+
+    Tokens form groups of ``moe_group_size`` (``moe_groups``); each (group,
+    expert) pair has capacity ``int(gs·k/E·cf) + 1`` (``moe_routing``). No
+    (tokens × E × C) one-hot is built: the dispatch and the combine are row
+    gathers, and the expert products batched matmuls. The combine gathers
+    each token's k slot outputs from the token side and adds them in
+    float32 in slot order (the JAX package scatter-adds them in float32 in
+    buffer order), so that it is the same from run to run on the card.
+    """
+    if dropless:
+        raise NotImplementedError(
+            "the MoE layer's dropless decode path is not ported to repro_torch yet "
+            "(see ROADMAP.md, A7)")
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    xt, chunk_major = moe_groups(cfg, x)
+    G, gs, _ = xt.shape
+    _, cap = moe_capacity(cfg, B * S)
+    r = moe_routing(cfg, p["router"], xt)
+
+    expert_in = _Route.apply(xt, r.token_of_slot, r.slot_valid,
+                             r.slot_of.reshape(G, gs, k), r.keep.reshape(G, gs, k))
+    xe = expert_in.reshape(G, E, cap, D).transpose(0, 1).reshape(E, G * cap, D)
+    act = _activation(cfg.mlp_activation)
+    h = act(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"])                                  # (E, G·C, D)
+    flat_out = ye.reshape(E, G, cap, D).transpose(0, 1).reshape(G, E * cap, D)
+
+    w = (r.gate.reshape(G, gs * k) * r.keep).to(x.dtype)
+    slot_out = _Route.apply(flat_out, r.slot_of, r.keep, r.src_flat[..., None],
+                            r.slot_valid[..., None])                # (G, gs·k, D)
+    contrib = (slot_out * w[..., None]).to(torch.float32).reshape(G, gs, k, D)
+    out = contrib[:, :, 0]
+    for j in range(1, k):
+        out = out + contrib[:, :, j]
+    out = out.to(x.dtype)
+    if chunk_major:
+        return out.reshape(S // gs, B, gs, D).transpose(0, 1).reshape(B, S, D)
+    return out.reshape(B, S, D)

@@ -1,5 +1,6 @@
-"""Recurrent blocks: the RWKV6 ("Finch") time mix and channel mix — the
-twin of the JAX package's ``repro/models/ssm.py`` for train and prefill.
+"""Recurrent blocks: the RWKV6 ("Finch") time mix and channel mix, and
+Hymba's selective SSM heads — the twin of the JAX package's
+``repro/models/ssm.py`` for train and prefill.
 
 The WKV recurrence goes through ``kernels/rwkv_scan.py``: the hand-written
 forward and backward kernels for CUDA tensors, the plain per-step loop for
@@ -9,8 +10,10 @@ computes the same function). Layouts and dtypes are the JAX package's:
 type; the recurrence runs in float32 on (B·H, S, Dh) streams with
 ``Dh = D // H``.
 
-The decode state (``state`` not None) and Hymba's selective SSM heads
-(``ssm_heads``) are not ported (``ROADMAP.md``: A7 decode, A6 ``ssm_heads``).
+``ssm_heads`` runs its recurrence as a PyTorch loop over the sequence with
+a float32 (B, H, Dh, N) state, where the JAX package runs ``lax.scan``
+(neither has a kernel for it). The decode state (``state`` not None) is not
+ported (``ROADMAP.md``, A7).
 """
 from __future__ import annotations
 
@@ -21,8 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import rwkv_scan as rwkv_lib
 
-_NO_DECODE = ("the RWKV decode state (models/decode.py, serving) is not ported to "
-              "repro_torch yet (see ROADMAP.md, A7)")
+_NO_DECODE = ("the decode state of the recurrent blocks (models/decode.py, serving) is "
+              "not ported to repro_torch yet (see ROADMAP.md, A7)")
 
 
 def _token_shift(x: torch.Tensor) -> torch.Tensor:
@@ -88,11 +91,44 @@ def rwkv_channel_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None
     return r * (k @ p["w_value"]), None
 
 
-def ssm_heads(cfg, p, x: torch.Tensor, state=None):
-    """Hymba's selective SSM heads are not ported yet."""
-    raise NotImplementedError(
-        "ssm_heads (Hymba's selective SSM, the hybrid family) is not ported to "
-        "repro_torch yet (see ROADMAP.md, A6)")
+def ssm_heads(cfg, p, x: torch.Tensor, state=None) -> Tuple[torch.Tensor, None]:
+    """Selective SSM over H heads of dim Dh = D // H with diagonal state N:
+
+    h_t = exp(-softplus(Δ_t) A) ⊙ h_{t-1} + Δ_t · (x̃_t ⊗ B_t)
+    y_t = (h_t · C_t) + D_skip ⊙ x̃_t
+
+    x: (B, S, D) → (out (B, S, D), None)."""
+    if state is not None:
+        raise NotImplementedError(_NO_DECODE)
+    B, S, D = x.shape
+    H, N = cfg.num_heads, cfg.ssm_state
+    Dh = D // H
+    f32 = torch.float32
+
+    def proj(w):                                          # "bsd,dhn->bshn"
+        return (x @ w.reshape(D, -1)).reshape(B, S, *w.shape[1:])
+
+    xtf = (x @ p["w_in"]).reshape(B, S, H, Dh).to(f32)
+    Bm, Cm = proj(p["w_B"]).to(f32), proj(p["w_C"]).to(f32)             # (B,S,H,N)
+    z = (x @ p["w_delta"]).to(f32) + p["delta_bias"]
+    delta = torch.logaddexp(z, torch.zeros((), dtype=f32, device=x.device))  # softplus
+    A = -torch.exp(p["A_log"].to(f32))                                  # (H,N)
+    decay = torch.exp(delta[..., None] * A)                             # (B,S,H,N)
+
+    # the input term Δ_t·(x̃_t ⊗ B_t) of every step at once; the loop is then
+    # one multiply and one add a step. The steps are taken apart by unbind,
+    # whose backward is one stack: indexing a step out of the whole
+    # sequence would make each step's backward write a sequence-sized
+    # gradient, O(S²) work.
+    inp = (delta[..., None, None] * xtf[..., :, None]) * Bm[:, :, :, None, :]  # (B,S,H,Dh,N)
+    h = torch.zeros((B, H, Dh, N), dtype=f32, device=x.device)
+    hs = []
+    for dec_t, inp_t in zip(decay.unbind(1), inp.unbind(1)):
+        h = h * dec_t[:, :, None, :] + inp_t
+        hs.append(h)
+    y = torch.einsum("bshdn,bshn->bshd", torch.stack(hs, dim=1), Cm)   # (B,S,H,Dh)
+    y = y + p["D_skip"].to(f32)[None, None, :, None] * xtf
+    return y.reshape(B, S, D).to(x.dtype) @ p["w_out"], None
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +154,15 @@ def rwkv_channel_shapes(cfg, dtype: torch.dtype) -> Shapes:
     D, Fd = cfg.d_model, cfg.d_ff
     return {"w_key": ((D, Fd), dtype), "w_value": ((Fd, D), dtype),
             "w_recept": ((D, D), dtype), "mu_k": ((D,), dtype), "mu_r": ((D,), dtype)}
+
+
+def ssm_shapes(cfg, dtype: torch.dtype) -> Shapes:
+    """Name → (shape, dtype) of Hymba's SSM head params."""
+    D, H, N, f32 = cfg.d_model, cfg.num_heads, cfg.ssm_state, torch.float32
+    return {"w_in": ((D, D), dtype), "w_out": ((D, D), dtype),
+            "w_B": ((D, H, N), dtype), "w_C": ((D, H, N), dtype),
+            "w_delta": ((D, H), dtype), "delta_bias": ((H,), f32),
+            "A_log": ((H, N), f32), "D_skip": ((H,), f32)}
 
 
 def _normal_(p: torch.Tensor, scale: float, generator: torch.Generator) -> None:
@@ -153,3 +198,16 @@ def init_rwkv_channel_params(p, cfg, generator: torch.Generator) -> None:
     _normal_(p["w_recept"], cfg.d_model ** -0.5, generator)
     p["mu_k"].fill_(0.5)
     p["mu_r"].fill_(0.5)
+
+
+@torch.no_grad()
+def init_ssm_params(p, cfg, generator: torch.Generator) -> None:
+    """Fill the SSM head params in place: the projections normal × D^-0.5,
+    ``delta_bias`` zero, ``A_log = log(1..N)`` per head, ``D_skip`` one."""
+    s = cfg.d_model ** -0.5
+    for name in ("w_in", "w_out", "w_B", "w_C", "w_delta"):
+        _normal_(p[name], s, generator)
+    p["delta_bias"].zero_()
+    p["A_log"].copy_(torch.log(torch.arange(1, cfg.ssm_state + 1, dtype=torch.float32))
+                     .expand(cfg.num_heads, cfg.ssm_state))
+    p["D_skip"].fill_(1.0)

@@ -862,3 +862,91 @@ def test_full_grad_source_on_card_runs_the_flash_kernels(cuda):
     fwd, dq, dkv = (a - b for a, b in zip(after, before))
     assert dq == dkv == 4 * mcfg.num_layers and fwd >= 4 * mcfg.num_layers
     assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# the moe and hybrid families, remat = dots
+# ---------------------------------------------------------------------------
+
+def _moe_params(dev, seed=0):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers
+    cfg = get_smoke_config("qwen3-moe-235b-a22b", param_dtype="float32",
+                           moe_capacity_factor=0.5)
+    g = torch.Generator().manual_seed(seed)
+    p = {n: (torch.randn(shape, generator=g) * shape[-2] ** -0.5).to(t)
+         for n, (shape, t) in layers.moe_shapes(cfg, torch.float32).items()}
+    x = torch.randn(4, 32, cfg.d_model, generator=g)
+    return cfg, {n: v.to(dev).requires_grad_() for n, v in p.items()}, x.to(dev)
+
+
+@pytest.mark.cuda
+def test_moe_on_card_matches_cpu_and_reruns_bit_equal(cuda):
+    """float32 with drops (capacity factor 0.5): expert ids and keep masks
+    equal to the CPU's, output and gradients within 1e-5 of max|CPU|
+    (cuBLAS sums in another order); two card runs bit-equal (the combine
+    and the dispatch's backward gather, no atomics)."""
+    from repro_torch.models import layers
+    runs = []
+    for dev in ("cpu", cuda, cuda):
+        cfg, p, x = _moe_params(dev)
+        x.requires_grad_()
+        r = layers.moe_routing(cfg, p["router"], layers.moe_groups(cfg, x)[0])
+        out = layers.moe(cfg, p, x)
+        grads = torch.autograd.grad(out, [x] + [p[n] for n in sorted(p)],
+                                    torch.ones_like(out))
+        runs.append((r.ids.cpu(), r.keep.cpu(), out.detach().cpu(), [g.cpu() for g in grads]))
+    (ids0, keep0, out0, g0), (ids1, keep1, out1, g1), (_, _, out2, g2) = runs
+    assert torch.equal(ids0, ids1) and torch.equal(keep0, keep1) and not bool(keep0.all())
+    assert (out1 - out0).abs().max() <= 1e-5 * out0.abs().max()
+    for a, b in zip(g1, g0):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    assert torch.equal(out1, out2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.cuda
+def test_ssm_heads_on_card_match_cpu(cuda):
+    """float32: output and gradients within 1e-5 of max|CPU| (the same
+    recurrence order; the projections' sums in another)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import ssm
+    cfg = get_smoke_config("hymba-1.5b", param_dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    p = {n: torch.randn(shape, generator=g) * 0.2 for n, (shape, _) in
+         ssm.ssm_shapes(cfg, torch.float32).items()}
+    x = torch.randn(3, 40, cfg.d_model, generator=g)
+    runs = []
+    for dev in ("cpu", cuda):
+        pd = {n: v.to(dev).requires_grad_() for n, v in p.items()}
+        xd = x.to(dev).requires_grad_()
+        out, _ = ssm.ssm_heads(cfg, pd, xd)
+        grads = torch.autograd.grad(out, [xd] + [pd[n] for n in sorted(pd)],
+                                    torch.ones_like(out))
+        runs.append([out.detach().cpu()] + [t.cpu() for t in grads])
+    for a, b in zip(runs[1], runs[0]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen3-moe-235b-a22b", "hymba-1.5b"])
+def test_remat_dots_on_card_is_bit_equal_to_full(cuda, arch):
+    """Under flash, the loss and every gradient bit-equal between ``dots``
+    and ``full``, and the flash forward launched twice a layer (the forward
+    and its recompute) under both."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    runs = {}
+    for remat in ("full", "dots"):
+        cfg = get_smoke_config(arch, param_dtype="float32", attn_backend="flash", remat=remat)
+        model = model_lib.init_params(cfg, torch.Generator().manual_seed(0)).to(cuda)
+        g = torch.Generator().manual_seed(1)
+        batch = {k: torch.randint(0, cfg.vocab_size, (4, 32), generator=g).to(cuda)
+                 for k in ("tokens", "labels")}
+        before = _flash_counts()
+        loss = model_lib.loss_fn(cfg, model, batch)[0]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        fwd = _flash_counts()[0] - before[0]
+        runs[remat] = (loss.detach(), grads, fwd)
+        assert fwd == 2 * cfg.num_layers
+    assert torch.equal(runs["full"][0], runs["dots"][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs["full"][1], runs["dots"][1]))

@@ -175,12 +175,12 @@ def test_attention_backend_routing():
     assert (fa.forward_launches, fa.dq_launches, fa.dkv_launches) == launches
     np.testing.assert_allclose(hf.numpy(), hd.numpy(), rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.Model(tsmoke("minicpm-2b", family="moe"))
+        tmodel.Model(tsmoke("minicpm-2b", family="audio"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.Model(tsmoke("minicpm-2b", remat="dots"))
+        tmodel.Model(tsmoke("minicpm-2b", frontend="vision_patches"))
     from repro_torch import configs
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_config("qwen1.5-32b")
+        configs.get_config("musicgen-medium")
 
 
 @pytest.mark.parametrize("backend,overrides,S,device,want", [

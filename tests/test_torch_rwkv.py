@@ -286,10 +286,10 @@ def test_decode_state_and_ssm_heads_are_refused():
         tssm.rwkv_time_mix(tm, {}, x, state={"shift": x[:, :1]})
     with pytest.raises(NotImplementedError, match="A7"):
         tssm.rwkv_channel_mix(tm, {}, x, state={"shift": x[:, :1]})
-    with pytest.raises(NotImplementedError, match="A6"):
-        tssm.ssm_heads(tm, {}, x)
+    with pytest.raises(NotImplementedError, match="A7"):
+        tssm.ssm_heads(tsmoke("hymba-1.5b"), {}, x, state=torch.zeros(1, 4, 16, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.Model(dataclasses.replace(tm, family="hybrid"))
+        tmodel.Model(dataclasses.replace(tm, family="vlm"))
 
 
 # ---------------------------------------------------------------------------

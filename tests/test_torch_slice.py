@@ -127,6 +127,11 @@ def test_trainer_matches_the_step_loop():
      "graft.rset=[2,4,8]", "train.batch=16", "train.seq=256", "train.steps=6",
      "optimizer.learning_rate=1e-4"],
     ["graft=none", "optimizer.schedule=wsd", "train.seed=3", "train.log_every=5"],
+    ["model.arch=qwen1.5-32b"], ["model.arch=qwen3-moe-235b-a22b"],
+    ["model.arch=kimi-k2-1t-a32b", "optimizer.name=adafactor"], ["model.arch=hymba-1.5b"],
+    ["graft=none", "train.microbatches=4"], ['model.overrides={"remat": "dots"}'],
+    ["model.arch=qwen3-moe-235b-a22b", "model.smoke=false",
+     'model.overrides={"num_layers": 2}', "optimizer.state_dtype=bfloat16"],
 ])
 def test_config_hash_and_json_match_jax(overrides):
     t = ExperimentConfig().apply_overrides(overrides)
@@ -149,10 +154,11 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("override", [
-    "train.audit=true", 'model.overrides={"remat": "dots"}',
+    "train.audit=true", "model.arch=musicgen-medium",
     "data.source=synthetic_classification", "train.fault_plan=x", "backend.kind=multiprocess",
-    "data.source=synthetic_vision", "model.arch=hymba-1.5b", "train.microbatches=2",
-    "model.arch=qwen1.5-32b"])
+    "data.source=synthetic_vision", "model.arch=internvl2-26b",
+    'model.overrides={"frontend": "audio_frames"}',
+    'model.overrides={"frontend": "vision_patches"}'])
 def test_not_ported_parts_raise_pointing_to_roadmap(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cfg = ExperimentConfig().apply_overrides(SMALL + [override])
