@@ -12,11 +12,13 @@ Phases (any failure exits nonzero and prints no result line):
                together), with ``-Xptxas -v``: registers, shared memory,
                spills and build seconds.
   3. kernels — graft_select against its plain PyTorch twin on the card, at
-               the training paths' widths (d 2304, 4096, 1600 and 5120) and on
+               the training paths' widths (d 2304, 4096, 1600, 5120, 1536 and
+               6144, where the basis takes global memory) and on
                degenerate inputs (exact equality where the arithmetic is the
                same, a stated tolerance where only the summation order
                differs), then timed with CUDA events and by the profiler's
-               device time against the twin and its bound; its global-W plan
+               device time against the twin and its bound at d 2304, 4096
+               and 6144; its global-W plan
                at V 1024×64 against the twin; every pair of W plan and basis
                plan (shared or global) that fits bit-equal to the pair the
                wrapper picks; the batched kernel's rows bit-equal to the
@@ -126,7 +128,25 @@ Phases (any failure exits nonzero and prints no result line):
                rset, steady step time and peak memory; for hymba the profile
                of phase 9 and the SSM loop's calls of one refresh step run
                alone (launches, device time).
- 14. check   — the same path at smoke size on the card against the port's
+ 14. classify — the classification task through Trainer at full width, 6
+               steps at the slice's GRAFT settings, batch 16, eval every 2
+               steps: musicgen-medium (audio frames, 48 layers, d 1536) on
+               synthetic_classification at 4 frames (attention dense) and at
+               64 frames of 3072 features (flash), internvl2-26b (vision
+               patches, d 6144, 8 of 48 layers) on 32 × 32 synthetic_vision
+               (S 65, dense): exact launch counts (the eval forwards
+               included), finite losses, ranks in rset, eval_acc in [0, 1],
+               steady step time and peak memory.
+ 15. serve   — ``launch/serve.py`` at the JAX defaults (4 slots, 8 requests
+               of 8 tokens, 16 new tokens, max_seq 128, seed 0) at full width:
+               minicpm-2b, rwkv6-7b and hymba-1.5b at full depth,
+               qwen3-moe-235b-a22b at 2 of 94 layers (dropless decode over
+               128 experts): all requests done, reruns equal, no kernel of
+               the port launched, tokens/s, the prefill and one decode tick
+               by CUDA events and one tick under the profiler, peak memory;
+               then minicpm-2b at 8 layers, prefill 8 tokens and 16 decode
+               steps against the teacher-forced forward.
+ 16. check   — the same path at smoke size on the card against the port's
                CPU run (which the CPU tests hold against the JAX package):
                minicpm and gemma2 (seq 32, so that its window of 16 bites)
                under flash attention, rwkv6-7b through the RWKV kernels,
@@ -140,7 +160,13 @@ Phases (any failure exits nonzero and prints no result line):
                For each of those selection cases one refresh is also run
                alone and counted: one flash forward a layer, and under full
                grads one flash dQ and dK/dV a layer for each example.
- 15. shell   — the Trainer shell at minicpm-2b's full width with depth cut
+               Then musicgen-smoke on synthetic_classification (8 frames,
+               flash) and internvl2-smoke on synthetic_vision (dense): losses,
+               ranks, pivots and the eval against the CPU; and each family's
+               smoke config decoding (prefill 8 tokens, then one step a token
+               to max_seq; gemma2 at 32, so that its window bites) against
+               the CPU, with no kernel launched.
+ 17. shell   — the Trainer shell at minicpm-2b's full width with depth cut
                to 2 layers (~405 M params, ~4 GB a checkpoint): an
                uninterrupted 6-step run with eval every 2 steps and a JSONL
                stream, then one that stops at step 3 with a checkpoint under
@@ -155,6 +181,7 @@ Phases (any failure exits nonzero and prints no result line):
 It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import gc
 import json
 import os
@@ -187,7 +214,8 @@ FLASH_REPLACES = {"flash_forward": "src/repro/kernels/flash_attention.py:210",
 # (name, B, H, Hkv, S, Dh, dtype, causal, window, softcap). "slice" is the
 # selection forward's 16 × 36 streams; "subset" and "subset_r8" the subset's
 # forward and backward, r × 36 streams at the ranks phase slice reports (2
-# and 8)
+# and 8); "musicgen_64f" the selection forward of phase classify's run (b),
+# 16 × 24 streams of 64 frames, one tile of the sequence
 FLASH_SHAPES = [
     ("slice", 16, 36, 36, 256, 64, "bfloat16", True, None, None),
     ("subset", 2, 36, 36, 256, 64, "bfloat16", True, None, None),
@@ -203,6 +231,7 @@ FLASH_SHAPES = [
     ("qwen15_32b", 16, 40, 40, 256, 128, "bfloat16", True, None, None),
     ("hymba_gqa5", 16, 25, 5, 256, 64, "bfloat16", True, None, None),
     ("hymba_window", 4, 25, 5, 2048, 64, "bfloat16", True, 1024, None),
+    ("musicgen_64f", 16, 24, 24, 64, 64, "bfloat16", True, None, None),
 ]
 
 
@@ -343,9 +372,12 @@ def phase_kernels(ctx):
     from repro_torch.kernels.graft_select import graft_select, graft_select_reference
     dev = torch.device("cuda")
     # the training paths' widths: minicpm-2b's d 2304, rwkv6-7b's and
-    # qwen3-moe's 4096, hymba-1.5b's 1600, qwen1.5-32b's 5120
+    # qwen3-moe's 4096, hymba-1.5b's 1600, qwen1.5-32b's 5120, musicgen's
+    # 1536 and internvl2-26b's 6144 (where the basis no longer fits beside
+    # the pivot columns and takes the global plan)
     cases = [("slice", 16, 8, 2304, 8), ("rwkv", 16, 8, 4096, 8), ("hymba", 16, 8, 1600, 8),
-             ("qwen15", 16, 8, 5120, 8), ("wide", 256, 64, 4096, 64),
+             ("qwen15", 16, 8, 5120, 8), ("musicgen", 16, 8, 1536, 8),
+             ("internvl2", 16, 8, 6144, 8), ("wide", 256, 64, 4096, 64),
              ("square", 16, 16, 2304, 16), ("rank_deficient", 64, 8, 2304, 6),
              ("ties", 12, 6, 512, 6)]
     err_atol, lv_rtol = 1e-5, 1e-5
@@ -369,8 +401,8 @@ def phase_kernels(ctx):
         if kind == "slice":
             ctx["graft_max_abs_err"] = max(err_d, lv_d)
     # time at the training paths' shapes: minicpm-2b's d 2304 (the kernels
-    # line) and rwkv6-7b's d 4096
-    for K, R, d, rank in ((16, 8, 2304, 8), (16, 8, 4096, 8)):
+    # line), rwkv6-7b's d 4096 and internvl2-26b's d 6144 (global basis)
+    for K, R, d, rank in ((16, 8, 2304, 8), (16, 8, 4096, 8), (16, 8, 6144, 8)):
         args = _graft_inputs("slice", K, R, d, rank, dev, seed=1)
         ms = cuda_time_ms(lambda: graft_select(*args), iters=500, warmup=20)
         _, device_ms = _device_times(lambda: graft_select(*args), "graft_select")
@@ -439,8 +471,8 @@ def _kernels_wide_and_global(dev):
             raise AssertionError(f"graft_select disagrees with its twin at K={K} R={R}")
     # every pair of W plan (MaxVol's working set) and basis plan (Qᵀ and ĝ)
     # that fits the block, against the pair the wrapper picks
-    for K, R, d, rank in ((16, 8, 2304, 8), (16, 8, 4096, 8), (256, 64, 4096, 64),
-                          (64, 8, 2304, 6)):
+    for K, R, d, rank in ((16, 8, 2304, 8), (16, 8, 4096, 8), (16, 8, 6144, 8),
+                          (256, 64, 4096, 64), (64, 8, 2304, 6)):
         args = _random_refresh(K, R, d, dev, seed=3) + [rank]
         want = gs.graft_select(*args)
         pairs = [(p, q) for p in gs.PLANS for q in gs.PLANS
@@ -750,7 +782,7 @@ def _optim_groups(params):
     return len({p.dtype for p in params})
 
 
-def _expected_launches(mcfg, cfg, groups):
+def _expected_launches(mcfg, cfg, groups, flash=True):
     """Launches the slice reckons: per step one forward per layer for the
     subset loss and, for the stacked layers, one more for their remat
     recompute (full or dots: a kernel is no matrix product that dots keeps;
@@ -761,15 +793,21 @@ def _expected_launches(mcfg, cfg, groups):
     dense family, the RWKV scan (forward; one backward launch) for the ssm
     family. The training path runs no batched refresh and no standalone
     stage. The optimizer step is one grad_norm launch a step and, on a
-    healthy step, one optimizer_update launch per dtype group."""
+    healthy step, one optimizer_update launch per dtype group. Each held-out
+    eval (every ``train.eval_every`` steps) runs one forward a layer for each
+    of its 4 batches. ``flash=False``: the attention resolves to dense (no
+    flash tile divides the sequence), so no flash kernel runs."""
     steps = cfg.train.steps
     refreshes = sum(1 for s in range(steps) if s % cfg.graft.refresh_every == 0)
+    evals = steps // cfg.train.eval_every if cfg.train.eval_every else 0
     L = mcfg.num_layers
     recomputed = L - mcfg.first_k_dense if mcfg.remat in ("full", "dots") else 0
-    fwd, bwd = L * (steps + refreshes) + recomputed * steps, L * steps
+    fwd = L * (steps + refreshes + 4 * evals) + recomputed * steps
+    bwd = L * steps
     ssm = mcfg.family == "ssm"
-    return {"graft_select": refreshes, "flash_forward": 0 if ssm else fwd,
-            "flash_dq": 0 if ssm else bwd, "flash_dkv": 0 if ssm else bwd,
+    attn = flash and not ssm
+    return {"graft_select": refreshes, "flash_forward": fwd if attn else 0,
+            "flash_dq": bwd if attn else 0, "flash_dkv": bwd if attn else 0,
             "graft_select_batched": 0, "fast_maxvol": 0, "projection_sweep": 0,
             "rwkv_scan": fwd if ssm else 0, "rwkv_scan_backward": bwd if ssm else 0,
             "grad_norm": steps, "optimizer_update": steps * groups}
@@ -1303,16 +1341,29 @@ def _profile(tr, tag):
 
 
 GEMM_KERNEL_NAMES = ("gemm", "nvjet", "cutlass")    # cuBLAS's Hopper GEMMs are nvjet_*
-def _gemm_launches(fn):
-    """(GEMM kernels, every kernel) of one call of fn, counted by
-    torch.profiler: kernels whose names are cuBLAS's or CUTLASS's GEMMs."""
+def _cuda_kernels(fn):
+    """The CUDA kernels of one call of fn by torch.profiler (its
+    key_averages events on the device) and the call's wall ms, ending in a
+    synchronize."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    cuda = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA], wall_ms
+
+
+def _device_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _gemm_launches(fn):
+    """(GEMM kernels, every kernel) of one call of fn, counted by
+    torch.profiler: kernels whose names are cuBLAS's or CUTLASS's GEMMs."""
+    cuda, _ = _cuda_kernels(fn)
     gemm = sum(e.count for e in cuda if any(n in e.key.lower() for n in GEMM_KERNEL_NAMES))
     return gemm, sum(e.count for e in cuda)
 
@@ -1712,6 +1763,201 @@ def phase_families(ctx):
     torch.cuda.empty_cache()
 
 
+# (tag, arch, depth or None for full depth, extra overrides): the
+# classification task at full width with the slice's GRAFT settings
+CLASSIFY_RUNS = [
+    ("a", "musicgen-medium", None, ["data.source=synthetic_classification",
+                                    "data.imbalance=1.0", "data.label_noise=0.1",
+                                    "data.num_classes=10"]),
+    ("b", "musicgen-medium", None, ["data.source=synthetic_classification",
+                                    "data.imbalance=1.0", "data.label_noise=0.1",
+                                    "data.num_classes=10", "data.frames=64",
+                                    "data.feature_dim=3072"]),
+    ("c", "internvl2-26b", 8, ["data.source=synthetic_vision", "data.image_size=32"]),
+]
+
+
+def _seq_len(mcfg, batch):
+    """The model's sequence length for a batch of its frontend."""
+    if "patch_embeds" in batch:
+        return batch["patch_embeds"].shape[1] + batch["tokens"].shape[1]
+    if "frame_embeds" in batch:
+        return batch["frame_embeds"].shape[1]
+    return batch["tokens"].shape[1]
+
+
+def phase_classify(ctx):
+    """The classification task through Trainer at full width: musicgen-medium
+    (audio frames) at full depth on synthetic_classification at 4 frames
+    (attention resolves to dense) and at 64 frames of CIFAR's 3072 features
+    (flash), internvl2-26b (vision patches) at 8 of 48 layers on
+    synthetic_vision at 32 × 32 (64 patches and the query token, dense): 6
+    steps at the slice's GRAFT settings, batch 16, eval every 2 steps; exact
+    launch counts, finite losses, ranks in rset, eval_acc in [0, 1], steady
+    step time and peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExperimentConfig, Trainer
+    from repro_torch.models.layers import resolve_attn_backend
+    ctx.pop("trainer", None)
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    for tag, arch, layers, extra in CLASSIFY_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ov = {"attn_backend": "auto"} | ({"num_layers": layers} if layers else {})
+        cfg = ExperimentConfig().apply_overrides(
+            [o for o in SLICE_OVERRIDES if not o.startswith("model.overrides")]
+            + [extra[0], f"model.arch={arch}", f"model.overrides={json.dumps(ov)}"]
+            + extra[1:] + ["train.eval_every=2"])
+        mcfg, _, data = cfg.build()
+        S = _seq_len(mcfg, data.batch_at(0))
+        backend = resolve_attn_backend(mcfg, S, S, torch.device("cuda"))
+        want_backend = "flash" if tag == "b" else "dense"
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg)
+        _zero_counts()
+        t0 = time.perf_counter()
+        report = tr.fit()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n = report["num_params"]
+        hist = report["history"]
+        print(f"[classify] ({tag}) {arch}: {mcfg.family}, frontend {mcfg.frontend}, d_model "
+              f"{mcfg.d_model}, {mcfg.num_heads} heads over {mcfg.num_kv_heads} KV x "
+              f"{mcfg.head_dim}, d_ff {mcfg.d_ff} {mcfg.mlp_activation}, {mcfg.num_layers} "
+              f"layers ({'full depth' if layers is None else 'depth cut'}), vocab "
+              f"{mcfg.vocab_size} (the classes); {cfg.data.__class__.__name__} "
+              f"{json.dumps(dataclasses.asdict(cfg.data))}; S {S}, attention resolves to "
+              f"{backend}; {n} params -> bf16 params + grads + f32 moments "
+              f"~{n * 12 / 1e9:.1f} GB of {total_gb:.1f} GB; peak allocated {peak:.2f} GB; "
+              f"fit wall {wall:.1f} s", flush=True)
+        for i, r in enumerate(hist):
+            ev = (f" eval_loss {r['eval_loss']:.5f} eval_acc {r['eval_acc']:.4f}"
+                  if "eval_acc" in r else "")
+            print(f"[classify] ({tag}) step {i}: loss {r['loss']:.6f} rank {r['rank']} "
+                  f"grad_norm {r['grad_norm']:.4f} step {r['step_time_s'] * 1e3:.1f} ms{ev}")
+        expected = _expected_launches(mcfg, cfg, _optim_groups(tr.state["params"]),
+                                      flash=backend == "flash")
+        print(f"[classify] ({tag}) {arch}: launches {launches}, expected {expected}")
+        assert backend == want_backend, f"({tag}) attention resolved to {backend}"
+        assert all(np.isfinite(r["loss"]) and r["healthy"] == 1.0 for r in hist), \
+            f"({tag}) non-finite loss or a vetoed step"
+        assert all(int(r["rank"]) in cfg.graft.rset for r in hist), f"({tag}) rank outside rset"
+        evals = [r for r in hist if "eval_acc" in r]
+        assert len(evals) == 3 and all(0.0 <= r["eval_acc"] <= 1.0 and np.isfinite(r["eval_loss"])
+                                       for r in evals), f"({tag}) eval rows {evals}"
+        assert launches == expected, f"({tag}) launches {launches}, expected {expected}"
+        for name in ("graft_select", "grad_norm", "optimizer_update"):
+            assert launches[name] > 0, f"({tag}) kernel {name} was never launched"
+        steady = [r["step_time_s"] * 1e3 for r in hist[1:]]
+        print(f"[classify] ({tag}) {arch}: steady step time (steps 1-5) mean "
+              f"{np.mean(steady):.1f} ms; refresh steps "
+              f"{[round(r['step_time_s'] * 1e3, 1) for r in hist[2::2]]} ms; eval_acc "
+              f"{[round(r['eval_acc'], 4) for r in evals]}", flush=True)
+        del tr, report
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# (arch, depth or None for full depth): serve at the JAX defaults, full width
+SERVE_MODELS = [("minicpm-2b", None), ("rwkv6-7b", None), ("hymba-1.5b", None),
+                ("qwen3-moe-235b-a22b", 2)]
+SERVE_ARGS = dict(slots=4, requests=8, max_new_tokens=16, max_seq=128, seed=0)
+
+
+def phase_serve(ctx):
+    """``serve`` at the JAX defaults (4 slots, 8 requests of 8 tokens, 16 new
+    tokens, max_seq 128, seed 0) at full width for minicpm-2b, rwkv6-7b and
+    hymba-1.5b at full depth and qwen3-moe at 2 of 94 layers (the one-token
+    steps dropless over 128 experts), bf16 weights from seed 0: every request
+    done, a second run's tokens equal, no kernel of the port launched, the
+    warmed second run's tokens/s,
+    the prefill and one decode tick by CUDA events, peak memory. Then
+    minicpm-2b at 8 layers: prefill 8 tokens and 16 decode steps against
+    the teacher-forced forward on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import decode as decode_lib
+    from repro_torch.models import model as model_lib
+    ctx.pop("trainer", None)
+    for arch, layers in SERVE_MODELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        mcfg = configs.get_config(arch, **({"num_layers": layers} if layers else {}))
+        model = model_lib.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                                      "cuda")
+        n = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        reports = [serve_lib.serve_model(mcfg, model, **SERVE_ARGS) for _ in range(2)]
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        params = model.tree()
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(2, mcfg.vocab_size, (SERVE_ARGS["slots"], 8))
+                                .astype(np.int32)).cuda()
+        batch = {"tokens": toks, "labels": toks}
+        prefill_ms = cuda_time_ms(lambda: decode_lib.prefill(mcfg, params, batch, 128),
+                                  iters=3, warmup=1)
+        live = {"cache": decode_lib.prefill(mcfg, params, batch, 128)[1]}
+
+        def tick():                 # a decode step consumes its cache: thread it
+            _, live["cache"] = decode_lib.decode_step(mcfg, params, live["cache"], toks[:, :1])
+
+        # 2 + 10 + 1 ticks from index 8 stay inside max_seq 128
+        tick_ms = cuda_time_ms(tick, iters=10, warmup=2)
+        events, tick_wall = _cuda_kernels(tick)
+        tick_dev = sum(_device_us(e) for e in events) / 1e3
+        r = reports[1]              # the second, warmed run
+        print(f"[serve] {arch}: {mcfg.family}, {mcfg.num_layers} layers "
+              f"({'full depth' if layers is None else 'depth cut'}), d_model {mcfg.d_model}, "
+              f"{n} bf16 params ({n * 2 / 1e9:.2f} GB); requests {r['requests']}, decode ticks "
+              f"{r['decode_ticks']}, new tokens {r['total_new_tokens']}, wall {r['wall_s']} s, "
+              f"{r['tokens_per_s']} tokens/s (warmed run; the first, with its warm-up, "
+              f"{reports[0]['tokens_per_s']}); "
+              f"prefill ({SERVE_ARGS['slots']} x 8 tokens) {prefill_ms:.2f} ms, one decode tick "
+              f"{tick_ms:.2f} ms (CUDA events); one profiled tick: {tick_wall:.2f} ms wall "
+              f"under the profiler, {tick_dev:.2f} ms of kernels (device busy "
+              f"{100 * tick_dev / tick_ms:.0f}% of the CUDA-event tick), "
+              f"{sum(e.count for e in events)} kernel launches; peak allocated {peak:.2f} GB; "
+              f"the port's kernel launches {counts}", flush=True)
+        assert r["requests"] == SERVE_ARGS["requests"]
+        assert sorted(x["request_id"] for x in r["results"]) == list(range(SERVE_ARGS["requests"]))
+        assert all(1 <= len(x["tokens"]) <= SERVE_ARGS["max_new_tokens"] for x in r["results"])
+        assert [x["tokens"] for x in reports[0]["results"]] == \
+            [x["tokens"] for x in r["results"]], f"{arch}: reruns disagree"
+        assert not any(counts.values()), f"{arch}: serve launched a kernel: {counts}"
+        del model, params, live, tick, reports
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = configs.get_config("minicpm-2b", num_layers=8)
+    model = model_lib.init_params(mcfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, mcfg.vocab_size, (4, 24))
+                            .astype(np.int32)).cuda()
+    with torch.no_grad():
+        h, _ = model_lib.forward_hiddens(mcfg, model, {"tokens": toks, "labels": toks})
+        ref = model_lib.logits_from_hiddens(mcfg, model, h)[:, 7:].float()
+    lg, cache = decode_lib.prefill(mcfg, model, {"tokens": toks[:, :8], "labels": toks[:, :8]}, 24)
+    outs = [lg[:, 0]]
+    for t in range(8, 24):
+        lg, cache = decode_lib.decode_step(mcfg, model, cache, toks[:, t:t + 1])
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, dim=1).float()
+    err, scale = float((dec - ref).abs().max()), float(ref.abs().max())
+    bound = 0.02 * max(scale, 1.0) + 1e-3
+    print(f"[serve] minicpm-2b full width, 8 layers: prefill 8 + 16 decode steps against the "
+          f"teacher-forced forward (flash): max|diff| {err:.4g}, max|logit| {scale:.4g}, bound "
+          f"{bound:.4g} -> {'ok' if err < bound else 'FAIL'}", flush=True)
+    assert err < bound, "decode disagrees with teacher forcing"
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # the minicpm smoke runs phase check adds: every sampler besides graft, and
 # the feature and grad sources whose arithmetic is new in the port
 CHECK_SELECTION = ["train.sampler=" + s for s in (
@@ -1796,6 +2042,101 @@ def phase_check(ctx):
             print(f"[check] loss gpu {lg:.7f} cpu {lc:.7f}; rank {rg}/{rc}; pivots {pg}/{pc}")
             assert abs(lg - lc) <= 1e-4 * abs(lc) and rg == rc and pg == pc, \
                 "GPU run disagrees with the CPU run"
+    _check_classify(base)
+    _check_decode()
+
+
+def _check_classify(base):
+    """musicgen-smoke on synthetic_classification (8 frames, so that flash
+    runs) and internvl2-smoke on synthetic_vision (17 positions: no flash
+    tile fits, dense) on the card against the CPU: per-step losses rtol
+    1e-4, ranks and pivots equal, then the held-out eval (loss rtol 1e-4,
+    eval_acc equal)."""
+    import torch
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.evaluate import make_eval_fn_for
+    from repro_torch.models.layers import resolve_attn_backend
+    for arch, source, extra in (("musicgen-medium", "synthetic_classification",
+                                 ["data.frames=8"]),
+                                ("internvl2-26b", "synthetic_vision", [])):
+        cfg = ExperimentConfig().apply_overrides(
+            [f"data.source={source}", f"model.arch={arch}"] + base + extra)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            mcfg, tcfg, data = cfg.build()
+            gen = torch.Generator(device="cpu").manual_seed(0)
+            model_cpu = steps_lib.init_train_state(mcfg, tcfg, gen, 8)["model"]
+            state = steps_lib.state_for_model(mcfg, tcfg, model_cpu.to(dev), 8)
+            step_fn = steps_lib.make_train_step(mcfg, tcfg)
+            rows = []
+            _zero_counts()
+            for s in range(cfg.train.steps):
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(s).items()}
+                state, m = step_fn(state, batch)
+                rows.append((m["loss"].item(), int(m["rank"]),
+                             state["graft"].pivots.cpu().tolist()))
+            counts = _read_counts()
+            S = _seq_len(mcfg, data.batch_at(0))
+            flash = resolve_attn_backend(mcfg, S, S, torch.device("cuda")) == "flash"
+            on_card = dev == "cuda"
+            assert (counts["graft_select"] > 0) == on_card and \
+                (counts["flash_forward"] > 0) == (on_card and flash), f"{dev}: {counts}"
+            ev = make_eval_fn_for(cfg, mcfg, device=dev)(state["model"])
+            runs[dev] = (rows, ev)
+        print(f"[check] {arch} ({mcfg.family}, {mcfg.frontend}) on {source}, S {S}, "
+              f"{'flash' if flash else 'dense'} attention; eval gpu {runs['cuda'][1]} cpu "
+              f"{runs['cpu'][1]}")
+        for (lg, rg, pg), (lc, rc, pc) in zip(runs["cuda"][0], runs["cpu"][0]):
+            print(f"[check] loss gpu {lg:.7f} cpu {lc:.7f}; rank {rg}/{rc}; pivots {pg}/{pc}")
+            assert abs(lg - lc) <= 1e-4 * abs(lc) and rg == rc and pg == pc, \
+                "GPU run disagrees with the CPU run"
+        (eg, ec) = runs["cuda"][1], runs["cpu"][1]
+        assert abs(eg["eval_loss"] - ec["eval_loss"]) <= 1e-4 * abs(ec["eval_loss"]) and \
+            eg["eval_acc"] == ec["eval_acc"], "GPU eval disagrees with the CPU eval"
+
+
+# (arch, max_seq): each family's smoke config; gemma2 at 32 so that its
+# window of 16 bites
+CHECK_DECODE = [("minicpm-2b", 24), ("stablelm-12b", 24), ("gemma2-27b", 32),
+                ("qwen1.5-32b", 24), ("rwkv6-7b", 24), ("hymba-1.5b", 24),
+                ("qwen3-moe-235b-a22b", 24), ("kimi-k2-1t-a32b", 24)]
+
+
+def _check_decode():
+    """prefill (8 tokens) and every decode step to max_seq of each family's
+    smoke config, float32, on the card against the CPU: logits within rtol
+    1e-4 and 1e-5 of their largest value; no kernel launched on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode as decode_lib
+    from repro_torch.models import model as model_lib
+    for arch, max_seq in CHECK_DECODE:
+        mcfg = get_smoke_config(arch, param_dtype="float32")
+        model = model_lib.init_params(mcfg, torch.Generator().manual_seed(0))
+        toks = np.random.default_rng(1).integers(0, mcfg.vocab_size, (2, max_seq)).astype(np.int32)
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            m = model.to(dev)
+            t = torch.from_numpy(toks).to(dev)
+            _zero_counts()
+            lg, cache = decode_lib.prefill(mcfg, m, {"tokens": t[:, :8], "labels": t[:, :8]},
+                                           max_seq)
+            outs = [lg]
+            for i in range(8, max_seq):
+                lg, cache = decode_lib.decode_step(mcfg, m, cache, t[:, i:i + 1])
+                outs.append(lg)
+            logits[dev] = torch.cat(outs, 1).cpu()
+            counts = _read_counts()
+            assert not any(counts.values()), f"{arch} on {dev}: decode launched {counts}"
+        diff = float((logits["cuda"] - logits["cpu"]).abs().max())
+        scale = float(logits["cpu"].abs().max())
+        ok = bool(((logits["cuda"] - logits["cpu"]).abs()
+                   <= 1e-4 * logits["cpu"].abs() + 1e-5 * scale).all())
+        print(f"[check] decode {arch} max_seq {max_seq}: prefill + {max_seq - 8} steps, "
+              f"max|gpu - cpu| {diff:.3g} of max|logit| {scale:.3g} -> {'ok' if ok else 'FAIL'}")
+        assert ok, f"{arch}: card decode disagrees with the CPU"
 
 
 # ---------------------------------------------------------------------------
@@ -2129,7 +2470,8 @@ def main() -> int:
                      ("optim", phase_optim), ("slice", phase_slice), ("engine", phase_engine),
                      ("samplers", phase_samplers), ("profile", phase_profile), ("depth8", phase_depth8),
                      ("rwkv", phase_rwkv), ("rwkv_slice", phase_rwkv_slice),
-                     ("families", phase_families), ("check", phase_check),
+                     ("families", phase_families), ("classify", phase_classify),
+                     ("serve", phase_serve), ("check", phase_check),
                      ("shell", phase_shell)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()

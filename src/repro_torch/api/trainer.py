@@ -264,9 +264,10 @@ class Trainer:
                 step += 1
             wall = time.perf_counter() - t_start
             last = history.last
+            rows = history.rows()
             report: Dict[str, Any] = {
                 "final_loss": last["loss"] if last is not None else None,
-                "history": history.rows(),
+                "history": rows,
                 "wall_s": wall,
                 "config_hash": cfg.config_hash(),
                 "host_loop": {"steps": history.total, "dispatched_ahead": 0,
@@ -281,6 +282,9 @@ class Trainer:
                 report["host_loop"]["device_time_s"] = self.device_clock.total_device_s
                 if self.device_clock.stalled:
                     report["host_loop"]["device_stalled"] = True
+            evals = [r for r in rows if "eval_loss" in r]
+            if evals:                   # the last held-out numbers, for the CLI
+                report["eval"] = {k: v for k, v in evals[-1].items() if k.startswith("eval_")}
             if history.dropped:
                 report["history_dropped"] = history.dropped
             if self.stop_reason is not None:

@@ -10,6 +10,11 @@ numpy; the train loop moves them to the device.
   * learnable: sequences follow a hidden Markov chain over token clusters
     with Zipfian unigrams, so models reduce loss and selection methods
     differ.
+
+It also keeps the JAX package's finite classification set
+(``SyntheticClassification``, ``batches``) and the Zipf class skew the
+classification and vision sources of ``data/sources.py`` draw from; their
+arrays are byte-identical to the JAX package's for the same seeds.
 """
 from __future__ import annotations
 
@@ -64,6 +69,15 @@ class DataSourceBase:
         no iterator state moves."""
         stack = [self.batch_at(step + i) for i in range(num_micro)]
         return {k: np.stack([b[k] for b in stack]) for k in stack[0]}
+
+
+def zipf_class_probs(num_classes: int, imbalance: float) -> np.ndarray:
+    """Zipf-like class skew (``imbalance=0`` → uniform): random subsets miss
+    rare classes, the regime where diversity-seeking selection pays off."""
+    if imbalance <= 0:
+        return np.full(num_classes, 1.0 / num_classes)
+    p = 1.0 / np.arange(1, num_classes + 1, dtype=np.float64) ** imbalance
+    return p / p.sum()
 
 
 @dataclasses.dataclass
@@ -132,3 +146,47 @@ class SyntheticLM(DataSourceBase):
                 c = min(int(np.searchsorted(self._trans_cdf[c], u_cl[t])),
                         cfg.num_clusters - 1)
         return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+class SyntheticClassification:
+    """Gaussian-cluster classification set (the paper's CIFAR/IMDB analog):
+    a fixed finite dataset of ``n`` examples, so that fraction sweeps make
+    sense, with label noise and per-class difficulty so that selection
+    methods differ."""
+
+    def __init__(self, n: int = 4096, dim: int = 64, num_classes: int = 10,
+                 noise: float = 0.8, label_noise: float = 0.02, seed: int = 0,
+                 imbalance: float = 0.0):
+        g = np.random.default_rng(seed)
+        self.num_classes = num_classes
+        centers = g.normal(size=(num_classes, dim)) * 2.0
+        if imbalance > 0:
+            self.y = g.choice(num_classes, size=n,
+                              p=zipf_class_probs(num_classes, imbalance)).astype(np.int32)
+        else:
+            self.y = g.integers(num_classes, size=n).astype(np.int32)
+        scales = 0.5 + 1.5 * g.random(num_classes)           # per-class difficulty
+        self.x = (centers[self.y] +
+                  g.normal(size=(n, dim)) * noise * scales[self.y][:, None]
+                  ).astype(np.float32)
+        flip = g.random(n) < label_noise
+        self.y[flip] = g.integers(num_classes, size=flip.sum())
+
+    def split(self, test_fraction: float = 0.2, seed: int = 1):
+        """((x, y) train, (x, y) test) from a seeded permutation."""
+        g = np.random.default_rng(seed)
+        n = len(self.y)
+        perm = g.permutation(n)
+        k = int(n * (1 - test_fraction))
+        tr, te = perm[:k], perm[k:]
+        return (self.x[tr], self.y[tr]), (self.x[te], self.y[te])
+
+
+def batches(x: np.ndarray, y: np.ndarray, batch_size: int, seed: int = 0
+            ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Endless batches of ``batch_size`` examples drawn without replacement."""
+    g = np.random.default_rng(seed)
+    n = len(y)
+    while True:
+        idx = g.choice(n, batch_size, replace=False)
+        yield x[idx], y[idx]

@@ -39,7 +39,7 @@ def accumulated_grads(loss_fn: Callable[[Batch], torch.Tensor],
     grad_sum = [torch.zeros(p.shape, dtype=p.dtype, device=p.device) for p in params]
     for mb in split_microbatches(batch, num_micro):
         loss = loss_fn(mb)
-        grads = torch.autograd.grad(loss, params)
+        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
         for acc, g in zip(grad_sum, grads):
             acc.add_(g.to(acc.dtype))
         loss_sum = loss_sum + loss.detach()

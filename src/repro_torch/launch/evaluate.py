@@ -4,8 +4,10 @@ JAX package's ``launch/evaluate.py``.
 The eval stream is the same registered data source read at a step offset
 the training loop never reaches (``EVAL_STEP_OFFSET``): drawn from the
 training distribution, never overlapping the train stream. ``lm`` sources
-report loss and perplexity. The classification eval waits for
-``synthetic_classification`` (``ROADMAP.md``).
+report loss and perplexity; ``classification`` sources report loss and
+accuracy over the labeled positions (every frame of a
+``synthetic_classification`` example, the query token of a
+``synthetic_vision`` one).
 
 Every factory returns an :class:`EvalFn` with a dispatch/collect split:
 ``dispatch(model)`` enqueues the per-batch forwards and the mean on the
@@ -72,10 +74,27 @@ def _lm_eval(mcfg: model_lib.ModelConfig, eval_batches, device) -> EvalFn:
     return EvalFn(dispatch)
 
 
-def _classification_eval(mcfg, eval_batches, device) -> EvalFn:
-    raise NotImplementedError(
-        "the classification eval needs the synthetic_classification source, "
-        "which is not ported to repro_torch yet (see ROADMAP.md)")
+def _classification_eval(mcfg: model_lib.ModelConfig, eval_batches, device) -> EvalFn:
+    staged = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+              for b in eval_batches]
+
+    def one(model, batch):
+        h, mask = model_lib.forward_hiddens(mcfg, model, batch)
+        labels = model_lib._pad_labels(batch["labels"], h.shape[1]).long()
+        logits = model_lib.logits_from_hiddens(mcfg, model, h)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+        hit = (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
+        return torch.sum(nll * mask) / denom, torch.sum(hit * mask) / denom
+
+    @torch.no_grad()
+    def dispatch(model) -> Dict[str, torch.Tensor]:
+        pairs = [one(model, b) for b in staged]
+        return {"eval_loss": torch.mean(torch.stack([l for l, _ in pairs])),
+                "eval_acc": torch.mean(torch.stack([a for _, a in pairs]))}
+
+    return EvalFn(dispatch)
 
 
 def make_eval_fn_for(experiment, mcfg: model_lib.ModelConfig,

@@ -123,13 +123,6 @@ def init_train_state(mcfg, tcfg: TrainConfig, generator: torch.Generator,
 # GRAFT selection inputs at LM scale
 # ---------------------------------------------------------------------------
 
-def pooled_hiddens(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """(B, D) float32 mean of the final hiddens over the loss mask: the
-    matrix the feature sources factor."""
-    return torch.sum(h.to(torch.float32) * mask[..., None], dim=1) / \
-        torch.clamp(torch.sum(mask, dim=1), min=1.0)[:, None]
-
-
 @torch.no_grad()
 def selection_inputs(mcfg, tcfg: TrainConfig, params, batch
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -140,7 +133,11 @@ def selection_inputs(mcfg, tcfg: TrainConfig, params, batch
     ``grad_mode``: by default the relevance-ordered SVD of the mean-pooled
     final hiddens × the probe gradients from the softmax error signal at
     ``probe_positions`` strided positions. Scores are the per-example probe
-    cross-entropy. Runs under ``no_grad`` (the JAX ``stop_gradient``).
+    cross-entropy. Runs under ``no_grad`` (the JAX ``stop_gradient``). Any
+    registered source's batch works: the labels are padded to the hidden
+    sequence (a vlm batch labels its text positions only) and the loss mask
+    keeps unlabeled positions out of the grad embeddings, scores and pooled
+    features.
     """
     gcfg = tcfg.graft
     extractor = sources_lib.resolve_features(gcfg.feature_mode)
@@ -149,7 +146,7 @@ def selection_inputs(mcfg, tcfg: TrainConfig, params, batch
     S = h.shape[1]
     stride = max(1, S // tcfg.probe_positions) if tcfg.probe_positions else 1
     hp = h[:, ::stride, :]
-    lp = batch["labels"][:, ::stride]
+    lp = model_lib._pad_labels(batch["labels"], S)[:, ::stride]
     mp = mask[:, ::stride].to(torch.float32)       # labeled probe positions
     logits = model_lib.logits_from_hiddens(mcfg, params, hp)
     emb = grad_source(sources_lib.GradSourceInputs(
@@ -159,7 +156,7 @@ def selection_inputs(mcfg, tcfg: TrainConfig, params, batch
     del logits
     nll = -torch.gather(logp, -1, lp[..., None].long())[..., 0]
     scores = torch.sum(nll * mp, dim=-1) / torch.clamp(torch.sum(mp, dim=-1), min=1.0)
-    V = extractor(pooled_hiddens(h, mask), gcfg.r_max)
+    V = extractor(model_lib.pooled_hiddens(h, mask), gcfg.r_max)
     G = emb.T                                      # (d=E, K)
     g_bar = torch.mean(emb, dim=0)
     return V, G, g_bar, scores
@@ -264,6 +261,13 @@ def _finish(tcfg: TrainConfig, state, loss: torch.Tensor, grads, metrics,
     return state, metrics
 
 
+def param_grads(loss: torch.Tensor, params):
+    """d loss / d params. A parameter the loss does not read (the token
+    embedding under the ``audio_frames`` frontend) gets a zero gradient, as
+    ``jax.grad`` gives it, so that the optimizer steps it the same way."""
+    return torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+
+
 def baseline_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
                         sentinel: bool = False):
     """Full-batch step; with ``microbatches`` > 1 the loss and grads are
@@ -276,7 +280,7 @@ def baseline_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer
             state["params"], batch, tcfg.microbatches)
         return _finish(tcfg, state, loss, grads, {}, {}, sentinel, opt)
     loss, _ = model_lib.loss_fn(mcfg, state["model"], batch)
-    grads = torch.autograd.grad(loss, state["params"])
+    grads = param_grads(loss, state["params"])
     return _finish(tcfg, state, loss, grads, {}, {}, sentinel, opt)
 
 
@@ -303,7 +307,7 @@ def graft_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
                               device=state["graft"].step.device))
         carry = carry0
     loss = subset_loss(mcfg, state, batch, graft_state)
-    grads = torch.autograd.grad(loss, state["params"])
+    grads = param_grads(loss, state["params"])
     metrics = {"rank": graft_state.rank, "proj_error": graft_state.last_error,
                "alignment": graft_state.alignment}
     updates: Dict[str, Any] = {"graft": graft_state}
@@ -317,7 +321,7 @@ def subset_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
     """Alg. 1 'else' branch: train on the STORED subset, no selection."""
     graft_state = state["graft"]
     loss = subset_loss(mcfg, state, batch, graft_state)
-    grads = torch.autograd.grad(loss, state["params"])
+    grads = param_grads(loss, state["params"])
     step1 = torch.tensor(state["step"] + 1, dtype=torch.int32,
                          device=graft_state.step.device)
     return _finish(tcfg, state, loss, grads, {},

@@ -1,5 +1,6 @@
 """Transformer building blocks: RMSNorm, RoPE, GQA attention (sliding
-window, logit softcap, QKV bias), gated MLP.
+window, logit softcap, QKV bias, KV cache), gated MLP, and the
+capacity-factor MoE.
 
 Functional like the JAX package: every block is ``f(cfg, params, x, ...)``
 with ``params`` a dict of tensors, in the JAX layouts (``wq`` (D,H,Dh),
@@ -10,9 +11,11 @@ Attention runs one of three backends: ``flash`` (the hand-written Hopper
 kernels of ``kernels/flash_attention.py``, one forward launch per layer and
 a dQ and a dK/dV launch in its backward), or the dense or KV-chunked path
 as plain tensor ops, which is what the JAX package leaves to XLA outside
-the flash kernel. ``moe`` is the capacity-factor MoE layer with sort-based
-dispatch. The KV-cache (decode) branch and the MoE layer's dropless decode
-path are not ported (``ROADMAP.md``, A7).
+the flash kernel. With a KV cache (prefill into the cache and decode) it
+always runs the dense or chunked path, as the JAX package does: the flash
+kernels assume positions from zero. ``moe`` is the capacity-factor MoE
+layer with sort-based dispatch; ``dropless=True`` (a one-token decode step)
+sets each expert's capacity to the group size.
 """
 from __future__ import annotations
 
@@ -134,13 +137,16 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
               *, is_local: bool = False, cache: Optional[dict] = None,
-              cache_index=None) -> Tuple[torch.Tensor, None]:
-    """GQA self-attention with a causal (+ optional sliding window) mask.
-    x: (B, S, D). Returns ``(out, None)`` (no cache: decode is not ported)."""
-    if cache is not None:
-        raise NotImplementedError(
-            "the KV-cache (decode/serving) path is not ported to repro_torch "
-            "yet (see ROADMAP.md)")
+              cache_index: int = 0) -> Tuple[torch.Tensor, Optional[dict]]:
+    """GQA attention. x: (B, S, D) → ``(out, new cache or None)``.
+
+    Without ``cache``: self-attention over the S positions with a causal
+    (+ sliding window on a local layer) mask. With ``cache`` (``{"k", "v"}``
+    of (B, max_seq, Hkv, Dh)): the new keys and values are written into the
+    cache IN PLACE at ``cache_index`` and the S queries attend over the
+    whole cache with per-query absolute causality (and the window on a local
+    layer), by dense scores, or chunked when ``attn_chunk`` is set and below
+    ``max_seq``; the returned cache holds the same tensors."""
     B, S, D = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -155,14 +161,29 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
         q = q / torch.tensor(math.sqrt(Dh), dtype=torch.float32,
                              device=q.device).to(q.dtype)
 
-    backend = resolve_attn_backend(cfg, S, S, x.device)
-    if backend == "flash":
-        out = _flash_attention(cfg, q, k, v, is_local)
-        return out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D), None
-    qpos, kpos = positions[:, :, None], positions[:, None, :]
-    mask = kpos <= qpos                                             # (B,S,T)
-    if cfg.sliding_window is not None and is_local:
-        mask = mask & (kpos > qpos - cfg.sliding_window)
+    new_cache = None
+    if cache is not None:
+        cache["k"][:, cache_index:cache_index + S] = k
+        cache["v"][:, cache_index:cache_index + S] = v
+        new_cache = {"k": cache["k"], "v": cache["v"]}
+        k, v = cache["k"], cache["v"]
+        T = k.shape[1]
+        kv_pos = torch.arange(T, device=x.device)[None, :]                     # (1,T)
+        q_abs = cache_index + torch.arange(S, device=x.device)[:, None]        # (S,1)
+        mask = kv_pos <= q_abs                                                 # (S,T)
+        if cfg.sliding_window is not None and is_local:
+            mask = mask & (kv_pos > q_abs - cfg.sliding_window)
+        mask = mask.expand(B, S, T)
+        backend = "chunked" if cfg.attn_chunk and T > cfg.attn_chunk else "dense"
+    else:
+        backend = resolve_attn_backend(cfg, S, S, x.device)
+        if backend == "flash":
+            out = _flash_attention(cfg, q, k, v, is_local)
+            return out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D), None
+        qpos, kpos = positions[:, :, None], positions[:, None, :]
+        mask = kpos <= qpos                                             # (B,S,T)
+        if cfg.sliding_window is not None and is_local:
+            mask = mask & (kpos > qpos - cfg.sliding_window)
 
     group = H // Hkv
     qg = q.reshape(B, S, Hkv, group, Dh)
@@ -176,7 +197,7 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum("bkgst,btkh->bskgh", probs, v)
     out = out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D)
-    return out, None
+    return out, new_cache
 
 
 def _chunked_attention(cfg, qg: torch.Tensor, k_all: torch.Tensor,
@@ -284,9 +305,12 @@ class Routing(NamedTuple):
     slot_valid: torch.Tensor
 
 
-def moe_capacity(cfg, tokens: int) -> Tuple[int, int]:
-    """(group size, capacity per (group, expert)) for ``tokens`` tokens."""
+def moe_capacity(cfg, tokens: int, dropless: bool = False) -> Tuple[int, int]:
+    """(group size, capacity per (group, expert)) for ``tokens`` tokens;
+    ``dropless``: the capacity is the group size, so no token is dropped."""
     gs = min(cfg.moe_group_size, tokens)
+    if dropless:
+        return gs, gs
     return gs, int(gs * cfg.num_experts_per_tok / cfg.num_experts * cfg.moe_capacity_factor) + 1
 
 
@@ -302,7 +326,8 @@ def moe_groups(cfg, x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     return x.reshape(G, gs, D), False
 
 
-def moe_routing(cfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
+def moe_routing(cfg, router: torch.Tensor, xt: torch.Tensor,
+                dropless: bool = False) -> Routing:
     """The top-k routing and the sort-based dispatch plan of token groups
     ``xt`` (G, gs, D). The top k come from a stable descending sort, so
     that equal probabilities go to the lower expert index as
@@ -311,7 +336,7 @@ def moe_routing(cfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
     queue order."""
     G, gs, _ = xt.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
-    _, cap = moe_capacity(cfg, G * gs)
+    _, cap = moe_capacity(cfg, G * gs, dropless)
     dev = xt.device
     logits = xt @ router.to(xt.dtype)                               # (G, gs, E)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
@@ -351,17 +376,14 @@ def moe(cfg, p, x: torch.Tensor, dropless: bool = False) -> torch.Tensor:
     each token's k slot outputs from the token side and adds them in
     float32 in slot order (the JAX package scatter-adds them in float32 in
     buffer order), so that it is the same from run to run on the card.
+    ``dropless`` (the decode step's) makes the capacity the group size.
     """
-    if dropless:
-        raise NotImplementedError(
-            "the MoE layer's dropless decode path is not ported to repro_torch yet "
-            "(see ROADMAP.md, A7)")
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     xt, chunk_major = moe_groups(cfg, x)
     G, gs, _ = xt.shape
-    _, cap = moe_capacity(cfg, B * S)
-    r = moe_routing(cfg, p["router"], xt)
+    _, cap = moe_capacity(cfg, B * S, dropless)
+    r = moe_routing(cfg, p["router"], xt, dropless)
 
     expert_in = _Route.apply(xt, r.token_of_slot, r.slot_valid,
                              r.slot_of.reshape(G, gs, k), r.keep.reshape(G, gs, k))

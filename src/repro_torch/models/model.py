@@ -1,5 +1,8 @@
-"""The decoder model, dense, moe, ssm (RWKV6) and hybrid (Hymba) families:
-``ModelConfig``, the parameter module, init, forward, logits and losses.
+"""The decoder model of every family of the JAX package: dense, moe, ssm
+(RWKV6), hybrid (Hymba), audio (dense blocks over frame embeddings, the
+``audio_frames`` frontend) and vlm (dense blocks over patch embeddings and
+text tokens, the ``vision_patches`` frontend): ``ModelConfig``, the
+parameter module, init, forward, logits and losses.
 
 ``Model`` is an ``nn.Module`` that holds the parameters; the forward
 functions are plain functions of ``(cfg, params, batch)`` like the JAX
@@ -10,8 +13,8 @@ dicts (the JAX package stacks them on a leading L axis;
 ``first_k_dense``, ``first_blocks`` a list of dense per-layer dicts (a list
 in the JAX tree too).
 
-The audio and vlm families and their frontends are not ported
-(``ROADMAP.md``, A6).
+``_apply_block`` also runs one block against a decode cache
+(``models/decode.py``), as the JAX block does.
 """
 from __future__ import annotations
 
@@ -91,12 +94,15 @@ class ModelConfig:
         return pat[idx % len(pat)]
 
 
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+_FRONTENDS = (None, "audio_frames", "vision_patches")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"model family '{cfg.family}' (frontend {cfg.frontend}) is not "
-            "ported to repro_torch yet; the dense, moe, ssm and hybrid families "
-            "are (see ROADMAP.md, A6)")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown model family '{cfg.family}' ({' | '.join(_FAMILIES)})")
+    if cfg.frontend not in _FRONTENDS:
+        raise ValueError(f"unknown frontend '{cfg.frontend}' (audio_frames | vision_patches)")
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat '{cfg.remat}' (none | full | dots)")
 
@@ -107,8 +113,8 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 class Block(nn.Module):
     """One residual block's parameters (JAX layouts): attention + MLP
-    (dense, or ``dense=True`` for a ``first_blocks`` layer of width
-    ``d_ff_dense``), attention + MoE (moe), RWKV time mix + channel mix
+    (dense, audio and vlm, or ``dense=True`` for a ``first_blocks`` layer of
+    width ``d_ff_dense``), attention + MoE (moe), RWKV time mix + channel mix
     (ssm), or attention ∥ SSM heads + MLP (hybrid)."""
 
     def __init__(self, cfg: ModelConfig, device=None, dense: bool = False):
@@ -143,7 +149,7 @@ class Block(nn.Module):
             Fd = cfg.d_ff_dense
         self.mlp = nn.ParameterDict({"w_gate": w(D, Fd), "w_up": w(D, Fd),
                                      "w_down": w(Fd, D)})
-        if cfg.post_block_norm and fam == "dense":
+        if cfg.post_block_norm and fam in ("dense", "audio", "vlm"):
             self.ln1_post = w(D, dtype=torch.float32)
             self.ln2_post = w(D, dtype=torch.float32)
 
@@ -278,28 +284,47 @@ def _tree(params) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
-                 dense_override: bool = False):
+                 dense_override: bool = False, cache=None, cache_index: int = 0):
     """One residual block of the config's family (dense for a
-    ``first_blocks`` layer)."""
+    ``first_blocks`` layer) → ``(x, new layer cache)``. With ``cache`` (the
+    layer's dict of ``models/decode.py``) the block runs S new positions
+    against it from ``cache_index`` and returns the updated cache, else
+    ``None``. A one-token step through a MoE block is dropless, as in JAX."""
     fam = "dense" if dense_override else cfg.family
+    new_cache = None if cache is None else {}
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     if fam == "ssm":
-        t_out, _ = S.rwkv_time_mix(cfg, p["time"], h)
+        t_out, t_state = S.rwkv_time_mix(cfg, p["time"], h,
+                                         state=None if cache is None else cache["time"])
         x = x + t_out
-        c_out, _ = S.rwkv_channel_mix(cfg, p["channel"],
-                                      L.rms_norm(x, p["ln2"], cfg.rms_eps))
-        return x + c_out
-    attn_out, _ = L.attention(cfg, p["attn"], h, positions, is_local=is_local)
+        c_out, c_state = S.rwkv_channel_mix(
+            cfg, p["channel"], L.rms_norm(x, p["ln2"], cfg.rms_eps),
+            state=None if cache is None else cache["channel"])
+        if cache is not None:
+            new_cache["time"], new_cache["channel"] = t_state, c_state
+        return x + c_out, new_cache
+    attn_out, attn_cache = L.attention(
+        cfg, p["attn"], h, positions, is_local=is_local,
+        cache=None if cache is None else cache["attn"], cache_index=cache_index)
     if fam == "hybrid":                 # attention and SSM heads in parallel
-        attn_out = attn_out + S.ssm_heads(cfg, p["ssm"], h)[0]
+        ssm_out, ssm_state = S.ssm_heads(cfg, p["ssm"], h,
+                                         state=None if cache is None else cache["ssm"])
+        attn_out = attn_out + ssm_out
+        if cache is not None:
+            new_cache["ssm"] = ssm_state
     if cfg.post_block_norm:
         attn_out = L.rms_norm(attn_out, p["ln1_post"], cfg.rms_eps)
     x = x + attn_out
     h2 = L.rms_norm(x, p["ln2"], cfg.rms_eps)
-    ff = L.moe(cfg, p["moe"], h2) if fam == "moe" else L.mlp(cfg, p["mlp"], h2)
+    if fam == "moe":
+        ff = L.moe(cfg, p["moe"], h2, dropless=cache is not None and x.shape[1] == 1)
+    else:
+        ff = L.mlp(cfg, p["mlp"], h2)
     if cfg.post_block_norm:
         ff = L.rms_norm(ff, p["ln2_post"], cfg.rms_eps)
-    return x + ff
+    if cache is not None:
+        new_cache["attn"] = attn_cache
+    return x + ff, new_cache
 
 
 # the ops whose outputs ``remat="dots"`` keeps: PyTorch's matrix products,
@@ -321,15 +346,31 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _dots_po
 
 def embed_inputs(cfg: ModelConfig, params, batch
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (x (B,S,D), positions (B,S) int32, loss_mask (B,S) f32)."""
+    """Returns (x (B,S,D), positions (B,S) int32, loss_mask (B,S) f32).
+
+    The frontend decides the input: ``frame_embeds`` (audio: every position
+    labeled), ``patch_embeds`` followed by the embedded ``tokens`` (vlm: the
+    mask is 0 on the patches and 1 on the text), or the embedded ``tokens``."""
     _check_supported(cfg)
     params = _tree(params)
-    tokens = batch["tokens"]
-    x = torch.nn.functional.embedding(tokens.long(), params["embed"])
-    B, Sq = tokens.shape
-    positions = torch.arange(Sq, dtype=torch.int32,
-                             device=tokens.device).expand(B, Sq)
-    mask = torch.ones((B, Sq), dtype=torch.float32, device=tokens.device)
+    if cfg.family == "audio" or cfg.frontend == "audio_frames":
+        x = batch["frame_embeds"].to(cfg.dtype)
+        B, Sq = x.shape[:2]
+        mask = torch.ones((B, Sq), dtype=torch.float32, device=x.device)
+    elif cfg.family == "vlm" or cfg.frontend == "vision_patches":
+        patches = batch["patch_embeds"].to(cfg.dtype)
+        tok = torch.nn.functional.embedding(batch["tokens"].long(), params["embed"])
+        x = torch.cat([patches, tok], dim=1)
+        B, Sq = x.shape[:2]
+        mask = torch.cat([torch.zeros((B, patches.shape[1]), dtype=torch.float32,
+                                      device=x.device),
+                          torch.ones(batch["tokens"].shape, dtype=torch.float32,
+                                     device=x.device)], dim=1)
+    else:
+        x = torch.nn.functional.embedding(batch["tokens"].long(), params["embed"])
+        B, Sq = x.shape[:2]
+        mask = torch.ones((B, Sq), dtype=torch.float32, device=x.device)
+    positions = torch.arange(Sq, dtype=torch.int32, device=x.device).expand(B, Sq)
     return x, positions, mask
 
 
@@ -350,18 +391,18 @@ def forward_hiddens(cfg: ModelConfig, params, batch
     x, positions, mask = embed_inputs(cfg, params, batch)
     is_local = cfg.is_local_pattern()
     for p in params.get("first_blocks", []):
-        x = _apply_block(cfg, p, x, positions, False, dense_override=True)
+        x, _ = _apply_block(cfg, p, x, positions, False, dense_override=True)
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     for i, p in enumerate(params["blocks"]):
         local = bool(is_local[cfg.first_k_dense + i])
         if remat == "full":
-            x = checkpoint(_apply_block, cfg, p, x, positions, local,
-                           use_reentrant=False)
+            x, _ = checkpoint(_apply_block, cfg, p, x, positions, local,
+                              use_reentrant=False)
         elif remat == "dots":
-            x = checkpoint(_apply_block, cfg, p, x, positions, local,
-                           use_reentrant=False, context_fn=_DOTS_CONTEXT)
+            x, _ = checkpoint(_apply_block, cfg, p, x, positions, local,
+                              use_reentrant=False, context_fn=_DOTS_CONTEXT)
         else:
-            x = _apply_block(cfg, p, x, positions, local)
+            x, _ = _apply_block(cfg, p, x, positions, local)
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return x, mask
 
@@ -372,11 +413,22 @@ def logits_from_hiddens(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tens
     return L.softcap(h @ head, cfg.final_logit_softcap)
 
 
+def _pad_labels(labels: torch.Tensor, S: int) -> torch.Tensor:
+    """Labels of width S: a vlm batch's text labels are left-padded with 0
+    over the patch positions (which the loss mask zeroes)."""
+    if labels.shape[1] != S:
+        pad = torch.zeros((labels.shape[0], S - labels.shape[1]), dtype=labels.dtype,
+                          device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    return labels
+
+
 def _nll(cfg: ModelConfig, params, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """(B, S) next-token negative log-likelihood; seq-chunked with
-    ``cfg.loss_chunk`` so the (B, S, V) float32 log-softmax never
-    materializes whole."""
+    """(B, S) next-token negative log-likelihood, ``labels`` padded to S by
+    ``_pad_labels``; seq-chunked with ``cfg.loss_chunk`` so the (B, S, V)
+    float32 log-softmax never materializes whole."""
     S = h.shape[1]
+    labels = _pad_labels(labels, S)
     C = cfg.loss_chunk if cfg.loss_chunk and S > cfg.loss_chunk else S
     if S % C:
         raise ValueError(f"sequence {S} is not a multiple of loss_chunk {C}")
@@ -402,3 +454,15 @@ def per_example_loss(cfg: ModelConfig, params, batch) -> torch.Tensor:
     nll = _nll(cfg, params, h, batch["labels"])
     return torch.sum(nll * mask, dim=1) / torch.clamp(torch.sum(mask, dim=1), min=1.0)
 
+
+def pooled_hiddens(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, D) float32 mean of the final hiddens over the loss mask: the
+    matrix the feature sources factor (a vlm batch pools its text positions
+    only)."""
+    return torch.sum(h.to(torch.float32) * mask[..., None], dim=1) / \
+        torch.clamp(torch.sum(mask, dim=1), min=1.0)[:, None]
+
+
+def pooled_features(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """(B, D) mean-pooled final hiddens — GRAFT's feature source."""
+    return pooled_hiddens(*forward_hiddens(cfg, params, batch))

@@ -12,8 +12,15 @@ type; the recurrence runs in float32 on (B·H, S, Dh) streams with
 
 ``ssm_heads`` runs its recurrence as a PyTorch loop over the sequence with
 a float32 (B, H, Dh, N) state, where the JAX package runs ``lax.scan``
-(neither has a kernel for it). The decode state (``state`` not None) is not
-ported (``ROADMAP.md``, A7).
+(neither has a kernel for it).
+
+With a decode ``state`` (``models/decode.py``: prefill into the cache and
+each decode step) every block starts from the carried state and returns the
+state after its last token: the token shift from its (B, 1, D) carry, the
+WKV recurrence from a float32 (B, H, Dh, Dh) state, the SSM heads from a
+float32 (B, H, Dh, N) state. The WKV recurrence then runs as a PyTorch loop
+over the tokens, as the JAX package's ``lax.scan`` does: the RWKV kernels
+take no state in and give none out, and the training path keeps them.
 """
 from __future__ import annotations
 
@@ -24,13 +31,25 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import rwkv_scan as rwkv_lib
 
-_NO_DECODE = ("the decode state of the recurrent blocks (models/decode.py, serving) is "
-              "not ported to repro_torch yet (see ROADMAP.md, A7)")
+def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shift the sequence right by one → (shifted, the last token (B,1,D)).
+    The first position takes ``last`` (the decode carry), else zero."""
+    if last is None:
+        last = torch.zeros_like(x[:, :1])
+    return torch.cat([last, x[:, :-1]], dim=1), x[:, -1:]
 
 
-def _token_shift(x: torch.Tensor) -> torch.Tensor:
-    """Shift the sequence right by one, zero first (train/prefill)."""
-    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+def _wkv_steps(r, k, v, w, u, S0: torch.Tensor):
+    """The WKV recurrence token by token from the state ``S0`` (B,H,Dh,Dh):
+    r, k, v, w (B,S,H,Dh) float32, u (H,Dh) → (out (B,S,H,Dh), final state).
+    The JAX package's ``lax.scan`` step, in its order."""
+    state, outs = S0, []
+    for rt, kt, vt, wt in zip(r.unbind(1), k.unbind(1), v.unbind(1), w.unbind(1)):
+        kv = kt[..., :, None] * vt[..., None, :]                     # (B,H,Dh,Dh)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt, state + u[None, :, :, None] * kv))
+        state = state * wt[..., :, None] + kv
+    return torch.stack(outs, dim=1), state
 
 
 def _lora_mix(x, shifted, mu, A, B_):
@@ -44,15 +63,15 @@ def lora_rank(cfg) -> int:
 
 
 def rwkv_time_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None
-                  ) -> Tuple[torch.Tensor, None]:
-    """RWKV6 attention-free token mixing. x: (B, S, D) → (out, None)."""
-    if state is not None:
-        raise NotImplementedError(_NO_DECODE)
+                  ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """RWKV6 attention-free token mixing. x: (B, S, D) → (out, new state).
+    ``state`` (decode): ``{"shift": (B,1,D), "wkv": (B,H,Dh,Dh) float32}``;
+    the new state is None without one."""
     B, S, D = x.shape
     H = cfg.num_heads
     Dh = D // H
 
-    shifted = _token_shift(x)
+    shifted, new_shift = _token_shift(x, None if state is None else state["shift"])
     xr, xk, xv, xw, xg = (_lora_mix(x, shifted, p[f"mu_{n}"], p["lora_A"], p[f"lora_B_{n}"])
                           for n in "rkvwg")
     r, k, v = (t @ p[name] for t, name in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
@@ -61,45 +80,52 @@ def rwkv_time_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None
     wlog = p["w0"] + torch.tanh(xw @ p["decay_A"]) @ p["decay_B"]
     w = torch.exp(-torch.exp(wlog.to(torch.float32)))
 
-    def streams(t):                                      # (B,S,D) → (B·H, S, Dh) f32
-        return t.to(torch.float32).reshape(B, S, H, Dh).transpose(1, 2) \
-            .reshape(B * H, S, Dh).contiguous()
+    new_state = None
+    if state is not None:
+        def heads(t):                                    # (B,S,D) → (B,S,H,Dh) f32
+            return t.to(torch.float32).reshape(B, S, H, Dh)
+        wkv, wkv_state = _wkv_steps(heads(r), heads(k), heads(v), heads(w),
+                                    p["u"].reshape(H, Dh).to(torch.float32), state["wkv"])
+        new_state = {"shift": new_shift, "wkv": wkv_state}
+    else:
+        def streams(t):                                  # (B,S,D) → (B·H, S, Dh) f32
+            return t.to(torch.float32).reshape(B, S, H, Dh).transpose(1, 2) \
+                .reshape(B * H, S, Dh).contiguous()
 
-    u = p["u"].reshape(1, H, Dh).expand(B, H, Dh).reshape(B * H, Dh)
-    wkv = rwkv_lib.rwkv_scan(streams(r), streams(k), streams(v), streams(w),
-                             u.to(torch.float32).contiguous())
-    wkv = wkv.reshape(B, H, S, Dh).transpose(1, 2)       # (B,S,H,Dh)
+        u = p["u"].reshape(1, H, Dh).expand(B, H, Dh).reshape(B * H, Dh)
+        wkv = rwkv_lib.rwkv_scan(streams(r), streams(k), streams(v), streams(w),
+                                 u.to(torch.float32).contiguous())
+        wkv = wkv.reshape(B, H, S, Dh).transpose(1, 2)   # (B,S,H,Dh)
 
     # per-head group norm (population variance, as jnp.var) then gate
     mean = torch.mean(wkv, dim=-1, keepdim=True)
     var = torch.var(wkv, dim=-1, keepdim=True, correction=0)
     wkv = (wkv - mean) * torch.rsqrt(var + 1e-5)
     wkv = (wkv * p["ln_x_scale"].reshape(H, Dh)).reshape(B, S, D).to(x.dtype)
-    return (wkv * g) @ p["wo"], None
+    return (wkv * g) @ p["wo"], new_state
 
 
 def rwkv_channel_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None
-                     ) -> Tuple[torch.Tensor, None]:
-    """RWKV FFN with token shift and squared ReLU."""
-    if state is not None:
-        raise NotImplementedError(_NO_DECODE)
-    shifted = _token_shift(x)
+                     ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """RWKV FFN with token shift and squared ReLU. ``state`` (decode):
+    ``{"shift": (B,1,D)}``."""
+    shifted, new_shift = _token_shift(x, None if state is None else state["shift"])
     xk = x + (shifted - x) * p["mu_k"]
     xr = x + (shifted - x) * p["mu_r"]
     k = torch.square(F.relu(xk @ p["w_key"]))
     r = torch.sigmoid(xr @ p["w_recept"])
-    return r * (k @ p["w_value"]), None
+    return r * (k @ p["w_value"]), None if state is None else {"shift": new_shift}
 
 
-def ssm_heads(cfg, p, x: torch.Tensor, state=None) -> Tuple[torch.Tensor, None]:
+def ssm_heads(cfg, p, x: torch.Tensor, state: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Selective SSM over H heads of dim Dh = D // H with diagonal state N:
 
     h_t = exp(-softplus(Δ_t) A) ⊙ h_{t-1} + Δ_t · (x̃_t ⊗ B_t)
     y_t = (h_t · C_t) + D_skip ⊙ x̃_t
 
-    x: (B, S, D) → (out (B, S, D), None)."""
-    if state is not None:
-        raise NotImplementedError(_NO_DECODE)
+    x: (B, S, D) → (out (B, S, D), the state after the last token, or None
+    without a decode ``state`` (B,H,Dh,N) float32 to start from)."""
     B, S, D = x.shape
     H, N = cfg.num_heads, cfg.ssm_state
     Dh = D // H
@@ -121,14 +147,15 @@ def ssm_heads(cfg, p, x: torch.Tensor, state=None) -> Tuple[torch.Tensor, None]:
     # sequence would make each step's backward write a sequence-sized
     # gradient, O(S²) work.
     inp = (delta[..., None, None] * xtf[..., :, None]) * Bm[:, :, :, None, :]  # (B,S,H,Dh,N)
-    h = torch.zeros((B, H, Dh, N), dtype=f32, device=x.device)
+    h = torch.zeros((B, H, Dh, N), dtype=f32, device=x.device) if state is None else state
     hs = []
     for dec_t, inp_t in zip(decay.unbind(1), inp.unbind(1)):
         h = h * dec_t[:, :, None, :] + inp_t
         hs.append(h)
     y = torch.einsum("bshdn,bshn->bshd", torch.stack(hs, dim=1), Cm)   # (B,S,H,Dh)
     y = y + p["D_skip"].to(f32)[None, None, :, None] * xtf
-    return y.reshape(B, S, D).to(x.dtype) @ p["w_out"], None
+    out = y.reshape(B, S, D).to(x.dtype) @ p["w_out"]
+    return out, None if state is None else h
 
 
 # ---------------------------------------------------------------------------

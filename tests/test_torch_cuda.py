@@ -950,3 +950,122 @@ def test_remat_dots_on_card_is_bit_equal_to_full(cuda, arch):
         assert fwd == 2 * cfg.num_layers
     assert torch.equal(runs["full"][0], runs["dots"][0])
     assert all(torch.equal(a, b) for a, b in zip(runs["full"][1], runs["dots"][1]))
+
+
+def _all_launches():
+    return (gs.graft_select.launches, gs.graft_select_batched.launches,
+            fm.fast_maxvol.launches, ps.projection_sweep.launches, rw.rwkv_scan.launches,
+            rw.rwkv_scan_backward.launches) + _flash_counts()
+
+
+def _decode_logits(cfg, model, toks):
+    """Prefill 8 tokens, then a decode step a token to the end → (B, S-7, V)."""
+    from repro_torch.models import decode as decode_lib
+    lg, cache = decode_lib.prefill(cfg, model, {"tokens": toks[:, :8], "labels": toks[:, :8]},
+                                   toks.shape[1])
+    outs = [lg]
+    for i in range(8, toks.shape[1]):
+        lg, cache = decode_lib.decode_step(cfg, model, cache, toks[:, i:i + 1])
+        outs.append(lg)
+    return torch.cat(outs, 1).cpu()
+
+
+def _float64_decode_logits(cfg, model, toks):
+    """The same decode on the CPU with every ``torch.float32`` of the port
+    (the params' type and each site that computes in float32) read as
+    float64: the witness the float32 runs are measured against."""
+    from unittest import mock
+    from repro_torch.models import model as model_lib
+    m64 = copy.deepcopy(model).cpu().double()
+    with mock.patch.object(torch, "float32", torch.float64), \
+            mock.patch.dict(model_lib._DTYPES, {"float32": torch.float64}):
+        return _decode_logits(cfg, m64, toks.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma2-27b", "rwkv6-7b", "hymba-1.5b",
+                                  "qwen3-moe-235b-a22b"])
+def test_decode_on_card_matches_cpu_and_launches_no_kernel(cuda, arch):
+    """float32 prefill (8 tokens) and a decode step a token to 32: logits
+    within 1e-4 of max|CPU|; the cached path launches none of the port's
+    kernels, as the JAX package's runs no Pallas kernel there. A float64 run
+    of the same decode is the witness: the card's float32 logits lie no
+    further from it than 4x the CPU's float32 logits do, plus 1e-6 of
+    max|CPU|, so a card-vs-CPU gap is both runs' float32 rounding and not
+    a fault of either. That gap is widest for rwkv6, and at single steps
+    rather than growing over the 24: the WKV readout r·(S + u·kv) sums terms
+    far larger than its result, and the per-head group norm divides a head
+    of small variance by sqrt(var + 1e-5), which scales that rounding up."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    cfg = get_smoke_config(arch, param_dtype="float32", attn_backend="flash")
+    model = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 32), generator=torch.Generator().manual_seed(1))
+    exact = _float64_decode_logits(cfg, model, toks)
+    runs = []
+    for dev in ("cpu", cuda):
+        before = _all_launches()
+        runs.append(_decode_logits(cfg, model.to(dev), toks.to(dev)).double())
+        assert _all_launches() == before
+    want, got = runs
+    scale = float(want.abs().max())
+    steps = [(got - want).abs().amax(dim=(0, 2)), (got - exact).abs().amax(dim=(0, 2)),
+             (want - exact).abs().amax(dim=(0, 2))]
+    for what, e in zip(("card-CPU", "card-f64", "CPU-f64"), steps):
+        print(f"[decode {arch}] {what} max {float(e.max()):.3e} (max|logit| {scale:.4g}); "
+              "per step " + " ".join(f"{v:.1e}" for v in e.tolist()))
+    err, card_drift, cpu_drift = (float(e.max()) for e in steps)
+    assert err <= 1e-4 * scale, (arch, err, scale)
+    assert card_drift <= 4 * cpu_drift + 1e-6 * scale, (arch, card_drift, cpu_drift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source,arch", [("synthetic_classification", "musicgen-medium"),
+                                         ("synthetic_vision", "internvl2-26b")])
+def test_classification_on_card_matches_cpu(cuda, source, arch):
+    """Four GRAFT steps (flash on the audio frames at 8 positions; the 17
+    vision positions fit no flash tile) and the accuracy eval on the card
+    against the CPU: losses rtol 1e-4, ranks and pivots equal, eval_acc
+    equal; one graft_select launch a refresh on the card."""
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.evaluate import make_eval_fn_for
+    cfg = ExperimentConfig().apply_overrides([
+        f"data.source={source}", f"model.arch={arch}",
+        'model.overrides={"param_dtype": "float32", "attn_backend": "flash"}',
+        "train.steps=4", "train.batch=8", "graft.rset=[2,4]", "graft.refresh_every=2",
+        "graft.use_pallas=true"] + (["data.frames=8"] if source.endswith("classification")
+                                    else []))
+    runs = {}
+    for dev in ("cpu", cuda):
+        mcfg, tcfg, data = cfg.build()
+        model = steps_lib.init_train_state(mcfg, tcfg, torch.Generator().manual_seed(0),
+                                           8)["model"].to(dev)
+        state = steps_lib.state_for_model(mcfg, tcfg, model, 8)
+        step_fn = steps_lib.make_train_step(mcfg, tcfg)
+        before = gs.graft_select.launches
+        rows = []
+        for s in range(4):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(s).items()}
+            state, m = step_fn(state, batch)
+            rows.append((m["loss"].item(), int(m["rank"]), state["graft"].pivots.cpu().tolist()))
+        assert gs.graft_select.launches - before == (2 if dev == cuda else 0)
+        runs[str(dev)] = (rows, make_eval_fn_for(cfg, mcfg, device=dev)(state["model"]))
+    (cpu_rows, cpu_ev), (gpu_rows, gpu_ev) = runs["cpu"], runs[str(cuda)]
+    for (lg, rg, pg), (lc, rc, pc) in zip(gpu_rows, cpu_rows):
+        assert abs(lg - lc) <= 1e-4 * abs(lc) and rg == rc and pg == pc
+    assert gpu_ev["eval_acc"] == cpu_ev["eval_acc"]
+    assert abs(gpu_ev["eval_loss"] - cpu_ev["eval_loss"]) <= 1e-4 * abs(cpu_ev["eval_loss"])
+
+
+@pytest.mark.cuda
+def test_serve_on_card_is_deterministic(cuda):
+    """The serve entry point on the card: every request done, two runs with
+    one seed give the same tokens, no kernel of the port launched."""
+    from repro_torch.launch import serve as serve_lib
+    before = _all_launches()
+    r1 = serve_lib.serve(arch="hymba-1.5b", slots=3, requests=7, max_new_tokens=6, max_seq=64)
+    r2 = serve_lib.serve(arch="hymba-1.5b", slots=3, requests=7, max_new_tokens=6, max_seq=64)
+    assert _all_launches() == before
+    assert sorted(r["request_id"] for r in r1["results"]) == list(range(7))
+    assert [r["tokens"] for r in r1["results"]] == [r["tokens"] for r in r2["results"]]

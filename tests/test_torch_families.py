@@ -222,9 +222,19 @@ def test_moe_capacity_drops_reduce_the_output():
 
 
 def test_moe_refuses_the_dropless_decode_path():
-    _, tm, _, tp, x = _moe_case("plain")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tlayers.moe(tm, tp, T(x), dropless=True)
+    """The dropless path was refused before the serving path was ported:
+    now it keeps every assignment (capacity = the group size) and equals the
+    gate-weighted mixture, where the capacity rule at 0.25 drops."""
+    _, tm, _, tp, x = _moe_case("drops_quarter")
+    with torch.no_grad():
+        want, r = _dense_mixture(tm, tp, T(x))
+        got = tlayers.moe(tm, tp, T(x), dropless=True)
+        dropping = tlayers.moe(tm, tp, T(x))
+    assert not bool(r.keep.all())
+    xt, _ = tlayers.moe_groups(tm, T(x))
+    assert bool(tlayers.moe_routing(tm, tp["router"], xt, dropless=True).keep.all())
+    _close(got.numpy(), want.numpy())
+    assert float((got - dropping).abs().max()) > 1e-4
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +298,7 @@ def test_forward_losses_and_pooled_features_match_jax(arch):
         th, tmask = tmodel.forward_hiddens(tm, model, tb)
         tl = tmodel.per_example_loss(tm, model, tb)
         tloss, _ = tmodel.loss_fn(tm, model, tb)
-        tpool = tsteps.pooled_hiddens(th, tmask)     # what selection_inputs factors
+        tpool = tmodel.pooled_hiddens(th, tmask)     # what selection_inputs factors
     _close(th.numpy(), jh, msg="hiddens")
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)

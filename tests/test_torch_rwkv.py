@@ -280,16 +280,38 @@ def test_init_params_distributions():
 
 
 def test_decode_state_and_ssm_heads_are_refused():
-    tm = tsmoke("rwkv6-7b")
-    x = torch.zeros(1, 4, tm.d_model)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tssm.rwkv_time_mix(tm, {}, x, state={"shift": x[:, :1]})
-    with pytest.raises(NotImplementedError, match="A7"):
-        tssm.rwkv_channel_mix(tm, {}, x, state={"shift": x[:, :1]})
-    with pytest.raises(NotImplementedError, match="A7"):
-        tssm.ssm_heads(tsmoke("hymba-1.5b"), {}, x, state=torch.zeros(1, 4, 16, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.Model(dataclasses.replace(tm, family="vlm"))
+    """The decode states were refused before the serving path was ported:
+    now each mix and the SSM heads take a state and return the state after
+    the last token, and one token at a time from it equals the whole
+    sequence at once (float32, rtol 1e-5; the sequence runs the RWKV
+    kernel's plain version, the steps the state loop); the vlm family
+    builds."""
+    for arch in ("rwkv6-7b", "hymba-1.5b"):
+        tm = tsmoke(arch, param_dtype="float32")
+        blk = tmodel.init_params(tm, torch.Generator().manual_seed(0)).tree()["blocks"][0]
+        x = torch.randn(2, 5, tm.d_model, generator=torch.Generator().manual_seed(1))
+        H, Dh = tm.num_heads, tm.d_model // tm.num_heads
+        if arch == "rwkv6-7b":
+            fns = [(lambda s, xx: tssm.rwkv_time_mix(tm, blk["time"], xx, state=s),
+                    {"shift": torch.zeros(2, 1, tm.d_model), "wkv": torch.zeros(2, H, Dh, Dh)}),
+                   (lambda s, xx: tssm.rwkv_channel_mix(tm, blk["channel"], xx, state=s),
+                    {"shift": torch.zeros(2, 1, tm.d_model)})]
+        else:
+            fns = [(lambda s, xx: tssm.ssm_heads(tm, blk["ssm"], xx, state=s),
+                    torch.zeros(2, H, Dh, tm.ssm_state))]
+        with torch.no_grad():
+            for fn, state in fns:
+                whole, none = fn(None, x)
+                assert none is None
+                outs = []
+                for t in range(5):
+                    out, state = fn(state, x[:, t:t + 1])
+                    outs.append(out)
+                np.testing.assert_allclose(torch.cat(outs, 1).numpy(), whole.numpy(),
+                                           rtol=1e-5, atol=1e-5 * float(whole.abs().max()))
+        if arch == "rwkv6-7b":
+            assert torch.equal(state["shift"], x[:, -1:])
+    tmodel.Model(dataclasses.replace(tsmoke("rwkv6-7b"), family="vlm"))
 
 
 # ---------------------------------------------------------------------------
