@@ -177,6 +177,25 @@ Phases (any failure exits nonzero and prints no result line):
                with the JAX row keys, eval_loss and an mfu against the
                H100's 989 TFLOP/s; checkpoint bytes and save and restore
                seconds. Free disk is checked first; the directory is deleted.
+ 18. chaos   — the chaos harness (``repro_torch.resilience``) on the card.
+               graft_select and fast_maxvol on V holding NaN (a NaN column,
+               scattered NaNs, all NaN) at K 16 / R 8 (the warp routine) and
+               K 40 and 64 / R 16 (the block routine): pivots equal to the
+               twin's, distinct, in [0, K). (a) The five scenarios of
+               ``python -m repro_torch.resilience`` at the reference's cell
+               (smoke minicpm, 20 steps) with ``graft.use_pallas``: each
+               scenario's bars, and graft_select and flash launches equal to
+               what its dispatched steps reckon (one JSONL row a dispatched
+               step, replays included). (b) nan_rollback at minicpm-2b's full
+               width, 2 of 40 layers: 12 steps, a checkpoint every 4, step 10
+               (a refresh step under refresh every 2) poisoned; one rollback
+               to step 8, the uninjected resume from step 8 bit-equal, the
+               poisoned JSONL row null with ``nonfinite_keys``, exact
+               launches; device->host, write and restore seconds of each
+               ~4 GB checkpoint. (c) A 3 s stall of step 2's DeviceClock
+               event under a 0.3 s watchdog at the same width:
+               ``device_stalled``, the run not blocked, the stalled window's
+               rows on the dispatch clock. Free disk is checked first.
 
 It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -2449,6 +2468,211 @@ def phase_shell(ctx):
         shutil.rmtree(work, ignore_errors=True)
 
 
+
+# the NaN cases of Fast MaxVol's order, on the warp routine (K 16, R 8) and
+# the block routine (K 40 and 64, R 16)
+NAN_SHAPES = [(16, 8), (40, 16), (64, 16)]
+CHAOS_FLASH_NAMES = ("flash_forward", "flash_dq", "flash_dkv")
+
+
+def _nan_v(case, K, R, seed=0):
+    import numpy as np
+    V = np.random.default_rng(seed).standard_normal((K, R)).astype(np.float32)
+    if case == "nan_column":
+        V[:, 0] = np.nan
+    elif case == "scattered":
+        V[[3, K - 5], 2] = np.nan
+    else:
+        V[:] = np.nan
+    return V
+
+
+def _chaos_nan_order(dev):
+    """graft_select and fast_maxvol on V holding NaN: pivots equal to the
+    twin's, distinct and in [0, K) (launches made to compare, not counted)."""
+    import torch
+    from repro_torch.core import maxvol as maxvol_lib
+    from repro_torch.kernels.fast_maxvol import fast_maxvol
+    from repro_torch.kernels.graft_select import graft_select
+    for K, R in NAN_SHAPES:
+        for case in ("nan_column", "scattered", "all_nan"):
+            V = torch.from_numpy(_nan_v(case, K, R)).to(dev)
+            G = torch.randn(2304, K, generator=torch.Generator().manual_seed(K)).to(dev)
+            want = maxvol_lib.fast_maxvol(V, R)[0].long()
+            piv, _, _, G_sel = graft_select(V, G, G.mean(dim=1), R)
+            piv2, _ = fast_maxvol(V, R)
+            torch.cuda.synchronize()
+            got = piv.long().cpu().tolist()
+            ok = (torch.equal(piv.long(), want) and torch.equal(piv2, piv)
+                  and all(0 <= i < K for i in got) and len(set(got)) == R
+                  and torch.equal(G_sel, G[:, piv.long()]))
+            print(f"[chaos] NaN order K={K} R={R} {case} ({'warp' if K <= 32 and R <= 8 else 'block'} "
+                  f"routine): graft_select pivots {got}, twin {want.cpu().tolist()}, fast_maxvol "
+                  f"{'equal' if torch.equal(piv2, piv) else 'DIFFERS'} -> {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            assert ok, f"MaxVol's NaN order differs from the twin's at K={K} R={R} {case}"
+
+
+def _chaos_reckon(mcfg, steps, refresh_every, flash):
+    """Launches that the dispatched ``steps`` reckon (one JSONL row per
+    dispatched step, replays included): one graft_select a refresh step;
+    per layer one flash forward a step, one a refresh and one recompute a
+    step under remat, and one dQ and one dK/dV a step."""
+    n = len(steps)
+    refreshes = sum(1 for s in steps if s % refresh_every == 0)
+    L = mcfg.num_layers
+    recomputed = L - mcfg.first_k_dense if mcfg.remat in ("full", "dots") else 0
+    want = {"graft_select": refreshes}
+    fwd, bwd = L * (n + refreshes) + recomputed * n, L * n
+    want.update(zip(CHAOS_FLASH_NAMES, (fwd, bwd, bwd) if flash else (0, 0, 0)))
+    return want
+
+
+def _chaos_scenario(work, scenario, extra, **kw):
+    """Run one matrix scenario with the counts zeroed just before and read
+    just after; returns (result, rows, launches, wall seconds)."""
+    import shutil
+    import torch
+    from repro_torch.launch.metrics import read_metrics
+    td = os.path.join(work, scenario.__name__)
+    shutil.rmtree(td, ignore_errors=True)
+    os.makedirs(td)
+    _zero_counts()
+    t0 = time.perf_counter()
+    result = scenario(td, *extra, device=torch.device("cuda"), **kw)
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    rows = read_metrics(os.path.join(td, "metrics.jsonl"))
+    shutil.rmtree(td, ignore_errors=True)
+    return result, rows, launches, wall
+
+
+def phase_chaos(ctx):
+    """The chaos harness on the card: MaxVol's NaN order against the twin;
+    the matrix's five scenarios at the reference's cell through the refresh
+    kernel; nan_rollback at minicpm-2b's full width (2 of 40 layers, flash)
+    with its save and restore seconds; a stalled DeviceClock event at the
+    same width."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.api import ExperimentConfig, Trainer
+    from repro_torch.api import callbacks as cb_lib
+    from repro_torch.checkpoint import checkpoint as ck_lib
+    from repro_torch.launch.metrics import read_metrics
+    from repro_torch.models.layers import resolve_attn_backend
+    from repro_torch.resilience import __main__ as matrix
+    ctx.pop("trainer", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    _chaos_nan_order(dev)
+    work = os.path.join(ROOT, "build", "chip_smoke_chaos")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        # (a) the reference's cell, GRAFT through graft_select
+        cell = matrix._cell(work, "graft.use_pallas=true")
+        mcfg = cell.model.build()
+        flash = resolve_attn_backend(mcfg, cell.train.seq, cell.train.seq, dev) == "flash"
+        for scenario in matrix.SCENARIOS:
+            result, rows, launches, wall = _chaos_scenario(
+                work, scenario, ["graft.use_pallas=true"])
+            steps = [r["step"] for r in rows]
+            want = _chaos_reckon(mcfg, steps, cell.graft.refresh_every, flash)
+            got = {k: launches[k] for k in want}
+            print(f"[chaos] (a) {matrix.scenario_name(scenario)}: {result}; {len(steps)} steps "
+                  f"dispatched, {want['graft_select']} of them refreshes; launches {got}, "
+                  f"reckoned {want}; {wall:.2f} s", flush=True)
+            assert got == want, f"{scenario.__name__}: launches {got}, reckoned {want}"
+            assert launches["graft_select"] > 0
+
+        # (b) nan_rollback at full width, 2 layers: 12 steps, a checkpoint
+        # every 4, the poisoned step 10 a refresh step
+        base = ([o for o in SLICE_OVERRIDES if not o.startswith(("model.overrides",
+                                                                  "train.steps",
+                                                                  "train.log_every"))]
+                + [f'model.overrides={{"attn_backend": "auto", "num_layers": {SHELL_LAYERS}}}',
+                   "train.log_every=0"])
+        wide = base + ["train.steps=12", "train.checkpoint_every=4", "graft.refresh_every=2"]
+        cfg = matrix._cell(work, *wide)
+        mcfg = cfg.model.build()
+        assert resolve_attn_backend(mcfg, cfg.train.seq, cfg.train.seq, dev) == "flash"
+        from repro_torch.models.model import Model
+        with torch.device("meta"):                  # shapes and dtypes, no memory
+            params = list(Model(mcfg).parameters())
+        n_params = sum(p.numel() for p in params)
+        # the params in their dtype, AdamW's float32 moments
+        ckpt_bytes = sum(p.numel() * (p.element_size() + 8) for p in params)
+        free = shutil.disk_usage(work).free
+        print(f"[chaos] (b) minicpm-2b full width, {SHELL_LAYERS} of 40 layers: {n_params} "
+              f"params, ~{ckpt_bytes} bytes a checkpoint, {free} bytes free", flush=True)
+        if free < 6 * ckpt_bytes:
+            raise RuntimeError(f"phase chaos needs ~{6 * ckpt_bytes} bytes of disk under {work} "
+                               f"(two checkpoints kept, one in flight, the twin's copy and "
+                               f"its save), has {free}")
+        timed = {"to_host": [], "write": [], "restore": []}
+
+        def timer(fn, key):
+            def wrapped(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    timed[key].append(time.perf_counter() - t0)
+            return wrapped
+
+        saved = (cb_lib.train_state_to_host, ck_lib.CheckpointManager._write,
+                 ck_lib.CheckpointManager.restore_latest_good)
+        cb_lib.train_state_to_host = timer(saved[0], "to_host")
+        ck_lib.CheckpointManager._write = timer(saved[1], "write")
+        ck_lib.CheckpointManager.restore_latest_good = timer(saved[2], "restore")
+        try:
+            result, rows, launches, wall = _chaos_scenario(
+                work, matrix.scenario_nan_rollback, wide, nan_step=10)
+        finally:
+            (cb_lib.train_state_to_host, ck_lib.CheckpointManager._write,
+             ck_lib.CheckpointManager.restore_latest_good) = saved
+        steps = [r["step"] for r in rows]
+        want = _chaos_reckon(mcfg, steps, 2, True)
+        want["grad_norm"] = len(steps)
+        # a vetoed step launches grad_norm but no update
+        want["optimizer_update"] = _optim_groups(params) * sum(
+            1 for r in rows if r["healthy"] == 1.0)
+        got = {k: launches[k] for k in want}
+        poisoned = [r for r in rows if r["step"] == 10 and r.get("loss") is None]
+        print(f"[chaos] (b) nan_rollback: {result}; steps dispatched {steps}; the poisoned row "
+              f"{poisoned[0] if poisoned else None}", flush=True)
+        print(f"[chaos] (b) launches {got}, reckoned {want}; {wall:.2f} s", flush=True)
+        print(f"[chaos] (b) {ctx.get('smi', '')}: checkpoint ~{ckpt_bytes} bytes; device->host "
+              f"copies {[round(t, 3) for t in timed['to_host']]} s, writes (writer thread) "
+              f"{[round(t, 3) for t in timed['write']]} s, restores (read + verify) "
+              f"{[round(t, 3) for t in timed['restore']]} s", flush=True)
+        assert result["rolled_back_to"] == 8, result
+        assert poisoned and "loss" in poisoned[0]["nonfinite_keys"]
+        assert got == want, f"launches {got}, reckoned {want}"
+
+        # (c) a stalled DeviceClock event at the same width
+        plan = json.dumps([{"kind": "stall", "step": 2, "seconds": 3.0}])
+        path = os.path.join(work, "stall.jsonl")
+        stall_cfg = ExperimentConfig().apply_overrides(
+            base + ["train.steps=6", "train.metrics_flush_every=2", f"train.metrics_path={path}",
+                    "train.device_timeout_s=0.3", f"train.fault_plan={plan}"])
+        t0 = time.perf_counter()
+        report = Trainer(stall_cfg).fit()
+        wall = time.perf_counter() - t0
+        rows = read_metrics(path)
+        sources = [(r["step"], r.get("mfu_source")) for r in rows]
+        print(f"[chaos] (c) stall 3 s at step 2, watchdog 0.3 s: device_stalled "
+              f"{report['host_loop'].get('device_stalled')}, fit {wall:.2f} s, step times "
+              f"{[round(r['step_time_s'], 4) for r in rows]} s, mfu sources {sources}", flush=True)
+        assert report["host_loop"].get("device_stalled") is True
+        assert wall < 60, f"the stalled run took {wall:.1f} s"
+        assert any(st >= 2 and src == "dispatch" for st, src in sources), sources
+        assert all(np.isfinite(r["loss"]) for r in rows)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 def main() -> int:
     try:
         import torch
@@ -2472,7 +2696,7 @@ def main() -> int:
                      ("rwkv", phase_rwkv), ("rwkv_slice", phase_rwkv_slice),
                      ("families", phase_families), ("classify", phase_classify),
                      ("serve", phase_serve), ("check", phase_check),
-                     ("shell", phase_shell)):
+                     ("shell", phase_shell), ("chaos", phase_chaos)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

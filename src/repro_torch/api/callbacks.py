@@ -31,6 +31,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Dict, Optional
 
+from repro_torch.analysis.sync_guard import sync_allowed
 from repro_torch.checkpoint import (CheckpointManager, EmergencySaver, load_train_state,
                                     train_state_spec, train_state_to_host)
 from repro_torch.distributed.straggler import StragglerMonitor
@@ -233,8 +234,9 @@ class ConsoleCallback(Callback):
 
     def on_step_end(self, trainer, step, metrics) -> None:
         if self.every and step % self.every == 0:
-            print(format_step_line(step, metrics, trainer.last_step_time,
-                                   use_graft=trainer.tcfg.use_graft), flush=True)
+            with sync_allowed("console"):
+                print(format_step_line(step, metrics, trainer.last_step_time,
+                                       use_graft=trainer.tcfg.use_graft), flush=True)
 
 
 class CheckpointCallback(Callback):
@@ -289,17 +291,20 @@ class CheckpointCallback(Callback):
             # live state is poisoned — never save it
             print(f"[ckpt] sentinel tripped — refusing to save step {step + 1}", flush=True)
             return
-        vals = materialize_metrics(metrics)
-        healthy = (vals.get("healthy", 1.0) >= 0.5 and math.isfinite(vals.get("loss", 0.0)))
-        path = self.manager.save(
-            step + 1, train_state_to_host(trainer.state), topology=LOCAL_TOPOLOGY,
-            extra={"train_step": step + 1,
-                   "data": trainer.data_state(),
-                   "metrics": sanitize_row(vals),
-                   "health": {"healthy": bool(healthy),
-                              "bad_streak": int(vals.get("bad_streak", 0.0))},
-                   "experiment": trainer.config.to_dict(),
-                   "config_hash": trainer.config.config_hash()})
+        with sync_allowed("checkpoint"):
+            # a checkpoint boundary is a drain point: the manifest needs
+            # JSON floats, and the state's copy to the host must finish here
+            vals = materialize_metrics(metrics)
+            healthy = (vals.get("healthy", 1.0) >= 0.5 and math.isfinite(vals.get("loss", 0.0)))
+            path = self.manager.save(
+                step + 1, train_state_to_host(trainer.state), topology=LOCAL_TOPOLOGY,
+                extra={"train_step": step + 1,
+                       "data": trainer.data_state(),
+                       "metrics": sanitize_row(vals),
+                       "health": {"healthy": bool(healthy),
+                                  "bad_streak": int(vals.get("bad_streak", 0.0))},
+                       "experiment": trainer.config.to_dict(),
+                       "config_hash": trainer.config.config_hash()})
         listeners = [cb for cb in trainer.callbacks
                      if type(cb).on_checkpoint is not Callback.on_checkpoint]
         if listeners:

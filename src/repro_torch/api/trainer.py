@@ -19,28 +19,39 @@ rides in the manifest::
     report = Trainer.from_checkpoint("/ckpts/run1").fit()
 
 Steps dispatch through ``launch.steps.make_run_step``, which runs
-``graft.overlap`` as the sequential step (its docstring says why). The
-audit and the chaos harness of the JAX ``Trainer`` are still to port; a
-config that asks for one of them is refused with ``NotImplementedError``
-(``ROADMAP.md``).
+``graft.overlap`` as the sequential step (its docstring says why).
+
+``train.fault_plan`` (or ``REPRO_FAULT_PLAN``) activates the chaos harness
+(``resilience/chaos.py``) for the run: SIGTERM before a step, a poisoned
+host batch, a crash at a checkpoint commit point, a stalled DeviceClock
+event. ``train.audit`` runs the step loop under a strict
+:class:`~repro_torch.analysis.SyncGuard` (a host sync outside a
+``sync_allowed`` site raises) and a :class:`~repro_torch.analysis.recompile.
+RecompileWatcher` (a drifting step signature raises), and reports both under
+``report["audit"]``. The port syncs twice a step where the JAX loop does
+not: the sentinel's read (``sentinel``) and the synchronize that ends the
+step's timing (``step_sync``), both sanctioned (``ROADMAP.md`` C).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 
+from repro_torch.analysis.sync_guard import sync_allowed
 from repro_torch.api import callbacks as cb_lib
 from repro_torch.api.config import ExperimentConfig
 from repro_torch.checkpoint import load_train_state, train_state_spec
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.metrics import DeviceClock, MetricsFuture, materialize_metrics
 
-# train fields whose machinery is not ported, with their inert value
-_NOT_PORTED = (("train", "audit", False), ("train", "fault_plan", None))
+# the port's host-side counters, which JAX keeps as int32 device scalars:
+# their values change every step and are no part of its signature
+_HOST_COUNTERS = ("step", "health")
 
 
 def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
@@ -100,12 +111,6 @@ class Trainer:
                  use_default_callbacks: bool = True,
                  device: Optional[str | torch.device] = None):
         self.config = config.finalized()
-        for section, field, inert in _NOT_PORTED:
-            sec = getattr(self.config, section)
-            if sec is not None and getattr(sec, field) != inert:
-                raise NotImplementedError(
-                    f"{section}.{field}={getattr(sec, field)!r} needs machinery "
-                    "that is not ported to repro_torch yet (see ROADMAP.md)")
         self.device = resolve_device(device)
         cbs = list(cb_lib.default_callbacks(self.config) if use_default_callbacks else [])
         if callbacks:
@@ -129,6 +134,7 @@ class Trainer:
         self.sentinel_tripped: bool = False
         self.rollbacks: List[Dict[str, Any]] = []
         self._rollback_reason: Optional[str] = None
+        self._chaos = None
 
     # ------------------------------------------------------------------
     @classmethod
@@ -193,16 +199,17 @@ class Trainer:
                   flush=True)
             self.request_stop("diverged")
             return None
-        mgr.wait()
-        try:
-            _, flat, manifest = mgr.restore_latest_good(train_state_spec(self.state))
-        except FileNotFoundError:
-            print(f"[train] divergence ({reason}) and no healthy checkpoint to roll "
-                  "back to — stopping", flush=True)
-            self.request_stop("diverged")
-            return None
-        load_train_state(self.state, flat)
-        self.data.load_state_dict(manifest["extra"]["data"])
+        with sync_allowed("rollback"):
+            mgr.wait()
+            try:
+                _, flat, manifest = mgr.restore_latest_good(train_state_spec(self.state))
+            except FileNotFoundError:
+                print(f"[train] divergence ({reason}) and no healthy checkpoint to roll "
+                      "back to — stopping", flush=True)
+                self.request_stop("diverged")
+                return None
+            load_train_state(self.state, flat)
+            self.data.load_state_dict(manifest["extra"]["data"])
         resume = int(manifest["extra"]["train_step"])
         self.sentinel_tripped = False
         self.rollbacks.append({"at_step": at_step, "to_step": resume, "reason": reason})
@@ -216,7 +223,8 @@ class Trainer:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with sync_allowed("step_sync"):
+                torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     def fit(self) -> Dict[str, Any]:
@@ -232,6 +240,21 @@ class Trainer:
         if tr.device_timing and self.device.type == "cuda":
             self.device_clock = DeviceClock(stall_timeout_s=tr.device_timeout_s or None)
         step_s = 0.0
+        audit_guard = watcher = None
+        if tr.audit:
+            # fail-fast enforcement of the loop's contract: any host sync
+            # outside a sync_allowed(...) site raises at the call site; any
+            # step-signature drift raises too
+            from repro_torch.analysis.recompile import RecompileWatcher
+            from repro_torch.analysis.sync_guard import SyncGuard
+            audit_guard = SyncGuard(strict=True, label="train.audit")
+            watcher = RecompileWatcher(label="run_step")
+        from repro_torch.resilience import chaos as chaos_lib
+        self._chaos = chaos_lib.load_plan(tr.fault_plan)
+        if self._chaos is not None:
+            # module-global so the checkpoint writer (its own thread) sees
+            # the crash points too
+            chaos_lib.activate(self._chaos)
         completed = False
         try:
             self.start_step = 0
@@ -240,28 +263,48 @@ class Trainer:
             self._fire("on_train_start")
             it = iter(self.data)
             t_start = time.perf_counter()
-            step = self.start_step
-            while step < tr.steps:
-                batch = self._to_device(next(it))
-                t0 = time.perf_counter()
-                self.state, dev_metrics = run_step(self.state, batch)
-                if self.device_clock is not None:
-                    self.device_clock.observe(step)
-                self._sync()
-                self.last_step_time = time.perf_counter() - t0
-                step_s += self.last_step_time
-                dev_metrics["step_time_s"] = self.last_step_time
-                metrics = MetricsFuture(dev_metrics)
-                self._fire("on_step_end", step, metrics)
-                history.append(metrics)
-                if self._rollback_reason is not None:
-                    resumed = self._perform_rollback(step)
-                    if resumed is not None:
-                        step = resumed
-                        continue
-                if self.should_stop:
-                    break
-                step += 1
+            # the guard covers the step loop only — state init, restore
+            # hooks and report assembly sync legitimately
+            with audit_guard if audit_guard is not None else contextlib.nullcontext():
+                step = self.start_step
+                while step < tr.steps:
+                    if self._chaos is not None:
+                        self._chaos.fire_signals(step)
+                        batch_np = self._chaos.corrupt_batch(step, next(it))
+                    else:
+                        batch_np = next(it)
+                    batch = self._to_device(batch_np)
+                    if watcher is not None:
+                        drift = watcher.observe(
+                            step=step, batch=batch,
+                            state={k: v for k, v in self.state.items()
+                                   if k not in _HOST_COUNTERS})
+                        if drift:
+                            raise RuntimeError("[train.audit] " +
+                                               "; ".join(f.message for f in drift))
+                    t0 = time.perf_counter()
+                    self.state, dev_metrics = run_step(self.state, batch)
+                    if self.device_clock is not None:
+                        marker = torch.cuda.Event(enable_timing=True)
+                        marker.record()
+                        if self._chaos is not None:
+                            marker = self._chaos.wrap_marker(step, marker)
+                        self.device_clock.observe(step, marker)
+                    self._sync()
+                    self.last_step_time = time.perf_counter() - t0
+                    step_s += self.last_step_time
+                    dev_metrics["step_time_s"] = self.last_step_time
+                    metrics = MetricsFuture(dev_metrics)
+                    self._fire("on_step_end", step, metrics)
+                    history.append(metrics)
+                    if self._rollback_reason is not None:
+                        resumed = self._perform_rollback(step)
+                        if resumed is not None:
+                            step = resumed
+                            continue
+                    if self.should_stop:
+                        break
+                    step += 1
             wall = time.perf_counter() - t_start
             last = history.last
             rows = history.rows()
@@ -282,6 +325,14 @@ class Trainer:
                 report["host_loop"]["device_time_s"] = self.device_clock.total_device_s
                 if self.device_clock.stalled:
                     report["host_loop"]["device_stalled"] = True
+            if audit_guard is not None:
+                report["audit"] = {
+                    "sync_events": len(audit_guard.events),
+                    "unsanctioned": len(audit_guard.violations),
+                    "sync_sites": {f"{site}:{kind}": n for (site, kind), n
+                                   in sorted(audit_guard.site_counts().items())},
+                    "recompiles": len(watcher.findings),
+                }
             evals = [r for r in rows if "eval_loss" in r]
             if evals:                   # the last held-out numbers, for the CLI
                 report["eval"] = {k: v for k, v in evals[-1].items() if k.startswith("eval_")}
@@ -296,6 +347,12 @@ class Trainer:
             return report
         finally:
             if not completed:
+                # exiting on an exception: on_train_end never fires, but
+                # signal handlers, open files and writer threads must still
+                # be released (the chaos crash scenarios restart in-process)
                 self._fire_abort()
+            if self._chaos is not None:
+                chaos_lib.deactivate()
+                self._chaos = None
             if self.device_clock is not None:
                 self.device_clock.close()

@@ -16,7 +16,9 @@ Behaviours kept:
     and fall back to the previous step;
   * keep-last-N garbage collection that never rotates out the newest
     checkpoint stamped healthy;
-  * async saves on a writer thread, joined by the next save.
+  * async saves on a writer thread, joined by the next save;
+  * the chaos harness's crash points at the commit boundaries
+    (``checkpoint.pre_commit`` / ``mid_commit`` / ``post_commit``).
 
 The port updates parameters in place, so ``save`` takes a flat dict of CPU
 tensors whose device→host copies have already finished
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.jax_bridge import check_against_spec
+from repro_torch.resilience import chaos
 
 _BF16 = "bfloat16"
 
@@ -131,12 +134,17 @@ class CheckpointManager:
             # bare NaN/Infinity literals are invalid JSON — callers sanitize
             # non-finite metrics (sanitize_row) before they reach a manifest
             json.dump(manifest, f, allow_nan=False)
+        chaos.crash_point("checkpoint.pre_commit")
         old = final + ".old"
         if os.path.exists(final):
-            # re-saving an existing step: the committed dir is renamed
-            # aside, not deleted, until the new one is in place
+            # re-saving an existing step (rollback replay, restarted run):
+            # the committed dir is renamed aside, not deleted, until the new
+            # one is in place; a crash between the renames leaves step_X.old
+            # for _recover()
             os.rename(final, old)
+        chaos.crash_point("checkpoint.mid_commit")
         os.rename(tmp, final)                      # atomic commit
+        chaos.crash_point("checkpoint.post_commit")
         if os.path.exists(old):
             shutil.rmtree(old)
         self._gc()

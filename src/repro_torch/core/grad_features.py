@@ -21,6 +21,8 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.numerics import one_hot_valid, take_last
+
 
 def _jax_leaves(tree) -> List[torch.Tensor]:
     """The leaves of a params-shaped tree in ``jax.tree_util.tree_leaves``
@@ -114,11 +116,12 @@ def logit_error_embeddings(logits: torch.Tensor, labels: torch.Tensor,
         mask = None if mask is None else mask[:, None]
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     err = torch.exp(logp)                                   # p
-    idx = labels.long()[..., None]
-    err.scatter_add_(-1, idx, torch.full_like(idx, -1.0, dtype=err.dtype))  # p − y
+    idx, valid = one_hot_valid(labels, err.shape[-1])
+    err.scatter_add_(-1, idx[..., None],                    # p − y
+                     torch.where(valid, -1.0, 0.0).to(err.dtype)[..., None])
     err_norm = torch.sqrt(torch.sum(err * err, dim=-1))     # (K,S)
     del err
-    loss = -torch.gather(logp, -1, idx)[..., 0]             # (K,S)
+    loss = -take_last(logp, labels)                         # (K,S)
     if mask is not None:
         m = mask.to(torch.float32)
         err_norm = err_norm * m

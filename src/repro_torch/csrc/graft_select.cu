@@ -258,9 +258,12 @@ __device__ __forceinline__ float div_by(float x, float den, float inv) {
   return __fmaf_rn(__fmaf_rn(-q, den, x), inv, q);
 }
 
-// argmax order: larger score first, lower row index on ties
+// argmax order, torch.argmax's and jnp.argmax's: NaN above every number,
+// then larger score first, lower row index on ties (NaN ties NaN)
 __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
-  return s > bs || (s == bs && i < bi);
+  const bool sn = s != s, bn = bs != bs;
+  if (sn != bn) return sn;
+  return s > bs || ((s == bs || sn) && i < bi);
 }
 
 // Stage 1 on the whole block, for any K: Fast MaxVol over V (K, R) on the
@@ -344,12 +347,13 @@ __device__ __forceinline__ float maxvol_warp(const float* __restrict__ V, int* p
   for (int j = 0; j < kRegCols; ++j) {
     if (j == rank) break;
     const float x = w[j];
-    // `better`'s order as an unsigned key: the bits of |x| + 2 for an
-    // available row (monotonic for |x| >= +0), 1 for a row already pivoted
-    // on (score -1), 0 where `better` never picks (NaN, lanes >= K); ties go
-    // to the lowest row, as in `better`
+    // `better`'s order as an unsigned key: all ones for an available NaN,
+    // the bits of |x| + 2 for another available row (monotonic for |x| >=
+    // +0, below the NaN key even at +inf), 1 for a row already pivoted on
+    // (score -1 whatever it holds), 0 for lanes >= K; ties go to the
+    // lowest row, as in `better`
     const float a = fabsf(x);
-    const unsigned key = lane >= K || a != a ? 0u : avail ? __float_as_uint(a) + 2u : 1u;
+    const unsigned key = lane >= K ? 0u : !avail ? 1u : a != a ? ~0u : __float_as_uint(a) + 2u;
     const unsigned best = __reduce_max_sync(kFull, key);
     const int pj = __ffs(__ballot_sync(kFull, key == best)) - 1;
     const float px = __shfl_sync(kFull, x, pj);  // W[pj * R + j]

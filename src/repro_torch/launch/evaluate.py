@@ -23,6 +23,8 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from repro_torch.analysis.sync_guard import sync_allowed
+from repro_torch.core.numerics import take_last
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.data import sources as data_sources
 from repro_torch.launch.metrics import materialize_metrics
@@ -46,7 +48,8 @@ class EvalFn:
     @staticmethod
     def collect(handle: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """Read a dispatched handle to host floats (blocks)."""
-        return materialize_metrics(handle)
+        with sync_allowed("eval_collect"):
+            return materialize_metrics(handle)
 
     def __call__(self, model) -> Dict[str, float]:
         return self.collect(self.dispatch(model))
@@ -83,7 +86,7 @@ def _classification_eval(mcfg: model_lib.ModelConfig, eval_batches, device) -> E
         labels = model_lib._pad_labels(batch["labels"], h.shape[1]).long()
         logits = model_lib.logits_from_hiddens(mcfg, model, h)
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        nll = -take_last(logp, labels)
         denom = torch.clamp(torch.sum(mask), min=1.0)
         hit = (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
         return torch.sum(nll * mask) / denom, torch.sum(hit * mask) / denom

@@ -30,6 +30,8 @@ from typing import Any, Deque, Dict, Iterator, List, Mapping, MutableMapping, \
 
 import torch
 
+from repro_torch.analysis.sync_guard import sync_allowed
+
 # dense bf16 tensor-core peak of one NVIDIA H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS_PER_CHIP = 989e12
 
@@ -97,24 +99,29 @@ class DeviceClock:
         self.stall_timeout_s = stall_timeout_s
         self.stalled = False
         self._stall_warned = False
-        self._queue: Deque[Tuple[int, torch.cuda.Event]] = collections.deque()
+        self._queue: Deque[Tuple[int, Any]] = collections.deque()
         self._prev: Optional[torch.cuda.Event] = None
         self._times: Dict[int, float] = {}          # step → device seconds
         self._fresh: List[Tuple[int, float]] = []   # not yet poll()ed
         self._waiting: Optional[Tuple[int, float]] = None  # (step, t_block)
         self._closed = False
 
-    def observe(self, step: int) -> None:
-        """Record this step's completion event on the current stream."""
+    def observe(self, step: int, marker: Any = None) -> None:
+        """Queue this step's completion event: ``marker``, an event already
+        recorded after the step or a wrapper of one (``query()`` answers for
+        it, ``event`` is the event to time: ``resilience.chaos.StallMarker``),
+        or by default one recorded now on the current stream."""
         if self._closed:
             return
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self._queue.append((step, ev))
+        if marker is None:
+            marker = torch.cuda.Event(enable_timing=True)
+            marker.record()
+        self._queue.append((step, marker))
 
     def _collect(self) -> None:
         while self._queue and self._queue[0][1].query():
             step, ev = self._queue.popleft()
+            ev = getattr(ev, "event", ev)
             if self._prev is not None:
                 dt = self._prev.elapsed_time(ev) / 1e3
                 self._times[step] = dt
@@ -345,20 +352,21 @@ class MetricsLogger:
             return
         t0 = time.time()
         lines = []
-        for base, metrics, tokens in self._pending:
-            row = dict(base)
-            row.update(materialize_metrics(metrics))
-            if self.device_clock is not None:
-                dev_dt = self.device_clock.device_time(row["step"], timeout=1.0)
-                if dev_dt is not None and dev_dt > 0:
-                    row["device_step_time_s"] = dev_dt
-                    if tokens:
-                        row["tokens_per_s"] = tokens / dev_dt
-                    if self.flops_per_step:
-                        row["mfu"] = (self.flops_per_step /
-                                      (dev_dt * self.num_chips * PEAK_FLOPS_PER_CHIP))
-                        row["mfu_source"] = "device"
-            lines.append(json.dumps(sanitize_row(row), allow_nan=False))
+        with sync_allowed("metrics_flush"):
+            for base, metrics, tokens in self._pending:
+                row = dict(base)
+                row.update(materialize_metrics(metrics))
+                if self.device_clock is not None:
+                    dev_dt = self.device_clock.device_time(row["step"], timeout=1.0)
+                    if dev_dt is not None and dev_dt > 0:
+                        row["device_step_time_s"] = dev_dt
+                        if tokens:
+                            row["tokens_per_s"] = tokens / dev_dt
+                        if self.flops_per_step:
+                            row["mfu"] = (self.flops_per_step /
+                                          (dev_dt * self.num_chips * PEAK_FLOPS_PER_CHIP))
+                            row["mfu_source"] = "device"
+                lines.append(json.dumps(sanitize_row(row), allow_nan=False))
         self._pending.clear()
         self.drain_s += time.time() - t0
         if self._f:

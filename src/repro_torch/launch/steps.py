@@ -34,6 +34,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.sync_guard import sync_allowed
+from repro_torch.core.numerics import take_last
 from repro_torch.distributed.accumulate import accumulated_grads
 from repro_torch.models import model as model_lib
 from repro_torch.optim import Optimizer, OptimizerConfig, make_optimizer
@@ -154,7 +156,7 @@ def selection_inputs(mcfg, tcfg: TrainConfig, params, batch
         batch=batch, mask=mp))                     # (K, E) f32
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     del logits
-    nll = -torch.gather(logp, -1, lp[..., None].long())[..., 0]
+    nll = -take_last(logp, lp)
     scores = torch.sum(nll * mp, dim=-1) / torch.clamp(torch.sum(mp, dim=-1), min=1.0)
     V = extractor(model_lib.pooled_hiddens(h, mask), gcfg.r_max)
     G = emb.T                                      # (d=E, K)
@@ -215,8 +217,11 @@ def apply_sentinel(tcfg: TrainConfig, state, metrics) -> Tuple[bool, Dict[str, A
     sync; the arithmetic is float32, as on the device in the JAX package.
     """
     health = state["health"]
-    loss_h, gnorm_h = torch.stack([metrics["loss"].to(torch.float32),
-                                   metrics["grad_norm"].to(torch.float32)]).tolist()
+    # a sync every step that only the port makes (ROADMAP.md C), sanctioned
+    # under its own name for train.audit
+    with sync_allowed("sentinel"):
+        loss_h, gnorm_h = torch.stack([metrics["loss"].to(torch.float32),
+                                       metrics["grad_norm"].to(torch.float32)]).tolist()
     loss = _F(loss_h)
     finite = bool(np.isfinite(loss) and np.isfinite(_F(gnorm_h)))
     mean, var = health["ema_mean"], health["ema_var"]

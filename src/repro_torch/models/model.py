@@ -28,6 +28,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.core.numerics import take_last, take_rows
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -359,7 +360,7 @@ def embed_inputs(cfg: ModelConfig, params, batch
         mask = torch.ones((B, Sq), dtype=torch.float32, device=x.device)
     elif cfg.family == "vlm" or cfg.frontend == "vision_patches":
         patches = batch["patch_embeds"].to(cfg.dtype)
-        tok = torch.nn.functional.embedding(batch["tokens"].long(), params["embed"])
+        tok = take_rows(params["embed"], batch["tokens"])
         x = torch.cat([patches, tok], dim=1)
         B, Sq = x.shape[:2]
         mask = torch.cat([torch.zeros((B, patches.shape[1]), dtype=torch.float32,
@@ -367,7 +368,7 @@ def embed_inputs(cfg: ModelConfig, params, batch
                           torch.ones(batch["tokens"].shape, dtype=torch.float32,
                                      device=x.device)], dim=1)
     else:
-        x = torch.nn.functional.embedding(batch["tokens"].long(), params["embed"])
+        x = take_rows(params["embed"], batch["tokens"])
         B, Sq = x.shape[:2]
         mask = torch.ones((B, Sq), dtype=torch.float32, device=x.device)
     positions = torch.arange(Sq, dtype=torch.int32, device=x.device).expand(B, Sq)
@@ -436,7 +437,7 @@ def _nll(cfg: ModelConfig, params, h: torch.Tensor, labels: torch.Tensor) -> tor
     for c0 in range(0, S, C):
         logits = logits_from_hiddens(cfg, params, h[:, c0:c0 + C])
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        out.append(-torch.gather(logp, -1, labels[:, c0:c0 + C, None].long())[..., 0])
+        out.append(-take_last(logp, labels[:, c0:c0 + C]))
     return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
 

@@ -11,14 +11,15 @@ The guard reads the verdict without adding host syncs on the healthy path:
 ``healthy``/``bad_streak`` ride the step's lazy ``MetricsFuture``, and the
 guard only inspects rows some other boundary (JSONL flush, console print,
 checkpoint save) has already read. Rows that outlive a full
-``check_every`` window with no consumer reading them are read here —
-bounded cadence, never per step.
+``check_every`` window with no consumer reading them are read here, under
+a sanctioned ``sync_allowed`` site — bounded cadence, never per step.
 """
 from __future__ import annotations
 
 from collections import deque
 from typing import Any, Dict
 
+from repro_torch.analysis.sync_guard import sync_allowed
 from repro_torch.api.callbacks import Callback
 
 
@@ -52,15 +53,17 @@ class DivergenceGuardCallback(Callback):
         # them: read them here, bounded
         while self._pending and step - self._pending[0][0] >= self.check_every:
             old_step, row = self._pending.popleft()
-            row.materialize()
+            with sync_allowed("divergence_guard"):
+                row.materialize()
             if self._consume(trainer, old_step, row):
                 return
 
     def on_train_end(self, trainer, report: Dict[str, Any]) -> None:
-        while self._pending:
-            step, row = self._pending.popleft()
-            row.materialize()
-            self._consume(trainer, step, row)
+        with sync_allowed("divergence_guard"):
+            while self._pending:
+                step, row = self._pending.popleft()
+                row.materialize()
+                self._consume(trainer, step, row)
         res = report.setdefault("resilience", {})
         res.update({"bad_steps": self.bad_steps,
                     "max_bad_streak": self.max_streak,

@@ -23,6 +23,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 import torch
 
 from repro_torch.core import features as features_lib
+from repro_torch.core.numerics import one_hot_valid
 from repro_torch.core.grad_features import logit_error_embeddings, per_sample_grads_full
 from repro_torch.registry import Registry
 
@@ -174,7 +175,8 @@ def logit_embed_grad_source(inp: GradSourceInputs) -> torch.Tensor:
 
     The reference builds ``one_hot(labels)`` as a (K, S', V) tensor; the
     port subtracts 1 at each label in place (the same arithmetic: ``p − 0``
-    is ``p``), which saves 2 GB at minicpm-2b's vocabulary."""
+    is ``p``), which saves 2 GB at minicpm-2b's vocabulary. A label outside
+    the vocabulary subtracts nothing, as its all-zero one-hot row does."""
     mcfg, params = inp.mcfg, inp.params
     if mcfg is not None and getattr(mcfg, "tie_embeddings", False):
         head = params["embed"].T                       # (D, V)
@@ -186,9 +188,9 @@ def logit_embed_grad_source(inp: GradSourceInputs) -> torch.Tensor:
         raise ValueError("logit_embed grad source needs an unembedding "
                          "('lm_head' or tied 'embed') in params")
     err = torch.exp(torch.log_softmax(inp.logits.to(torch.float32), dim=-1))   # p
-    idx = inp.labels.long()[..., None]
-    err.scatter_add_(-1, idx, torch.full(idx.shape, -1.0, dtype=err.dtype,
-                                         device=err.device))                # p − y
+    idx, valid = one_hot_valid(inp.labels, err.shape[-1])
+    err.scatter_add_(-1, idx[..., None],                                    # p − y
+                     torch.where(valid, -1.0, 0.0).to(err.dtype)[..., None])
     if inp.mask is not None:
         m = inp.mask.to(torch.float32)
         err.mul_(m[..., None])

@@ -41,7 +41,8 @@ from repro_torch.kernels import graft_select as gs
 from repro_torch.kernels import projection_sweep as ps
 from repro_torch.kernels import rwkv_scan as rw
 from repro_torch.kernels.graft_select import graft_select, graft_select_reference
-from torch_cases import CASES, RWKV_SHAPES, assert_refresh_match, graft_case, rwkv_case
+from torch_cases import (CASES, NAN_CASES, RWKV_SHAPES, assert_refresh_match, graft_case,
+                         nan_case, rwkv_case)
 
 
 @pytest.fixture
@@ -1069,3 +1070,112 @@ def test_serve_on_card_is_deterministic(cuda):
     assert _all_launches() == before
     assert sorted(r["request_id"] for r in r1["results"]) == list(range(7))
     assert [r["tokens"] for r in r1["results"]] == [r["tokens"] for r in r2["results"]]
+
+
+# ---------------------------------------------------------------------------
+# NaN inputs, out-of-range ids and the chaos harness on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NAN_CASES)
+@pytest.mark.parametrize("K,R", [(16, 8), (40, 16), (64, 16)])
+def test_maxvol_kernels_take_the_twins_nan_order(cuda, case, K, R):
+    """graft_select and fast_maxvol on a V holding NaN (K 16, R 8: the warp
+    routine; K 40 and 64, R 16: the block routine): pivots equal to the
+    twin's (NaN above every number, the lower row on ties), distinct and in
+    [0, K) — and the context still alive after the launches."""
+    V = torch.from_numpy(nan_case(case, K, R)).to(cuda)
+    G = torch.randn(96, K, generator=torch.Generator().manual_seed(K)).to(cuda)
+    gb = G.mean(dim=1)
+    want = maxvol_lib.fast_maxvol(V, R)[0]
+    piv, _, _, G_sel = graft_select(V, G, gb, R)
+    piv2, _ = fm.fast_maxvol(V, R)
+    torch.cuda.synchronize()
+    assert torch.equal(piv.long(), want.long()) and torch.equal(piv2, piv)
+    got = piv.cpu().tolist()
+    assert all(0 <= i < K for i in got) and len(set(got)) == R
+    assert torch.equal(G_sel, G[:, piv.long()])
+
+
+def _smoke_cfg(*extra):
+    from repro_torch.api import ExperimentConfig
+    return ExperimentConfig().apply_overrides(
+        ["train.batch=8", "train.seq=16", "graft.rset=[2,4]", "graft.refresh_every=2",
+         "graft.use_pallas=true", "train.log_every=0"] + list(extra))
+
+
+@pytest.mark.cuda
+def test_poisoned_step_on_card_skips_the_update(cuda):
+    """A poisoned refresh step on the card (ids 2**30, through the flash and
+    graft_select kernels): no device-side assert, a non-finite loss, the
+    update skipped bit for bit, and the next clean step trains."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.resilience import chaos
+    mcfg, tcfg, data = _smoke_cfg().build()
+    state = steps_lib.init_train_state(mcfg, tcfg, torch.Generator(device=cuda).manual_seed(0),
+                                       8, cuda)
+    step_fn = steps_lib.make_train_step(mcfg, tcfg)
+    on = lambda b: {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}  # noqa: E731
+    for s in range(2):
+        state, _ = step_fn(state, on(data.batch_at(s)))
+    before = [p.detach().clone() for p in state["params"]]
+    launches = graft_select.launches
+    poisoned = chaos.FaultPlan([{"kind": "nan_batch", "step": 2}]).corrupt_batch(
+        2, data.batch_at(2))
+    state, m = step_fn(state, on(poisoned))
+    torch.cuda.synchronize()
+    assert graft_select.launches == launches + 1
+    assert not np.isfinite(m["loss"].item()) and m["healthy"] == 0.0
+    assert all(torch.equal(a, p) for a, p in zip(before, state["params"]))
+    state, m = step_fn(state, on(data.batch_at(3)))
+    assert np.isfinite(m["loss"].item()) and m["healthy"] == 1.0
+
+
+@pytest.mark.cuda
+def test_stall_fault_on_card_marks_device_stalled(cuda, tmp_path):
+    """A stalled DeviceClock event trips the watchdog: the run is not
+    blocked, reports device_stalled, and the stalled window's rows fall back
+    to the dispatch clock."""
+    import json
+    import time
+    from repro_torch.api import Trainer
+    plan = json.dumps([{"kind": "stall", "step": 2, "seconds": 3.0}])
+    cfg = _smoke_cfg("train.steps=6", "train.metrics_flush_every=2",
+                     f"train.metrics_path={tmp_path / 'm.jsonl'}",
+                     "train.device_timeout_s=0.3", f"train.fault_plan={plan}")
+    t0 = time.time()
+    report = Trainer(cfg).fit()
+    assert time.time() - t0 < 60
+    assert report["host_loop"].get("device_stalled") is True
+    with open(tmp_path / "m.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert any(r["step"] >= 2 and r.get("mfu_source") == "dispatch" for r in rows)
+    assert any(r["step"] < 2 and r.get("mfu_source") == "device" for r in rows)
+
+
+@pytest.mark.cuda
+def test_nan_rollback_on_card(cuda, tmp_path):
+    """The matrix's nan_rollback scenario on the card through the refresh
+    kernel: one rollback, the twin's final loss bit-equal, one graft_select
+    launch for every refresh step dispatched (replays and the twin's
+    included; the JSONL holds one row per dispatched step)."""
+    import json
+    from repro_torch.resilience import __main__ as matrix
+    before = graft_select.launches
+    result = matrix.scenario_nan_rollback(str(tmp_path), "graft.use_pallas=true", device=cuda)
+    with open(tmp_path / "metrics.jsonl") as f:
+        steps = [json.loads(line)["step"] for line in f]
+    assert result["rolled_back_to"] == 15
+    assert graft_select.launches - before == sum(1 for s in steps if s % 3 == 0)
+
+
+@pytest.mark.cuda
+def test_audit_on_card_sanctions_the_ports_syncs(cuda):
+    """train.audit on the card: no unsanctioned sync, no drift, and the two
+    syncs a step that only the port makes under their own names."""
+    from repro_torch.api import Trainer
+    report = Trainer(_smoke_cfg("train.steps=4", "train.audit=true")).fit()
+    audit = report["audit"]
+    assert audit["unsanctioned"] == 0 and audit["recompiles"] == 0
+    assert audit["sync_sites"]["step_sync:cuda.synchronize"] == 4
+    assert audit["sync_sites"]["sentinel:tolist"] == 4

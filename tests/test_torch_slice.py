@@ -153,12 +153,30 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, capsys):
                       "--train.seq=8", "--train.log_every=0"]) == 0
 
 
-@pytest.mark.parametrize("override", [
-    "train.audit=true", "train.fault_plan=x", "backend.kind=multiprocess"])
+@pytest.mark.parametrize("override", ["backend.kind=multiprocess"])
 def test_not_ported_parts_raise_pointing_to_roadmap(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cfg = ExperimentConfig().apply_overrides(SMALL + [override])
         Trainer(cfg, device="cpu").fit()
+
+
+@pytest.mark.parametrize("override", [
+    "train.audit=true", 'train.fault_plan=[{"kind": "nan_batch", "step": 2}]'])
+def test_audit_and_fault_plan_run(override):
+    """What ``test_not_ported_parts_raise_pointing_to_roadmap`` refused
+    before the audit and the chaos harness were ported: the run completes,
+    with the audit's report or the poisoned step skipped by the sentinel."""
+    report = Trainer(ExperimentConfig().apply_overrides(
+        SMALL + ["train.steps=4", override]), device="cpu").fit()
+    rows = report["history"]
+    assert report["steps"] == len(rows) == 4
+    if override == "train.audit=true":
+        assert report["audit"]["unsanctioned"] == report["audit"]["recompiles"] == 0
+        assert report["audit"]["sync_sites"]["sentinel:tolist"] == 4
+    else:
+        assert "audit" not in report
+        assert [r["healthy"] for r in rows] == [1.0, 1.0, 0.0, 1.0]
+        assert not np.isfinite(rows[2]["loss"]) and np.isfinite(rows[3]["loss"])
 
 
 @pytest.mark.parametrize("overrides", [

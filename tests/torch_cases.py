@@ -1,4 +1,4 @@
-"""Seeded numpy inputs for the port's GRAFT-refresh and RWKV-scan tests,
+"""Seeded numpy inputs for the port's GRAFT-refresh, MaxVol-on-NaN and RWKV-scan tests,
 shared by the JAX-parity tests (CPU) and the kernel-vs-twin tests (card).
 Imports no JAX, so the card-only tests run where JAX is not installed."""
 import numpy as np
@@ -68,6 +68,25 @@ def assert_refresh_match(got, want, err_atol=1e-5, lv_rtol=1e-5):
     np.testing.assert_allclose(err, err_w, atol=err_atol)
     np.testing.assert_allclose(float(lv), float(lv_w), rtol=lv_rtol)
     assert np.all(np.isfinite(err)) and np.isfinite(float(lv))
+
+
+# the NaN cases of Fast MaxVol's order: a NaN column, two scattered NaNs,
+# an all-NaN V (a poisoned refresh's features)
+NAN_CASES = ["nan_column", "scattered", "all_nan"]
+
+
+def nan_case(name, K, R, seed=0):
+    """V (K, R) float32 standard normal from ``seed`` with NaNs per ``name``."""
+    V = np.random.default_rng(seed).standard_normal((K, R)).astype(np.float32)
+    if name == "nan_column":
+        V[:, 0] = np.nan
+    elif name == "scattered":
+        V[[3, K - 5], 2] = np.nan
+    elif name == "all_nan":
+        V[:] = np.nan
+    else:
+        raise KeyError(name)
+    return V
 
 
 # (BH, T, D, chunk) of tests/test_kernels.py::TestRwkvScanKernel
