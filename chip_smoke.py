@@ -56,7 +56,9 @@ Phases (any failure exits nonzero and prints no result line):
                depth: 6 steps, GRAFT refresh every 2 steps through the
                kernel, attention ``auto``, which must resolve to flash. The
                kernels' launch counts are zeroed just before and read just
-               after; each must equal what the path reckons (0 for the
+               after; each must equal what the path reckons
+               (``repro_torch.analysis.launch_audit``, the reckoning this
+               script and the analysis battery share; 0 for the
                selection kernels the training path does not run; those are
                counted where phase engine drives them; grad_norm one a step,
                optimizer_update one a step per dtype group).
@@ -196,6 +198,24 @@ Phases (any failure exits nonzero and prints no result line):
                event under a 0.3 s watchdog at the same width:
                ``device_stalled``, the run not blocked, the stalled window's
                rows on the dispatch clock. Free disk is checked first.
+
+ 19. analysis — the analysis battery (``python -m repro_torch.analysis``,
+               ``repro_torch.analysis.runner``) on the card: (a) at the JAX
+               probe shapes (the fused and streaming refresh at K 256, d 1024,
+               R 32; the 2-layer flash probe model; the runtime probe, smoke
+               minicpm); (b) at full width: the refresh contracts at
+               minicpm-2b's K 16 / R 8 / d 2304 and at d 4096, the attention
+               contract (B 4 × S 256) and the runtime probe on minicpm-2b's
+               widths with depth cut to 2 of 40 layers (phase shell's cut).
+               Every section's audited launches must equal torch.profiler's
+               count of the CUDA kernels by name, no plain version may run,
+               and every sum of the shared-memory estimator must equal the C
+               library's (flash at every head dim in both types, the refresh
+               plans at d 1536-6144, fast_maxvol, projection_sweep, the RWKV
+               backward); any error finding fails the phase. Then the probe's
+               steady step at the same width, 32 steps a run, with
+               train.audit off, on, on, off, twice: what the audit costs a
+               step.
 
 It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -468,6 +488,7 @@ def _kernels_wide_and_global(dev):
     """graft_select at the wide shape and on the global-W plan; the batched
     kernel's rows against the single kernel."""
     import torch
+    from repro_torch.analysis import smem
     from repro_torch.kernels import graft_select as gs
     for K, R, d, rank in ((256, 64, 4096, 64), (1024, 64, 1024, 64)):
         args = _random_refresh(K, R, d, dev, seed=2) + [rank]
@@ -495,8 +516,7 @@ def _kernels_wide_and_global(dev):
         args = _random_refresh(K, R, d, dev, seed=3) + [rank]
         want = gs.graft_select(*args)
         pairs = [(p, q) for p in gs.PLANS for q in gs.PLANS
-                 if gs.smem_bytes(K, R, rank, p, d if q == "shared" else 0)
-                 <= gs.SMEM_LIMIT_BYTES]
+                 if smem.graft_select_smem(K, R, d, rank, p, q).fits]
         same = {pq: _all_equal(gs.graft_select(*args, plan=pq[0], basis=pq[1]), want)
                 for pq in pairs}
         t = {pq: _time_auto(lambda pq=pq: gs.graft_select(*args, plan=pq[0], basis=pq[1]),
@@ -524,6 +544,7 @@ def _kernels_standalone(ctx, dev):
     """fast_maxvol and projection_sweep against their plain versions and
     the fused kernel, each timed against its bound."""
     import torch
+    from repro_torch.analysis import smem
     from repro_torch.core import maxvol as maxvol_lib
     from repro_torch.core import projection as proj_lib
     from repro_torch.kernels import fast_maxvol as fm
@@ -556,7 +577,7 @@ def _kernels_standalone(ctx, dev):
     for d, R in ((2304, 8), (1024, 32), (16384, 64)):
         V, G, gb = _random_refresh(R, R, d, dev, seed=d)
         # G_sel from the fused kernel where its 12 MB guard admits the shape
-        fits = gs.fused_budget_bytes(R, R, d, R) <= gs.VMEM_BUDGET_BYTES
+        fits = smem.fused_select_vmem(R, R, d, R).fits
         fused = gs.graft_select(V, G, gb, R) if fits else None
         G_sel = fused[3] if fits else G
         err = ps.projection_sweep(G_sel, gb)
@@ -767,69 +788,32 @@ def phase_flash(ctx):
 
 
 def _kernel_counters():
-    """(name, holder, attribute) of every kernel's launch count."""
-    from repro_torch.kernels import fast_maxvol as fm
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_optim as fo
-    from repro_torch.kernels import graft_select as gs
-    from repro_torch.kernels import projection_sweep as ps
-    from repro_torch.kernels import rwkv_scan as rw
-    return [("graft_select", gs.graft_select, "launches"),
-            ("flash_forward", fa.flash_attention, "forward_launches"),
-            ("flash_dq", fa.flash_attention, "dq_launches"),
-            ("flash_dkv", fa.flash_attention, "dkv_launches"),
-            ("graft_select_batched", gs.graft_select_batched, "launches"),
-            ("fast_maxvol", fm.fast_maxvol, "launches"),
-            ("projection_sweep", ps.projection_sweep, "launches"),
-            ("rwkv_scan", rw.rwkv_scan, "launches"),
-            ("rwkv_scan_backward", rw.rwkv_scan_backward, "launches"),
-            ("grad_norm", fo.grad_norm, "launches"),
-            ("optimizer_update", fo.optimizer_update, "launches")]
+    """(name, holder, attribute) of every kernel's launch count: the
+    registry of ``repro_torch.analysis.launch_audit``."""
+    from repro_torch.analysis import launch_audit
+    return launch_audit.kernel_counters()
 
 
 def _zero_counts():
-    for _, holder, attr in _kernel_counters():
-        setattr(holder, attr, 0)
+    from repro_torch.analysis import launch_audit
+    launch_audit.zero_counts()
 
 
 def _read_counts():
-    return {name: getattr(holder, attr) for name, holder, attr in _kernel_counters()}
+    from repro_torch.analysis import launch_audit
+    return launch_audit.read_counts()
 
 
 def _optim_groups(params):
-    """Kernel B's launches a step: one per (param dtype, state dtype) group."""
-    return len({p.dtype for p in params})
+    from repro_torch.analysis import launch_audit
+    return launch_audit.optim_groups(params)
 
 
 def _expected_launches(mcfg, cfg, groups, flash=True):
-    """Launches the slice reckons: per step one forward per layer for the
-    subset loss and, for the stacked layers, one more for their remat
-    recompute (full or dots: a kernel is no matrix product that dots keeps;
-    the ``first_k_dense`` blocks are never recomputed, as in JAX), and one
-    backward; per
-    refresh one selection forward per layer and one graft_select. The
-    forward and backward kernels are flash (forward; dQ and dK/dV) for the
-    dense family, the RWKV scan (forward; one backward launch) for the ssm
-    family. The training path runs no batched refresh and no standalone
-    stage. The optimizer step is one grad_norm launch a step and, on a
-    healthy step, one optimizer_update launch per dtype group. Each held-out
-    eval (every ``train.eval_every`` steps) runs one forward a layer for each
-    of its 4 batches. ``flash=False``: the attention resolves to dense (no
-    flash tile divides the sequence), so no flash kernel runs."""
-    steps = cfg.train.steps
-    refreshes = sum(1 for s in range(steps) if s % cfg.graft.refresh_every == 0)
-    evals = steps // cfg.train.eval_every if cfg.train.eval_every else 0
-    L = mcfg.num_layers
-    recomputed = L - mcfg.first_k_dense if mcfg.remat in ("full", "dots") else 0
-    fwd = L * (steps + refreshes + 4 * evals) + recomputed * steps
-    bwd = L * steps
-    ssm = mcfg.family == "ssm"
-    attn = flash and not ssm
-    return {"graft_select": refreshes, "flash_forward": fwd if attn else 0,
-            "flash_dq": bwd if attn else 0, "flash_dkv": bwd if attn else 0,
-            "graft_select_batched": 0, "fast_maxvol": 0, "projection_sweep": 0,
-            "rwkv_scan": fwd if ssm else 0, "rwkv_scan_backward": bwd if ssm else 0,
-            "grad_norm": steps, "optimizer_update": steps * groups}
+    """What the run reckons: ``launch_audit.expected_launches``, the one
+    reckoning the audit and this script share."""
+    from repro_torch.analysis import launch_audit
+    return launch_audit.expected_launches(mcfg, cfg, groups, flash=flash)
 
 
 def phase_slice(ctx):
@@ -1362,17 +1346,10 @@ def _profile(tr, tag):
 GEMM_KERNEL_NAMES = ("gemm", "nvjet", "cutlass")    # cuBLAS's Hopper GEMMs are nvjet_*
 def _cuda_kernels(fn):
     """The CUDA kernels of one call of fn by torch.profiler (its
-    key_averages events on the device) and the call's wall ms, ending in a
-    synchronize."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA], wall_ms
+    key_averages events on the device) and the call's wall ms:
+    ``launch_audit.cuda_kernel_events``."""
+    from repro_torch.analysis import launch_audit
+    return launch_audit.cuda_kernel_events(fn)
 
 
 def _device_us(e):
@@ -2472,7 +2449,6 @@ def phase_shell(ctx):
 # the NaN cases of Fast MaxVol's order, on the warp routine (K 16, R 8) and
 # the block routine (K 40 and 64, R 16)
 NAN_SHAPES = [(16, 8), (40, 16), (64, 16)]
-CHAOS_FLASH_NAMES = ("flash_forward", "flash_dq", "flash_dkv")
 
 
 def _nan_v(case, K, R, seed=0):
@@ -2514,18 +2490,10 @@ def _chaos_nan_order(dev):
 
 
 def _chaos_reckon(mcfg, steps, refresh_every, flash):
-    """Launches that the dispatched ``steps`` reckon (one JSONL row per
-    dispatched step, replays included): one graft_select a refresh step;
-    per layer one flash forward a step, one a refresh and one recompute a
-    step under remat, and one dQ and one dK/dV a step."""
-    n = len(steps)
-    refreshes = sum(1 for s in steps if s % refresh_every == 0)
-    L = mcfg.num_layers
-    recomputed = L - mcfg.first_k_dense if mcfg.remat in ("full", "dots") else 0
-    want = {"graft_select": refreshes}
-    fwd, bwd = L * (n + refreshes) + recomputed * n, L * n
-    want.update(zip(CHAOS_FLASH_NAMES, (fwd, bwd, bwd) if flash else (0, 0, 0)))
-    return want
+    """Launches that the dispatched ``steps`` reckon:
+    ``launch_audit.dispatched_launches``."""
+    from repro_torch.analysis import launch_audit
+    return launch_audit.dispatched_launches(mcfg, steps, refresh_every, flash)
 
 
 def _chaos_scenario(work, scenario, extra, **kw):
@@ -2673,6 +2641,85 @@ def phase_chaos(ctx):
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+ANALYSIS_WIDE = [f'model.overrides={{"attn_backend": "auto", "num_layers": {SHELL_LAYERS}}}',
+                 "model.smoke=false"]
+# the audit's cost: the probe without its checkpoints, steps enough for a
+# steady mean, train.audit off and on in turns (off, on, on, off, twice)
+ANALYSIS_TIMING = ["train.steps=32", "train.checkpoint_dir=null", "train.log_every=0"]
+ANALYSIS_TURNS = (False, True, True, False) * 2
+
+
+def _analysis_report(tag, report, t0):
+    """Print a battery's errors and its launch, sync and library notes
+    (the whole report goes to build/chip_smoke_analysis_<tag>.json)."""
+    keep = ("JX003", "JX001", "SY001", "SP001")
+    for f in report:
+        if f.severity != "info" or f.rule in keep or "C library" in f.message:
+            print(f"[analysis] ({tag}) {f.format()}", flush=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", f"chip_smoke_analysis_{tag}.json"), "w") as f:
+        f.write(report.to_json())
+    errors = len(report.errors)
+    print(f"[analysis] ({tag}) {len(report)} findings, {errors} error(s), "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    assert report.ok, f"({tag}) the battery found {errors} error(s)"
+
+
+def phase_analysis(ctx):
+    """The analysis battery (``python -m repro_torch.analysis``) on the
+    card: (a) at the JAX probe shapes; (b) at full width — the refresh
+    contracts at minicpm-2b's K 16 / R 8 / d 2304 and at d 4096, the
+    attention contract and the runtime probe on minicpm-2b's widths at 2 of
+    40 layers. Every launching section is held to the profiler's count of
+    the CUDA kernels by name, and every sum of the shared-memory estimator
+    to the C library's. Then the probe's steady step with train.audit off
+    and on in turns at the same width."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.analysis import runner
+    from repro_torch.api import ExperimentConfig
+    ctx.pop("trainer", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+
+    t0 = time.perf_counter()
+    _analysis_report("probe", runner.run_all(device="cuda"), t0)
+
+    t0 = time.perf_counter()
+    mcfg = ExperimentConfig().apply_overrides(ANALYSIS_WIDE).model.build()
+    print(f"[analysis] (wide) minicpm-2b full width, {mcfg.num_layers} of 40 layers: d_model "
+          f"{mcfg.d_model}, {mcfg.num_heads} heads x {mcfg.head_dim}, vocab "
+          f"{mcfg.vocab_size}, {mcfg.param_dtype}", flush=True)
+    report = runner.run_battery(
+        dev, selections=((16, 2304, 8, (2, 4, 8)), (16, 4096, 8, (2, 4, 8))),
+        attn_mcfg=dataclasses.replace(mcfg, attn_backend="flash"), attn_batch=4,
+        attn_seq=256, overrides=ANALYSIS_WIDE)
+    _analysis_report("wide", report, t0)
+
+    t0 = time.perf_counter()
+    steady = {False: [], True: []}
+    for audit in ANALYSIS_TURNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, run, rep = runner.run_probe(
+            ANALYSIS_WIDE + ANALYSIS_TIMING + [f"train.audit={str(audit).lower()}"], dev)
+        assert rep.ok and run is not None, rep.format()
+        ms = [r["step_time_s"] * 1e3 for r in run["history"][1:]]
+        steady[audit].append(float(np.mean(ms)))
+        print(f"[analysis] train.audit={audit}: steady step (steps 1-{len(ms)}) mean "
+              f"{np.mean(ms):.3f} ms, median {np.median(ms):.3f} ms"
+              + (f"; {run['audit']['sync_events']} sanctioned syncs" if audit else ""),
+              flush=True)
+    off, on = np.mean(steady[False]), np.mean(steady[True])
+    spread = max(np.ptp(steady[False]), np.ptp(steady[True]))
+    print(f"[analysis] {ctx.get('smi', '')}: train.audit costs {on - off:.3f} ms a step "
+          f"({on:.3f} on, {off:.3f} off; the runs of one setting spread {spread:.3f} ms; "
+          f"off {steady[False]}, on {steady[True]}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2696,7 +2743,8 @@ def main() -> int:
                      ("rwkv", phase_rwkv), ("rwkv_slice", phase_rwkv_slice),
                      ("families", phase_families), ("classify", phase_classify),
                      ("serve", phase_serve), ("check", phase_check),
-                     ("shell", phase_shell), ("chaos", phase_chaos)):
+                     ("shell", phase_shell), ("chaos", phase_chaos),
+                     ("analysis", phase_analysis)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

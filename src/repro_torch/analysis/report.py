@@ -3,10 +3,11 @@ message, fix hint — the port of the JAX package's ``analysis/report.py``,
 with its rule registry and its JSON, so that a report reads the same from
 either package.
 
-Rule ids are stable strings (``JX*`` jaxpr, ``SY*`` sync, ``RC*``
-recompile, ``VM*`` VMEM, ``LN*`` lint) so CI logs, tests, and whitelists
-can reference a rule without parsing prose. ``RULES`` is the registry the
-CLI prints as the rule table.
+Rule ids are stable strings, the JAX package's (``JX*`` step audits:
+launch counts, syncs, wide dtypes, gathers; ``SY*`` sync, ``RC*`` signature
+drift, ``VM*`` shared memory, ``LN*`` lint, ``SP*`` samplers) so CI logs,
+tests, and whitelists can reference a rule without parsing prose.
+``RULES`` is the registry the CLI prints as the rule table.
 """
 from __future__ import annotations
 
@@ -16,32 +17,40 @@ from typing import Any, Dict, Iterable, List, Optional
 
 SEVERITIES = ("error", "warning", "info")
 
-# rule id → (default severity, one-line description)
+# rule id → (default severity, one-line description). The ids and
+# severities are the JAX package's; the descriptions name the port's checks.
 RULES: Dict[str, tuple] = {
-    "JX001": ("error", "host-callback primitive traced into a jitted hot "
-                       "path (a device→host sync every dispatch)"),
-    "JX002": ("error", "float64/complex128 op inside a step function "
-                       "(silent 2× bandwidth + matmul off the MXU path)"),
-    "JX003": ("error", "pallas_call launch count differs from the "
-                       "single-dispatch contract"),
-    "JX004": ("error", "stray gather primitive on the fused selection path"),
+    "JX001": ("error", "host sync (.item/.tolist/.cpu/float/synchronize) "
+                       "inside one audited step call, outside the named "
+                       "sites"),
+    "JX002": ("error", "float64/complex128 aten op inside a step call "
+                       "outside a wide_allowed site (silent 2× bandwidth, "
+                       "off the tensor cores)"),
+    "JX003": ("error", "kernel launches (route decisions in kernels/build.py) "
+                       "differ from the launch-count contract, from the "
+                       "profiler's count, or a plain version ran on the card"),
+    "JX004": ("error", "stray gather-class aten op (gather, index_select, "
+                       "index, take, embedding) on the fused selection path"),
     "SY001": ("error", "host↔device sync outside a sanctioned site"),
-    "RC001": ("error", "step function re-traced: call signature "
-                       "(shape/dtype/static arg) drifted between steps"),
-    "VM001": ("error", "kernel's resident blocks exceed the per-program "
-                       "VMEM budget"),
-    "VM002": ("error", "block size does not divide the array extent "
-                       "(grid would drop or pad elements)"),
-    "VM003": ("info", "VMEM headroom report for a kernel configuration"),
-    "LN001": ("error", "float()/np.asarray/jax.device_get in a hot-path "
-                       "module outside a whitelisted site"),
+    "RC001": ("error", "step signature drifted between steps "
+                       "(shape/dtype/static arg)"),
+    "VM001": ("error", "a kernel plan's shared memory exceeds one Hopper "
+                       "block (227 KB), no plan serves the shape, or the "
+                       "estimator disagrees with the C library's sum"),
+    "VM002": ("error", "block size does not divide the array extent (the "
+                       "flash block ladder, T % chunk of the RWKV scan)"),
+    "VM003": ("info", "shared-memory headroom of a kernel configuration"),
+    "LN001": ("error", "float()/.item()/.tolist()/.cpu()/.numpy()/np.asarray/"
+                       "synchronize() in a hot-path module outside a "
+                       "whitelisted site"),
     "LN002": ("error", "wall clock (time.time/perf_counter) where the "
                        "dispatch/device clock is required"),
-    "LN003": ("error", "pallas_call outside kernels/ (kernel launches must "
-                       "live behind the kernels API)"),
-    "LN004": ("error", "jax.distributed/mesh construction/process queries "
-                       "outside repro/backend/ + launch/mesh.py (topology "
-                       "is the execution backend's monopoly)"),
+    "LN003": ("error", "kernel launch (build.call/build.load/ctypes.CDLL/"
+                       "launchers()) outside kernels/ (launches live behind "
+                       "the kernel wrappers)"),
+    "LN004": ("error", "torch.distributed/init_process_group/DeviceMesh "
+                       "outside backend/ (topology is the execution "
+                       "backend's monopoly)"),
     "SP001": ("error", "registered sampler closes over mutable Python state "
                        "(cross-step state must flow through the Sampler-v2 "
                        "carry, or rollback/resume silently desyncs)"),

@@ -224,7 +224,7 @@ class Trainer:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             with sync_allowed("step_sync"):
-                torch.cuda.synchronize(self.device)
+                torch.cuda.synchronize(self.device)  # lint: allow step_sync
 
     # ------------------------------------------------------------------
     def fit(self) -> Dict[str, Any]:

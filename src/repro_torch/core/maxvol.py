@@ -16,6 +16,8 @@ values is formed exactly in float64 and the difference rounds to float32.
 That equals a fused multiply-add except when the exact difference needs
 more than 53 bits AND lies within 2^-53 of a float32 rounding midpoint —
 float64 then rounds twice. The factor is an IEEE division in all three.
+The float64 product is a deliberate wide site (``wide_allowed``), which the
+step audit reports as info.
 ``torch.argmax`` takes the first index on ties, as ``jnp.argmax`` does.
 """
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.analysis.launch_audit import wide_allowed
 from repro_torch.core.numerics import safe_pivot
 
 
@@ -52,8 +55,9 @@ def fast_maxvol(V: torch.Tensor, rank: int) -> Tuple[torch.Tensor, torch.Tensor]
         factor = col / pivot_val                       # (K,)
         pivot_row = W[pj].clone()                      # (R,)
         # W - factor ⊗ pivot_row with one rounding (see the module docstring)
-        W = (W.double() - factor.double()[:, None] * pivot_row.double()[None, :]
-             ).to(torch.float32)
+        with wide_allowed("maxvol_exact_product"):
+            W = (W.double() - factor.double()[:, None] * pivot_row.double()[None, :]
+                 ).to(torch.float32)
         W[pj] = pivot_row                              # keep the pivot row intact
         avail[pj] = False
         pivots[j] = pj.to(torch.int32)

@@ -124,9 +124,10 @@ __host__ __device__ inline int nc_class(int Dh) {
 }
 __host__ __device__ inline int tile_of(int nc) { return nc == 16 ? 32 : 64; }
 
-// Dynamic shared memory of each float32 kernel, in bytes (the Python
-// wrapper's f32_smem_bytes() computes the same sums, for supports() on a
-// machine without the library; flash_smem_bytes() below returns every plan).
+// Dynamic shared memory of each float32 kernel, in bytes (analysis/smem.py
+// flash_smem() computes the same sums and the bf16 plans' below, for the
+// router on a machine without the library; flash_smem_bytes() below returns
+// every plan).
 inline size_t fwd_smem(int Dh, int tile) {      // Qt, Kt, Vt; Pt
   return 4 * (size_t)(3 * Dh + tile) * (tile + 4);
 }

@@ -143,7 +143,7 @@ __host__ __device__ inline size_t tile_words(int cols) {
 
 // Dynamic shared memory of graft_select_kernel and fast_maxvol_kernel
 // (which runs with global_q and leaves the tiles unused), in 4-byte words
-// (the Python wrapper's smem_bytes() computes the same sums): the basis
+// (analysis/smem.py graft_select_smem() computes the same sums): the basis
 // (shared basis plan only), the working set (shared W plan only), the
 // scratch and G's staging tiles.
 __host__ __device__ inline size_t smem_words(int K, int R, int d, int rank, int global_w,
@@ -825,10 +825,24 @@ cudaError_t set_smem(const void* kernel, size_t smem_bytes) {
 extern "C" {
 
 // The dynamic shared memory, in bytes, of one refresh block under the given
-// plans (the wrapper's smem_bytes() mirrors it); -1 above what a block can
+// plans (analysis/smem.py graft_select_smem() mirrors it); -1 above what a block can
 // address.
 int graft_select_smem_bytes(int K, int R, int d, int rank, int global_w, int global_q) {
   const size_t bytes = 4 * smem_words(K, R, d, rank, global_w, global_q);
+  return bytes > kSmemLimit ? -1 : (int)bytes;
+}
+
+// The dynamic shared memory, in bytes, of the fast_maxvol block that
+// fast_maxvol_launch sizes; -1 above what a block can address.
+int fast_maxvol_smem_bytes(int K, int R, int rank, int global_w) {
+  const size_t bytes = 4 * smem_words(K, R, 0, rank, global_w, 1);
+  return bytes > kSmemLimit ? -1 : (int)bytes;
+}
+
+// The dynamic shared memory, in bytes, of the projection_sweep block that
+// projection_sweep_launch sizes; -1 above what a block can address.
+int projection_sweep_smem_bytes(int R, int global_red) {
+  const size_t bytes = 4 * sweep_smem_words(R, global_red);
   return bytes > kSmemLimit ? -1 : (int)bytes;
 }
 

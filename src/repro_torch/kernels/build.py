@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List
 
 import torch
 
@@ -55,9 +55,17 @@ def find_nvcc() -> str:
         "CUDA toolkit")
 
 
-def route(name: str, *tensors) -> bool:
+# the open launch audits (``analysis/launch_audit.py``): each is called
+# with (kernel name, True for the kernel / False for the plain version) at
+# every route decision. Process-wide, not per thread: the autograd engine
+# runs a CUDA backward (flash dQ and dK/dV, the RWKV backward) on a device
+# thread of its own.
+AUDITS: List[Callable[[str, bool], None]] = []
+
+
+def placement(name: str, *tensors) -> bool:
     """True for the kernel (all CUDA, one device), False for the plain
-    version (all CPU); anything else raises."""
+    version (all CPU); anything else raises. Not counted: see ``route``."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
@@ -65,6 +73,16 @@ def route(name: str, *tensors) -> bool:
         return True
     raise ValueError(f"{name} runs on CUDA or CPU tensors on one device, got "
                      f"{sorted(str(t.device) for t in tensors)}")
+
+
+def route(name: str, *tensors) -> bool:
+    """``placement``, counted: every wrapper calls it once for each launch
+    of kernel ``name`` (or each call of its plain version), so that the
+    launch audit counts where the route is decided."""
+    on_kernel = placement(name, *tensors)
+    for audit in AUDITS:
+        audit(name, on_kernel)
+    return on_kernel
 
 
 def check_kernel_operands(**tensors) -> None:
@@ -98,7 +116,7 @@ def load(name: str) -> BuiltKernel:
                             ).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = out.with_suffix(".log")
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # lint: allow build seconds, off the step path
     build_s = 0.0
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -110,7 +128,7 @@ def load(name: str) -> BuiltKernel:
                                f"{proc.stdout}\n{proc.stderr}")
         log_path.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)                   # atomic: no half-written library
-        build_s = time.perf_counter() - t0
+        build_s = time.perf_counter() - t0  # lint: allow build seconds
     built = BuiltKernel(name=name, lib=ctypes.CDLL(str(out)), path=out,
                         ptxas_log=log_path.read_text() if log_path.exists() else "",
                         build_s=build_s)

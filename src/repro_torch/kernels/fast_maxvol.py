@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import smem
 from repro_torch.core import maxvol as maxvol_lib
 from repro_torch.kernels import build
 from repro_torch.kernels import graft_select as gs
@@ -56,11 +57,17 @@ def fast_maxvol(V: torch.Tensor, rank: int, *, plan: Optional[str] = None):
     dev = V.device
     pivots = torch.empty(rank, dtype=torch.int32, device=dev)
     logvol = torch.empty(1, dtype=torch.float32, device=dev)
-    work = torch.empty(gs.work_words(K, R), dtype=torch.float32, device=dev) \
+    work = torch.empty(smem.work_words(K, R), dtype=torch.float32, device=dev) \
         if plan == "global" else None
     gs.launch("fast_maxvol", dev, (V, pivots, logvol, work), (K, R, rank, int(plan == "global")))
     fast_maxvol.launches += 1
     return pivots, logvol[0]
+
+
+def library_smem_bytes(K: int, R: int, rank: int, plan: str) -> int:
+    """The C library's own sum for the MaxVol block under ``plan`` (-1 above
+    227 KB); ``analysis/smem.py`` ``fast_maxvol_smem`` mirrors it."""
+    return gs.launchers()["fast_maxvol_smem_bytes"](K, R, rank, int(plan == "global"))
 
 
 fast_maxvol.launches = 0   # kernel launches, counted where they happen

@@ -25,9 +25,9 @@ head-major, so q stream ``i`` reads kv stream ``i // group``.
   runs the float32 CUDA-core kernels. Both count under the same launch
   counters.
 * The CUDA source owns the kernels' tile plans and sizes each launch's
-  shared memory itself (``plan_smem_bytes`` asks it, on the card). This
-  module keeps only the float32 plans' sums (``f32_smem_bytes``), which
-  ``supports`` checks without the library.
+  shared memory itself (``plan_smem_bytes`` asks it, on the card).
+  ``analysis/smem.py`` (``flash_smem``, ``flash_feasible``) sums the same
+  plans for the router without the library.
 * ``flash_attention`` is the differentiable function (``_FlashAttention``,
   the port of ``_make_flash_fn``'s ``custom_vjp``): the forward saves q, k,
   v, o and lse; the backward computes ``delta = Σ o·do`` in float32 and runs
@@ -46,59 +46,21 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import smem
 from repro_torch.kernels import build
 
 _MASK = -1e30
 _MASK_GUARD = -0.5e30
-MAX_HEAD_DIM = 256
-# what one Hopper thread block can address as shared memory (227 KB)
-SMEM_LIMIT_BYTES = 232_448
+MAX_HEAD_DIM = smem.FLASH_MAX_HEAD_DIM
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-# ---------------------------------------------------------------------------
-# the float32 kernels' tiling, mirrored from csrc/flash_attention.cu
-# ---------------------------------------------------------------------------
-
-_KINDS = ("fwd", "dq", "dkv")          # the C source's Kind: 0, 1, 2
-
-
-def _tile(head_dim: int) -> int:
-    """Rows per tile of the float32-core kernels: 64, or 32 above head dim
-    160 (``tile_of(nc_class)``)."""
-    return 32 if head_dim > 160 else 64
-
-
-def f32_smem_bytes(kind: str, head_dim: int) -> int:
-    """Dynamic shared memory of one block of the float32 kernel ``kind``
-    (fwd | dq | dkv) — the sums of ``fwd_smem``/``dq_smem``/``dkv_smem``:
-    float32 tiles of (tile + 4) columns, ``head_dim`` rows per staged
-    operand."""
-    if kind not in _KINDS:
-        raise ValueError(f"unknown kernel kind {kind!r}")
-    t = _tile(head_dim)
-    ld = t + 4
-    if kind == "fwd":                      # Qt, Kt, Vt; P
-        return 4 * (3 * head_dim + t) * ld
-    if kind == "dq":                       # Qt, dOt, Kt, Vt; dS
-        return 4 * (4 * head_dim + t) * ld
-    return 4 * ((4 * head_dim + 2 * t) * ld + 2 * t)   # Kt, Vt, Qt, dOt; P, dS; lse, delta
-
-
-def supports(head_dim: int) -> bool:
-    """Whether the kernels take this head dim — the check the router
-    (``models/layers.py``) and the wrappers share. On the CPU it holds the
-    float32 plans against one block's shared memory; the bf16 plans fit at
-    every head dim up to ``MAX_HEAD_DIM`` (held on the card by
-    ``tests/test_torch_cuda.py`` through ``plan_smem_bytes``)."""
-    return 1 <= head_dim <= MAX_HEAD_DIM and all(
-        f32_smem_bytes(k, head_dim) <= SMEM_LIMIT_BYTES for k in _KINDS)
+_KINDS = smem.FLASH_KINDS              # the C source's Kind: 0, 1, 2
 
 
 def plan_smem_bytes(kind: str, head_dim: int, dtype) -> int:
     """Dynamic shared memory of one block of ``kind`` for inputs of
     ``dtype``, as the CUDA source plans it (``flash_smem_bytes``; builds the
-    library at first use, so it needs ``nvcc``)."""
+    library at first use, so it needs ``nvcc``). ``analysis/smem.py``
+    ``flash_smem`` mirrors it."""
     if kind not in _KINDS or dtype not in _DTYPE_CODES:
         raise ValueError(f"no flash kernel for kind {kind!r} in {dtype}")
     n = _launchers()["smem"](_KINDS.index(kind), _DTYPE_CODES[dtype], int(head_dim))
@@ -268,7 +230,7 @@ def flash_forward(q, k, v, *, causal: bool = True, window=None,
     on CPU tensors."""
     shapes = _check(q, k, v, group)
     scale = _defaults(q, scale)
-    if not build.route("flash attention", q, k, v):
+    if not build.route("flash_forward", q, k, v):
         return flash_forward_reference(q, k, v, causal=causal, window=window,
                                        softcap=softcap, group=group, scale=scale)
     args = _kernel_args((q, k, v), ("q", "k", "v"), shapes, causal, window,
@@ -293,7 +255,7 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
     shapes = _check(q, k, v, group)
     _check_grads_in(q, do, lse, delta)
     scale = _defaults(q, scale)
-    if not build.route("flash attention", q, k, v, do, lse, delta):
+    if not build.route("flash_dq", q, k, v, do, lse, delta):
         return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
                                   window=window, softcap=softcap, group=group,
                                   scale=scale)
@@ -314,7 +276,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
     shapes = _check(q, k, v, group)
     _check_grads_in(q, do, lse, delta)
     scale = _defaults(q, scale)
-    if not build.route("flash attention", q, k, v, do, lse, delta):
+    if not build.route("flash_dkv", q, k, v, do, lse, delta):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal=causal,
                                    window=window, softcap=softcap, group=group,
                                    scale=scale)

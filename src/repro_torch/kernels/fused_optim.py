@@ -221,8 +221,9 @@ def optimizer_update(rule: str, params: Sequence[torch.Tensor], grads: Sequence[
                      m: Sequence[torch.Tensor], v: Optional[Sequence[torch.Tensor]],
                      hp: Hyper, scale: Optional[torch.Tensor] = None) -> None:
     """One step of ``rule`` in place: kernel B on CUDA tensors (one launch
-    per (param dtype, state dtype) group), the plain version on CPU
-    tensors. ``v`` is AdamW's second moment (None for SGD and Lion)."""
+    per (param dtype, state dtype) group), the plain version on CPU tensors
+    (one call per group, leaf by leaf). ``v`` is AdamW's second moment
+    (None for SGD and Lion)."""
     if rule not in RULES:
         raise ValueError(f"unknown update rule '{rule}' (have {RULES})")
     if (v is None) != (rule != "adamw"):
@@ -234,32 +235,34 @@ def optimizer_update(rule: str, params: Sequence[torch.Tensor], grads: Sequence[
     flat = [t for x in lists for t in x if t is not None]
     if scale is not None:
         flat.append(scale)
-    if not build.route("optimizer_update", *flat):
-        update_reference(rule, params, grads, m, v, hp, scale)
-        return
-    tensors = dict(params=lists[0], grads=lists[1], m=lists[2])
-    if v is not None:
-        tensors["v"] = vs
-    _check_leaves(rule, **tensors)
-    for i, (p, g, mi, vi) in enumerate(zip(*lists)):
-        if g.dtype != p.dtype or g.shape != p.shape or mi.shape != p.shape or \
-                (vi is not None and (vi.shape != p.shape or vi.dtype != mi.dtype)):
-            raise ValueError(f"{rule}: leaf {i}: grad, m and v must match the param's "
-                             f"shape (grad also its dtype, v m's dtype)")
-    if scale is not None and (scale.dtype != torch.float32 or scale.numel() != 1):
-        raise ValueError("scale must be a float32 device scalar")
+    if build.placement("optimizer_update", *flat):
+        tensors = dict(params=lists[0], grads=lists[1], m=lists[2])
+        if v is not None:
+            tensors["v"] = vs
+        _check_leaves(rule, **tensors)
+        for i, (p, g, mi, vi) in enumerate(zip(*lists)):
+            if g.dtype != p.dtype or g.shape != p.shape or mi.shape != p.shape or \
+                    (vi is not None and (vi.shape != p.shape or vi.dtype != mi.dtype)):
+                raise ValueError(f"{rule}: leaf {i}: grad, m and v must match the param's "
+                                 f"shape (grad also its dtype, v m's dtype)")
+        if scale is not None and (scale.dtype != torch.float32 or scale.numel() != 1):
+            raise ValueError("scale must be a float32 device scalar")
     groups: Dict[Tuple[torch.dtype, torch.dtype], List[Tuple[torch.Tensor, ...]]] = {}
     for row in zip(*lists):
         if row[0].numel():
             groups.setdefault((row[0].dtype, row[2].dtype), []).append(row)
-    lib, dev = _lib(), lists[0][0].device
-    args = hp.kernel_args()
     for (pdt, sdt), rows in groups.items():
+        group = [t for row in rows for t in row if t is not None]
+        if not build.route("optimizer_update", *group, *([] if scale is None else [scale])):
+            p_, g_, m_, v_ = (list(x) for x in zip(*rows))
+            update_reference(rule, p_, g_, m_, v_ if v is not None else None, hp, scale)
+            continue
+        lib, dev = _lib(), rows[0][0].device
         table, chunks = _leaf_table(rows, [0] * len(rows), lib.fused_optim_chunk_elems(), dev)
         build.call(lib.fused_optim_update_launch, f"optimizer_update ({rule})", dev,
                    (table, scale),
                    (RULES.index(rule), int(pdt == torch.bfloat16), int(sdt == torch.bfloat16),
-                    len(rows), chunks, _grid(lib, chunks, dev), *args))
+                    len(rows), chunks, _grid(lib, chunks, dev), *hp.kernel_args()))
         optimizer_update.launches += 1
 
 

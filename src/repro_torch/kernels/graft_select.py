@@ -25,8 +25,9 @@ one block and in a global scratch where it does not, each the same kernel
 on another pointer with bit-equal results: MaxVol's working copy of V (the
 W plan, ``choose_plan``) and the Gram-Schmidt basis ``Qᵀ (rank, d)`` with
 ``ĝ`` (the basis plan, ``choose_basis``, beside the W plan's choice).
-``smem_bytes`` is the block's shared-memory sum, which the C library's
-``graft_select_smem_bytes`` computes too.
+The plans take the block's shared-memory sum from ``analysis/smem.py``
+(``graft_select_smem``), which the C library's ``graft_select_smem_bytes``
+computes too.
 """
 from __future__ import annotations
 
@@ -36,75 +37,21 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import smem
 from repro_torch.core import maxvol as maxvol_lib
 from repro_torch.core import projection as proj_lib
 from repro_torch.kernels import build
 
-# what one Hopper thread block can address as shared memory (227 KB)
-SMEM_LIMIT_BYTES = 232_448
-# the JAX package's per-program VMEM budget (analysis/vmem.py)
-VMEM_BUDGET_BYTES = 12 * 1024 * 1024
-_THREADS = 256    # csrc/graft_select.cu kThreads
-_WARPS = _THREADS // 32
-TILE_COLS = 16    # csrc/graft_select.cu kTileCols
-PLANS = ("shared", "global")
-
-
-def work_words(K: int, R: int) -> int:
-    """MaxVol's working set in float32 words: W (K·R), the per-row factor
-    and availability (K each) and the pivot row (R) — ``work_words`` in
-    ``csrc/graft_select.cu``."""
-    return K * R + 2 * K + R
-
-
-def basis_words(d: int, rank: int) -> int:
-    """The Gram-Schmidt basis in float32 words: ``Qᵀ (rank, d)`` and ``ĝ``
-    as one more row — ``basis_words`` in the CUDA source."""
-    return (rank + 1) * d
-
-
-def tile_words(cols: int) -> int:
-    """The warps' tiles that stage rows of ``cols`` floats of G (32 rows of
-    ``cols + 1`` floats a warp, up to ``TILE_COLS`` columns) — ``tile_words``
-    in the CUDA source."""
-    return _THREADS * (cols + 1) if cols <= TILE_COLS else 0
-
-
-def smem_bytes(K: int, R: int, rank: int, plan: str = "shared", basis_d: int = 0) -> int:
-    """Dynamic shared memory of one refresh block — the same sum as
-    ``smem_words`` in ``csrc/graft_select.cu``: V's working copy (K·R
-    floats and per-row scratch) under the shared W plan, the basis of
-    ``basis_d`` columns (0: the basis is global), and under every plan the
-    per-rank and per-warp scratch (two reduction slots) and G's staging
-    tiles."""
-    rest = (2 * _WARPS + 2) * rank + 2 * _WARPS + 2 + tile_words(K)
-    work = work_words(K, R) if plan == "shared" else 0
-    return 4 * (work + (basis_words(basis_d, rank) if basis_d else 0) + rest)
-
-
-def choose_plan(K: int, R: int, rank: int) -> str:
-    """The W plan: ``"shared"`` when V's working set fits one block's
-    shared memory, else ``"global"``."""
-    return "shared" if smem_bytes(K, R, rank) <= SMEM_LIMIT_BYTES else "global"
-
-
-def choose_basis(K: int, R: int, d: int, rank: int, plan: str) -> str:
-    """The basis plan beside W plan ``plan``: ``"shared"`` when the basis
-    fits the block's shared memory with the rest, else ``"global"``."""
-    return "shared" if smem_bytes(K, R, rank, plan, d) <= SMEM_LIMIT_BYTES else "global"
-
-
-def fused_budget_bytes(K: int, R: int, d: int, rank: int) -> int:
-    """The JAX package's ``fused_select_vmem`` total: V, G, G_sel + Q and
-    the one-hot, float32."""
-    return 4 * (K * R + d * K + 2 * d * rank + K * rank)
+PLANS = smem.PLANS
+choose_plan = smem.choose_plan
+choose_basis = smem.choose_basis
 
 
 def _check_budget(K: int, R: int, d: int, rank: int) -> None:
-    total = fused_budget_bytes(K, R, d, rank)
-    if total > VMEM_BUDGET_BYTES:
+    est = smem.fused_select_vmem(K, R, d, rank)
+    if not est.fits:
         raise ValueError(
-            f"fused selection blocks ({total / 2**20:.1f} MB) exceed the "
+            f"fused selection blocks ({est.total / 2**20:.1f} MB) exceed the "
             f"VMEM budget; shrink K={K}, d={d} or rank={rank}")
 
 
@@ -168,10 +115,11 @@ def resolve_plan(K: int, R: int, rank: int, plan: Optional[str]) -> str:
         return choose_plan(K, R, rank)
     if plan not in PLANS:
         raise ValueError(f"plan {plan!r} not in {PLANS}")
-    if plan == "shared" and smem_bytes(K, R, rank) > SMEM_LIMIT_BYTES:
+    est = smem.graft_select_smem(K, R, 0, rank, plan)
+    if not est.fits:
         raise ValueError(
             f"the shared plan keeps V (K={K}, R={R}) in shared memory and needs "
-            f"{smem_bytes(K, R, rank)} bytes, above the {SMEM_LIMIT_BYTES} bytes "
+            f"{est.total} bytes, above the {est.budget} bytes "
             "(227 KB) one Hopper thread block can use")
     return plan
 
@@ -184,12 +132,12 @@ def resolve_basis(K: int, R: int, d: int, rank: int, plan: str,
         return choose_basis(K, R, d, rank, plan)
     if basis not in PLANS:
         raise ValueError(f"basis {basis!r} not in {PLANS}")
-    need = smem_bytes(K, R, rank, plan, d)
-    if basis == "shared" and need > SMEM_LIMIT_BYTES:
+    est = smem.graft_select_smem(K, R, d, rank, plan, basis)
+    if not est.fits:
         raise ValueError(
             f"the shared basis keeps Qᵀ and ĝ (rank={rank}, d={d}) in shared memory "
-            f"and needs {need} bytes beside the {plan} W plan, above the "
-            f"{SMEM_LIMIT_BYTES} bytes (227 KB) one Hopper thread block can use")
+            f"and needs {est.total} bytes beside the {plan} W plan, above the "
+            f"{est.budget} bytes (227 KB) one Hopper thread block can use")
     return basis
 
 
@@ -206,15 +154,19 @@ def launchers():
     for fn, n_ptrs, n_ints in sigs.values():
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.graft_select_smem_bytes.argtypes = [ctypes.c_int] * 6
-    lib.graft_select_smem_bytes.restype = ctypes.c_int
-    return {"smem_bytes": lib.graft_select_smem_bytes,
+    smem_sums = {"smem_bytes": (lib.graft_select_smem_bytes, 6),
+                 "fast_maxvol_smem_bytes": (lib.fast_maxvol_smem_bytes, 4),
+                 "projection_sweep_smem_bytes": (lib.projection_sweep_smem_bytes, 2)}
+    for fn, n_ints in smem_sums.values():
+        fn.argtypes = [ctypes.c_int] * n_ints
+        fn.restype = ctypes.c_int
+    return {**{name: fn for name, (fn, _) in smem_sums.items()},
             **{name: fn for name, (fn, _, _) in sigs.items()}}
 
 
 def library_smem_bytes(K: int, R: int, d: int, rank: int, plan: str, basis: str) -> int:
     """The C library's own sum for one refresh block under the two plans
-    (-1 above 227 KB); ``smem_bytes`` mirrors it."""
+    (-1 above 227 KB); ``analysis/smem.py`` ``graft_select_smem`` mirrors it."""
     return launchers()["smem_bytes"](K, R, d, rank, int(plan == "global"),
                                      int(basis == "global"))
 
@@ -237,9 +189,9 @@ def _launch(V, G, g_bar, rank: int, B: int, K: int, R: int, d: int,
     errors = torch.empty((B, rank), dtype=torch.float32, device=dev)
     logvol = torch.empty(B, dtype=torch.float32, device=dev)
     G_sel = torch.empty((B, d, rank), dtype=torch.float32, device=dev)
-    Qt = torch.empty(B * basis_words(d, rank), dtype=torch.float32, device=dev) \
+    Qt = torch.empty(B * smem.basis_words(d, rank), dtype=torch.float32, device=dev) \
         if basis == "global" else None                                # Qᵀ and ĝ
-    work = torch.empty(B * work_words(K, R), dtype=torch.float32, device=dev) \
+    work = torch.empty(B * smem.work_words(K, R), dtype=torch.float32, device=dev) \
         if plan == "global" else None
     launch("graft_select", dev, (V, G, g_bar, pivots, errors, logvol, G_sel, Qt, work),
            (B, K, R, d, rank, int(plan == "global"), int(basis == "global")))

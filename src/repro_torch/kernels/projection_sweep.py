@@ -27,23 +27,16 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import smem
 from repro_torch.core import projection as proj_lib
 from repro_torch.kernels import build
 from repro_torch.kernels import graft_select as gs
 
-_WARPS = 8        # csrc/graft_select.cu kThreads / 32
 
-
-def red_words(R: int) -> int:
-    """The reduction scratch (two slots of per-warp partials and the
-    coefficients), ``sweep_red_words`` in the CUDA source."""
-    return (2 * _WARPS + 1) * R
-
-
-def smem_bytes(R: int, global_red: bool) -> int:
-    """Dynamic shared memory of the sweep block (``sweep_smem_words``): the
-    reduction scratch unless ``global_red``, and G's staging tiles."""
-    return 4 * ((0 if global_red else red_words(R)) + gs.tile_words(R))
+def library_smem_bytes(R: int, plan: str) -> int:
+    """The C library's own sum for the sweep block under ``plan`` (-1 above
+    227 KB); ``analysis/smem.py`` ``projection_sweep_smem`` mirrors it."""
+    return gs.launchers()["projection_sweep_smem_bytes"](R, int(plan == "global"))
 
 
 def _check(G: torch.Tensor, g_bar: torch.Tensor) -> None:
@@ -52,7 +45,7 @@ def _check(G: torch.Tensor, g_bar: torch.Tensor) -> None:
     d, R = G.shape
     if g_bar.shape != (d,):
         raise ValueError(f"g_bar shape {tuple(g_bar.shape)} != ({d},)")
-    if d * (2 * R + 1) * 4 > gs.VMEM_BUDGET_BYTES:
+    if d * (2 * R + 1) * 4 > smem.VMEM_BUDGET_BYTES:
         raise ValueError("G exceeds the single-block VMEM budget; reduce d or R")
 
 
@@ -68,13 +61,13 @@ def projection_sweep(G: torch.Tensor, g_bar: torch.Tensor, *,
     build.check_kernel_operands(G=G, g_bar=g_bar)
     d, R = G.shape
     dev = G.device
-    fits = smem_bytes(R, False) <= gs.SMEM_LIMIT_BYTES
+    fits = smem.projection_sweep_smem(R).fits
     if plan not in (None,) + gs.PLANS or (plan == "shared" and not fits):
         raise ValueError(f"plan {plan!r} is not one of {gs.PLANS} that R={R} fits")
     global_red = plan == "global" or not fits
     errors = torch.empty(R, dtype=torch.float32, device=dev)
-    Qt = torch.empty(gs.basis_words(d, R), dtype=torch.float32, device=dev)   # Qᵀ and ĝ
-    red = torch.empty(red_words(R), dtype=torch.float32, device=dev) if global_red else None
+    Qt = torch.empty(smem.basis_words(d, R), dtype=torch.float32, device=dev)   # Qᵀ and ĝ
+    red = torch.empty(smem.sweep_red_words(R), dtype=torch.float32, device=dev) if global_red else None
     gs.launch("projection_sweep", dev, (G, g_bar, errors, Qt, red),
               (d, R, int(global_red)))
     projection_sweep.launches += 1

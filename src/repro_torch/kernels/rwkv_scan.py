@@ -38,7 +38,8 @@ CPU tensors run the plain versions, ``rwkv_scan_reference`` (the per-step
 loop of ``ref.rwkv_chunk_ref``) and ``rwkv_scan_backward_reference`` (the
 explicit reverse loop); anything else raises. The kernels take any T and
 D; the wrappers refuse only a D whose block the JAX kernel's own VMEM
-estimate (``vmem_bytes``) puts above the package's 12 MB budget.
+estimate (``analysis/smem.py`` ``rwkv_forward_vmem``) puts above the
+package's 12 MB budget.
 """
 from __future__ import annotations
 
@@ -48,35 +49,23 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import smem
 from repro_torch.kernels import build
 
 # time steps per tile: the forward saves the state at the start of each
 # tile and the backward stages this many steps in shared memory (kTile in
 # csrc/rwkv_scan.cu)
-TIME_TILE = 16
-# the JAX package's per-program VMEM budget (analysis/vmem.py)
-VMEM_BUDGET_BYTES = 12 * 1024 * 1024
+TIME_TILE = smem.RWKV_TIME_TILE
 
 
 def n_tiles(T: int) -> int:
     return -(-T // TIME_TILE)
 
 
-def backward_smem_bytes() -> int:
-    """Dynamic shared memory of one backward block (``BwdSmem`` in
-    csrc/rwkv_scan.cu): two buffers of the tile's r, k, w (as float4 rows),
-    v, do and start state, the per-step c and Σ r u k, u, the 8 warps' dv
-    partial sums and the tile's dr, dk, dw."""
-    tile, rows, cols, warps = TIME_TILE, 64, 64, 8
-    return (2 * tile * rows * 16 + 2 * 2 * tile * cols * 4 + 2 * rows * cols * 4
-            + 2 * tile * 8 + rows * 4 + tile * warps * cols * 4 + 3 * tile * rows * 4)
-
-
-def vmem_bytes(D: int, chunk: int = 32) -> int:
-    """The JAX kernel's resident blocks per program (its docstring): four
-    (chunk, D) input streams, the (D, D) state and the (chunk, D) output,
-    float32."""
-    return 4 * (4 * chunk * D + D * D + chunk * D)
+def library_smem_bytes() -> int:
+    """The C library's own sum for one backward block (``BwdSmem``);
+    ``analysis/smem.py`` ``rwkv_backward_smem`` mirrors it."""
+    return _launchers()["backward_smem_bytes"]()
 
 
 # ---------------------------------------------------------------------------
@@ -142,11 +131,12 @@ def _check(r, k, v, w, u, do=None) -> Tuple[int, int, int]:
     BH, T, D = r.shape
     if u.shape != (BH, D):
         raise ValueError(f"u shape {tuple(u.shape)} != ({BH}, {D})")
-    if vmem_bytes(D) > VMEM_BUDGET_BYTES:
+    est = smem.rwkv_forward_vmem(D)
+    if not est.fits:
         raise ValueError(
-            f"rwkv_scan blocks at D={D} ({vmem_bytes(D) / 2**20:.1f} MB: four "
+            f"rwkv_scan blocks at D={D} ({est.total / 2**20:.1f} MB: four "
             f"(32, D) streams, the (D, D) state and the output) exceed the "
-            f"{VMEM_BUDGET_BYTES / 2**20:.0f} MB VMEM budget of the JAX kernel")
+            f"{est.budget / 2**20:.0f} MB VMEM budget of the JAX kernel")
     return BH, T, D
 
 

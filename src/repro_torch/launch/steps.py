@@ -220,7 +220,7 @@ def apply_sentinel(tcfg: TrainConfig, state, metrics) -> Tuple[bool, Dict[str, A
     # a sync every step that only the port makes (ROADMAP.md C), sanctioned
     # under its own name for train.audit
     with sync_allowed("sentinel"):
-        loss_h, gnorm_h = torch.stack([metrics["loss"].to(torch.float32),
+        loss_h, gnorm_h = torch.stack([metrics["loss"].to(torch.float32),  # lint: allow sentinel
                                        metrics["grad_norm"].to(torch.float32)]).tolist()
     loss = _F(loss_h)
     finite = bool(np.isfinite(loss) and np.isfinite(_F(gnorm_h)))
@@ -239,7 +239,7 @@ def apply_sentinel(tcfg: TrainConfig, state, metrics) -> Tuple[bool, Dict[str, A
     else:
         health = dict(health, bad_streak=health["bad_streak"] + 1)
     state["health"] = health
-    return healthy, dict(metrics, healthy=float(healthy),
+    return healthy, dict(metrics, healthy=float(healthy),  # lint: allow a host bool
                          bad_streak=health["bad_streak"])
 
 

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import smem
 from repro_torch.kernels import flash_attention as flash_lib
 
 
@@ -64,25 +65,13 @@ def _activation(name: str):
 # attention
 # ---------------------------------------------------------------------------
 
-_FLASH_BLOCKS = (128, 64, 32, 16, 8)
-
-
-def _flash_blocks(S: int, T: int):
-    """Largest of the JAX kernel's tile sizes dividing the q/kv lengths
-    (None = none fit) — the JAX package's block rule."""
-    bq = next((b for b in _FLASH_BLOCKS if S % b == 0), None)
-    bk = next((b for b in _FLASH_BLOCKS if T % b == 0), None)
-    return bq, bk
-
-
 def _flash_feasible(cfg, S: int, T: int) -> bool:
-    """The JAX block rule plus the Hopper kernels' own limits (head dim,
-    shared memory, bf16/f32). The JAX package's 12 MB VMEM guard on the
-    whole K/V stream is not copied: the Hopper kernels tile KV, so T is not
-    limited, and a shape the TPU would route to chunked can go to flash here."""
-    bq, bk = _flash_blocks(S, T)
-    return (bq is not None and bk is not None and flash_lib.supports(cfg.head_dim)
-            and cfg.param_dtype in ("bfloat16", "float32"))
+    """The JAX block rule (``analysis/smem.py`` ``FLASH_BLOCKS``) plus the
+    Hopper kernels' own limits (head dim, shared memory, bf16/f32). The JAX
+    package's 12 MB VMEM guard on the whole K/V stream is not copied: the
+    Hopper kernels tile KV, so T is not limited, and a shape the TPU would
+    route to chunked can go to flash here."""
+    return smem.flash_feasible(S, T, cfg.head_dim, cfg.param_dtype)
 
 
 def resolve_attn_backend(cfg, S: int, T: int, device) -> str:

@@ -22,7 +22,7 @@ refresh: the sketch is empty) this is exactly plain GRAFT, bit for bit.
 
 The arithmetic is the reference's with one deliberate deviation: the Gram
 eigendecomposition of ``fd_update`` runs in float64 (rounded back to
-float32), because MKL's float32 ``syevd`` fails to converge on it when the
+float32; a ``wide_allowed`` site, which the step audit reports as info), because MKL's float32 ``syevd`` fails to converge on it when the
 sketch still has many exact zero rows (56 of 72 at smoke size). A side
 effect: the reference keeps rounding-noise rows (images of null-space
 eigenvectors, norms ~1e-6 of the real rows) that pass
@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.launch_audit import wide_allowed
 from repro_torch.core import projection as proj_lib
 from repro_torch.core.features import _finite
 from repro_torch.selection import graft as graft_lib
@@ -76,8 +77,9 @@ def fd_update(cfg: GraftConfig, sketch: torch.Tensor, G: torch.Tensor) -> torch.
     The eigendecomposition is taken in float64 (see the module docstring)."""
     L = cfg.sketch_rows
     stacked = torch.cat([float(_F(cfg.sketch_decay)) * sketch, G.to(torch.float32).T], 0)
-    evals, evecs = (x.to(torch.float32) for x in torch.linalg.eigh(
-        _finite(stacked @ stacked.T).to(torch.float64)))             # ascending
+    with wide_allowed("fd_update_eigh"):
+        evals, evecs = (x.to(torch.float32) for x in torch.linalg.eigh(
+            _finite(stacked @ stacked.T).to(torch.float64)))         # ascending
     evals = torch.flip(evals, (0,))
     evecs = torch.flip(evecs, (1,))
     rows = evecs[:, :L].T @ stacked                      # σᵢ·vᵢᵀ, largest first

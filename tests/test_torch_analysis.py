@@ -1,12 +1,15 @@
 """The port's ``train.audit`` machinery (``repro_torch.analysis``) beside the
-JAX package's ``repro.analysis``: the report format and its JSON, the sync
+JAX package's ``repro.analysis``: the report format and its JSON (the rule
+table with the JAX ids and severities), the sync
 guard (strict raise, SY001 report, sanctioned sites, thread-local scope,
 patches restored exactly), the signature watcher (the same key paths and
 specs for the same numpy batch), and ``train.audit`` through the Trainer —
 a per-step sync raises ``SyncGuardError``, a clean run reports no
 unsanctioned sync and no drift, and the drain points report under the
 reference's site names (plus the port's own ``sentinel``; ``step_sync``
-syncs only on the card).
+syncs only on the card). Then the battery runner (``python -m
+repro_torch.analysis``) beside ``repro.analysis.runner``: the probe config,
+SP001, and the CLI on the CPU, clean and with a planted per-step sync.
 """
 import json
 import threading
@@ -50,8 +53,13 @@ def test_report_json_and_format_equal_jax():
     assert t.to_json() == j.to_json()
     assert json.loads(t.to_json())["ok"] is False
     assert t.format() == j.format() and t.format(show_info=False) == j.format(show_info=False)
-    assert treport.rule_table() == jreport.rule_table()
-    assert treport.RULES == jreport.RULES
+    # the same rule ids and severities; the descriptions name the port's checks
+    assert {k: v[0] for k, v in treport.RULES.items()} == \
+        {k: v[0] for k, v in jreport.RULES.items()}
+    table = treport.rule_table().splitlines()
+    assert table[:2] == jreport.rule_table().splitlines()[:2]
+    assert [row.split(" | ")[:2] for row in table[2:]] == \
+        [row.split(" | ")[:2] for row in jreport.rule_table().splitlines()[2:]]
 
 
 def test_finding_defaults_severity_from_registry():
@@ -268,3 +276,75 @@ def test_trainer_audit_raises_on_batch_drift(monkeypatch):
     monkeypatch.setattr(pipeline.SyntheticLM, "batch_at", drifting)
     with pytest.raises(RuntimeError, match=r"\[train.audit\].*batch\['labels'\]"):
         Trainer(_audited(), device="cpu").fit()
+
+
+# ---------------------------------------------------------------------------
+# the battery runner (python -m repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def test_runner_probe_overrides_equal_jax():
+    from repro.analysis import runner as jrunner
+    from repro_torch.analysis import runner as trunner
+    assert trunner.probe_overrides("/x") == jrunner.probe_overrides("/x")
+    assert (trunner.SEL_K, trunner.SEL_D, trunner.SEL_R) == \
+        (jrunner._SEL_K, jrunner._SEL_D, jrunner._SEL_R)
+    assert (trunner.ATTN_LAYERS, trunner.ATTN_B, trunner.ATTN_S) == \
+        (jrunner._ATTN_LAYERS, jrunner._ATTN_B, jrunner._ATTN_S)
+
+
+def test_sp001_counts_the_same_samplers_as_jax():
+    from repro.analysis import runner as jrunner
+    from repro_torch.analysis import runner as trunner
+    (got,), (want,) = trunner.check_sampler_closures(), jrunner.check_sampler_closures()
+    assert (got.rule, got.severity, got.message) == (want.rule, want.severity, want.message)
+
+
+def test_cli_on_the_cpu_exits_0(tmp_path):
+    import subprocess
+    import sys
+    out = tmp_path / "report.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--device=cpu", f"--json={out}"],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    report = json.loads(out.read_text())
+    assert report["ok"] is True
+    rules = {f["rule"] for f in report["findings"]}
+    assert {"SP001", "VM003", "SY001", "JX002"} <= rules
+
+
+def test_cli_fails_on_a_planted_per_step_item(monkeypatch, capsys):
+    """A ``.item()`` in every step stops the audited probe run: SY001, exit 1."""
+    from repro_torch.analysis import runner as trunner
+    from repro_torch.launch import steps as steps_lib
+
+    orig = steps_lib.make_run_step
+
+    def planted(mcfg, tcfg):
+        run = orig(mcfg, tcfg)
+
+        def step(state, batch):
+            state, metrics = run(state, batch)
+            metrics["loss"].item()
+            return state, metrics
+        return step
+
+    monkeypatch.setattr(steps_lib, "make_run_step", planted)
+    assert trunner.main(["--device=cpu", "--quiet"]) == 1
+    out = capsys.readouterr().out
+    assert "ERROR   SY001" in out and "unsanctioned host sync: item" in out
+
+
+def test_cli_rules_prints_every_id(capsys):
+    from repro_torch.analysis import runner as trunner
+    assert trunner.main(["--rules"]) == 0
+    out = capsys.readouterr().out
+    assert all(f"| {rid} |" in out for rid in treport.RULES)
+
+
+def test_cli_without_a_device_runs_on_the_card_or_raises():
+    from repro_torch.analysis import runner as trunner
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is the card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trunner.run_all(runtime=False)

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import smem
 from repro_torch.core import maxvol as maxvol_lib
 from repro_torch.core import projection as proj_lib
 from repro_torch.kernels import fast_maxvol as fm
@@ -163,12 +164,13 @@ def test_global_plan_bit_equal_to_shared_plan(cuda, K, R, d, rank, basis):
                                         (1024, 64, 1024, 64), (64, 8, 32, 6)])
 def test_refresh_shared_memory_matches_the_library(cuda, K, R, d, rank):
     """The C library's shared-memory sum of a refresh block equals the
-    wrapper's mirror under every pair of plans (-1 above 227 KB)."""
+    estimator's (``analysis/smem.py``) under every pair of plans (-1 above
+    227 KB)."""
     for plan in gs.PLANS:
         for basis in gs.PLANS:
-            want = gs.smem_bytes(K, R, rank, plan, d if basis == "shared" else 0)
+            want = smem.graft_select_smem(K, R, d, rank, plan, basis)
             got = gs.library_smem_bytes(K, R, d, rank, plan, basis)
-            assert got == (want if want <= gs.SMEM_LIMIT_BYTES else -1), (plan, basis)
+            assert got == (want.total if want.fits else -1), (plan, basis)
 
 
 @pytest.mark.cuda
@@ -387,8 +389,9 @@ def test_flash_autograd_on_card_matches_cpu(cuda):
 @pytest.mark.cuda
 def test_flash_smem_plans_fit_one_block(cuda):
     """Every tile plan of the CUDA source fits one Hopper block at every
-    head dim up to 256; its float32 sums equal the wrapper's
-    ``f32_smem_bytes`` (what ``supports`` checks without the library). The
+    head dim up to 256; its sums equal the estimator's
+    (``analysis/smem.py`` ``flash_smem``, what the router checks without the
+    library). The
     bf16 plans: bf16 rows of the padded head dim + 8; the forward holds 64 Q
     rows and two K and two V tiles of 64 rows (32 at 256), dQ 64 Q and 64 dO
     rows and the forward's K and V tiles, dK/dV 64 K and V rows, two Q and
@@ -397,9 +400,10 @@ def test_flash_smem_plans_fit_one_block(cuda):
     for kind in ("fwd", "dq", "dkv"):
         for dh in range(1, fa.MAX_HEAD_DIM + 1):
             for dtype in (torch.bfloat16, torch.float32):
-                assert 0 < fa.plan_smem_bytes(kind, dh, dtype) <= fa.SMEM_LIMIT_BYTES, \
+                assert 0 < fa.plan_smem_bytes(kind, dh, dtype) <= smem.SMEM_LIMIT_BYTES, \
                     (kind, dh, dtype)
-            assert fa.plan_smem_bytes(kind, dh, torch.float32) == fa.f32_smem_bytes(kind, dh)
+                assert fa.plan_smem_bytes(kind, dh, dtype) == \
+                    smem.flash_smem(kind, dh, dtype).total, (kind, dh, dtype)
     padded = {12: 16, 16: 16, 32: 32, 64: 64, 112: 128, 128: 128, 160: 160, 256: 256}
     for dh, dp in padded.items():
         kv_rows = 32 if dp == 256 else 64
@@ -506,7 +510,7 @@ def test_rwkv_unaligned_inputs_give_the_same_bits(cuda, name):
 
 @pytest.mark.cuda
 def test_rwkv_backward_shared_memory_matches_its_plan(cuda):
-    assert rw._launchers()["backward_smem_bytes"]() == rw.backward_smem_bytes()
+    assert rw.library_smem_bytes() == smem.rwkv_backward_smem().total
 
 
 @pytest.mark.cuda
@@ -1179,3 +1183,36 @@ def test_audit_on_card_sanctions_the_ports_syncs(cuda):
     assert audit["unsanctioned"] == 0 and audit["recompiles"] == 0
     assert audit["sync_sites"]["step_sync:cuda.synchronize"] == 4
     assert audit["sync_sites"]["sentinel:tolist"] == 4
+
+
+@pytest.mark.cuda
+def test_profiler_counts_equal_the_audit_on_card(cuda):
+    """The fused refresh and the 2-layer flash probe's forward and train
+    step: each route decision the audit counts is a launch the profiler
+    sees, by kernel name, and no plain version runs on the card."""
+    from repro_torch.analysis import runner
+    for label, section in (("fused", lambda: runner.check_fused_selection(cuda)),
+                           ("attention", lambda: runner.check_attention(cuda))):
+        report = runner.held_to_profiler(section, label, cuda)
+        assert report.ok, report.format(show_info=False)
+        agreed = [f for f in report.by_rule("JX003") if "profiler counts equal" in f.message]
+        assert agreed and "=0" not in agreed[0].message, label
+
+
+@pytest.mark.cuda
+def test_library_smem_sums_equal_the_estimator(cuda):
+    """Every plan of the five kernels with a shared-memory plan: the C
+    library's own sum equals ``analysis/smem.py``'s."""
+    from repro_torch.analysis import runner
+    rows = runner.library_sums()
+    assert {kernel.split("(")[0] for kernel, _, _ in rows} == {
+        "flash_fwd", "flash_dq", "flash_dkv", "graft_select", "fast_maxvol",
+        "projection_sweep", "rwkv_scan_backward"}
+    assert [r for r in rows if r[1] != r[2]] == []
+
+
+@pytest.mark.cuda
+def test_analysis_battery_on_card_is_clean(cuda):
+    from repro_torch.analysis import runner
+    report = runner.run_all(device="cuda")
+    assert report.ok, report.format(show_info=False)

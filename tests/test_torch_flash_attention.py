@@ -139,17 +139,23 @@ def test_cpu_tensors_launch_nothing_and_other_devices_raise():
 def test_smem_plan_covers_every_config_head_dim():
     """Head dims of the JAX package's configs (12 minicpm smoke, 16, 64
     minicpm, 112, 128 gemma2, 160 stablelm, 256) fit the float32 kernels'
-    shared-memory plans; above 256 they are refused. The bf16 plans are the
-    CUDA source's own and are held on the card
+    shared-memory plans; above 256 they are refused. ``analysis/smem.py``
+    sums the plans; the card holds them to the CUDA source's own
     (``tests/test_torch_cuda.py::test_flash_smem_plans_fit_one_block``)."""
+    from repro_torch.analysis import smem
+
+    def supports(dh, dtype="bfloat16"):
+        return smem.flash_attention_report(64, 64, dh, dtype).ok
+
     for dh in (12, 16, 64, 112, 128, 160, 256):
-        assert tfa.supports(dh), dh
-    assert not tfa.supports(257)
+        assert supports(dh, "float32") and supports(dh), dh
+    assert not supports(257)
     # every head dim up to 256 fits one block
-    assert all(tfa.supports(dh) for dh in range(1, tfa.MAX_HEAD_DIM + 1))
+    assert all(supports(dh, dt) for dh in range(1, tfa.MAX_HEAD_DIM + 1)
+               for dt in ("float32", "bfloat16"))
     # float32: tiles of 64 (32 above 160), 3 staged operands + P
-    assert tfa.f32_smem_bytes("fwd", 64) == 4 * (3 * 64 + 64) * 68
-    assert tfa.f32_smem_bytes("dkv", 256) == 4 * ((4 * 256 + 64) * 36 + 64)
+    assert smem.flash_smem("fwd", 64, "float32").total == 4 * (3 * 64 + 64) * 68
+    assert smem.flash_smem("dkv", 256, "float32").total == 4 * ((4 * 256 + 64) * 36 + 64)
 
 
 # Small versions of the card cases of tests/test_torch_cuda.py (FLASH_CASES):

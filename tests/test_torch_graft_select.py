@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from repro.kernels.graft_select import fused_graft_select_pallas
-from repro_torch.kernels.graft_select import (SMEM_LIMIT_BYTES, graft_select,
-                                              smem_bytes)
+from repro_torch.analysis import smem
+from repro_torch.analysis.smem import SMEM_LIMIT_BYTES
+from repro_torch.kernels.graft_select import graft_select
 from torch_cases import CASES, assert_refresh_match, graft_case
 
 
@@ -71,7 +72,12 @@ def test_shared_memory_budget_formula(K, R, d, rank, plan, basis):
     per-rank and per-warp scratch with its two reduction slots, and for
     K <= 16 the warps' tiles that stage G's rows. The slice's
     and the wide test shape's V fit, a 1024×64 V does not."""
-    from repro_torch.kernels.graft_select import basis_words, work_words
+    from repro_torch.analysis.smem import basis_words, work_words
+
+    def smem_bytes(K, R, rank, plan="shared", basis_d=0):
+        return smem.graft_select_smem(K, R, basis_d, rank, plan,
+                                      "shared" if basis_d else "global").total
+
     tiles = 256 * (K + 1) if K <= 16 else 0        # G's staging tiles, 32 rows a warp
     rest = 4 * ((2 * 8 + 2) * rank + 2 * 8 + 2 + tiles)
     for p in ("shared", "global"):
@@ -113,9 +119,13 @@ def test_plan_choice_and_the_fused_budget_refusal(K, R, d, rank, plan, basis):
     (1024×64 runs now); forcing a shared plan that does not fit raises. It
     refuses exactly what the JAX kernel's 12 MB estimate refuses, with the
     same message."""
-    from repro_torch.kernels.graft_select import (VMEM_BUDGET_BYTES, choose_basis,
-                                                  choose_plan, fused_budget_bytes,
-                                                  resolve_basis, resolve_plan)
+    from repro_torch.analysis.smem import VMEM_BUDGET_BYTES
+    from repro_torch.kernels.graft_select import (choose_basis, choose_plan, resolve_basis,
+                                                  resolve_plan)
+
+    def fused_budget_bytes(K, R, d, rank):
+        return smem.fused_select_vmem(K, R, d, rank).total
+
     assert choose_plan(K, R, rank) == plan
     assert choose_basis(K, R, d, rank, plan) == basis
     assert resolve_basis(K, R, d, rank, plan, None) == basis
@@ -132,7 +142,8 @@ def test_plan_choice_and_the_fused_budget_refusal(K, R, d, rank, plan, basis):
     assert choose_plan(1024, 64, 64) == "global"
     assert choose_plan(2048, 256, 256) == "global"
     # the global plans keep only the per-rank and per-warp scratch in a block
-    assert smem_bytes(1024, 64, 64, "global") == 4 * ((2 * 8 + 2) * 64 + 2 * 8 + 2)
+    assert smem.graft_select_smem(1024, 64, 8, 64, "global").total == \
+        4 * ((2 * 8 + 2) * 64 + 2 * 8 + 2)
     assert fused_budget_bytes(1024, 64, 8, 64) < VMEM_BUDGET_BYTES
     V = torch.zeros(1024, 64)
     got = graft_select(V, torch.zeros(8, 1024), torch.zeros(8), 64)   # plain version

@@ -159,8 +159,10 @@ def test_rwkv_scan_refuses_what_jax_cannot_hold():
         trw.rwkv_scan(*[torch.zeros(2, 8, 4)] * 4, torch.zeros(1, 4))
     with pytest.raises(ValueError, match="VMEM budget"):
         trw.rwkv_scan_forward(*[torch.zeros(1, 1, 2048)] * 4, torch.zeros(1, 2048))
-    assert trw.vmem_bytes(64) == 4 * (4 * 32 * 64 + 64 * 64 + 32 * 64)
-    assert trw.vmem_bytes(1024) <= trw.VMEM_BUDGET_BYTES
+    from repro_torch.analysis import smem
+    assert smem.rwkv_forward_vmem(64).total == 4 * (4 * 32 * 64 + 64 * 64 + 32 * 64)
+    assert smem.rwkv_forward_vmem(1024).fits and not smem.rwkv_forward_vmem(2048).fits
+    assert smem.VMEM_BUDGET_BYTES == 12 * 1024 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -566,7 +568,8 @@ def test_backward_shared_memory_plan_fits_one_block():
     steps of r, k, w (float4 rows), v and do, two 64 × 64 start states, the
     8 warps' dv partial sums and the tile's dr, dk, dw; under the 227 KB a
     block can take, over the 48 KB of static shared memory."""
-    n = trw.backward_smem_bytes()
+    from repro_torch.analysis import smem
+    n = smem.rwkv_backward_smem().total
     assert n == 2 * 16 * 64 * 16 + 2 * 2 * 16 * 64 * 4 + 2 * 64 * 64 * 4 + 2 * 16 * 8 \
         + 64 * 4 + 16 * 8 * 64 * 4 + 3 * 16 * 64 * 4 == 127488
     assert 48 * 1024 < n <= 232448
