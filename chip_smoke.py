@@ -50,7 +50,10 @@ Phases (any failure exits nonzero and prints no result line):
                A's clip factor (in batches of leaves that fit twice); then A
                and B timed on the slice's dtypes by CUDA events and profiler
                device time beside their bounds, their plain versions and
-               torch.nn.utils.get_total_norm / torch.optim.AdamW(fused=True).
+               torch.nn.utils.get_total_norm / torch.optim.AdamW(fused=True)
+               (with float32 moments, B's function, on float32 copies of the
+               params and grads — the kernels line's library time — and with
+               moments in the params' dtype, bf16).
   6. slice   — the training path through the user entry point
                (``repro_torch.api.Trainer``) on minicpm-2b at full width and
                depth: 6 steps, GRAFT refresh every 2 steps through the
@@ -216,6 +219,28 @@ Phases (any failure exits nonzero and prints no result line):
                steady step at the same width, 32 steps a run, with
                train.audit off, on, on, off, twice: what the audit costs a
                step.
+
+
+ 20. backend — data-parallel training through the execution backend
+               (``repro_torch.backend``): (a) world size 1 over NCCL in this
+               process, minicpm-2b at full width, 8 of 40 layers (phase
+               depth8's cut), 6 steps, refresh every 2, in turns local,
+               NCCL, NCCL, local: losses and every refresh's pivots bit-equal
+               to the local backend's, every run's launches equal to the
+               reckoning, the steady steps (the backend's cost); (b) two
+               gloo ranks sharing the
+               card, each a ``python -m repro_torch.backend --worker``
+               subprocess (the Trainer under ``launch_audit.recording()``,
+               its counts, losses, grad norms, pivots and a digest of its
+               final parameters printed as JSON), minicpm-2b at full width,
+               2 of 40 layers (phase shell's cut), 6 steps: each rank's
+               launches equal to the one-rank reckoning (graft_select 3,
+               grad_norm 6, optimizer_update 6 a dtype group, flash as
+               reckoned), pivots equal across the ranks at every refresh,
+               final parameters bit-equal across the ranks, finite losses,
+               every step's loss and grad norm within rtol 3e-3 of a 1-rank
+               run in the same call; the per-step relative differences and
+               the gradient reduce's seconds printed.
 
 It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -1292,7 +1317,7 @@ def _profile(tr, tag):
     from repro_torch.optim import make_optimizer
     mcfg, tcfg, state = tr.mcfg, tr.tcfg, tr.state
     K, S = tr.config.train.batch, tr.config.train.seq
-    batch = tr._to_device(tr.data.batch_at(tcfg.graft.refresh_every * 10))
+    batch = tr.backend.shard_batch(tr.data.batch_at(tcfg.graft.refresh_every * 10))
     refresh = steps_lib.make_selection_refresh(mcfg, tcfg)
     opt = make_optimizer(tcfg.optimizer)
     out = {}
@@ -1418,7 +1443,7 @@ def phase_depth8(ctx):
         if not remat[mode]:
             from repro_torch.launch import steps as steps_lib
             step_fn = steps_lib.make_train_step(tr.mcfg, tr.tcfg)
-            batch = tr._to_device(tr.data.batch_at(tr.tcfg.graft.refresh_every * 10))
+            batch = tr.backend.shard_batch(tr.data.batch_at(tr.tcfg.graft.refresh_every * 10))
             tr.state["step"] = 0                       # a refresh step
             gemm, total = _gemm_launches(lambda: step_fn(tr.state, batch))
             print(f"[depth8] remat {mode}: one refresh step launched {gemm} GEMM kernels "
@@ -1747,7 +1772,7 @@ def phase_families(ctx):
         print(f"[families] {arch}: steady step time (steps 1-5) mean {np.mean(steady):.1f} ms; "
               f"refresh steps {[round(r['step_time_s'] * 1e3, 1) for r in hist[2::2]]} ms")
         if mcfg.family == "hybrid":
-            batch = tr._to_device(tr.data.batch_at(tr.tcfg.graft.refresh_every * 10))
+            batch = tr.backend.shard_batch(tr.data.batch_at(tr.tcfg.graft.refresh_every * 10))
             _profile(tr, f"families {arch}")
             n_l, dev_ms, ev_ms = _ssm_share(tr, batch)
             print(f"[families] {arch}: the SSM loop's calls of one refresh step run alone "
@@ -2300,6 +2325,18 @@ def _optim_times(ctx, shapes, norm_err, update_err):
                             fused=True)
     t["B_library"] = _time_auto(lib.step, max_iters=20)
     del lib, leaves
+    torch.cuda.empty_cache()
+    # the same function as B: float32 moments. PyTorch keeps AdamW's moments
+    # in the params' dtype, so its params (and grads) are float32 copies
+    leaves = [torch.nn.Parameter(x.float()) for x in p]
+    for leaf, gx in zip(leaves, g):
+        leaf.grad = gx.float()
+    lib = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.01,
+                            fused=True)
+    t["B_library_f32"] = _time_auto(lib.step, max_iters=20)
+    lib_f32_bytes = 28 * n          # p, m, v read and written, g read: all float32
+    del lib, leaves
+    torch.cuda.empty_cache()
     a_bound = _bound(g_bytes + 8, 2 * n)
     b_bound = _bound(upd_bytes + 4, 16 * n)
     print(f"[optim] {ctx['smi']}", flush=True)
@@ -2314,6 +2351,11 @@ def _optim_times(ctx, shapes, norm_err, update_err):
           f"bound {b_bound[0]:.4f} ms by {b_bound[1]} ({b_bound[2]} bytes, {b_bound[3]} flop); "
           f"{t['B_device'] / b_bound[0]:.2f}x the bound; SGD {t['sgd']:.4f} ms, Lion "
           f"{t['lion']:.4f} ms (events)", flush=True)
+    print(f"[optim] torch.optim.AdamW(fused=True) with float32 moments (B's function; its "
+          f"params and grads float32 copies, as PyTorch keeps the moments in the params' "
+          f"dtype): {t['B_library_f32']:.4f} ms (events); it moves {lib_f32_bytes} bytes "
+          f"(bound {lib_f32_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms) where B moves "
+          f"{b_bound[2]}; the bf16-moment call above {t['B_library']:.4f} ms", flush=True)
     src = "src/repro_torch/csrc/fused_optim.cu"
     ctx["kernels"]["grad_norm"] = {
         "name": "grad_norm", "route": "cuda", "source": src,
@@ -2324,7 +2366,8 @@ def _optim_times(ctx, shapes, norm_err, update_err):
         "name": "optimizer_update", "route": "cuda", "source": src,
         "replaces": OPTIM_REPLACES["optimizer_update"], "launches": None, "max_abs_err": update_err,
         "ms": t["B"], "plain_ms": t["B_plain"], "bound_ms": b_bound[0],
-        "bound_by": b_bound[1], "library_ms": t["B_library"], "device_ms": t["B_device"]}
+        "bound_by": b_bound[1], "library_ms": t["B_library_f32"], "device_ms": t["B_device"],
+        "library_bf16_moments_ms": t["B_library"]}
     del p, g
     gc.collect()
     torch.cuda.empty_cache()
@@ -2525,7 +2568,7 @@ def phase_chaos(ctx):
     import numpy as np
     import torch
     from repro_torch.api import ExperimentConfig, Trainer
-    from repro_torch.api import callbacks as cb_lib
+    from repro_torch.backend import base as backend_base
     from repro_torch.checkpoint import checkpoint as ck_lib
     from repro_torch.launch.metrics import read_metrics
     from repro_torch.models.layers import resolve_attn_backend
@@ -2590,16 +2633,17 @@ def phase_chaos(ctx):
                     timed[key].append(time.perf_counter() - t0)
             return wrapped
 
-        saved = (cb_lib.train_state_to_host, ck_lib.CheckpointManager._write,
+        # the checkpoint's device->host copy is the backend's to_host
+        saved = (backend_base.Backend.to_host, ck_lib.CheckpointManager._write,
                  ck_lib.CheckpointManager.restore_latest_good)
-        cb_lib.train_state_to_host = timer(saved[0], "to_host")
+        backend_base.Backend.to_host = timer(saved[0], "to_host")
         ck_lib.CheckpointManager._write = timer(saved[1], "write")
         ck_lib.CheckpointManager.restore_latest_good = timer(saved[2], "restore")
         try:
             result, rows, launches, wall = _chaos_scenario(
                 work, matrix.scenario_nan_rollback, wide, nan_step=10)
         finally:
-            (cb_lib.train_state_to_host, ck_lib.CheckpointManager._write,
+            (backend_base.Backend.to_host, ck_lib.CheckpointManager._write,
              ck_lib.CheckpointManager.restore_latest_good) = saved
         steps = [r["step"] for r in rows]
         want = _chaos_reckon(mcfg, steps, 2, True)
@@ -2720,6 +2764,115 @@ def phase_analysis(ctx):
           flush=True)
 
 
+BACKEND_LAYERS = 8            # (a): phase depth8's cut
+BACKEND_STEPS = ["train.steps=6", "train.log_every=0"]
+
+
+def _backend_overrides(layers):
+    return ([o for o in SLICE_OVERRIDES if not o.startswith("model.overrides")]
+            + [f'model.overrides={{"attn_backend": "auto", "num_layers": {layers}}}']
+            + BACKEND_STEPS)
+
+
+def _backend_check(tag, res):
+    """A run's losses finite and its launches the reckoning."""
+    import numpy as np
+    want = res["launches_expected"]
+    got = {k: res["launches"].get(k, 0) for k in want}
+    print(f"[backend] {tag}: losses {[res['losses'][k] for k in sorted(res['losses'], key=int)]}"
+          f"; step ms {[round(x * 1e3, 1) for x in res['step_s']]}; launches {got}", flush=True)
+    assert all(np.isfinite(v) for v in res["losses"].values()), f"{tag}: non-finite loss"
+    assert got == want, f"{tag}: launches {got}, reckoned {want}"
+    for name in ("graft_select", "flash_forward", "flash_dq", "flash_dkv", "grad_norm",
+                 "optimizer_update"):
+        assert got[name] > 0, f"{tag}: {name} never launched"
+
+
+def phase_backend(ctx):
+    """Data-parallel training through the backend: (a) world size 1 over
+    NCCL in process, bit-equal to the local backend; (b) two gloo ranks on
+    the one card as subprocesses, held to the one-rank reckoning, to each
+    other and to a 1-rank run."""
+    import numpy as np
+    import torch
+    from repro_torch.backend import fleet
+    ctx.pop("trainer", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) world size 1 over NCCL beside the local backend, same call, in
+    # turns local, NCCL, NCCL, local
+    base = _backend_overrides(BACKEND_LAYERS)
+    runs = {"local": [], "nccl": []}
+    for kind in ("local", "nccl", "nccl", "local"):
+        extra = fleet.backend_overrides(1, 0, fleet.free_port()) if kind == "nccl" else []
+        res = fleet.run_worker(base + extra)
+        _backend_check(f"(a) {kind}, {BACKEND_LAYERS} layers", res)
+        assert kind == "local" or res["collectives"] == "nccl", \
+            f"world size 1 on one card ran {res['collectives']}"
+        runs[kind].append(res)
+        gc.collect()
+        torch.cuda.empty_cache()
+    first = runs["local"][0]
+    for res in runs["local"][1:] + runs["nccl"]:
+        assert res["losses"] == first["losses"], "world size 1 losses differ from local"
+        assert res["pivots"] == first["pivots"] and res["ranks"] == first["ranks"], \
+            "world size 1 pivots or ranks differ from local"
+        assert res["params_sha256"] == first["params_sha256"], \
+            "world size 1 ends with other parameters than local"
+    steady = {k: [float(np.mean(r["step_s"][1:])) * 1e3 for r in v] for k, v in runs.items()}
+    print(f"[backend] (a) {ctx.get('smi', '')}: losses, final parameters and pivots of "
+          f"{len(first['pivots'])} refreshes bit-equal in all four runs; steady step (steps 1-5) local "
+          f"{[round(x, 3) for x in steady['local']]} ms, NCCL world 1 "
+          f"{[round(x, 3) for x in steady['nccl']]} ms (means {np.mean(steady['local']):.3f} / "
+          f"{np.mean(steady['nccl']):.3f}); the grad reduce's host ms a step "
+          f"{[round(x * 1e3, 3) for x in runs['nccl'][-1]['reduce_s']]}", flush=True)
+    del runs, first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks sharing the card, beside a 1-rank run
+    base = _backend_overrides(SHELL_LAYERS)
+    ref = fleet.run_worker(base)
+    _backend_check(f"(b) 1 rank, {SHELL_LAYERS} layers", ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    port = fleet.free_port()
+    t0 = time.perf_counter()
+    runs = fleet.launch([fleet.worker_command(base + fleet.backend_overrides(2, r, port))
+                         for r in (0, 1)], timeout=400)
+    wall = time.perf_counter() - t0
+    ranks = [r.last_json() for r in runs]
+    for r in ranks:
+        assert r["collectives"] == "gloo", f"two ranks on one card ran {r['collectives']}"
+        _backend_check(f"(b) rank {r['process_index']} of 2 ({r['collectives']})", r)
+        assert r["launches_expected"]["graft_select"] == 3 and \
+            r["launches_expected"]["grad_norm"] == 6
+    assert ranks[0]["pivots"] == ranks[1]["pivots"], \
+        f"ranks disagree on pivots: {ranks[0]['pivots']} vs {ranks[1]['pivots']}"
+    assert ranks[0]["losses"] == ranks[1]["losses"], "ranks disagree on the reduced losses"
+    assert ranks[0]["params_sha256"] == ranks[1]["params_sha256"], \
+        "the ranks end with different parameters"
+    steps = sorted(ref["losses"], key=int)
+    rel = {key: [abs(ranks[0][key][k] - ref[key][k]) / abs(ref[key][k]) for k in steps]
+           for key in ("losses", "grad_norms")}
+    print(f"[backend] (b) {ctx.get('smi', '')}: fleet wall {wall:.1f} s; final parameters "
+          f"bit-equal across the ranks; per-step relative difference to the 1-rank run: loss "
+          f"{[f'{x:.3g}' for x in rel['losses']]}, grad norm "
+          f"{[f'{x:.3g}' for x in rel['grad_norms']]}; pivots at the first "
+          f"refresh {'equal' if ranks[0]['pivots']['0'] == ref['pivots']['0'] else 'differ'} "
+          f"({ranks[0]['pivots']['0']} vs {ref['pivots']['0']}); steady step (steps 1-5) "
+          f"rank 0 {np.mean(ranks[0]['step_s'][1:]) * 1e3:.3f} ms, 1 rank "
+          f"{np.mean(ref['step_s'][1:]) * 1e3:.3f} ms; the grad reduce (gloo, through host "
+          f"memory) a step: rank 0 {[round(x * 1e3, 1) for x in ranks[0]['reduce_s']]} ms, "
+          f"rank 1 {[round(x * 1e3, 1) for x in ranks[1]['reduce_s']]} ms", flush=True)
+    for key, gaps in rel.items():
+        worst = int(np.argmax(gaps))
+        assert gaps[worst] <= 3e-3, (f"step {steps[worst]}: fleet {key} "
+                                     f"{ranks[0][key][steps[worst]]} vs 1 rank "
+                                     f"{ref[key][steps[worst]]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2744,7 +2897,7 @@ def main() -> int:
                      ("families", phase_families), ("classify", phase_classify),
                      ("serve", phase_serve), ("check", phase_check),
                      ("shell", phase_shell), ("chaos", phase_chaos),
-                     ("analysis", phase_analysis)):
+                     ("analysis", phase_analysis), ("backend", phase_backend)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

@@ -348,9 +348,10 @@ def probe_overrides(tmpdir: str) -> List[str]:
     ]
 
 
-def run_probe(overrides: Sequence[str] = (), device="cpu"):
+def run_probe(overrides: Sequence[str] = (), device=None):
     """One ``Trainer.fit`` on the probe config (``PORT_PROBE`` and
-    ``overrides`` after it): ``(trainer, run report or None, findings)`` —
+    ``overrides`` after it) on ``device`` (default: the card, and an error
+    without one): ``(trainer, run report or None, findings)`` —
     an SY001/RC001 error when the audit stopped the run, JX003 where the
     run's launches differ from its reckoning or a plain version ran on the
     card."""
@@ -358,7 +359,7 @@ def run_probe(overrides: Sequence[str] = (), device="cpu"):
     from repro_torch.models.layers import resolve_attn_backend
 
     report = Report()
-    dev = torch.device(device)
+    dev = resolve_device(device)
     with tempfile.TemporaryDirectory() as td:
         cfg = ExperimentConfig().apply_overrides(
             probe_overrides(td) + list(PORT_PROBE) + list(overrides))
@@ -402,8 +403,9 @@ def run_probe(overrides: Sequence[str] = (), device="cpu"):
     return trainer, run_report, report
 
 
-def check_runtime(overrides: Sequence[str] = (), device="cpu") -> Report:
-    """Run the REAL Trainer under ``train.audit`` on the probe config."""
+def check_runtime(overrides: Sequence[str] = (), device=None) -> Report:
+    """Run the REAL Trainer under ``train.audit`` on the probe config, on
+    ``device`` (default: the card)."""
     return run_probe(overrides, device)[2]
 
 

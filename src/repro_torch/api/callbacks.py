@@ -25,6 +25,10 @@ checkpointed before the loop exits.
 value syncs the host with the device, so a callback on the per-step path
 touches values only at its own boundaries (print steps, checkpoint saves,
 flushes); key-level checks are free.
+
+Under a multiprocess backend only the primary (rank 0) writes checkpoints,
+the JSONL stream and console lines; every rank restores the step the
+primary picks (``CheckpointManager.restore_agreed``).
 """
 from __future__ import annotations
 
@@ -33,17 +37,12 @@ from typing import Any, Callable, Dict, Optional
 
 from repro_torch.analysis.sync_guard import sync_allowed
 from repro_torch.checkpoint import (CheckpointManager, EmergencySaver, load_train_state,
-                                    train_state_spec, train_state_to_host)
+                                    train_state_spec)
 from repro_torch.distributed.straggler import StragglerMonitor
 from repro_torch.launch.evaluate import make_eval_fn_for
 from repro_torch.launch.metrics import (MetricsLogger, format_step_line,
                                         materialize_metrics, sanitize_row,
                                         train_step_flops)
-
-# the manifest's topology stamp for a single-process run: what the JAX
-# package's local backend writes, so its restore accepts the checkpoint
-LOCAL_TOPOLOGY = {"process_count": 1, "device_count": 1, "shard_layout": "replicated"}
-
 
 class Callback:
     """Base lifecycle plugin. Lower ``priority`` runs earlier in every hook.
@@ -122,7 +121,8 @@ class EvalCallback(Callback):
 
     def on_train_start(self, trainer) -> None:
         self.eval_fn = make_eval_fn_for(trainer.config, trainer.mcfg,
-                                        num_batches=self.num_batches, device=trainer.device)
+                                        num_batches=self.num_batches, device=trainer.device,
+                                        backend=trainer.backend)
 
     def on_step_end(self, trainer, step, metrics) -> None:
         if not (self.every and (step + 1) % self.every == 0):
@@ -145,7 +145,8 @@ class MetricsCallback(Callback):
     """JSONL telemetry stream + throughput/MFU tracking. Runs after eval so
     held-out numbers reach the stream (one row per step). Rows are queued
     with their device values and the logger reads and writes them only
-    every ``flush_every`` steps and on close."""
+    every ``flush_every`` steps and on close. Only the primary writes the
+    stream; MFU counts every rank's device."""
     priority = 30
 
     def __init__(self, path: Optional[str] = None, flush_every: int = 20):
@@ -157,7 +158,8 @@ class MetricsCallback(Callback):
     def on_train_start(self, trainer) -> None:
         tr = trainer.config.train
         self.logger = MetricsLogger(
-            self.path, num_chips=1,
+            self.path if trainer.backend.is_primary else None,
+            num_chips=trainer.backend.device_count(),
             flops_per_step=train_step_flops(
                 trainer.num_params, tr.batch * tr.seq,
                 remat=trainer.mcfg.remat != "none", mcfg=trainer.mcfg, seq=tr.seq),
@@ -194,6 +196,10 @@ class StragglerCallback(Callback):
     def __init__(self):
         self.monitor = StragglerMonitor()
         self._source = "dispatch"
+
+    def on_train_start(self, trainer) -> None:
+        # a fleet's summaries name the worst rank by this
+        self.monitor.process_index = trainer.backend.process_index
 
     def on_step_end(self, trainer, step, metrics) -> None:
         if trainer.device_clock is not None:
@@ -233,7 +239,7 @@ class ConsoleCallback(Callback):
         self.every = every
 
     def on_step_end(self, trainer, step, metrics) -> None:
-        if self.every and step % self.every == 0:
+        if self.every and step % self.every == 0 and trainer.backend.is_primary:
             with sync_allowed("console"):
                 print(format_step_line(step, metrics, trainer.last_step_time,
                                        use_graft=trainer.tcfg.use_graft), flush=True)
@@ -248,7 +254,9 @@ class CheckpointCallback(Callback):
     step (preemption, ``stop_after``) is checkpointed before the loop exits.
     The state's device→host copy finishes inside ``on_step_end`` — the next
     step updates the parameters in place — and only the file writing runs
-    on the writer thread.
+    on the writer thread. Under a multiprocess backend the primary alone
+    recovers half-finished commits, walks, quarantines and writes; the
+    other ranks restore the step it picks and skip the save.
     """
     priority = 90
 
@@ -257,18 +265,21 @@ class CheckpointCallback(Callback):
         self.directory = directory
         self.every = every
         self.restore = restore
+        # recovery renames directories: the primary does it in on_train_start
         self.manager = CheckpointManager(directory, keep_last_n=keep_last_n,
-                                         async_save=async_save)
+                                         async_save=async_save, recover=False)
 
     def on_train_start(self, trainer) -> None:
         trainer.checkpoint_manager = self.manager
+        if trainer.backend.is_primary:
+            self.manager.recover()
         if not self.restore:
             return
         try:
             # newest checkpoint that verifies (checksums, leaves) AND is
             # stamped healthy; a corrupt one is quarantined to corrupt.<step>
-            _, flat, manifest = self.manager.restore_latest_good(
-                train_state_spec(trainer.state))
+            _, flat, manifest = self.manager.restore_agreed(
+                train_state_spec(trainer.state), trainer.backend)
         except FileNotFoundError:
             return                            # fresh run — nothing on disk
         load_train_state(trainer.state, flat)
@@ -289,7 +300,13 @@ class CheckpointCallback(Callback):
         if trainer.sentinel_tripped:
             # the divergence guard tripped earlier in this hook pass: the
             # live state is poisoned — never save it
-            print(f"[ckpt] sentinel tripped — refusing to save step {step + 1}", flush=True)
+            if trainer.backend.is_primary:
+                print(f"[ckpt] sentinel tripped — refusing to save step {step + 1}",
+                      flush=True)
+            return
+        if not trainer.backend.is_primary:
+            # the state is replicated and its host copy is local: the other
+            # ranks neither copy nor write
             return
         with sync_allowed("checkpoint"):
             # a checkpoint boundary is a drain point: the manifest needs
@@ -297,7 +314,8 @@ class CheckpointCallback(Callback):
             vals = materialize_metrics(metrics)
             healthy = (vals.get("healthy", 1.0) >= 0.5 and math.isfinite(vals.get("loss", 0.0)))
             path = self.manager.save(
-                step + 1, train_state_to_host(trainer.state), topology=LOCAL_TOPOLOGY,
+                step + 1, trainer.backend.to_host(trainer.state),
+                topology=trainer.backend.topology(),
                 extra={"train_step": step + 1,
                        "data": trainer.data_state(),
                        "metrics": sanitize_row(vals),
@@ -322,7 +340,7 @@ class CheckpointCallback(Callback):
         try:
             self.manager.wait()
         except Exception:       # noqa: BLE001 — a writer that died
-            pass                # mid-save left its tmp dir; _recover() drops it
+            pass                # mid-save left its tmp dir; recover() drops it
 
 
 class HookRecorder(Callback):

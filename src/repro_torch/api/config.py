@@ -6,8 +6,11 @@ Sections: ``model`` (architecture id, smoke vs full, field overrides),
 ``train`` (loop knobs), ``graft`` (selection, or ``None`` for the
 full-batch baseline), ``data`` (a registry-tagged section; ``None`` derives
 ``synthetic_lm`` from model + train), ``optimizer`` (``total_steps``/
-``warmup_steps`` of 0 derive from ``train.steps``) and ``backend`` (only
-``local`` is ported; the section is hash-neutral).
+``warmup_steps`` of 0 derive from ``train.steps``) and ``backend`` (a
+section tagged with its registry name like ``data``: ``None`` is the local
+backend, ``--backend.kind=multiprocess`` swaps it; the section is
+hash-neutral, so a run of one config on any topology has one hash and its
+checkpoints resume elastically).
 
 The device a run uses is not part of the config: ``Trainer(cfg, device=)``
 picks it, so a CPU run and a GPU run of one config share a hash.
@@ -19,6 +22,7 @@ import hashlib
 import json
 from typing import Any, Dict, Iterable, Optional
 
+from repro_torch import backend as backend_lib
 from repro_torch.data import DataConfig
 from repro_torch.data import sources as data_sources
 from repro_torch.optim import OptimizerConfig
@@ -84,28 +88,15 @@ _NONSEMANTIC_TRAIN_FIELDS = ("log_every", "eval_every", "sync_eval",
                              "fault_plan")
 
 
-@dataclasses.dataclass(frozen=True)
-class LocalBackendConfig:
-    """Single-process execution (the only backend the port has)."""
-
-
 _SECTION_TYPES = {
     "model": ModelConfig,
     "train": TrainConfig,
     "graft": GraftConfig,
     "data": DataConfig,      # the DEFAULT source; actual class is registry-tagged
     "optimizer": OptimizerConfig,
-    "backend": LocalBackendConfig,
+    "backend": backend_lib.LocalBackendConfig,  # registry-tagged like data
 }
 _OPTIONAL_SECTIONS = ("graft", "data", "backend")
-
-
-def _backend_config(kind: str) -> LocalBackendConfig:
-    if kind != "local":
-        raise NotImplementedError(
-            f"backend '{kind}' is not ported to repro_torch yet; only 'local' "
-            "is (see ROADMAP.md)")
-    return LocalBackendConfig()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,8 +133,14 @@ class ExperimentConfig:
                 seed=train.seed)
         return dataclasses.replace(self, train=train, optimizer=opt, data=data)
 
-    def build(self):
-        """→ (model config, step-level TrainConfig, data source)."""
+    def build(self, backend: Optional[Any] = None):
+        """→ (model config, step-level TrainConfig, data source).
+
+        ``backend`` (a live ``repro_torch.backend.Backend``) shards the data
+        source to this process's slice of every global batch, at build time
+        only: the section itself stays rank-agnostic. The selected subset is
+        split evenly over the processes, so an ``R_max`` they do not divide
+        is refused here."""
         from repro_torch.launch import steps as steps_lib
         cfg = self.finalized()
         tr, d = cfg.train, cfg.data
@@ -163,6 +160,14 @@ class ExperimentConfig:
             optimizer=cfg.optimizer, graft=cfg.graft, sampler=sampler,
             probe_positions=tr.probe_positions, microbatches=tr.microbatches,
             sentinel=tr.sentinel, spike_z=tr.spike_z)
+        if backend is not None:
+            d = data_sources.shard_for_backend(d, backend)
+            n = backend.process_count
+            if cfg.graft is not None and cfg.graft.r_max % n:
+                raise ValueError(
+                    f"graft R_max {cfg.graft.r_max} does not divide over {n} processes "
+                    "— pick graft.rset whose largest rank is divisible by the process "
+                    "count")
         return mcfg, tcfg, entry.build(d)
 
     # ------------------------------------------------------------------
@@ -175,6 +180,10 @@ class ExperimentConfig:
             name = data_sources.source_name_of(self.data)
             if name != "synthetic_lm":
                 out["data"]["source"] = name
+        if out["backend"] is not None:
+            name = backend_lib.backend_name_of(self.backend)
+            if name != "local":         # a missing tag reads as local
+                out["backend"]["kind"] = name
         return out
 
     def to_json(self, indent: Optional[int] = None) -> str:
@@ -262,8 +271,11 @@ def _data_section_from_dict(raw: Dict[str, Any]):
 
 
 def _backend_section_from_dict(raw: Dict[str, Any]):
+    """The ``backend`` section is tagged: ``{"kind": <registry name>,
+    **fields}``; a missing tag reads as ``local``."""
     raw = dict(raw)
-    return _section_from_dict(type(_backend_config(raw.pop("kind", "local"))), raw)
+    name = raw.pop("kind", "local")
+    return _section_from_dict(backend_lib.get_backend(name).config_cls, raw)
 
 
 def _section_from_dict(typ, raw: Dict[str, Any]):
@@ -341,14 +353,23 @@ def _apply_one(cfg: ExperimentConfig, key: str, raw: str) -> ExperimentConfig:
             return cfg
         return dataclasses.replace(cfg, data=_derive_data(cfg, value))
     if (section_name, field) == ("backend", "kind"):
-        _backend_config(str(value))          # raises for anything but local
-        return cfg
+        # the default config of the named backend; its fields (coordinator,
+        # num_processes, ...) then override on top
+        if not isinstance(value, str):
+            raise ValueError(f"backend.kind expects a registry name "
+                             f"(have {backend_lib.available_backends()})")
+        if cfg.backend is not None and backend_lib.backend_name_of(cfg.backend) == value:
+            return cfg
+        if value == "local" and cfg.backend is None:
+            return cfg                       # None already means local
+        return dataclasses.replace(cfg, backend=backend_lib.get_backend(value).config_cls())
     section = getattr(cfg, section_name)
     if section is None:                      # re-enable optional section
         if section_name == "graft":
             section = ExperimentConfig().graft
         elif section_name == "backend":
-            section = LocalBackendConfig()
+            # local has no fields: set backend.kind first
+            section = backend_lib.LocalBackendConfig()
         else:
             section = cfg.finalized().data
     typ = type(section) if section_name in ("data", "backend") \

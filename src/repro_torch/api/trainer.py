@@ -5,7 +5,19 @@ telemetry, monitoring, early stop, divergence rollback) delegated to
 
 It runs on the CUDA device: ``Trainer(cfg)`` picks ``cuda`` and raises if
 there is none. Only an explicit ``device="cpu"`` runs on the CPU (the tests
-do). A step's metrics leave the step function as device scalars and flow
+do).
+
+Where it runs is the execution backend's (``repro_torch.backend``): the
+config's tagged ``backend`` section (local when absent) or a ``backend=``
+passed in. ``fit`` brings the backend up and checks that every rank runs
+the same config before it builds anything; the rank's device is the
+backend's unless ``device=`` names one; batches reach the step through a
+:class:`~repro_torch.distributed.pipeline.BatchStager` over
+``backend.shard_batch``; the step is data parallel over the backend's
+ranks (``launch/steps.py``); and the backend is torn down however ``fit``
+ends. The local backend adds no op.
+
+A step's metrics leave the step function as device scalars and flow
 through ``on_step_end`` in a lazy :class:`MetricsFuture`; they are read in
 bulk at the logger's flushes, at console and checkpoint boundaries and when
 the report is assembled. Each step is timed on the host clock around work
@@ -42,10 +54,13 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 
+from repro_torch import backend as backend_lib
 from repro_torch.analysis.sync_guard import sync_allowed
 from repro_torch.api import callbacks as cb_lib
 from repro_torch.api.config import ExperimentConfig
+from repro_torch.backend import resolve_device
 from repro_torch.checkpoint import load_train_state, train_state_spec
+from repro_torch.distributed.pipeline import BatchStager
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.metrics import DeviceClock, MetricsFuture, materialize_metrics
 
@@ -53,17 +68,7 @@ from repro_torch.launch.metrics import DeviceClock, MetricsFuture, materialize_m
 # their values change every step and are no part of its signature
 _HOST_COUNTERS = ("step", "health")
 
-
-def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
-    """``None`` → the CUDA device, or an error when there is none: an entry
-    point never falls back to the CPU unless the caller asks for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: repro_torch trains on the GPU; pass "
-                "device='cpu' (or --device=cpu) to run on the CPU on purpose")
-        return torch.device("cuda")
-    return torch.device(device)
+__all__ = ["HistoryBuffer", "Trainer", "resolve_device"]
 
 
 class HistoryBuffer:
@@ -102,16 +107,22 @@ class HistoryBuffer:
 
 
 class Trainer:
-    """Runs one experiment on ``device`` (default: the GPU). ``callbacks``
-    are appended to the stock set derived from the config; pass
-    ``use_default_callbacks=False`` to take full control of the list."""
+    """Runs one experiment on ``device`` (default: the backend's GPU).
+    ``callbacks`` are appended to the stock set derived from the config;
+    pass ``use_default_callbacks=False`` to take full control of the list.
+    ``backend`` (a live ``Backend``) overrides the config's section."""
 
     def __init__(self, config: ExperimentConfig,
                  callbacks: Optional[Iterable[cb_lib.Callback]] = None,
                  use_default_callbacks: bool = True,
-                 device: Optional[str | torch.device] = None):
+                 device: Optional[str | torch.device] = None,
+                 backend: Optional[backend_lib.Backend] = None):
         self.config = config.finalized()
-        self.device = resolve_device(device)
+        self.backend = backend_lib.resolve(backend if backend is not None
+                                           else self.config.backend)
+        # picked from the rank numbers alone, so that a run without its
+        # device fails here; the process group comes up in fit()
+        self.device = self.backend.device(device)
         cbs = list(cb_lib.default_callbacks(self.config) if use_default_callbacks else [])
         if callbacks:
             cbs.extend(callbacks)
@@ -135,30 +146,33 @@ class Trainer:
         self.rollbacks: List[Dict[str, Any]] = []
         self._rollback_reason: Optional[str] = None
         self._chaos = None
+        self._stager: Optional[BatchStager] = None
 
     # ------------------------------------------------------------------
     @classmethod
     def from_checkpoint(cls, directory: str,
                         callbacks: Optional[Iterable[cb_lib.Callback]] = None,
                         use_default_callbacks: bool = True,
-                        device: Optional[str | torch.device] = None) -> "Trainer":
+                        device: Optional[str | torch.device] = None,
+                        backend: Optional[backend_lib.Backend] = None) -> "Trainer":
         """The experiment of a checkpoint directory alone: the manifest's
         ``ExperimentConfig``, with ``stop_after`` (a one-shot simulated
         preemption, already consumed) and ``fault_plan`` cleared and
         ``checkpoint_dir`` pointed at ``directory``, so the run restores and
         keeps checkpointing in place. The ``backend`` section is cleared:
-        the restart picks its own."""
+        the restart picks its own (``backend=``, else local)."""
         from repro_torch.checkpoint import load_experiment
         cfg = load_experiment(directory)
         cfg = dataclasses.replace(cfg, backend=None, train=dataclasses.replace(
             cfg.train, stop_after=None, fault_plan=None, checkpoint_dir=directory))
         return cls(cfg, callbacks=callbacks, use_default_callbacks=use_default_callbacks,
-                   device=device)
+                   device=device, backend=backend)
 
     def data_state(self) -> Dict[str, int]:
         """The data-pipeline state a checkpoint records: the position of
-        the last consumed batch."""
-        return self.data.state_dict()
+        the last consumed batch (the stager's account, which lookahead
+        does not move)."""
+        return self._stager.consumed_state()
 
     def request_stop(self, reason: str = "requested") -> None:
         """Ask the loop to exit after this step's callbacks finish (the
@@ -189,8 +203,9 @@ class Trainer:
 
     def _perform_rollback(self, at_step: int) -> Optional[int]:
         """Restore the newest checkpoint that verifies and is stamped
-        healthy and rewind the data pipeline to it. Returns the step to
-        resume from, or None (with a stop requested)."""
+        healthy (on every rank, the step the primary picks) and rewind the
+        data pipeline to it. Returns the step to resume from, or None (with
+        a stop requested)."""
         reason = self._rollback_reason
         self._rollback_reason = None
         mgr = self.checkpoint_manager
@@ -202,7 +217,8 @@ class Trainer:
         with sync_allowed("rollback"):
             mgr.wait()
             try:
-                _, flat, manifest = mgr.restore_latest_good(train_state_spec(self.state))
+                _, flat, manifest = mgr.restore_agreed(train_state_spec(self.state),
+                                                       self.backend)
             except FileNotFoundError:
                 print(f"[train] divergence ({reason}) and no healthy checkpoint to roll "
                       "back to — stopping", flush=True)
@@ -210,16 +226,14 @@ class Trainer:
                 return None
             load_train_state(self.state, flat)
             self.data.load_state_dict(manifest["extra"]["data"])
+            # staged-ahead batches predate the rewind
+            self._stager.reset()
         resume = int(manifest["extra"]["train_step"])
         self.sentinel_tripped = False
         self.rollbacks.append({"at_step": at_step, "to_step": resume, "reason": reason})
         print(f"[train] ROLLBACK at step {at_step}: {reason} — resumed from checkpoint "
               f"step {resume}", flush=True)
         return resume
-
-    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -228,14 +242,26 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def fit(self) -> Dict[str, Any]:
+        # the process group first: every rank must agree on the experiment
+        # before anything is built
+        self.backend.setup()
+        try:
+            self.backend.check_consistent(self.config.config_hash())
+            return self._fit()
+        finally:
+            self.backend.teardown()
+
+    def _fit(self) -> Dict[str, Any]:
         cfg = self.config
         tr = cfg.train
-        self.mcfg, self.tcfg, self.data = cfg.build()
+        self.mcfg, self.tcfg, self.data = cfg.build(backend=self.backend)
         gen = torch.Generator(device=self.device).manual_seed(tr.seed)
         self.state = steps_lib.init_train_state(self.mcfg, self.tcfg, gen, tr.batch,
                                                 self.device)
+        # every rank draws the same init; replicate makes it rank 0's
+        self.state = self.backend.replicate(self.state)
         self.num_params = sum(p.numel() for p in self.state["params"])
-        run_step = steps_lib.make_run_step(self.mcfg, self.tcfg)
+        run_step = steps_lib.make_run_step(self.mcfg, self.tcfg, backend=self.backend)
         history = HistoryBuffer(cap=tr.history_cap)
         if tr.device_timing and self.device.type == "cuda":
             self.device_clock = DeviceClock(stall_timeout_s=tr.device_timeout_s or None)
@@ -261,7 +287,17 @@ class Trainer:
             # hooks may restore state + data position (checkpoint resume);
             # the iterator is created only after
             self._fire("on_train_start")
-            it = iter(self.data)
+            if self._chaos is not None:
+                chaos = self._chaos
+
+                def stage(host):
+                    # the fault plan corrupts the HOST batch of the step
+                    # that takes it: inline (depth 0), ``step`` is that step
+                    return self.backend.shard_batch(chaos.corrupt_batch(step, host))
+                depth = 0
+            else:
+                stage, depth = self.backend.shard_batch, self.backend.staging_depth
+            self._stager = BatchStager(self.data, stage, depth=depth)
             t_start = time.perf_counter()
             # the guard covers the step loop only — state init, restore
             # hooks and report assembly sync legitimately
@@ -270,10 +306,7 @@ class Trainer:
                 while step < tr.steps:
                     if self._chaos is not None:
                         self._chaos.fire_signals(step)
-                        batch_np = self._chaos.corrupt_batch(step, next(it))
-                    else:
-                        batch_np = next(it)
-                    batch = self._to_device(batch_np)
+                    batch = next(self._stager)
                     if watcher is not None:
                         drift = watcher.observe(
                             step=step, batch=batch,
@@ -354,5 +387,8 @@ class Trainer:
             if self._chaos is not None:
                 chaos_lib.deactivate()
                 self._chaos = None
+            if self._stager is not None:
+                self._stager.close()
+                self._stager = None
             if self.device_clock is not None:
                 self.device_clock.close()

@@ -5,7 +5,7 @@ by either package restores in the other.
 Behaviours kept:
   * atomic commits — write to ``<dir>/tmp.<step>.<pid>`` then ``os.rename``;
     re-saving an existing step renames the committed dir aside
-    (``step_X.old``) rather than deleting it first, and ``_recover`` rolls a
+    (``step_X.old``) rather than deleting it first, and ``recover`` rolls a
     half-commit back on the next start;
   * one ``.npy`` per leaf, keyed by the JAX train state's leaf paths, and a
     ``manifest.json`` with each leaf's shape, logical dtype and adler32
@@ -18,7 +18,11 @@ Behaviours kept:
     checkpoint stamped healthy;
   * async saves on a writer thread, joined by the next save;
   * the chaos harness's crash points at the commit boundaries
-    (``checkpoint.pre_commit`` / ``mid_commit`` / ``post_commit``).
+    (``checkpoint.pre_commit`` / ``mid_commit`` / ``post_commit``);
+  * the manifest's topology stamp (``Backend.topology()``): a restore
+    onto another topology reshards with a backend (one ``[ckpt]`` line;
+    leaves are stored whole and the state is replicated, so any checkpoint
+    restores onto any process count) and raises without one.
 
 The port updates parameters in place, so ``save`` takes a flat dict of CPU
 tensors whose device→host copies have already finished
@@ -67,16 +71,17 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 class CheckpointManager:
     def __init__(self, directory: str, keep_last_n: int = 3,
-                 async_save: bool = False):
+                 async_save: bool = False, recover: bool = True):
         self.directory = directory
         self.keep_last_n = keep_last_n
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._async_exc: Optional[BaseException] = None
         os.makedirs(directory, exist_ok=True)
-        self._recover()
+        if recover:
+            self.recover()
 
-    def _recover(self) -> None:
+    def recover(self) -> None:
         """Roll back half-finished commits from a crashed writer: stale
         ``tmp.*`` dirs are uncommitted (drop them); a ``step_X.old`` with no
         ``step_X`` means the crash hit between the two commit renames — the
@@ -140,7 +145,7 @@ class CheckpointManager:
             # re-saving an existing step (rollback replay, restarted run):
             # the committed dir is renamed aside, not deleted, until the new
             # one is in place; a crash between the renames leaves step_X.old
-            # for _recover()
+            # for recover()
             os.rename(final, old)
         chaos.crash_point("checkpoint.mid_commit")
         os.rename(tmp, final)                      # atomic commit
@@ -196,15 +201,36 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, spec: Optional[Dict[str, Any]] = None,
-                verify: bool = True) -> Dict[str, torch.Tensor]:
+                verify: bool = True, backend: Optional[Any] = None) -> Dict[str, torch.Tensor]:
         """The leaves of ``step_<step>`` as CPU tensors (bf16 rebuilt from
         its bits). With ``spec`` (``jax_bridge.train_state_spec``) a leaf the
         state needs that is missing raises ``KeyError``, and a shape or
         dtype that differs ``ValueError``; checksums are verified
-        (``IOError``) unless ``verify`` is false."""
+        (``IOError``) unless ``verify`` is false.
+
+        A manifest stamped with another topology than the live one is
+        resharded (one line) when ``backend`` is given — the live topology
+        is ``backend.topology()`` — and raises an actionable ``ValueError``
+        without one (the live topology is then one process on one device).
+        An unstamped checkpoint restores everywhere."""
         path = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
+        saved = manifest.get("topology")
+        if saved is not None:
+            if backend is not None:
+                live = backend.topology()
+                if live != saved:
+                    print(f"[ckpt] step {step} written on topology {saved}, restoring "
+                          f"onto {live} — resharding", flush=True)
+            else:
+                here = {"process_count": 1, "device_count": 1,
+                        "shard_layout": saved.get("shard_layout", "replicated")}
+                if here != saved:
+                    raise ValueError(
+                        f"checkpoint step {step} was written on topology {saved} but "
+                        f"this process sees {here} — pass backend=<trainer.backend> to "
+                        "reshard elastically, or restart on the original topology")
         out = {}
         for key, meta in manifest["leaves"].items():
             arr = np.load(os.path.join(path, meta["file"]))
@@ -217,12 +243,14 @@ class CheckpointManager:
             check_against_spec(out, spec)
         return out
 
-    def restore_latest_good(self, spec: Optional[Dict[str, Any]] = None):
+    def restore_latest_good(self, spec: Optional[Dict[str, Any]] = None,
+                            backend: Optional[Any] = None):
         """Restore the newest checkpoint that is intact (checksums verify,
         the leaves fit ``spec``) and stamped healthy, walking newest→oldest.
         Corrupt dirs are quarantined to ``corrupt.<step>``; unhealthy-stamped
         ones are skipped in place. Returns ``(step, flat, manifest)``; raises
-        ``FileNotFoundError`` when no restorable checkpoint remains."""
+        ``FileNotFoundError`` when no restorable checkpoint remains.
+        ``backend`` as in :meth:`restore`."""
         for step in reversed(self.all_steps()):
             try:
                 manifest = self.manifest(step)
@@ -234,13 +262,34 @@ class CheckpointManager:
                 print(f"[ckpt] step {step} stamped unhealthy — skipping")
                 continue
             try:
-                flat = self.restore(step, spec, verify=True)
+                flat = self.restore(step, spec, verify=True, backend=backend)
             except (OSError, ValueError, KeyError) as e:
                 print(f"[ckpt] step {step} failed verification ({e}) — quarantining")
                 self._quarantine(step)
                 continue
             return step, flat, manifest
         raise FileNotFoundError(f"no healthy checkpoint under '{self.directory}'")
+
+    def restore_agreed(self, spec: Optional[Dict[str, Any]], backend: Any):
+        """``restore_latest_good`` for every rank of ``backend``: the primary
+        joins its writer, walks, verifies and quarantines, and broadcasts the
+        step it picked; the other ranks restore that step. Returns ``(step,
+        flat, manifest)``; raises ``FileNotFoundError`` on every rank when
+        the primary found none."""
+        step = -1
+        if backend.is_primary:
+            self.wait()
+            try:
+                step, flat, manifest = self.restore_latest_good(spec, backend=backend)
+            except FileNotFoundError:
+                step = -1
+        step = backend.broadcast_int(step)
+        if step < 0:
+            raise FileNotFoundError(f"no healthy checkpoint under '{self.directory}'")
+        if not backend.is_primary:
+            flat = self.restore(step, spec, verify=True, backend=backend)
+            manifest = self.manifest(step)
+        return step, flat, manifest
 
     def _quarantine(self, step: int) -> None:
         src = os.path.join(self.directory, f"step_{step:08d}")

@@ -97,6 +97,25 @@ def finalize_config(dcfg: Any, mcfg: Any, *, batch: int, seq: int, seed: int) ->
     return entry.task.finalize(dcfg, mcfg, batch=batch, seq=seq, seed=seed)
 
 
+def shard_for_backend(dcfg: Any, backend: Any) -> Any:
+    """This process's host-shard view of a rank-agnostic ``data`` section.
+
+    Every source config carries ``num_hosts``/``host_index``; the backend's
+    ``data_shard()`` (process count, process index) fills them at build
+    time only, so that the stored section stays rank-agnostic: every process
+    hashes alike and checkpoints restore on any topology. Per-global-example
+    seeding makes the union of the shards byte-identical to one host's."""
+    num_hosts, host_index = backend.data_shard()
+    if (num_hosts, host_index) == (dcfg.num_hosts, dcfg.host_index):
+        return dcfg
+    if dcfg.global_batch % num_hosts != 0:
+        raise ValueError(
+            f"global batch {dcfg.global_batch} does not divide over "
+            f"{num_hosts} processes — pick train.batch divisible by the "
+            "process count")
+    return dataclasses.replace(dcfg, num_hosts=num_hosts, host_index=host_index)
+
+
 def _local_batch(cfg) -> int:
     if cfg.global_batch % cfg.num_hosts:
         raise ValueError(f"global batch {cfg.global_batch} does not divide "

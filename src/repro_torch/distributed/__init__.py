@@ -1,3 +1,4 @@
-"""Distribution helpers: the host-side straggler monitor and microbatch
-gradient accumulation. The rest waits for the distribution item of
+"""Distribution helpers: the host-side straggler monitor, microbatch
+gradient accumulation, the batch stager and the int8 error-feedback
+reduce. The sharded engine and ``pipeline_forward`` wait for A10b of
 ``ROADMAP.md``."""

@@ -15,6 +15,10 @@ current CUDA stream and returns device scalars without syncing the host;
 ``collect(handle)`` reads them. Calling the object does both. Dispatching
 on the training stream orders the eval's reads of the parameters before
 the next step's in-place update, so no copy of the parameters is needed.
+
+Data parallel, each rank evaluates its shard of every eval batch and the
+dispatched scalars are averaged over the ranks on the device (JAX's eval
+jits over the global batch).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.analysis.sync_guard import sync_allowed
+from repro_torch.backend.base import data_parallel
 from repro_torch.core.numerics import take_last
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.data import sources as data_sources
@@ -64,7 +69,12 @@ def make_eval_fn(mcfg: model_lib.ModelConfig, batch: int, seq: int,
                            for i in range(num_batches)], device)
 
 
-def _lm_eval(mcfg: model_lib.ModelConfig, eval_batches, device) -> EvalFn:
+def _rank_mean(backend, values):
+    """``values`` averaged over the ranks (as they are without a backend)."""
+    return values if backend is None else backend.reduce_tensors(values, "mean")
+
+
+def _lm_eval(mcfg: model_lib.ModelConfig, eval_batches, device, backend=None) -> EvalFn:
     staged = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
               for b in eval_batches]                     # staged once
 
@@ -72,12 +82,14 @@ def _lm_eval(mcfg: model_lib.ModelConfig, eval_batches, device) -> EvalFn:
     def dispatch(model) -> Dict[str, torch.Tensor]:
         mean = torch.mean(torch.stack([model_lib.loss_fn(mcfg, model, b)[0]
                                        for b in staged]))
+        (mean,) = _rank_mean(backend, [mean])
         return {"eval_loss": mean, "eval_ppl": torch.exp(mean)}
 
     return EvalFn(dispatch)
 
 
-def _classification_eval(mcfg: model_lib.ModelConfig, eval_batches, device) -> EvalFn:
+def _classification_eval(mcfg: model_lib.ModelConfig, eval_batches, device,
+                         backend=None) -> EvalFn:
     staged = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
               for b in eval_batches]
 
@@ -94,23 +106,35 @@ def _classification_eval(mcfg: model_lib.ModelConfig, eval_batches, device) -> E
     @torch.no_grad()
     def dispatch(model) -> Dict[str, torch.Tensor]:
         pairs = [one(model, b) for b in staged]
-        return {"eval_loss": torch.mean(torch.stack([l for l, _ in pairs])),
-                "eval_acc": torch.mean(torch.stack([a for _, a in pairs]))}
+        loss, acc = _rank_mean(backend, [torch.mean(torch.stack([l for l, _ in pairs])),
+                                         torch.mean(torch.stack([a for _, a in pairs]))])
+        return {"eval_loss": loss, "eval_acc": acc}
 
     return EvalFn(dispatch)
 
 
 def make_eval_fn_for(experiment, mcfg: model_lib.ModelConfig,
-                     num_batches: int = 4, device=None) -> EvalFn:
+                     num_batches: int = 4, device=None, backend=None) -> EvalFn:
     """Eval fn for an ``ExperimentConfig``: ≤ 8 examples a batch, read
     from the held-out offset of the experiment's own data source — the one
-    place that owns the eval-batch policy, as in the JAX package."""
+    place that owns the eval-batch policy, as in the JAX package. With a
+    multiprocess ``backend`` each rank reads its shard of those examples
+    (their count rounded up to a multiple of the process count) and the
+    results are averaged over the ranks."""
     dcfg = experiment.finalized().data
     entry = data_sources.entry_for_config(dcfg)
-    eval_cfg = dataclasses.replace(
-        dcfg, global_batch=min(dcfg.global_batch, 8), num_hosts=1, host_index=0)
+    eval_batch = min(dcfg.global_batch, 8)
+    backend = data_parallel(backend)
+    if backend is not None:
+        # an equal share for every rank: the eval batch rounded up to a
+        # multiple of the process count, which the training batch (itself
+        # such a multiple, and at least the eval batch) bounds
+        eval_batch = -(-eval_batch // backend.process_count) * backend.process_count
+    eval_cfg = dataclasses.replace(dcfg, global_batch=eval_batch, num_hosts=1, host_index=0)
+    if backend is not None:
+        eval_cfg = data_sources.shard_for_backend(eval_cfg, backend)
     data = entry.build(eval_cfg)
     eval_batches = [data.batch_at(EVAL_STEP_OFFSET + i) for i in range(num_batches)]
     if entry.task.kind == "classification":
-        return _classification_eval(mcfg, eval_batches, device)
-    return _lm_eval(mcfg, eval_batches, device)
+        return _classification_eval(mcfg, eval_batches, device, backend)
+    return _lm_eval(mcfg, eval_batches, device, backend)

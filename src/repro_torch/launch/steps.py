@@ -25,6 +25,17 @@ once per step (one device sync) BEFORE the update and skips the update of
 an unhealthy step outright. A healthy step is bit-identical to a run
 without the sentinel; an unhealthy one leaves params, moments, selection
 and carry untouched and advances only ``step``.
+
+Data parallel (``backend`` a multiprocess ``repro_torch.backend``): each
+rank holds K/W rows of the global batch of K, and the step reproduces the
+JAX step's global-batch semantics. The selection forward runs on the local
+rows; its per-row outputs (pooled hiddens, grad embeddings, scores) are
+gathered in rank order, and every rank runs the feature extractor and the
+sampler on the global K — identical inputs, identical pivots. Rank r trains
+on rows [r·R_max/W, (r+1)·R_max/W) of the R_max pivot rows of the gathered
+batch, and the loss and gradients are reduced over the ranks before the
+norm, the sentinel and the update: the sum for the subset steps, the mean
+for the baseline step. With no backend (or the local one) no op is added.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.sync_guard import sync_allowed
+from repro_torch.backend.base import data_parallel
 from repro_torch.core.numerics import take_last
 from repro_torch.distributed.accumulate import accumulated_grads
 from repro_torch.models import model as model_lib
@@ -126,23 +138,12 @@ def init_train_state(mcfg, tcfg: TrainConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def selection_inputs(mcfg, tcfg: TrainConfig, params, batch
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One full-batch forward → (V (K,R_max), G (d,K), ḡ (d,), scores (K,)).
-
-    The feature path (V) and gradient-embedding path (G) are resolved from
-    the ``selection.sources`` registries by ``GraftConfig.feature_mode`` /
-    ``grad_mode``: by default the relevance-ordered SVD of the mean-pooled
-    final hiddens × the probe gradients from the softmax error signal at
-    ``probe_positions`` strided positions. Scores are the per-example probe
-    cross-entropy. Runs under ``no_grad`` (the JAX ``stop_gradient``). Any
-    registered source's batch works: the labels are padded to the hidden
-    sequence (a vlm batch labels its text positions only) and the loss mask
-    keeps unlabeled positions out of the grad embeddings, scores and pooled
-    features.
-    """
+def selection_rows(mcfg, tcfg: TrainConfig, params, batch
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The per-row part of the selection forward on ``batch``'s rows:
+    (pooled hiddens (K, d_model) f32, grad embeddings (K, E) f32, scores
+    (K,)). Each row's outputs depend on that row alone."""
     gcfg = tcfg.graft
-    extractor = sources_lib.resolve_features(gcfg.feature_mode)
     grad_source = sources_lib.resolve_grad_source(gcfg.grad_mode)
     h, mask = model_lib.forward_hiddens(mcfg, params, batch)
     S = h.shape[1]
@@ -158,22 +159,49 @@ def selection_inputs(mcfg, tcfg: TrainConfig, params, batch
     del logits
     nll = -take_last(logp, lp)
     scores = torch.sum(nll * mp, dim=-1) / torch.clamp(torch.sum(mp, dim=-1), min=1.0)
-    V = extractor(model_lib.pooled_hiddens(h, mask), gcfg.r_max)
+    return model_lib.pooled_hiddens(h, mask), emb, scores
+
+
+@torch.no_grad()
+def selection_inputs(mcfg, tcfg: TrainConfig, params, batch, backend=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One full-batch forward → (V (K,R_max), G (d,K), ḡ (d,), scores (K,)).
+
+    The feature path (V) and gradient-embedding path (G) are resolved from
+    the ``selection.sources`` registries by ``GraftConfig.feature_mode`` /
+    ``grad_mode``: by default the relevance-ordered SVD of the mean-pooled
+    final hiddens × the probe gradients from the softmax error signal at
+    ``probe_positions`` strided positions. Scores are the per-example probe
+    cross-entropy. Runs under ``no_grad`` (the JAX ``stop_gradient``). Any
+    registered source's batch works: the labels are padded to the hidden
+    sequence (a vlm batch labels its text positions only) and the loss mask
+    keeps unlabeled positions out of the grad embeddings, scores and pooled
+    features. With a ``backend`` the per-row outputs of the local rows are
+    gathered over the ranks first, so V, G, ḡ and the scores are the global
+    batch's on every rank.
+    """
+    gcfg = tcfg.graft
+    extractor = sources_lib.resolve_features(gcfg.feature_mode)
+    pooled, emb, scores = selection_rows(mcfg, tcfg, params, batch)
+    if backend is not None:
+        pooled, emb, scores = (backend.all_gather_rows(x) for x in (pooled, emb, scores))
+    V = extractor(pooled, gcfg.r_max)
     G = emb.T                                      # (d=E, K)
     g_bar = torch.mean(emb, dim=0)
     return V, G, g_bar, scores
 
 
-def make_selection_refresh(mcfg, tcfg: TrainConfig):
+def make_selection_refresh(mcfg, tcfg: TrainConfig, backend=None):
     """``(params, batch, carry, step) → (SelectionState, carry')``: the
     selection forward alone — features + grad embeddings + the registry
-    sampler's decision, under ``no_grad``."""
+    sampler's decision, under ``no_grad``; over the global batch with a
+    ``backend``."""
     smp = sampler_registry.get_sampler(tcfg.sampler)
     gcfg = tcfg.graft
 
     @torch.no_grad()
     def refresh(params, batch, carry, step: int):
-        V, G, g_bar, scores = selection_inputs(mcfg, tcfg, params, batch)
+        V, G, g_bar, scores = selection_inputs(mcfg, tcfg, params, batch, backend)
         key = selection_base.default_select_generator(step) if smp.needs_key else None
         return smp.select(gcfg, selection_base.SelectionInputs(
             V, G, g_bar, scores, key), carry, step)
@@ -185,6 +213,21 @@ def _take_batch(batch, pivots: torch.Tensor, k_global: int):
     return {k: x.index_select(0, pivots)
             if isinstance(x, torch.Tensor) and x.ndim >= 1 and x.shape[0] == k_global
             else x for k, x in batch.items()}
+
+
+def _local_subset(batch, graft_state, backend):
+    """This rank's rows of the selected subset and their weights: all of
+    them without a backend; else the pivot rows of the gathered global
+    batch, split evenly over the ranks in rank order."""
+    if backend is None:
+        return _take_batch(batch, graft_state.pivots, _batch_size(batch)), graft_state.weights
+    full = {k: backend.all_gather_rows(x) if isinstance(x, torch.Tensor) and x.ndim >= 1
+            else x for k, x in batch.items()}
+    sub = _take_batch(full, graft_state.pivots, _batch_size(full))
+    n = graft_state.pivots.shape[0] // backend.process_count
+    rows = slice(backend.process_index * n, (backend.process_index + 1) * n)
+    return ({k: x[rows] if isinstance(x, torch.Tensor) and x.ndim >= 1 else x
+             for k, x in sub.items()}, graft_state.weights[rows])
 
 
 def _state_carry(tcfg: TrainConfig, state):
@@ -244,10 +287,15 @@ def apply_sentinel(tcfg: TrainConfig, state, metrics) -> Tuple[bool, Dict[str, A
 
 
 def _finish(tcfg: TrainConfig, state, loss: torch.Tensor, grads, metrics,
-            updates: Dict[str, Any], sentinel: bool, opt: Optimizer):
-    """Grad norm and clip, let the sentinel veto, apply the optimizer in
-    place, commit ``updates`` to the state and advance the step counter."""
+            updates: Dict[str, Any], sentinel: bool, opt: Optimizer, backend=None,
+            reduce_op: str = "sum"):
+    """Reduce the loss and grads over the ranks (with a ``backend``), grad
+    norm and clip, let the sentinel veto, apply the optimizer in place,
+    commit ``updates`` to the state and advance the step counter."""
     step = state["step"]
+    if backend is not None:
+        reduced = backend.reduce_grads([loss.detach(), *grads], reduce_op)
+        loss, grads = reduced[0], reduced[1:]
     grads, opt_metrics = opt.preprocess(grads)
     metrics = dict(opt_metrics, loss=loss.detach(), **metrics)
     healthy = True
@@ -274,68 +322,70 @@ def param_grads(loss: torch.Tensor, params):
 
 
 def baseline_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
-                        sentinel: bool = False):
+                        sentinel: bool = False, backend=None):
     """Full-batch step; with ``microbatches`` > 1 the loss and grads are
     the means over that many sequential microbatches
     (``distributed/accumulate.py``). As in the JAX package, only this step
-    reads ``microbatches``."""
+    reads ``microbatches``. Data parallel, each rank's mean is averaged
+    over the ranks."""
     if tcfg.microbatches > 1:
         loss, grads = accumulated_grads(
             lambda mb: model_lib.loss_fn(mcfg, state["model"], mb)[0],
             state["params"], batch, tcfg.microbatches)
-        return _finish(tcfg, state, loss, grads, {}, {}, sentinel, opt)
+        return _finish(tcfg, state, loss, grads, {}, {}, sentinel, opt, backend, "mean")
     loss, _ = model_lib.loss_fn(mcfg, state["model"], batch)
     grads = param_grads(loss, state["params"])
-    return _finish(tcfg, state, loss, grads, {}, {}, sentinel, opt)
+    return _finish(tcfg, state, loss, grads, {}, {}, sentinel, opt, backend, "mean")
 
 
-def subset_loss(mcfg, state, batch, graft_state) -> torch.Tensor:
-    """The weighted per-example loss of the selected subset."""
-    sub_batch = _take_batch(batch, graft_state.pivots, _batch_size(batch))
+def subset_loss(mcfg, state, batch, graft_state, backend=None) -> torch.Tensor:
+    """The weighted per-example loss of the selected subset (this rank's
+    share of it with a ``backend``)."""
+    sub_batch, weights = _local_subset(batch, graft_state, backend)
     pel = model_lib.per_example_loss(mcfg, state["model"], sub_batch)
-    return torch.sum(pel * graft_state.weights)
+    return torch.sum(pel * weights)
 
 
 def graft_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
-                     sentinel: bool = False):
+                     sentinel: bool = False, backend=None):
     """Alg. 1 as one step, sampler-generic: the subset strategy is resolved
     from the registry by ``tcfg.sampler``."""
     gcfg = tcfg.graft
     step = state["step"]
     carry0 = _state_carry(tcfg, state)
     if gcfg.refresh_every == 1 or step % gcfg.refresh_every == 0:
-        refresh = make_selection_refresh(mcfg, tcfg)
+        refresh = make_selection_refresh(mcfg, tcfg, backend)
         graft_state, carry = refresh(state["model"].tree(), batch, carry0, step)
     else:
         graft_state = state["graft"]._replace(
             step=torch.tensor(step, dtype=torch.int32,
                               device=state["graft"].step.device))
         carry = carry0
-    loss = subset_loss(mcfg, state, batch, graft_state)
+    loss = subset_loss(mcfg, state, batch, graft_state, backend)
     grads = param_grads(loss, state["params"])
     metrics = {"rank": graft_state.rank, "proj_error": graft_state.last_error,
                "alignment": graft_state.alignment}
     updates: Dict[str, Any] = {"graft": graft_state}
     if "sampler_carry" in state:
         updates["sampler_carry"] = carry
-    return _finish(tcfg, state, loss, grads, metrics, updates, sentinel, opt)
+    return _finish(tcfg, state, loss, grads, metrics, updates, sentinel, opt, backend)
 
 
 def subset_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
-                      sentinel: bool = False):
+                      sentinel: bool = False, backend=None):
     """Alg. 1 'else' branch: train on the STORED subset, no selection."""
     graft_state = state["graft"]
-    loss = subset_loss(mcfg, state, batch, graft_state)
+    loss = subset_loss(mcfg, state, batch, graft_state, backend)
     grads = param_grads(loss, state["params"])
     step1 = torch.tensor(state["step"] + 1, dtype=torch.int32,
                          device=graft_state.step.device)
     return _finish(tcfg, state, loss, grads, {},
-                   {"graft": graft_state._replace(step=step1)}, sentinel, opt)
+                   {"graft": graft_state._replace(step=step1)}, sentinel, opt, backend)
 
 
-def selection_step(mcfg, tcfg: TrainConfig, state, batch):
+def selection_step(mcfg, tcfg: TrainConfig, state, batch, backend=None):
     """Selection only — isolates the refresh cost."""
-    refresh = make_selection_refresh(mcfg, tcfg)
+    refresh = make_selection_refresh(mcfg, tcfg, backend)
     graft_state, carry = refresh(state["model"].tree(), batch,
                                  _state_carry(tcfg, state), state["step"])
     state["graft"] = graft_state
@@ -344,25 +394,27 @@ def selection_step(mcfg, tcfg: TrainConfig, state, batch):
     return state, {"rank": graft_state.rank, "proj_error": graft_state.last_error}
 
 
-def make_train_step(mcfg, tcfg: TrainConfig, kind: Optional[str] = None):
+def make_train_step(mcfg, tcfg: TrainConfig, kind: Optional[str] = None, backend=None):
     """``(state, batch) → (state, metrics)`` for ``kind`` (default: graft
     when ``tcfg.graft`` is set, else baseline), with the sentinel wired in
     when ``tcfg.sentinel`` is on. The optimizer is built once here, for
-    every step the function takes."""
+    every step the function takes. ``backend``: data parallel over its
+    ranks; the local backend (one process) adds no op."""
+    backend = data_parallel(backend)
     step = {None: graft_train_step if tcfg.use_graft else baseline_train_step,
             "graft": graft_train_step, "baseline": baseline_train_step,
             "subset": subset_train_step, "select": None}[kind]
     if step is None:
-        return lambda state, batch: selection_step(mcfg, tcfg, state, batch)
+        return lambda state, batch: selection_step(mcfg, tcfg, state, batch, backend)
     sentinel = tcfg.sentinel
     opt = make_optimizer(tcfg.optimizer)
 
     def fn(state, batch):
-        return step(mcfg, tcfg, state, batch, sentinel=sentinel, opt=opt)
+        return step(mcfg, tcfg, state, batch, sentinel=sentinel, opt=opt, backend=backend)
     return fn
 
 
-def make_run_step(mcfg, tcfg: TrainConfig):
+def make_run_step(mcfg, tcfg: TrainConfig, backend=None):
     """The training loop's ``(state, batch) → (state, metrics)``, the twin
     of the JAX package's ``make_run_step``. ``graft.overlap`` is accepted so
     that the JAX package's configs load, and selects the same sequential
@@ -371,5 +423,5 @@ def make_run_step(mcfg, tcfg: TrainConfig):
     has. ``state["step"]`` is a host int, the refresh dispatches without a
     sync, and steps between refreshes run no selection code. The subset step
     needs the refresh's pivots, so a side stream would only reorder the
-    same work (``ROADMAP.md``, B7)."""
-    return make_train_step(mcfg, tcfg)
+    same work (``ROADMAP.md``, B7). ``backend`` as in ``make_train_step``."""
+    return make_train_step(mcfg, tcfg, backend=backend)

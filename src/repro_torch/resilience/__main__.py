@@ -157,7 +157,7 @@ def scenario_kill_mid_save(td: str, *extra: str, device=None) -> Dict:
     except chaos.ChaosCrash:
         pass
     ck = os.path.join(td, "ck")
-    survivors = CheckpointManager(ck).all_steps()   # init ran _recover()
+    survivors = CheckpointManager(ck).all_steps()   # init ran recover()
     _require(survivors == [5], f"committed checkpoints after crash: {survivors} (wanted [5])")
     report = Trainer.from_checkpoint(ck, device=device).fit()
     _require(report["host_loop"]["steps"] == STEPS - 5,

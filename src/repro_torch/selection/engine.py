@@ -17,7 +17,7 @@ shapes". ``key``/``keys`` (``torch.Generator``s) are passed to the sampler
 per lane; when a stochastic sampler gets none, one is derived from ``step``
 (``base.default_select_generator``, one per lane for a stack). The sharded
 engine (``make_sharded_selector``, ``select_sharded``) waits for the port's
-distributed backend (ROADMAP A10).
+multiprocess backend (ROADMAP A10b).
 """
 from __future__ import annotations
 
@@ -135,21 +135,21 @@ def select_multi_batch(cfg: GraftConfig, sampler: SamplerLike, V: torch.Tensor,
 
 def make_sharded_selector(cfg: GraftConfig, mesh, *, sampler: SamplerLike = "graft",
                           batch_logical: str = "act_batch", rules=None):
-    """Not ported: needs the distributed backend (ROADMAP A10)."""
+    """Not ported yet (ROADMAP A10b)."""
     raise NotImplementedError(
         "make_sharded_selector (data-parallel selection over a mesh) is not "
-        "ported to repro_torch yet: it waits for the distributed backend "
-        "(see ROADMAP.md, A10)")
+        "ported to repro_torch yet: it builds on the multiprocess backend "
+        "(see ROADMAP.md, A10b)")
 
 
 def select_sharded(cfg: GraftConfig, mesh, V: torch.Tensor, G: torch.Tensor, *,
                    sampler: SamplerLike = "graft", scores=None, carry: Carry = None,
                    step=0, batch_logical: str = "act_batch", rules=None):
-    """Not ported: needs the distributed backend (ROADMAP A10)."""
+    """Not ported yet (ROADMAP A10b)."""
     raise NotImplementedError(
         "select_sharded (data-parallel selection over a mesh) is not ported "
-        "to repro_torch yet: it waits for the distributed backend (see "
-        "ROADMAP.md, A10)")
+        "to repro_torch yet: it builds on the multiprocess backend (see "
+        "ROADMAP.md, A10b)")
 
 
 __all__ = ["select_batch", "select_multi_batch", "make_sharded_selector",

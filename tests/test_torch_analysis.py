@@ -320,8 +320,8 @@ def test_cli_fails_on_a_planted_per_step_item(monkeypatch, capsys):
 
     orig = steps_lib.make_run_step
 
-    def planted(mcfg, tcfg):
-        run = orig(mcfg, tcfg)
+    def planted(mcfg, tcfg, **kw):
+        run = orig(mcfg, tcfg, **kw)
 
         def step(state, batch):
             state, metrics = run(state, batch)
@@ -340,6 +340,17 @@ def test_cli_rules_prints_every_id(capsys):
     assert trunner.main(["--rules"]) == 0
     out = capsys.readouterr().out
     assert all(f"| {rid} |" in out for rid in treport.RULES)
+
+
+def test_probe_without_a_device_runs_on_the_card_or_raises():
+    """``run_probe``/``check_runtime`` default to the card, as the Trainer
+    does; the CPU only when asked."""
+    from repro_torch.analysis import runner as trunner
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is the card")
+    for fn in (trunner.run_probe, trunner.check_runtime):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
 
 
 def test_cli_without_a_device_runs_on_the_card_or_raises():
