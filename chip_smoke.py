@@ -241,6 +241,29 @@ Phases (any failure exits nonzero and prints no result line):
                every step's loss and grad norm within rtol 3e-3 of a 1-rank
                run in the same call; the per-step relative differences and
                the gradient reduce's seconds printed.
+ 21. sharded — the sharded selection engine and the GPipe executor on a
+               port ``Mesh`` (``repro_torch.backend.mesh``): (a) world size 1
+               over NCCL in this process, a (1, 1) ("data", "model") mesh,
+               every sampler at minicpm-2b's refresh shape (K 16, R 8, d
+               2304): bit-equal to ``select_batch`` (state and carry; random
+               draws from its shard's generator), one graft_select launch for
+               graft and streaming_graft, none else, each timed beside
+               select_batch; (b) two gloo ranks sharing the card, a ("data",)
+               mesh, one refresh's inputs of minicpm-2b at full width and 8 of
+               40 layers, batch 32 x 256 (V (32, 8), G (2304, 32)), 16 rows a
+               rank, every sampler with ``use_pallas``, two calls (the second
+               timed): each rank's launches
+               as ``launch_audit.expected_sharded_launches`` reckons, the
+               ranks' states bit-equal, pivots and rank equal to the per-shard
+               pieces run in this process (each shard's selection on the card,
+               the collectives' arithmetic on the host), floats within rtol
+               1e-5; (c) ``pipeline_forward`` on two gloo ranks, a ("pod",)
+               mesh, 4 of minicpm-2b's first 8 blocks a stage at full width,
+               4 microbatches of (2, 256, 2304) bf16: bit-equal to the 8
+               blocks run here one microbatch at a time, 20 flash forwards a
+               rank ((S + M - 1) x 4), the bubble, tick and point-to-point
+               times printed. (b) and (c) are one fleet of ``python -m
+               repro_torch.backend --worker --job`` ranks.
 
 It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -250,6 +273,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2873,6 +2897,252 @@ def phase_backend(ctx):
                                      f"{ref[key][steps[worst]]}")
 
 
+SHARDED_LAYERS = 8            # (b), (c): phase depth8's cut
+SHARDED_BATCH = 32            # (b): 16 rows a rank
+PIPE_PER_STAGE, PIPE_MICRO, PIPE_MB = 4, 4, 2
+
+
+def _sharded_inputs():
+    """One refresh's selection inputs of minicpm-2b at full width, 8 of 40
+    layers, batch 32 × 256 (random weights from seed 0, the batch of step
+    0): V (32, 8), G (2304, 32), scores (32,)."""
+    import torch
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as model_lib
+    cfg = ExperimentConfig().apply_overrides(
+        _backend_overrides(SHARDED_LAYERS) + [f"train.batch={SHARDED_BATCH}"])
+    mcfg, tcfg, data = cfg.build()
+    model = model_lib.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.batch_at(0).items()}
+    _zero_counts()
+    with torch.no_grad():
+        V, G, _, scores = steps_lib.selection_inputs(mcfg, tcfg, model, batch)
+    torch.cuda.synchronize()
+    fwd = _read_counts()["flash_forward"]
+    assert fwd == SHARDED_LAYERS, f"selection forward launched {fwd} flash forwards"
+    del model
+    return tcfg.graft, V.contiguous(), G.contiguous(), scores.contiguous()
+
+
+def _sharded_reference(cfg, name, V, G, scores, n):
+    """The sharded engine's global state (and carry) for ``n`` shards of one
+    batch at step 0, from its per-shard pieces: each shard's selection on
+    the card (``pivot_and_sweep`` for GRAFT, the sampler against the global
+    ḡ otherwise), the collectives' arithmetic on the host."""
+    import torch
+    from repro_torch.core import projection as proj_lib
+    from repro_torch.selection import SelectionInputs, get_sampler
+    from repro_torch.selection import graft as graft_lib
+    from repro_torch.selection.base import shard_generator
+    k = V.shape[0] // n
+    rows = [(V[s * k:(s + 1) * k], G[:, s * k:(s + 1) * k], scores[s * k:(s + 1) * k])
+            for s in range(n)]
+    g_bar = sum(torch.mean(g, dim=1).cpu() for _, g, _ in rows) / n
+    if name == "graft":
+        parts = [graft_lib.pivot_and_sweep(cfg, v, g, g_bar.cuda()) for v, g, _ in rows]
+        rank, err = proj_lib.select_rank(sum(e.cpu() for _, e, _ in parts) / n,
+                                         cfg.rset, cfg.eps)
+        active = (torch.arange(cfg.r_max) < rank).to(torch.float32)
+        w = active / torch.clamp(n * active.sum(), min=1.0)
+        g_sub = sum(gs.cpu().to(torch.float32) @ w for _, _, gs in parts)
+        state = {"pivots": torch.cat([p.cpu().to(torch.int32) + s * k
+                                      for s, (p, _, _) in enumerate(parts)]),
+                 "weights": w.repeat(n), "rank": rank, "last_error": err,
+                 "alignment": proj_lib.cosine_alignment(g_sub, g_bar)}
+        return state, {}
+    smp = get_sampler(name)
+    out = [smp.select(cfg, SelectionInputs(v, g, g_bar.cuda(), sc,
+                                           shard_generator(0, s) if smp.needs_key else None),
+                      None, 0) for s, (v, g, sc) in enumerate(rows)]
+    sts = [st for st, _ in out]
+    state = {"pivots": torch.cat([st.pivots.cpu().to(torch.int32) + s * k
+                                  for s, st in enumerate(sts)]),
+             "weights": torch.cat([st.weights.cpu() / n for st in sts]),
+             "rank": max(st.rank.cpu() for st in sts),
+             "last_error": sum(st.last_error.cpu() for st in sts) / n,
+             "alignment": sum(st.alignment.cpu() for st in sts) / n}
+    carry = out[0][1]
+    if not isinstance(carry, dict):
+        carry = {f: sum(getattr(c, f).cpu() for _, c in out) / n for f in carry._fields}
+    return state, carry
+
+
+def _sharded_agree(tag, got, want):
+    """Pivots and rank equal, the float fields and carry leaves within rtol
+    1e-5 (atol 1e-6 of each leaf's largest entry); the largest relative gap."""
+    import torch
+    assert torch.equal(got["pivots"].cpu(), want["pivots"]), \
+        f"{tag}: pivots {got['pivots'].tolist()} vs {want['pivots'].tolist()}"
+    assert int(got["rank"]) == int(want["rank"]), f"{tag}: rank {got['rank']} vs {want['rank']}"
+    worst = 0.0
+    for f in ("weights", "last_error", "alignment"):
+        a, b = got[f].cpu().to(torch.float32), torch.as_tensor(want[f], dtype=torch.float32)
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-6), f"{tag}: {f} {a} vs {b}"
+        worst = max(worst, float(((a - b).abs() / b.abs().clamp(min=1e-12)).max()))
+    for f, b in want.get("carry", {}).items():
+        a = got["carry"][f].cpu()
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()) + 1e-12), \
+            f"{tag}: carry {f} differs by {float((a - b).abs().max())}"
+    return worst
+
+
+def phase_sharded(ctx):
+    """The sharded selection engine and the GPipe executor on a port Mesh:
+    (a) world size 1 over NCCL in process, every sampler bit-equal to
+    select_batch; (b) two gloo ranks on the one card, each with its half of
+    a full-width refresh's rows, held to the one-rank reckoning, to each
+    other and to the per-shard pieces run here; (c) the pipeline on two
+    gloo ranks, 4 minicpm-2b blocks a stage, bit-equal to the 8 blocks run
+    here."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.analysis import launch_audit
+    from repro_torch.backend import (MultiProcessBackend, MultiProcessBackendConfig, fleet,
+                                     make_mesh)
+    from repro_torch.distributed.pipeline import pipeline_bubble_fraction
+    from repro_torch.selection import available, engine
+    ctx.pop("trainer", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = ctx.get("smi", "")
+    t0 = time.perf_counter()
+    cfg, V, G, scores = _sharded_inputs()
+    names = list(available())
+    print(f"[sharded] inputs of minicpm-2b at {SHARDED_LAYERS} layers, batch "
+          f"{SHARDED_BATCH} x 256: V {tuple(V.shape)}, G {tuple(G.shape)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # (a) world size 1 over NCCL on a (1, 1) ("data", "model") mesh, at the
+    # refresh shape K 16, R 8, d 2304 (the first 16 rows)
+    Va, Ga, sa = V[:16].contiguous(), G[:, :16].contiguous(), scores[:16].contiguous()
+    backend = MultiProcessBackend(MultiProcessBackendConfig(
+        coordinator=f"127.0.0.1:{fleet.free_port()}", num_processes=1, process_id=0))
+    backend.device()
+    backend.setup()
+    try:
+        assert backend.collectives == "nccl", f"world size 1 ran {backend.collectives}"
+        mesh = make_mesh((1, 1), ("data", "model"), backend)
+        times = {}
+        for name in names:
+            _zero_counts()
+            got, carry = engine.select_sharded(cfg, mesh, Va, Ga, sampler=name, scores=sa)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in _read_counts().items() if v}
+            want_counts = {k: v for k, v in launch_audit.expected_sharded_launches(
+                cfg, name).items() if v}
+            assert counts == want_counts, f"(a) {name}: launches {counts}, reckoned {want_counts}"
+            want, wcarry = engine.select_batch(cfg, name, Va, Ga, Ga.mean(dim=1), scores=sa)
+            if name == "random":              # its shard draws from the shard's generator
+                piv = got.pivots.cpu()
+                assert int(piv.min()) >= 0 and int(piv.max()) < 16 and \
+                    abs(float(got.weights.sum()) - 1.0) < 1e-5, f"(a) random: {got}"
+            else:
+                for f in want._fields:
+                    assert torch.equal(getattr(got, f), getattr(want, f)), f"(a) {name}: {f}"
+                for a, b in zip(tuple(carry), tuple(wcarry)):
+                    assert torch.equal(a, b), f"(a) {name}: carry"
+            times[name] = (
+                cuda_time_ms(lambda: engine.select_sharded(cfg, mesh, Va, Ga, sampler=name,
+                                                           scores=sa), 20),
+                cuda_time_ms(lambda: engine.select_batch(cfg, name, Va, Ga, Ga.mean(dim=1),
+                                                         scores=sa), 20))
+        print(f"[sharded] (a) {smi}: NCCL world 1, (1, 1) mesh: every sampler but random "
+              f"bit-equal to select_batch, state and carry; graft_select launches 1 for graft "
+              f"and streaming_graft, 0 else; ms (select_sharded / select_batch, events): "
+              + ", ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in times.items()), flush=True)
+    finally:
+        backend.teardown()
+
+    # (b) and (c): one fleet of two gloo ranks sharing the card
+    x = torch.randn((PIPE_MICRO, PIPE_MB, 256, 2304),
+                    generator=torch.Generator(device="cuda").manual_seed(1), device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16)
+    job = [{"kind": "sharded", "mesh": ((2,), ("data",)), "samplers": names,
+            "gcfg": dataclasses.asdict(cfg), "inputs": [(V.cpu(), G.cpu(), scores.cpu())] * 2},
+           {"kind": "pipeline", "mesh": ((2,), ("pod",)), "axis": "pod", "layer": "blocks",
+            "arch": "minicpm-2b", "layers": SHARDED_LAYERS, "per_stage": PIPE_PER_STAGE,
+            "seed": 0, "x": x.cpu()}]
+    job[0]["gcfg"]["rset"] = tuple(job[0]["gcfg"]["rset"])
+    work = tempfile.mkdtemp(prefix="sharded.", dir=os.path.join(ROOT, "build"))
+    torch.save(job, os.path.join(work, "job.pt"))
+    port = fleet.free_port()
+    t1 = time.perf_counter()
+    ranks = fleet.launch([fleet.mesh_worker_command(
+        os.path.join(work, "job.pt"), os.path.join(work, "out"),
+        fleet.backend_overrides(2, r, port)) for r in (0, 1)], timeout=300)
+    wall = time.perf_counter() - t1
+    res = [torch.load(r.last_json()["path"], weights_only=True) for r in ranks]
+    assert [r["collectives"] for r in res] == ["gloo", "gloo"], [r["collectives"] for r in res]
+
+    # (b) the sharded engine: launches, the ranks against each other and
+    # against the per-shard pieces
+    gaps, ms = {}, {}
+    for name in names:
+        key = f"{name}/0"
+        calls = [r["tasks"][0]["calls"][key] for r in res]
+        want_counts = {k: v for k, v in launch_audit.expected_sharded_launches(
+            cfg, name).items() if v}
+        for rank, call in enumerate(calls):
+            assert call["counters"] == want_counts, \
+                f"(b) {name} rank {rank}: launches {call['counters']}, reckoned {want_counts}"
+        for f, v in calls[0]["state"].items():
+            assert torch.equal(calls[1]["state"][f], v), f"(b) {name}: the ranks differ in {f}"
+        want, wcarry = _sharded_reference(cfg, name, V, G, scores, 2)
+        gaps[name] = _sharded_agree(f"(b) {name}", {**calls[0]["state"], "carry": calls[0]["carry"]},
+                                    {**want, "carry": wcarry})
+        # the second call, on the same rows, is the steady one
+        ms[name] = [round(r["tasks"][0]["calls"][f"{name}/1"]["seconds"] * 1e3, 3) for r in res]
+        for rank, r in enumerate(res):
+            assert r["tasks"][0]["calls"][f"{name}/1"]["counters"] == want_counts, \
+                f"(b) {name} rank {rank}: launches of the second call"
+    print(f"[sharded] (b) {smi}: 2 gloo ranks on one card, 16 rows each of V {tuple(V.shape)}: "
+          f"fleet wall {wall:.1f} s; states bit-equal across the ranks; pivots and rank equal "
+          f"to the per-shard pieces, the largest relative gap of weights, error and alignment "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+          + "; host ms of a second call (rank 0, rank 1): "
+          + ", ".join(f"{k} {v}" for k, v in ms.items()), flush=True)
+
+    # (c) the pipeline against the 8 blocks run here one microbatch at a time
+    pipe = [r["tasks"][1] for r in res]
+    assert torch.equal(pipe[0]["y"], pipe[1]["y"]), "(c) the ranks return different outputs"
+    ticks = 2 + PIPE_MICRO - 1
+    for rank, p in enumerate(pipe):
+        flash = p["counters"].get("flash_forward", 0)
+        assert flash == ticks * PIPE_PER_STAGE, \
+            f"(c) rank {rank}: {flash} flash forwards, reckoned {ticks * PIPE_PER_STAGE}"
+    _, _, blocks, mcfg = fleet.block_stages("minicpm-2b", SHARDED_LAYERS, PIPE_PER_STAGE, 0,
+                                            torch.device("cuda"), 256)
+    from repro_torch.models import model as model_lib
+    positions = torch.arange(256, dtype=torch.int32, device="cuda").expand(PIPE_MB, 256)
+    with torch.no_grad():
+        ref = []
+        for m in range(PIPE_MICRO):
+            h = x[m]
+            for blk in blocks:
+                h, _ = model_lib._apply_block(mcfg, blk, h, positions, False)
+            ref.append(h)
+        ref = torch.stack(ref).cpu()
+    y = pipe[0]["y"]
+    assert torch.isfinite(y.float()).all(), "(c) non-finite outputs"
+    gap = float((y.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    print(f"[sharded] (c) {smi}: pipeline of 2 stages x {PIPE_PER_STAGE} minicpm-2b blocks, "
+          f"M {PIPE_MICRO} microbatches of {tuple(x.shape[1:])} bf16: "
+          f"{'bit-equal' if torch.equal(y, ref) else f'max gap {gap:.3g} of max {scale:.3g}'} "
+          f"to the 8 blocks run here; flash forwards a rank "
+          f"{[p['counters'].get('flash_forward', 0) for p in pipe]} ({ticks} ticks x "
+          f"{PIPE_PER_STAGE}); bubble {pipeline_bubble_fraction(2, PIPE_MICRO)}; tick ms "
+          f"rank 0 {[round(t * 1e3, 2) for t in pipe[0]['tick_s']]}, rank 1 "
+          f"{[round(t * 1e3, 2) for t in pipe[1]['tick_s']]}; point-to-point host ms rank 0 "
+          f"{[round(t * 1e3, 2) for t in pipe[0]['p2p_s']]}, rank 1 "
+          f"{[round(t * 1e3, 2) for t in pipe[1]['p2p_s']]}; forward "
+          f"{[round(p['seconds'] * 1e3, 1) for p in pipe]} ms", flush=True)
+    assert torch.equal(y, ref), f"(c) pipeline output differs from the sequential blocks by {gap}"
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2897,7 +3167,8 @@ def main() -> int:
                      ("families", phase_families), ("classify", phase_classify),
                      ("serve", phase_serve), ("check", phase_check),
                      ("shell", phase_shell), ("chaos", phase_chaos),
-                     ("analysis", phase_analysis), ("backend", phase_backend)):
+                     ("analysis", phase_analysis), ("backend", phase_backend),
+                     ("sharded", phase_sharded)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

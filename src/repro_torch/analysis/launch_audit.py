@@ -28,8 +28,9 @@ equivalent over one call of the function:
 The same registry and reckoning serve the audit and ``chip_smoke.py``:
 :func:`kernel_counters` (every wrapper's launch counter),
 :func:`expected_launches` and :func:`dispatched_launches` (what a training
-run reckons), and :func:`monotone_count_rows` (the JAX regression gate's
-row format).
+run reckons), :func:`expected_sharded_launches` (what each rank of a
+sharded selection reckons), and :func:`monotone_count_rows` (the JAX
+regression gate's row format).
 """
 from __future__ import annotations
 
@@ -321,6 +322,42 @@ def fused_selection_rules() -> List[LaunchRule]:
             fix_hint="keep the G-gather inside the fused kernel "
                      "(no index_select on the fused path)"),
     ]
+
+
+# the samplers whose refresh runs through graft.pivot_and_sweep (graft_select
+# under use_pallas)
+REFRESH_SAMPLERS = ("graft", "streaming_graft")
+
+
+def sharded_selection_rules(gather_budget: int) -> List[LaunchRule]:
+    """The contract of a sharded GRAFT refresh, per rank and call
+    (``selection/engine.py`` ``make_sharded_selector``): ONE
+    ``graft_select`` on the rank's rows, and no gather beyond the
+    single-batch select's ``gather_budget`` (the rank decision's candidate
+    lookup). The collectives launch no kernel of the port."""
+    return [
+        LaunchRule(
+            "graft_select", exact=1, rule="JX003",
+            why="each rank's shard of a sharded GRAFT refresh must be a single "
+                "kernel launch",
+            fix_hint="keep the shard on graft.pivot_and_sweep under "
+                     "GraftConfig.use_pallas"),
+        LaunchRule(
+            "gather", max_count=gather_budget, rule="JX004",
+            why=f"the sharded refresh must add no gathers over the single-batch "
+                f"select (budget {gather_budget})",
+            fix_hint="offset the pivots and gather the state with collectives, "
+                     "not fancy indexing"),
+    ]
+
+
+def expected_sharded_launches(gcfg, sampler: str, calls: int = 1) -> Dict[str, int]:
+    """Launches on each rank of ``calls`` sharded selections with
+    ``sampler``: one ``graft_select`` a call where the sampler refreshes
+    through the kernel (``REFRESH_SAMPLERS`` under ``use_pallas``), none of
+    any other kernel."""
+    n = calls if gcfg.use_pallas and sampler in REFRESH_SAMPLERS else 0
+    return {name: n if name == "graft_select" else 0 for name in KERNEL_NAMES}
 
 
 def attention_rules(layers: int) -> List[LaunchRule]:

@@ -5,9 +5,10 @@ Sections, each returning findings in the shared report format:
 
   * **lint**    — the AST rules over every module under ``src/repro_torch``;
   * **launches** — one call each of the fused selection refresh, the
-    streaming (sketch-reservoir) refresh and the flash-attention probe model
-    against the launch-count contracts (one ``graft_select`` per refresh with
-    no gather around it — streaming included, one flash forward per
+    streaming (sketch-reservoir) refresh, the sharded engine's refresh on a
+    one-rank mesh and the flash-attention probe model against the
+    launch-count contracts (one ``graft_select`` per refresh with no gather
+    around it — streaming and sharded included, one flash forward per
     attention layer, one dQ and one dK/dV per layer in the train step, no
     unsanctioned host sync and no float64 op in either step), plus SP001:
     no registered sampler may close over mutable Python state;
@@ -30,6 +31,7 @@ from __future__ import annotations
 import argparse
 import sys
 import tempfile
+import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,12 +66,13 @@ def _selection_inputs(K: int, d: int, R: int, device):
     return V, G, G.mean(dim=1)
 
 
-def check_fused_selection(device="cpu", K: int = SEL_K, d: int = SEL_D, R: int = SEL_R,
+def check_fused_selection(device=None, K: int = SEL_K, d: int = SEL_D, R: int = SEL_R,
                           rset: Tuple[int, ...] = SEL_RSET) -> Report:
     """The single-launch contract on the real refresh entry point."""
     from repro_torch.selection import GraftConfig
     from repro_torch.selection import graft as graft_lib
 
+    device = resolve_device(device)
     cfg = GraftConfig(rset=tuple(rset), eps=0.25, use_pallas=True)
 
     def fused(v, g, gb):
@@ -81,7 +84,7 @@ def check_fused_selection(device="cpu", K: int = SEL_K, d: int = SEL_D, R: int =
         extra_rules=launch_audit.fused_selection_rules(), device=device)
 
 
-def check_streaming_selection(device="cpu", K: int = SEL_K, d: int = SEL_D,
+def check_streaming_selection(device=None, K: int = SEL_K, d: int = SEL_D,
                               R: int = SEL_R, rset: Tuple[int, ...] = SEL_RSET) -> Report:
     """The streaming (sketch-reservoir) refresh reuses the fused launch —
     ONE ``graft_select`` for the whole select — and the reservoir update
@@ -90,6 +93,7 @@ def check_streaming_selection(device="cpu", K: int = SEL_K, d: int = SEL_D,
     from repro_torch.selection import (CarrySpec, GraftConfig, SelectionInputs,
                                        get_sampler)
 
+    device = resolve_device(device)
     cfg = GraftConfig(rset=tuple(rset), eps=0.25, use_pallas=True, streaming=True)
     V, G, g_bar = _selection_inputs(K, d, R, device)
     smp = get_sampler("streaming_graft")
@@ -123,6 +127,30 @@ def check_streaming_selection(device="cpu", K: int = SEL_K, d: int = SEL_D,
         streaming, (V, G, g_bar, carry),
         label=f"streaming_selection_refresh(K={K}, d={d}, R={R})",
         extra_rules=rules, device=device)
+
+
+def check_sharded_selection(device=None, K: int = SEL_K, d: int = SEL_D,
+                            R: int = SEL_R, rset: Tuple[int, ...] = SEL_RSET) -> Report:
+    """The sharded engine's GRAFT refresh on this process's rows, over a
+    (1, 1) ``("data", "model")`` mesh of the local backend: ONE
+    ``graft_select`` per call, no gather beyond the single-batch select's,
+    no host sync and no float64 op (``launch_audit.sharded_selection_rules``;
+    a fleet's ranks each hold the same contract, ``chip_smoke.py`` phase
+    sharded)."""
+    from repro_torch.backend import LocalBackend, LocalBackendConfig, make_mesh
+    from repro_torch.selection import GraftConfig, engine
+
+    device = resolve_device(device)
+    cfg = GraftConfig(rset=tuple(rset), eps=0.25, use_pallas=True)
+    mesh = make_mesh((1, 1), ("data", "model"), LocalBackend(LocalBackendConfig()))
+    V, G, g_bar = _selection_inputs(K, d, R, device)
+    _, base = launch_audit.run_audited(
+        lambda v, g, gb: engine.select_batch(cfg, "graft", v, g, gb), (V, G, g_bar))
+    return launch_audit.audit_step(
+        lambda v, g: engine.select_sharded(cfg, mesh, v, g), (V, G),
+        label=f"sharded_selection_refresh(K={K}, d={d}, R={R})",
+        extra_rules=launch_audit.sharded_selection_rules(base.counts["gather"]),
+        device=device)
 
 
 def check_sampler_closures() -> Report:
@@ -170,7 +198,7 @@ def probe_model_config():
         param_dtype="float32", scan_layers=False, attn_backend="flash")
 
 
-def check_attention(device="cpu", mcfg=None, batch: int = ATTN_B,
+def check_attention(device=None, mcfg=None, batch: int = ATTN_B,
                     seq: int = ATTN_S) -> Report:
     """One flash forward launch per layer in the forward, one dQ and one
     dK/dV per layer in the train step (and the remat recompute's forwards),
@@ -179,7 +207,7 @@ def check_attention(device="cpu", mcfg=None, batch: int = ATTN_B,
     from repro_torch.models import model as model_lib
 
     mcfg = mcfg or probe_model_config()
-    dev = torch.device(device)
+    dev = resolve_device(device)
     params = model_lib.init_params(mcfg, torch.Generator(device=dev).manual_seed(0), dev)
     leaves = [p for p in params.parameters() if p.requires_grad]
     rng = np.random.default_rng(0)
@@ -211,35 +239,65 @@ def check_attention(device="cpu", mcfg=None, batch: int = ATTN_B,
     return report
 
 
-def _profiler_margin(device) -> None:
-    """A few tiny kernels and a synchronize around a profiled section: the
-    first or last records of a short profile can go missing from
-    torch.profiler (seen once on the card after the other phases of
-    ``chip_smoke.py``), and these are not the port's kernels."""
-    x = torch.zeros(1, device=device)
-    for _ in range(32):
-        x.add_(1)
+# torch.profiler now and then drops the first records of a profile: a few
+# of them in most profiles after other profiling in the process, at times
+# all of them (tools/profiler_edges.py measures it on the card). A profiled
+# section is therefore bracketed by launches of torch.cuda._sleep's spin
+# kernel, which no section launches: PRE short ones before it, POST long
+# ones after it (told apart by their device time), with EDGE_S seconds of
+# host time inside each end of the window. A profile is a measurement of
+# the section when the loss stopped inside the pre witnesses (one of them
+# seen) and every post witness was seen; else it is taken again, up to
+# PROFILES times.
+PRE, PRE_CYCLES, POST, POST_CYCLES = 64, 1_000, 8, 200_000
+LONG_US, EDGE_S, PROFILES = 20.0, 0.05, 3
+WITNESS_KERNEL = "spin_kernel"
+
+
+def _witnesses(n: int, cycles: int, device) -> None:
+    for _ in range(n):
+        torch.cuda._sleep(cycles)
     torch.cuda.synchronize(device)
+
+
+def profiled_section(section: Callable[[], Report], device):
+    """``(the section's report, its route decisions, the launch counters
+    that moved, the profiler's CUDA events by name, (pre, post) witnesses
+    seen)`` of one profile of ``section`` between the edges and
+    witnesses."""
+    from torch.profiler import ProfilerActivity, profile
+    out: List[Report] = []
+    before = launch_audit.read_counts()
+    with launch_audit.recording() as trace, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(EDGE_S)
+        _witnesses(PRE, PRE_CYCLES, device)
+        out.append(section())
+        _witnesses(POST, POST_CYCLES, device)
+        time.sleep(EDGE_S)
+    counted = {k: v - before[k] for k, v in launch_audit.read_counts().items()}
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages() if getattr(e, "device_type", None) == cuda]
+    spins = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == cuda and WITNESS_KERNEL in e.name]
+    seen = (sum(us < LONG_US for us in spins), sum(us >= LONG_US for us in spins))
+    return out[0], trace, counted, events, seen
 
 
 def held_to_profiler(section: Callable[[], Report], label: str, device) -> Report:
     """Run ``section``; on a CUDA device also hold every route decision it
     made to the wrappers' launch counters and to torch.profiler's count of
-    the port's CUDA kernels by name."""
+    the port's CUDA kernels by name. A profile whose record loss reached
+    past the pre witnesses, or lost a post witness, is taken again with the
+    section; one that kept them and disagrees fails at once."""
     if torch.device(device).type != "cuda":
         return section()
-    out: List[Report] = []
-
-    def run():
-        _profiler_margin(device)
-        out.append(section())
-        _profiler_margin(device)
-
-    before = launch_audit.read_counts()
-    with launch_audit.recording() as trace:
-        events, _ = launch_audit.cuda_kernel_events(run)
-    counted = {k: v - before[k] for k, v in launch_audit.read_counts().items()}
-    report = out[0]
+    lost = []
+    for _ in range(PROFILES):
+        report, trace, counted, events, (pre, post) = profiled_section(section, device)
+        if pre >= 1 and post == POST:
+            break
+        lost.append((pre, post))
     routed = {k: trace.counts.get(k, 0) for k in counted}
     if routed != counted:
         report.add(Finding(rule="JX003", location=label,
@@ -247,6 +305,18 @@ def held_to_profiler(section: Callable[[], Report], label: str, device) -> Repor
                                    f"counters {counted}",
                            fix_hint="a wrapper launches without counting, or counts "
                                     "a launch it did not route"))
+    if len(lost) == PROFILES:
+        report.add(Finding(rule="JX003", location=label,
+                           message=f"torch.profiler lost records in all {PROFILES} profiles "
+                                   f"((pre, post) witnesses seen {lost} of {(PRE, POST)}): "
+                                   "launches not held to the profiler",
+                           fix_hint="profile the section alone"))
+        return report
+    if lost:
+        report.add(Finding(rule="JX003", severity="info", location=label,
+                           message=f"torch.profiler lost records in {len(lost)} profile(s) "
+                                   f"((pre, post) witnesses seen {lost} of {(PRE, POST)}); "
+                                   "profiled again"))
     report.extend(launch_audit.check_profiler(trace.counts, events, label))
     return report
 
@@ -427,6 +497,9 @@ def run_battery(device, *, selections: Sequence[Tuple[int, int, int, Tuple[int, 
         report.extend(held_to_profiler(
             lambda: check_streaming_selection(dev, K, d, R, rset),
             f"streaming K={K} d={d}", dev))
+        report.extend(held_to_profiler(
+            lambda: check_sharded_selection(dev, K, d, R, rset),
+            f"sharded K={K} d={d}", dev))
     report.extend(check_sampler_closures())
     report.extend(held_to_profiler(
         lambda: check_attention(dev, attn_mcfg, attn_batch, attn_seq), "attention", dev))

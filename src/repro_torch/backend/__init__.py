@@ -2,6 +2,8 @@
 
 Importing this package registers both shipped backends; ``resolve`` turns
 the tagged ``backend`` config section into a live :class:`Backend`.
+:class:`Mesh` (``make_mesh``, ``Backend.mesh()``) lays a backend's ranks out
+on named axes with the collectives over them.
 """
 from repro_torch.backend.base import (
     AllReduceSpec,
@@ -19,6 +21,7 @@ from repro_torch.backend.base import (
     resolve_device,
 )
 from repro_torch.backend.local import LocalBackend
+from repro_torch.backend.mesh import Mesh, make_mesh
 from repro_torch.backend.multiprocess import MultiProcessBackend
 
 __all__ = [
@@ -27,12 +30,14 @@ __all__ = [
     "BackendEntry",
     "LocalBackend",
     "LocalBackendConfig",
+    "Mesh",
     "MultiProcessBackend",
     "MultiProcessBackendConfig",
     "available_backends",
     "backend_name_of",
     "entry_for_config",
     "get_backend",
+    "make_mesh",
     "register_backend",
     "data_parallel",
     "resolve",

@@ -22,8 +22,11 @@ checks the two promises of the backend:
 It runs on the card unless ``--device=cpu`` asks for the CPU (the two
 ranks then use gloo; on one card they share it, also over gloo). Exit code
 0 means both hold; ``--json`` prints the measurements as the last line.
-``--worker`` is one rank's entry point (``fleet.run_worker``): the flags
-after it are the experiment's overrides, and it prints its result as JSON.
+``--worker`` is one rank's entry point: the flags after it are the
+experiment's overrides, and it prints its result as JSON. It trains
+(``fleet.run_worker``), or with ``--job=F --out=D`` runs a job file's
+sharded-selection and pipeline tasks on a mesh over the rank's backend
+(``fleet.run_mesh_job``; the overrides name the backend).
 """
 from __future__ import annotations
 
@@ -106,9 +109,15 @@ def main(argv=None) -> int:
     if argv and argv[0] == "--worker":
         ap = argparse.ArgumentParser(prog="python -m repro_torch.backend --worker")
         ap.add_argument("--device", default=None)
+        ap.add_argument("--job", default=None)
+        ap.add_argument("--out", default=None)
         args, rest = ap.parse_known_args(argv[1:])
         overrides = [tok[2:] for tok in rest]
-        print(json.dumps(fleet.run_worker(overrides, device=args.device)), flush=True)
+        if args.job:
+            result = fleet.run_mesh_job(args.job, args.out, overrides, device=args.device)
+        else:
+            result = fleet.run_worker(overrides, device=args.device)
+        print(json.dumps(result), flush=True)
         return 0
     ap = argparse.ArgumentParser(prog="python -m repro_torch.backend", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)

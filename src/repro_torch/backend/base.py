@@ -18,6 +18,9 @@ Two implementations ship:
     has a card of its own, gloo on the CPU or when ranks share a card),
     per-rank ``DataSource`` shards, replicated train state.
 
+``mesh()`` is the backend's ``("data",)`` mesh over every rank
+(``backend/mesh.py``: named axes and the ``jax.lax`` collectives over
+them, for the sharded selection engine and the pipeline executor).
 Eager PyTorch has no global array for a compiler to reduce over, so the
 port adds primitives the JAX protocol does not need: ``device()``,
 ``all_gather_rows`` (the global batch's rows, in rank order),
@@ -142,6 +145,7 @@ class Backend:
     def __init__(self, config: Any):
         self.config = config
         self._device: Optional[torch.device] = None
+        self._mesh = None
 
     # -------------------------------- lifecycle -----------------------------
     def setup(self) -> None:
@@ -180,6 +184,15 @@ class Backend:
         return {"process_count": self.process_count,
                 "device_count": self.device_count(),
                 "shard_layout": "replicated"}
+
+    def mesh(self):
+        """The backend's mesh: one ``("data",)`` axis over every rank, as
+        the JAX package's multiprocess backend lays it out (built once, after
+        ``setup``: on several ranks it makes process groups)."""
+        if self._mesh is None:
+            from repro_torch.backend.mesh import Mesh
+            self._mesh = Mesh((self.process_count,), ("data",), self)
+        return self._mesh
 
     # -------------------------------- devices -------------------------------
     def device(self, explicit=None) -> torch.device:

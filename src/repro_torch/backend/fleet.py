@@ -13,6 +13,25 @@ what a fleet is held to: per-step losses, grad norms and ranks, the pivots
 of every refresh, a digest of the final parameters, each kernel's
 launches, the backend's topology and collectives, its gradient-reduce
 seconds, and a probe of the host-side ``all_reduce``.
+
+``run_mesh_job`` runs a job file's tasks on a port ``Mesh`` over the
+rank's backend (``mesh_worker_command``: ``python -m repro_torch.backend
+--worker --job=F --out=D``), and writes everything the tasks produced to
+``D/rank<r>.pt``. A task is a dict with a ``kind``:
+
+  * ``"sharded"`` — the sharded selection engine: ``mesh`` (shape, axis
+    names), ``gcfg`` (``GraftConfig`` fields), ``samplers``, ``inputs`` (a
+    list of global ``(V, G, scores)``, one a step, the carry threaded), and
+    optionally ``carry_in`` (sampler → step → a carry to run that step from
+    as well). Each rank selects on its own rows of the batch;
+  * ``"unequal"`` — every rank passes a different number of rows: each must
+    refuse with ``ValueError``;
+  * ``"pipeline"`` — ``pipeline_forward`` over ``mesh`` along ``axis``:
+    ``layer`` ``"tanh"`` (``tanh(h @ W)``, ``W`` (S, D, D)) or ``"blocks"``
+    (``arch``'s first ``layers`` residual blocks at full width from
+    ``seed``, ``per_stage`` a stage), on the microbatches ``x``;
+  * ``"collectives"`` — every collective of ``mesh`` over each tuple of
+    ``axes``, on a tensor that names the rank.
 """
 from __future__ import annotations
 
@@ -118,6 +137,18 @@ def launch(commands: Sequence[Sequence[str]], *, timeout: float = DEFAULT_TIMEOU
     return results
 
 
+def mesh_worker_command(job: str, out: str, overrides: Sequence[str],
+                        device: Optional[str] = None) -> List[str]:
+    """argv of one rank running :func:`run_mesh_job` on ``job``, writing to
+    the directory ``out``; ``overrides`` name the rank's backend
+    (``backend_overrides``)."""
+    cmd = [sys.executable, "-m", "repro_torch.backend", "--worker", f"--job={job}",
+           f"--out={out}"]
+    if device is not None:
+        cmd.append(f"--device={device}")
+    return cmd + [f"--{o}" for o in overrides]
+
+
 def worker_command(overrides: Sequence[str], device: Optional[str] = None) -> List[str]:
     """argv of one rank running :func:`run_worker` (``python -m
     repro_torch.backend --worker``)."""
@@ -207,3 +238,221 @@ def run_worker(overrides: Sequence[str], device=None) -> Dict[str, Any]:
             trainer.mcfg, run_cfg, launch_audit.optim_groups(trainer.state["params"]),
             flash=flash, card=trainer.device.type == "cuda")
     return out
+
+
+# ---------------------------------------------------------------------------
+# mesh jobs: the sharded selection engine and the pipeline executor
+# ---------------------------------------------------------------------------
+
+def _host(tree):
+    """A state or carry as plain containers of CPU tensors (NamedTuples as
+    dicts), ready for ``torch.save``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if hasattr(tree, "_asdict"):
+        return {k: _host(v) for k, v in tree._asdict().items()}
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host(v) for v in tree]
+    return tree
+
+
+def _to_device(tree, like, device):
+    """``tree`` (plain containers) in the structure of the carry ``like``,
+    on ``device``."""
+    if isinstance(like, torch.Tensor):
+        return torch.as_tensor(tree).to(device)
+    if hasattr(like, "_asdict"):
+        return type(like)(**{k: _to_device(tree[k], v, device)
+                             for k, v in like._asdict().items()})
+    if isinstance(like, dict):
+        return {k: _to_device(tree[k], v, device) for k, v in like.items()}
+    return like
+
+
+def _counters() -> Dict[str, int]:
+    """The kernel wrappers' launch counters that moved since the last
+    ``zero_counts`` (kernel launches on the card; none on the CPU)."""
+    from repro_torch.analysis import launch_audit
+    return {k: v for k, v in launch_audit.read_counts().items() if v}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _sharded_task(task, backend, device) -> Dict[str, Any]:
+    from repro_torch.analysis import launch_audit
+    from repro_torch.backend.mesh import make_mesh
+    from repro_torch.selection import CarrySpec, GraftConfig, engine, get_sampler
+
+    mesh = make_mesh(*task["mesh"], backend)
+    cfg = GraftConfig(**task["gcfg"])
+    axes = engine._batch_axes(mesh, "act_batch", None)
+    n, shard = mesh.size(axes), mesh.axis_index(axes)
+    out: Dict[str, Any] = {"axes": list(axes), "shard": shard, "calls": {}}
+
+    def rows(V, G, scores):
+        k = V.shape[0] // n
+        sl = slice(shard * k, (shard + 1) * k)
+        return (V[sl].to(device), G[:, sl].to(device), scores[sl].to(device))
+
+    def call(name, step, V, G, scores, carry):
+        launch_audit.zero_counts()
+        with launch_audit.recording() as trace:
+            _sync(device)
+            t0 = time.perf_counter()
+            state, carry = engine.select_sharded(cfg, mesh, V, G, sampler=name,
+                                                 scores=scores, carry=carry, step=step)
+            _sync(device)
+            seconds = time.perf_counter() - t0
+        return state, carry, {"state": _host(state), "carry": _host(carry),
+                              "launches": dict(trace.counts), "counters": _counters(),
+                              "seconds": seconds}
+
+    for name in task["samplers"]:
+        carry = None
+        for step, (V, G, scores) in enumerate(task["inputs"]):
+            V_s, G_s, sc_s = rows(V, G, scores)
+            _, carry, rec = call(name, step, V_s, G_s, sc_s, carry)
+            out["calls"][f"{name}/{step}"] = rec
+            given = task.get("carry_in", {}).get(name, {}).get(step)
+            if given is not None:
+                like = get_sampler(name).init_carry(cfg, CarrySpec(
+                    V.shape[0], G.shape[0], device))
+                _, _, rec = call(name, step, V_s, G_s, sc_s, _to_device(given, like, device))
+                out["calls"][f"{name}@carry_in/{step}"] = rec
+    return out
+
+
+def _unequal_task(task, backend, device) -> Dict[str, Any]:
+    from repro_torch.backend.mesh import make_mesh
+    from repro_torch.selection import GraftConfig, engine
+
+    mesh = make_mesh(*task["mesh"], backend)
+    cfg = GraftConfig(**task["gcfg"])
+    k = task["rows"] + mesh.rank            # a different count on every rank
+    V = torch.ones(k, cfg.r_max, device=device)
+    G = torch.ones(task["d"], k, device=device)
+    try:
+        engine.select_sharded(cfg, mesh, V, G)
+    except ValueError as e:
+        return {"refused": str(e)}
+    return {"refused": None}
+
+
+def block_stages(arch: str, layers: int, per_stage: int, seed: int, device, seq: int):
+    """``(layer_fn, stage_params, blocks, mcfg)`` for a pipeline of
+    ``arch``'s first ``layers`` residual blocks at full width,
+    ``per_stage`` a stage, weights drawn from ``seed`` on ``device``:
+    ``stage_params`` stacks stage s's blocks on a leading stage axis;
+    ``blocks`` are the blocks in order (the one-process reference)."""
+    from repro_torch import configs
+    from repro_torch.backend.base import flatten_tree
+    from repro_torch.models import model as model_lib
+
+    mcfg = configs.get_config(arch, num_layers=layers, attn_backend="auto")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    blocks = model_lib.init_params(mcfg, gen, device).tree()["blocks"]
+    stages = layers // per_stage
+    stage_params = {"blocks": []}
+    for j in range(per_stage):
+        leaves = [flatten_tree(blocks[s * per_stage + j]) for s in range(stages)]
+        stage_params["blocks"].append(leaves[0][1](
+            [torch.stack([lv[i] for lv, _ in leaves]) for i in range(len(leaves[0][0]))]))
+
+    def layer_fn(p, x):
+        positions = torch.arange(seq, dtype=torch.int32, device=x.device).expand(x.shape[0], seq)
+        for blk in p["blocks"]:
+            x, _ = model_lib._apply_block(mcfg, blk, x, positions, False)
+        return x
+
+    return layer_fn, stage_params, blocks, mcfg
+
+
+def _pipeline_task(task, backend, device) -> Dict[str, Any]:
+    from repro_torch.analysis import launch_audit
+    from repro_torch.backend.mesh import make_mesh
+    from repro_torch.distributed.pipeline import pipeline_forward
+
+    mesh = make_mesh(*task["mesh"], backend)
+    x = task["x"].to(device)
+    if task["layer"] == "tanh":
+        stage_params = task["W"].to(device)
+
+        def layer_fn(W, h):
+            return torch.tanh(h @ W)
+    else:
+        layer_fn, stage_params, _, _ = block_stages(
+            task["arch"], task["layers"], task["per_stage"], task["seed"], device,
+            x.shape[2])
+    stamps: List[float] = []
+
+    def timed(p, h):
+        stamps.append(time.perf_counter())
+        return layer_fn(p, h)
+
+    launch_audit.zero_counts()
+    with torch.no_grad(), launch_audit.recording() as trace:
+        _sync(device)
+        t0 = time.perf_counter()
+        y = pipeline_forward(timed, stage_params, x, mesh, axis=task["axis"])
+        _sync(device)
+        end = time.perf_counter()
+    return {"y": y.cpu(), "launches": dict(trace.counts), "counters": _counters(),
+            "seconds": end - t0,
+            "tick_s": [b - a for a, b in zip(stamps, stamps[1:] + [end])],
+            "p2p_s": list(mesh.p2p_seconds), "stage": mesh.axis_index(task["axis"])}
+
+
+def _collectives_task(task, backend, device) -> Dict[str, Any]:
+    """Rank r's ``[r, r + 0.5]`` through each collective over each tuple of
+    ``task["axes"]`` (in bfloat16 too, for the ones that only move data):
+    the shift moves index i to i + 1, so index 0 receives nothing."""
+    from repro_torch.backend.mesh import make_mesh
+
+    mesh = make_mesh(*task["mesh"], backend)
+    x = torch.tensor([mesh.rank, mesh.rank + 0.5], device=device)
+    out: Dict[str, Any] = {"coords": dict(mesh.coords)}
+    for axes in task["axes"]:
+        n = mesh.size(axes)
+        out[",".join(axes)] = {
+            "index": mesh.axis_index(axes), "size": n,
+            "psum": mesh.psum(x, axes).cpu(), "pmean": mesh.pmean(x, axes).cpu(),
+            "pmax": mesh.pmax(x, axes).cpu(), "gather": mesh.all_gather(x, axes).cpu(),
+            "gather_bf16": mesh.all_gather(x.to(torch.bfloat16), axes).cpu(),
+            "broadcast": mesh.broadcast(x.to(torch.bfloat16), axes, n - 1).cpu(),
+            "shift": mesh.ppermute(x, axes, [(i, i + 1) for i in range(n - 1)]).cpu(),
+            "ints": mesh.gather_ints(mesh.rank, axes)}
+    return out
+
+
+_TASKS = {"sharded": _sharded_task, "unequal": _unequal_task, "pipeline": _pipeline_task,
+          "collectives": _collectives_task}
+
+
+def run_mesh_job(job: str, out_dir: str, overrides: Sequence[str],
+                 device=None) -> Dict[str, Any]:
+    """Run the tasks of the job file ``job`` on this rank (its backend from
+    ``overrides``), save what they produced to ``out_dir/rank<r>.pt`` and
+    return a JSON-ready summary."""
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.backend import resolve
+
+    tasks = torch.load(job, weights_only=True)
+    backend = resolve(ExperimentConfig().apply_overrides(list(overrides)).backend)
+    dev = backend.device(device)
+    backend.setup()
+    try:
+        results = [_TASKS[t["kind"]](t, backend, dev) for t in tasks]
+        rank = backend.process_index
+    finally:
+        backend.teardown()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"rank{rank}.pt")
+    torch.save({"rank": rank, "device": str(dev),
+                "collectives": getattr(backend, "collectives", None), "tasks": results}, path)
+    return {"rank": rank, "device": str(dev), "collectives": getattr(backend, "collectives", None),
+            "path": path, "tasks": [t["kind"] for t in tasks]}

@@ -110,6 +110,7 @@ class MultiProcessBackend(base.Backend):
             dist.destroy_process_group()
         finally:
             self._initialized = False
+            self._mesh = None           # its groups went with the process group
 
     # -------------------------------- topology ------------------------------
     @property

@@ -1,2 +1,3 @@
 """GRAFT math in plain PyTorch: MaxVol, prefix projection errors, features
-and gradient embeddings."""
+and gradient embeddings; ``graft`` re-exports the selector's names from
+``repro_torch.selection``."""

@@ -1,3 +1,4 @@
 """Train steps (``steps``), JSONL metrics and the device clock
-(``metrics``) and held-out eval (``evaluate``). Serving, the dry-run and
-the launch helpers of the JAX package are still to port (``ROADMAP.md``)."""
+(``metrics``), held-out eval (``evaluate``), serving (``serve``) and the
+legacy flat driver (``train``, a shim over ``repro_torch.api``). The JAX
+package's dry run for a TPU pod has no twin (``ROADMAP.md``, A11)."""

@@ -98,6 +98,13 @@ def lane_generators(step, lanes: int):
     return [torch.Generator(device="cpu").manual_seed(int(s)) for s in seeds]
 
 
+def shard_generator(step, shard: int) -> torch.Generator:
+    """The generator that shard ``shard`` of the sharded engine draws from
+    at ``step``: lane ``shard`` of :func:`lane_generators` (the JAX engine
+    folds the shard index into its step key)."""
+    return lane_generators(step, shard + 1)[shard]
+
+
 def init_state(cfg: GraftConfig, batch_size: int,
                device: torch.device | str = "cpu") -> SelectionState:
     r = cfg.r_max

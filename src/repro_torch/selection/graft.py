@@ -85,6 +85,36 @@ def graft_select_batched(cfg: GraftConfig, V: torch.Tensor, G: torch.Tensor,
                          for b in range(V.shape[0])])
 
 
+def maybe_refresh(cfg: GraftConfig, state: SelectionState, step, V: torch.Tensor,
+                  G: torch.Tensor, g_bar: torch.Tensor) -> SelectionState:
+    """Alg. 1's outer branch: refresh every ``refresh_every`` steps, else keep
+    the old subset (its ``step`` updated). ``step`` is a host integer."""
+    step_t = torch.as_tensor(step, dtype=torch.int32, device=V.device)
+    if int(step) % cfg.refresh_every == 0:
+        return graft_select(cfg, V, G, g_bar, step_t)
+    return state._replace(step=step_t)
+
+
+def select_from_batch(cfg: GraftConfig, batch_matrix: torch.Tensor, loss_fn=None,
+                      params=None, grad_fn_outputs=None, step: int = 0) -> SelectionState:
+    """End-to-end selection when the batch is a plain (K, M) matrix (the
+    paper's CNN/MLP path): features by ``cfg.feature_mode`` on the raw rows,
+    and either precomputed ``grad_fn_outputs`` (G (d, K), ḡ (d,)) or exact
+    per-sample gradients of ``loss_fn(params, row)`` (small models)."""
+    from repro_torch.core import features as feat_lib
+    from repro_torch.core import grad_features as gf
+    V = feat_lib.extract(cfg.feature_mode, batch_matrix, cfg.r_max)
+    if grad_fn_outputs is not None:
+        G, g_bar = grad_fn_outputs
+    else:
+        if loss_fn is None or params is None:
+            raise ValueError("need loss_fn+params or grad_fn_outputs")
+        G, g_bar = gf.per_sample_grads_full(lambda p, ex: loss_fn(p, ex["x"]), params,
+                                            {"x": batch_matrix})
+    return graft_select(cfg, V, G, g_bar,
+                        torch.tensor(step, dtype=torch.int32, device=V.device))
+
+
 def graft_sampler_fn(cfg: GraftConfig, inputs: SelectionInputs,
                      step: torch.Tensor) -> SelectionState:
     """Registry adapter: the ``Sampler.fn`` signature over ``graft_select``."""
@@ -92,4 +122,5 @@ def graft_sampler_fn(cfg: GraftConfig, inputs: SelectionInputs,
 
 
 __all__ = ["GraftConfig", "GraftState", "SelectionState", "graft_select",
-           "graft_select_batched", "graft_sampler_fn", "pivot_and_sweep"]
+           "graft_select_batched", "graft_sampler_fn", "maybe_refresh",
+           "pivot_and_sweep", "select_from_batch"]

@@ -353,6 +353,20 @@ def test_probe_without_a_device_runs_on_the_card_or_raises():
             fn()
 
 
+def test_selection_and_attention_checks_without_a_device_run_on_the_card_or_raise():
+    """``check_fused_selection``, ``check_streaming_selection``,
+    ``check_sharded_selection`` and ``check_attention`` default to the card,
+    as ``run_probe`` does; the CPU only when asked."""
+    from repro_torch.analysis import runner as trunner
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is the card")
+    for fn in (trunner.check_fused_selection, trunner.check_streaming_selection,
+               trunner.check_sharded_selection, trunner.check_attention):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    assert trunner.check_fused_selection("cpu", 32, 64, 8, (2, 4, 8)).ok
+
+
 def test_cli_without_a_device_runs_on_the_card_or_raises():
     from repro_torch.analysis import runner as trunner
     if torch.cuda.is_available():

@@ -148,11 +148,22 @@ def test_needs_scores_raises_and_scores_pass_through(toy_samplers):
 
 
 def test_sharded_engine_is_not_ported():
-    V = torch.zeros(16, 8)
-    with pytest.raises(NotImplementedError, match="A10"):
-        engine.select_sharded(GraftConfig(**GC), None, V, torch.zeros(4, 16))
-    with pytest.raises(NotImplementedError, match="A10"):
-        engine.make_sharded_selector(GraftConfig(**GC), None)
+    """The sharded engine is ported now: on a (1, 1) ``("data", "model")``
+    mesh of the local backend a stack's lanes, each selected alone, equal
+    ``select_multi_batch``'s rows bit for bit, and a mesh without a batch
+    axis is refused as JAX refuses it."""
+    from repro_torch.backend import LocalBackend, LocalBackendConfig, make_mesh
+    Vs, Gs, gbs = _stack(3, B=2)
+    cfg = GraftConfig(**GC)
+    local = LocalBackend(LocalBackendConfig())
+    mesh = make_mesh((1, 1), ("data", "model"), local)
+    multi, _ = engine.select_multi_batch(cfg, "graft", T(Vs), T(Gs), T(Gs).mean(dim=2))
+    for b in range(2):
+        state, _ = engine.select_sharded(cfg, mesh, T(Vs[b]), T(Gs[b]))
+        for f, v in zip(state._fields, state):
+            assert torch.equal(v, getattr(multi, f)[b]), (b, f)
+    with pytest.raises(ValueError, match="no axis"):
+        engine.make_sharded_selector(cfg, make_mesh((1,), ("model",), local))
 
 
 @pytest.mark.parametrize("step,num_micro", [(0, 3), (6, 4)])

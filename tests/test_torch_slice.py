@@ -155,10 +155,20 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, capsys):
 
 @pytest.mark.parametrize("entry,nargs", [("make_sharded_selector", 2), ("select_sharded", 4)])
 def test_not_ported_parts_raise_pointing_to_roadmap(entry, nargs):
-    # the multiprocess backend is ported; the sharded engine is what is left
+    """The sharded engine, once the part left to port, now runs: over the
+    local backend's one-rank mesh both entry points (the selector from
+    ``cfg, backend``, the one-shot call from ``cfg, backend, V, G``) give
+    ``select_batch``'s GRAFT state bit for bit."""
+    from repro_torch.backend import resolve
     from repro_torch.selection import engine
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A10b"):
-        getattr(engine, entry)(*[None] * nargs)
+    gen = torch.Generator().manual_seed(0)
+    V, G = torch.randn(16, 8, generator=gen), torch.randn(24, 16, generator=gen)
+    cfg = TGraftConfig(rset=(2, 4, 8), eps=0.25)
+    args = (cfg, resolve(None), V, G)[:nargs]
+    out = getattr(engine, entry)(*args)
+    state, carry = out(V, G) if entry == "make_sharded_selector" else out
+    want, _ = engine.select_batch(cfg, "graft", V, G, G.mean(dim=1))
+    assert carry == {} and all(torch.equal(a, b) for a, b in zip(state, want))
 
 
 @pytest.mark.parametrize("override", [
