@@ -265,6 +265,22 @@ Phases (any failure exits nonzero and prints no result line):
                times printed. (b) and (c) are one fleet of ``python -m
                repro_torch.backend --worker --job`` ranks.
 
+ 22. dryrun  — the dry run (``python -m repro_torch.launch.dryrun``): the
+               slice's configuration (minicpm-2b, full depth, 16 × 256) and
+               rwkv_slice's (rwkv6-7b, 16 layers) each traced once on fake
+               cuda:0 tensors and run once for real through ``Trainer`` (one
+               refresh step): the predicted peak within 10 % of
+               ``max_memory_allocated`` (and printed beside phases slice's and
+               rwkv_slice's 6-step peaks), the fake step's aten FLOPs equal
+               to ``FlopCounterMode`` over the real one, the fake launches
+               equal to the real ones and to ``expected_launches`` for one
+               step. Then every supported (arch × shape × variant) cell on one
+               device and on one device of the production mesh (16, 16),
+               cheapest first, 7 at once in worker processes until the
+               phase's 120 s: fits, peak GB, TFLOPs, collective bytes and
+               trace seconds a cell, a line for each cell left out for time
+               (all rows in ``build/chip_smoke_dryrun.json``).
+
 It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -405,31 +421,27 @@ def _graft_inputs(kind, K, R, d, rank, dev, seed=0):
     return [torch.from_numpy(a).to(dev) for a in (V, G, gb)] + [rank]
 
 
-def _maxvol_flops(K, R, rank):
-    """Fast MaxVol's float32 operations: per pivot step a division per row
-    and a multiply-subtract on every row of the columns still to pivot on."""
-    return sum(K + 2 * K * (R - j - 1) for j in range(rank))
-
-
-def _sweep_flops(d, n):
-    """The CGS2 sweep: two passes of coefficients + update per column, and
-    its norm, normalisation and dot with ĝ."""
-    return sum(2 * 4 * d * j + 6 * d for j in range(n))
-
-
-def _bound(nbytes, flops):
-    """Least time on an H100: bytes over HBM bandwidth vs float32 operations
-    over the CUDA-core peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def _bound(nbytes, flops, peak=F32_FLOP_PER_S):
+    """Least time on an H100: bytes over HBM bandwidth vs operations over
+    the peak of their type (float32 on the CUDA cores unless given),
+    whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
         nbytes, flops
 
 
+def _cost_bound(cost, peak=F32_FLOP_PER_S):
+    """``_bound`` of a kernel module's cost function's (operations, bytes):
+    the one reckoning of each kernel's work, which the dry run sums too."""
+    flops, nbytes = cost
+    return _bound(nbytes, flops, peak)
+
+
 def _graft_bound(K, R, d, rank, B=1):
     """The refresh (B of them): its inputs read once and its outputs written
-    once, vs its operations."""
-    nbytes = B * 4 * (K * R + d * K + d + rank + rank + 1 + d * rank)
-    return _bound(nbytes, B * (_maxvol_flops(K, R, rank) + _sweep_flops(d, rank)))
+    once, vs its operations (``kernels/graft_select.py`` ``cost``)."""
+    from repro_torch.kernels import graft_select as gs
+    return _cost_bound(gs.cost(K, R, d, rank, B))
 
 
 def _entry(name, replaces, launches, err, ms, plain_ms, bound, device_ms=None):
@@ -610,7 +622,7 @@ def _kernels_standalone(ctx, dev):
               and torch.equal(lv, fused[2]) and lv_d <= 1e-5 * abs(lv_r.item()) + 1e-7)
         ms = _time_auto(lambda: fm.fast_maxvol(V, rank), max_iters=500)
         plain_ms = _time_auto(lambda: maxvol_lib.fast_maxvol(V, rank))
-        bound = _bound(4 * (K * R + rank + 1), _maxvol_flops(K, R, rank))
+        bound = _cost_bound(fm.cost(K, R, rank))
         print(f"[fast_maxvol] {gs.choose_plan(K, R, rank)} plan K={K} R={R} rank={rank}: "
               f"pivots {'equal' if ok else 'DIFFER or'} to the plain version's and "
               f"graft_select's, logvol bit-equal to graft_select's, |logvol diff| vs plain "
@@ -638,7 +650,7 @@ def _kernels_standalone(ctx, dev):
         ok = err_d <= 1e-5 and same is not False and plans_eq
         ms = _time_auto(lambda: ps.projection_sweep(G_sel, gb), max_iters=500)
         plain_ms = _time_auto(lambda: proj_lib.prefix_projection_errors(G_sel, gb))
-        bound = _bound(4 * (d * R + d + R), _sweep_flops(d, R))
+        bound = _cost_bound(ps.cost(d, R))
         vs_fused = ("bit-equal to the fused kernel's" if same else "DIFFER from the fused kernel's"
                     ) if fits else "(the fused kernel's 12 MB guard refuses this shape)"
         print(f"[projection_sweep] d={d} R={R}: max|errors diff| vs plain {err_d:.3g} "
@@ -664,31 +676,15 @@ def _flash_inputs(B, H, Hkv, S, Dh, dtype, seed=0):
     return rnd(B * H), rnd(B * Hkv), rnd(B * Hkv), rnd(B * H)
 
 
-def _flash_pairs(S, causal, window):
-    """Unmasked (q, k) pairs of one head: what the inputs need computed."""
-    import numpy as np
-    i = np.arange(S, dtype=np.int64)
-    hi = i if causal else np.full(S, S - 1)
-    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(S, np.int64)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
-
-
 def _flash_bound(kind, B, H, Hkv, S, Dh, dtype, causal, window):
-    """Least time on an H100: operations on the unmasked pairs (QKᵀ and PV
-    forward; + dO·Vᵀ and dS·K for dQ; QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q for dK/dV) at
-    the peak of the input type, vs each input read and each output written
-    once over HBM."""
-    el = 2 if dtype == "bfloat16" else 4
-    q_b, kv_b, row_b = B * H * S * Dh * el, B * Hkv * S * Dh * el, B * H * S * 4
-    pairs = B * H * _flash_pairs(S, causal, window)
-    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * Dh * pairs
-    nbytes = {"fwd": 2 * q_b + 2 * kv_b + row_b,            # q, k, v -> o, lse
-              "dq": 3 * q_b + 2 * kv_b + 2 * row_b,         # q, do, k, v, lse, delta -> dq
-              "dkv": 2 * q_b + 4 * kv_b + 2 * row_b}[kind]  # q, do, k, v, lse, delta -> dk, dv
+    """Least time on an H100 (``kernels/flash_attention.py`` ``cost``):
+    operations on the unmasked pairs at the peak of the input type, vs each
+    input read and each output written once over HBM."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
     peak = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
-        nbytes, flops
+    return _cost_bound(fa.cost(kind, B * H, B * Hkv, S, S, Dh, getattr(torch, dtype), causal,
+                               window), peak)
 
 
 def _flash_plain(fn, q, k, v, do, lse, delta, group, opts):
@@ -893,6 +889,7 @@ def phase_slice(ctx):
     wall = time.perf_counter() - t0
     launches = _read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ctx.setdefault("peaks", {})["slice"] = torch.cuda.max_memory_allocated()
     hist = report["history"]
     for i, row in enumerate(hist):
         print(f"[slice] step {i}: loss {row['loss']:.6f} rank {row['rank']} "
@@ -1547,19 +1544,11 @@ def _rwkv_inputs(BH, T, D, seed=0, w_low=0.4):
 
 
 def _rwkv_bound(kind, BH, T, D):
-    """Least time on an H100 for the function, not for this design. Bytes:
-    each input read and each output written once — forward r, k, v, w, u →
-    o; backward r, k, v, w, u, do → dr, dk, dv, dw, du. The tile states the
-    kernels save and reload are this design's intermediate and not counted.
-    Float32 operations per state element per step: forward 5 (r·S 2, the
-    decay update and k·vᵀ 3) plus 5 per step and k-row for the bonus
-    (Σ r u k, then its multiple of v); backward 14 (one recompute of S, the
-    dS update, and the dr, dk, dv, dw sums) plus 16 per step and row for c,
-    the u terms, du and Σ r u k."""
-    stream, vec = BH * T * D * 4, BH * D * 4
-    if kind == "fwd":
-        return _bound(5 * stream + vec, BH * T * (5 * D * D + 5 * D))
-    return _bound(9 * stream + 2 * vec, BH * T * (14 * D * D + 16 * D))
+    """Least time on an H100 for the function, not for this design
+    (``kernels/rwkv_scan.py`` ``cost``: each input read and each output
+    written once, float32 operations per state element per step)."""
+    from repro_torch.kernels import rwkv_scan as rs
+    return _cost_bound(rs.cost(kind, BH, T, D))
 
 
 def phase_rwkv(ctx):
@@ -1634,6 +1623,12 @@ def phase_rwkv(ctx):
 RWKV_LAYERS = 16
 
 
+def _rwkv_slice_overrides():
+    """The slice's GRAFT settings on rwkv6-7b at full width, RWKV_LAYERS deep."""
+    return ([o for o in SLICE_OVERRIDES if not o.startswith("model.overrides")]
+            + ["model.arch=rwkv6-7b", f'model.overrides={{"num_layers": {RWKV_LAYERS}}}'])
+
+
 def phase_rwkv_slice(ctx):
     """rwkv6-7b at full width, depth cut to RWKV_LAYERS, through Trainer."""
     import numpy as np
@@ -1643,9 +1638,7 @@ def phase_rwkv_slice(ctx):
     ctx.pop("trainer", None)           # minicpm's state: the two do not fit together
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = ExperimentConfig().apply_overrides(
-        [o for o in SLICE_OVERRIDES if not o.startswith("model.overrides")]
-        + ["model.arch=rwkv6-7b", f'model.overrides={{"num_layers": {RWKV_LAYERS}}}'])
+    cfg = ExperimentConfig().apply_overrides(_rwkv_slice_overrides())
     mcfg = cfg.model.build()
     per_layer = 2 * mcfg.d_model + sum(      # ln1, ln2, time mix, channel mix
         int(np.prod(s)) for shapes in (ssm.rwkv_time_shapes(mcfg, mcfg.dtype),
@@ -1669,6 +1662,7 @@ def phase_rwkv_slice(ctx):
     wall = time.perf_counter() - t0
     launches = _read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ctx.setdefault("peaks", {})["rwkv_slice"] = torch.cuda.max_memory_allocated()
     hist = report["history"]
     for i, row in enumerate(hist):
         print(f"[rwkv_slice] step {i}: loss {row['loss']:.6f} rank {row['rank']} "
@@ -2321,9 +2315,6 @@ def _optim_times(ctx, shapes, norm_err, update_err):
     v = _randn(shapes, torch.float32, 14, 1e-6, positive=True)
     _, scale = fo.grad_norm(g, 1.0)
     hp = _hyper(5)
-    g_bytes = sum(t.numel() * t.element_size() for t in g)
-    # p read and written, g read, float32 m and v read and written
-    upd_bytes = sum(t.numel() * (3 * t.element_size() + 16) for t in p)
     n = sum(t.numel() for t in p)
     t = {}
     t["A"], t["A_device"] = _device_times(lambda: fo.grad_norm(g, 1.0), "norm_")
@@ -2361,8 +2352,8 @@ def _optim_times(ctx, shapes, norm_err, update_err):
     lib_f32_bytes = 28 * n          # p, m, v read and written, g read: all float32
     del lib, leaves
     torch.cuda.empty_cache()
-    a_bound = _bound(g_bytes + 8, 2 * n)
-    b_bound = _bound(upd_bytes + 4, 16 * n)
+    a_bound = _cost_bound(fo.norm_cost([(x.numel(), x.dtype) for x in g]))
+    b_bound = _cost_bound(fo.update_cost("adamw", [(x.numel(), x.dtype, torch.float32) for x in p]))
     print(f"[optim] {ctx['smi']}", flush=True)
     print(f"[optim] grad_norm (A) over {n} params: {t['A']:.4f} ms (events), "
           f"{t['A_device']:.4f} ms (profiler device time); plain {t['A_plain']:.4f} ms; "
@@ -3143,6 +3134,115 @@ def phase_sharded(ctx):
     shutil.rmtree(work, ignore_errors=True)
 
 
+DRYRUN_BUDGET_S = 120.0      # the whole phase, the two real steps included
+DRYRUN_JOBS = 7              # cells traced at once (the host has 8 cores)
+DRYRUN_PEAK_RTOL = 0.10
+# the cells that must trace in the phase: the slice's and rwkv_slice's
+# configurations at train_4k, both variants, on one device and on the pod
+DRYRUN_REQUIRED = tuple((arch, "train_4k", v, m) for m in ("one", "single")
+                        for arch in ("minicpm-2b", "rwkv6-7b") for v in ("graft", "baseline"))
+
+
+def _dryrun_against_a_real_step(tag, overrides):
+    """One step of ``overrides`` (a refresh step) on fake cuda:0 tensors,
+    then the same step for real through ``Trainer``: predicted peak vs
+    ``max_memory_allocated`` (this 1-step fit's, and the 6-step phase's
+    when it ran), aten FLOPs vs ``FlopCounterMode`` over the real step, and
+    launches vs ``launch_audit.expected_launches`` for one step."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.api import ExperimentConfig, Trainer
+    from repro_torch.launch import dryrun, specs
+    cfg = ExperimentConfig().apply_overrides(list(overrides) + ["train.steps=1"])
+    mcfg = cfg.model.build()
+    t0 = time.perf_counter()
+    cell = specs.experiment_cell(cfg)
+    assert cell.device.type == "cuda" and not cell.as_card, (cell.device, cell.as_card)
+    res = dryrun.trace(cell)
+    trace_s = time.perf_counter() - t0
+    del cell
+    fake = {k: row["launches"] for k, row in res["kernels"].items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with FlopCounterMode(display=False) as counter:
+        trainer = Trainer(cfg)
+        trainer.fit()
+    real_peak = torch.cuda.max_memory_allocated()
+    real = {k: v for k, v in _read_counts().items() if v}
+    expected = {k: v for k, v in _expected_launches(
+        mcfg, cfg, _optim_groups(trainer.state["params"])).items() if v}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    pred = res["memory"]["peak_bytes"]
+    rel = (pred - real_peak) / real_peak
+    print(f"[dryrun] {tag}: traced in {trace_s:.1f} s on fake cuda:0 tensors; predicted peak "
+          f"{pred / 1e9:.3f} GB (args {res['memory']['argument_size_in_bytes'] / 1e9:.3f} GB) vs "
+          f"max_memory_allocated {real_peak / 1e9:.3f} GB over the 1-step fit ({rel:+.2%}; "
+          f"rtol {DRYRUN_PEAK_RTOL})", flush=True)
+    return res, real_peak, counter.get_total_flops(), fake, real, expected
+
+
+def phase_dryrun(ctx):
+    """The dry run (``repro_torch.launch.dryrun``) held to the card: the
+    slice's and rwkv_slice's configurations traced on fake cuda:0 tensors
+    against their real steps (peak within 10 %, aten FLOPs equal, launches
+    as reckoned), then every supported cell on one device and on one device
+    of the production mesh (16, 16) in a pool of worker processes until the
+    phase's budget: ``DRYRUN_REQUIRED`` first, each of which must trace,
+    then the others cheapest first; a cell left out for time is named."""
+    import torch
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rows = {"device": ctx.get("smi"), "checks": {}, "cells": [], "left_out": []}
+    for tag, overrides in (("slice", SLICE_OVERRIDES), ("rwkv_slice", _rwkv_slice_overrides())):
+        res, real_peak, real_flops, fake, real, expected = \
+            _dryrun_against_a_real_step(tag, overrides)
+        pred = res["memory"]["peak_bytes"]
+        phase_peak = ctx.get("peaks", {}).get(tag)
+        if phase_peak:
+            print(f"[dryrun] {tag}: phase {tag}'s 6-step fit peaked at {phase_peak / 1e9:.3f} GB "
+                  f"({(pred - phase_peak) / phase_peak:+.2%})", flush=True)
+        print(f"[dryrun] {tag}: aten FLOPs fake {res['aten_flops']:.0f} vs FlopCounterMode over "
+              f"the real step {real_flops:.0f}; kernel FLOPs {res['kernel_flops']:.0f}, "
+              f"bytes {res['bytes_accessed']:.0f}", flush=True)
+        print(f"[dryrun] {tag}: launches fake {fake}, real {real}, expected {expected}",
+              flush=True)
+        rows["checks"][tag] = {"predicted_peak": pred, "real_peak": real_peak,
+                               "phase_peak": phase_peak, "aten_flops": res["aten_flops"],
+                               "real_flops": real_flops, "kernel_flops": res["kernel_flops"],
+                               "bytes": res["bytes_accessed"], "launches": fake}
+        assert abs(pred - real_peak) <= DRYRUN_PEAK_RTOL * real_peak, f"{tag}: peak"
+        assert res["aten_flops"] == real_flops, f"{tag}: aten FLOPs"
+        assert fake == expected == real, f"{tag}: launches"
+    rest = [c + (m,) for m in ("one", "single") for c in dryrun.cells()]
+    assert set(DRYRUN_REQUIRED) <= set(rest), "a required cell is not a supported cell"
+    todo = list(DRYRUN_REQUIRED) + dryrun.sweep_order([c for c in rest
+                                                       if c not in DRYRUN_REQUIRED])
+    left_s = DRYRUN_BUDGET_S - (time.perf_counter() - t0)
+    results, left = dryrun.sweep(todo, DRYRUN_JOBS, max(left_s, 0.0), device="cuda:0")
+    print(f"[dryrun] {torch.cuda.get_device_name(0)}, {ctx.get('smi')}: {len(results)} of "
+          f"{len(todo)} cells traced in {DRYRUN_JOBS} worker processes", flush=True)
+    for res in results:
+        print(f"[dryrun] {dryrun.summary(res)}", flush=True)
+    for arch, shape, v, mesh_kind in left:
+        print(f"[dryrun] LEFT OUT {arch} {shape} {mesh_kind} {v}: past the phase's "
+              f"{DRYRUN_BUDGET_S:.0f} s budget", flush=True)
+    rows["cells"], rows["left_out"] = results, left
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "chip_smoke_dryrun.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    failed = [r for r in results if not r.get("ok")]
+    for r in failed:
+        print(r["error"], file=sys.stderr)
+    assert not failed, f"{len(failed)} cells failed"
+    traced = {(r["arch"], r["shape"], r["variant"], r["mesh"]) for r in results}
+    missing = [c for c in DRYRUN_REQUIRED if c not in traced]
+    assert not missing, f"required cells not traced in the budget: {missing}"
+
+
 def main() -> int:
     try:
         import torch
@@ -3168,7 +3268,7 @@ def main() -> int:
                      ("serve", phase_serve), ("check", phase_check),
                      ("shell", phase_shell), ("chaos", phase_chaos),
                      ("analysis", phase_analysis), ("backend", phase_backend),
-                     ("sharded", phase_sharded)):
+                     ("sharded", phase_sharded), ("dryrun", phase_dryrun)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

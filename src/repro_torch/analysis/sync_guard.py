@@ -24,6 +24,13 @@ makes inside (``__array__`` → ``numpy``) are not recorded again.
 Scope is **thread-local**: only threads that entered a guard are audited.
 The checkpoint writer thread and the autograd engine's device threads may
 block freely.
+
+A sync inside a C++ op (``nonzero``, a boolean-mask index, a blocking
+host-to-device copy, a read on the autograd engine's device thread) passes
+none of those Python entry points. A strict guard on a machine with a card
+therefore also runs its block under PyTorch's sync debug mode ``"error"``
+(process-wide: every thread's CUDA sync raises), and ``sync_allowed`` sets
+the mode back to ``"default"`` inside each sanctioned site.
 """
 from __future__ import annotations
 
@@ -94,10 +101,16 @@ def sync_allowed(site: str):
     if stack is None:
         stack = _tls.allowed = []
     stack.append(site)
+    guard = getattr(_tls, "guard", None)
+    debug = guard is not None and guard.cuda_debug and len(stack) == 1   # outermost site
+    if debug:
+        torch.cuda.set_sync_debug_mode("default")
     try:
         yield
     finally:
         stack.pop()
+        if debug:
+            torch.cuda.set_sync_debug_mode("error")
 
 
 def _patch_points():
@@ -126,6 +139,7 @@ class SyncGuard:
         self.strict = strict
         self.label = label
         self.events: List[SyncEvent] = []
+        self.cuda_debug = False        # sync debug mode "error" while entered
 
     # -- patch plumbing ----------------------------------------------------
 
@@ -160,9 +174,16 @@ class SyncGuard:
             raise RuntimeError("SyncGuard is not reentrant within a thread")
         self._install()
         _tls.guard = self
+        self.cuda_debug = self.strict and torch.cuda.is_available()
+        if self.cuda_debug:
+            self._debug_before = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
         return self
 
     def __exit__(self, *exc) -> None:
+        if self.cuda_debug:
+            torch.cuda.set_sync_debug_mode(self._debug_before)
+            self.cuda_debug = False
         _tls.guard = None
         self._uninstall()
 

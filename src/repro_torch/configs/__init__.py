@@ -38,6 +38,14 @@ _ALIASES: Dict[str, str] = {
 }
 
 
+# the ten architectures in the JAX package's order (the dry run's cells)
+CANONICAL_IDS = (
+    "stablelm-12b", "gemma2-27b", "qwen1.5-32b", "minicpm-2b",
+    "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "rwkv6-7b",
+    "musicgen-medium", "internvl2-26b", "hymba-1.5b",
+)
+
+
 def _module(arch: str):
     name = _ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
     if name not in ARCHS:

@@ -17,6 +17,9 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.analysis.sync_guard import sync_allowed
+from repro_torch.core.features import LINALG_SYNC
+
 
 def permutation(generator: torch.Generator, k: int) -> torch.Tensor:
     """A uniform permutation of ``range(k)`` drawn on the generator's device
@@ -54,7 +57,8 @@ def gradmatch_omp(G: torch.Tensor, g_bar: torch.Tensor,
 
     def refit(mask):
         A = Gf * mask[None, :]
-        return A, torch.linalg.solve(A.T @ A + eye, A.T @ g)
+        with sync_allowed(LINALG_SYNC):
+            return A, torch.linalg.solve(A.T @ A + eye, A.T @ g)
 
     for j in range(r):
         scores = torch.abs(Gn.T @ residual)

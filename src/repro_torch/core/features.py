@@ -21,7 +21,13 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.analysis.sync_guard import sync_allowed
+
 _SKETCH_SVD_SEED = 0x51E7
+# cuSOLVER's eigh, svd and solve report failure in an info flag that PyTorch
+# reads back to the host: a sync each that the JAX reference does not make,
+# sanctioned under this name for train.audit
+LINALG_SYNC = "linalg_info"
 _ICA_SEED = 0
 
 
@@ -47,12 +53,14 @@ def svd_features(A: torch.Tensor, rank: int) -> torch.Tensor:
     A = _flatten_batch(A)
     K, M = A.shape
     if M >= K:
-        evals, evecs = torch.linalg.eigh(_finite(A @ A.T))  # ascending
+        with sync_allowed(LINALG_SYNC):
+            evals, evecs = torch.linalg.eigh(_finite(A @ A.T))  # ascending
         evals = torch.flip(evals, (-1,))[:rank]
         U = torch.flip(evecs, (-1,))[:, :rank]
         sigma = torch.sqrt(torch.clamp(evals, min=0.0))
     else:
-        U, s, _ = torch.linalg.svd(_finite(A), full_matrices=False)
+        with sync_allowed(LINALG_SYNC):
+            U, s, _ = torch.linalg.svd(_finite(A), full_matrices=False)
         U, sigma = U[:, :rank], s[:rank]
     return U * sigma[None, :]
 
@@ -93,7 +101,8 @@ def sketch_svd_features(A: torch.Tensor, rank: int, oversample: int = 8,
         Y = A @ (A.T @ Q)
     Q, _ = torch.linalg.qr(Y)                                # (K, L) range basis
     B = Q.T @ A                                              # (L, M)
-    evals, evecs = torch.linalg.eigh(_finite(B @ B.T))       # L×L — the only eigh
+    with sync_allowed(LINALG_SYNC):
+        evals, evecs = torch.linalg.eigh(_finite(B @ B.T))   # L×L — the only eigh
     evals = torch.flip(evals, (-1,))[:rank]
     U_small = torch.flip(evecs, (-1,))[:, :rank]
     sigma = torch.sqrt(torch.clamp(evals, min=0.0))
@@ -122,7 +131,8 @@ def ica_features(A: torch.Tensor, rank: int, iters: int = 64,
     """
     A = _flatten_batch(A)
     X = A - A.mean(dim=0, keepdim=True)
-    evals, evecs = torch.linalg.eigh(_finite(X @ X.T / X.shape[1]))
+    with sync_allowed(LINALG_SYNC):
+        evals, evecs = torch.linalg.eigh(_finite(X @ X.T / X.shape[1]))
     evals = torch.flip(evals, (-1,))[:rank]
     E = _canonical_signs(torch.flip(evecs, (-1,))[:, :rank])
     Z = (E / torch.sqrt(torch.clamp(evals, min=1e-12))[None, :]).T   # (rank, K)
@@ -134,7 +144,8 @@ def ica_features(A: torch.Tensor, rank: int, iters: int = 64,
 
     def sym_decorrelate(W):
         # W ← (W Wᵀ)^{-1/2} W
-        s, u = torch.linalg.eigh(_finite(W @ W.T))
+        with sync_allowed(LINALG_SYNC):
+            s, u = torch.linalg.eigh(_finite(W @ W.T))
         inv_sqrt = u @ torch.diag(1.0 / torch.sqrt(torch.clamp(s, min=1e-12))) @ u.T
         return inv_sqrt @ W
 

@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.analysis.launch_audit import wide_allowed
-from repro_torch.core.numerics import safe_pivot
+from repro_torch.core.numerics import device_scalar, safe_pivot
 
 
 def fast_maxvol(V: torch.Tensor, rank: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -36,7 +36,9 @@ def fast_maxvol(V: torch.Tensor, rank: int) -> Tuple[torch.Tensor, torch.Tensor]
     Returns ``(pivots, logvol)``: int32 row indices in selection order
     (prefixes are the Fast MaxVol solutions for smaller ranks) and
     ``log |det V[pivots, :rank]|`` accumulated from the pivot magnitudes.
-    Runs on ``V``'s device without a host sync.
+    Runs on ``V``'s device without a host sync: the pivot indexes with
+    tensor ops (a 0-d index tensor would be read to the host), so the loop
+    also traces on fake tensors.
     """
     K, R = V.shape
     if rank > min(K, R):
@@ -45,21 +47,21 @@ def fast_maxvol(V: torch.Tensor, rank: int) -> Tuple[torch.Tensor, torch.Tensor]
     avail = torch.ones(K, dtype=torch.bool, device=V.device)
     pivots = torch.zeros(rank, dtype=torch.int32, device=V.device)
     logvol = torch.zeros((), dtype=torch.float32, device=V.device)
-    minus_one = torch.tensor(-1.0, dtype=torch.float32, device=V.device)
+    minus_one = device_scalar(-1.0, torch.float32, V.device)
     for j in range(rank):
         col = W[:, j]
         # residual column scores; already-selected rows can never win
         scores = torch.where(avail, col.abs(), minus_one)
-        pj = torch.argmax(scores)
-        pivot_val = safe_pivot(W[pj, j])
+        pj = torch.argmax(scores).view(1)
+        pivot_row = W.index_select(0, pj)              # (1, R), a copy
+        pivot_val = safe_pivot(pivot_row[0, j])
         factor = col / pivot_val                       # (K,)
-        pivot_row = W[pj].clone()                      # (R,)
         # W - factor ⊗ pivot_row with one rounding (see the module docstring)
         with wide_allowed("maxvol_exact_product"):
-            W = (W.double() - factor.double()[:, None] * pivot_row.double()[None, :]
+            W = (W.double() - factor.double()[:, None] * pivot_row.double()
                  ).to(torch.float32)
-        W[pj] = pivot_row                              # keep the pivot row intact
-        avail[pj] = False
-        pivots[j] = pj.to(torch.int32)
+        W.index_copy_(0, pj, pivot_row)                # keep the pivot row intact
+        avail.index_fill_(0, pj, False)
+        pivots[j] = pj[0].to(torch.int32)
         logvol = logvol + torch.log(pivot_val.abs())
     return pivots, logvol

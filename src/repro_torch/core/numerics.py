@@ -12,6 +12,9 @@
   A poisoned batch (``resilience.chaos``, ``BAD_TOKEN_ID``) relies on the
   fill. Each helper clamps the index and masks: no host read, nothing that
   can assert, and bit-equal results for indices in range.
+* ``device_scalar``: a host number as a 0-d device tensor by a fill.
+  ``torch.tensor(x, device=cuda)`` copies from pageable host memory and
+  waits for the stream (a host sync); a fill is a kernel like any other.
 """
 from __future__ import annotations
 
@@ -21,6 +24,14 @@ import torch
 
 # magnitude below which a pivot counts as a degenerate (eliminated) column
 PIVOT_EPS = 1e-12
+
+
+def device_scalar(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """``value`` as a 0-d ``dtype`` tensor on ``device``: a tensor is cast
+    and moved, a host number filled in on the device (no copy, no sync)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=dtype, device=device)
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def safe_pivot(x: torch.Tensor) -> torch.Tensor:

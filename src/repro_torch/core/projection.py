@@ -13,6 +13,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from repro_torch.core.numerics import device_scalar
+
 _EPS = 1e-12
 
 
@@ -57,13 +59,15 @@ def select_rank(errors: torch.Tensor, rset: Sequence[int],
     R_max is also the error minimizer, and a tie-break must never pick a
     SMALLER rank on a flat error plateau.
     """
-    cand = torch.tensor(tuple(rset), dtype=torch.int32, device=errors.device)
+    # the candidates cross from host memory without a wait for the stream
+    cand = torch.tensor(tuple(rset), dtype=torch.int32).to(errors.device, non_blocking=True)
     cand_err = errors[(cand - 1).long()]
     ok = cand_err <= eps
     first_ok = torch.argmax(ok.to(torch.int32))     # first True (0 if none)
     idx = torch.where(ok.any(), first_ok,
-                      torch.tensor(len(rset) - 1, device=errors.device))
-    return cand[idx], cand_err[idx]
+                      device_scalar(len(rset) - 1, torch.int64, errors.device)).view(1)
+    # index_select with a 1-element index: a 0-d index would be read to the host
+    return cand.index_select(0, idx)[0], cand_err.index_select(0, idx)[0]
 
 
 def projection_error(G: torch.Tensor, g_bar: torch.Tensor) -> torch.Tensor:

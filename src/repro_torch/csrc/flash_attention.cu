@@ -64,8 +64,9 @@
 //   time, so that the KV rows are M of all four products and P and dS never
 //   leave registers: S^T = K.Q^T, P^T = exp(scale S^T - lse) (mask,
 //   softcap), dV += P^T.dO, dP^T = V.dO^T, dS^T = P^T (dP^T - delta)(1 - t^2),
-//   dK += dS^T.Q, times scale at the end. P and dS are rounded to bf16 once
-//   before their products. Above DP 160 the f32 dK and dV accumulators
+//   dK += dS^T.Q, times scale at the end. P is rounded to bf16 once before
+//   its product; dS goes in as hi + lo, as in dQ (dK = sum_i dS_i q_i
+//   cancels as dQ does: one rounding of dS reached 0.96 of the tolerance). Above DP 160 the f32 dK and dV accumulators
 //   (DP/2 registers a thread each) do not fit, so the block's output columns
 //   are split in two halves over blockIdx.z; each half recomputes S and dP.
 //   Outputs leave through the block's own rows of shared memory as 16-byte
@@ -75,8 +76,8 @@
 //   q tiles first. Up to DP 64 the forward and dQ are held to 128 registers
 //   (4 blocks an SM) and dK/dV to 168 (3 blocks); chip_smoke.py's build
 //   phase prints every instance's registers and spills. Rounding P to bf16
-//   adds at most 2^-9 sum_j p_j |v_j| to o before o's own rounding (dS
-//   likewise to dK), far less for random inputs; the tests hold the bf16
+//   adds at most 2^-9 sum_j p_j |v_j| to o before o's own rounding (and to
+//   dV), far less for random inputs; the tests hold the bf16
 //   outputs to 2^-7 of the largest value of the plain float32 versions.
 // The float32 kernels stage tiles of TILE rows in shared memory as float32,
 // stored d-major (x[d * LD + row], LD = TILE + 4), and each of 256 threads
@@ -1105,10 +1106,11 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           dp[j][e] = dscore(x, p, dp[j][e], cD[r], ok, softcap);
           s[j][e] = p;
         }
-      // dV += P^T dO and dK += dS^T Q, P and dS rounded to bf16 once
-      uint32_t pa[4], da[4];
+      // dV += P^T dO with P rounded to bf16 once; dK += dS^T Q with dS as
+      // hi + lo, as in dQ
+      uint32_t pa[4], ds_hi[4], ds_lo[4];
       acc_to_a(pa, s[0], s[1]);
-      acc_to_a(da, dp[0], dp[1]);
+      acc_to_a_split(ds_hi, ds_lo, dp[0], dp[1]);
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
         uint32_t b[4];
@@ -1116,8 +1118,10 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma_bf16(dv_acc[n], pa, b[0], b[1]);
         mma_bf16(dv_acc[n + 1], pa, b[2], b[3]);
         ldsm_x4_t(b, smem_u32(cQ + (c * 16 + a_row(lane)) * LDS + c0 + n * 8 + a_col(lane)));
-        mma_bf16(dk_acc[n], da, b[0], b[1]);
-        mma_bf16(dk_acc[n + 1], da, b[2], b[3]);
+        mma_bf16(dk_acc[n], ds_hi, b[0], b[1]);
+        mma_bf16(dk_acc[n + 1], ds_hi, b[2], b[3]);
+        mma_bf16(dk_acc[n], ds_lo, b[0], b[1]);
+        mma_bf16(dk_acc[n + 1], ds_lo, b[2], b[3]);
       }
     }
   }

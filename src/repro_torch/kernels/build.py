@@ -6,9 +6,18 @@ headers, so a build takes seconds. Libraries are built at first use from
 the sources in the checkout into ``build/repro_torch_kernels/`` at the repo
 root, named by a hash of the source and the flags so that an edited source
 is never served a stale library. A missing ``nvcc`` raises.
+
+A launch on fake tensors (``torch._subclasses.fake_tensor``: a dry run,
+``launch/dryrun.py``) is abstract: the wrapper decides its route and
+allocates its outputs as on the card, then ``abstract`` records the
+launch's work from the kernel module's cost function and nothing is built,
+launched or read. ``as_card`` lets a dry run on a host whose PyTorch has no
+CUDA take the card's routes on fake CPU tensors (the CPU stand-in); real
+tensors keep their own routes inside it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -18,9 +27,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -62,10 +72,41 @@ def find_nvcc() -> str:
 # thread of its own.
 AUDITS: List[Callable[[str, bool], None]] = []
 
+# the open cost records (``launch/dryrun.py``): each is called with (kernel
+# name, operations, bytes) for every abstract launch
+COSTS: List[Callable[[str, float, float], None]] = []
+
+# > 0 while a dry run traces the card's routes on fake CPU tensors
+_AS_CARD = [0]
+
+
+@contextlib.contextmanager
+def as_card():
+    """Within it, fake tensors on any device take the card's routes: for a
+    dry run where PyTorch has no CUDA (its autograd engine needs a CUDA
+    device guard for a fake CUDA tensor). Real tensors are not touched.
+    Process-wide, as ``AUDITS``."""
+    _AS_CARD[0] += 1
+    try:
+        yield
+    finally:
+        _AS_CARD[0] -= 1
+
+
+def on_card(where) -> bool:
+    """Whether work on ``where`` (a tensor, or a device) takes the card's
+    routes: a CUDA device, or a fake tensor inside ``as_card``."""
+    if isinstance(where, torch.Tensor):
+        return where.device.type == "cuda" or (_AS_CARD[0] > 0 and is_fake(where))
+    return torch.device(where).type == "cuda"
+
 
 def placement(name: str, *tensors) -> bool:
     """True for the kernel (all CUDA, one device), False for the plain
-    version (all CPU); anything else raises. Not counted: see ``route``."""
+    version (all CPU); anything else raises. Fake tensors inside
+    ``as_card`` take the kernel. Not counted: see ``route``."""
+    if _AS_CARD[0] and tensors and all(is_fake(t) for t in tensors):
+        return True
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
@@ -83,6 +124,19 @@ def route(name: str, *tensors) -> bool:
     for audit in AUDITS:
         audit(name, on_kernel)
     return on_kernel
+
+
+def abstract(name: str, cost: Callable[[], Tuple[int, int]], operand) -> bool:
+    """True when kernel ``name``'s launch is abstract (``operand`` is a fake
+    tensor): ``cost()`` → (operations, bytes) goes to the open cost records
+    and the wrapper returns its outputs unlaunched. False on real tensors,
+    where ``cost`` is not called."""
+    if not is_fake(operand):
+        return False
+    flops, nbytes = cost()
+    for record in COSTS:
+        record(name, flops, nbytes)
+    return True
 
 
 def check_kernel_operands(**tensors) -> None:

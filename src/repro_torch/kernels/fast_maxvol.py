@@ -20,7 +20,7 @@ more than 8 MB.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,6 +30,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels import graft_select as gs
 
 V_LIMIT_BYTES = 8 * 1024 * 1024   # the JAX kernel's VMEM guard
+
+
+def cost(K: int, R: int, rank: int) -> Tuple[int, int]:
+    """(operations, bytes): MaxVol's operations; V read once, the pivots
+    and logvol written once, 4-byte words."""
+    return gs.maxvol_flops(K, R, rank), 4 * (K * R + rank + 1)
 
 
 def _check(V: torch.Tensor, rank: int) -> None:
@@ -59,6 +65,8 @@ def fast_maxvol(V: torch.Tensor, rank: int, *, plan: Optional[str] = None):
     logvol = torch.empty(1, dtype=torch.float32, device=dev)
     work = torch.empty(smem.work_words(K, R), dtype=torch.float32, device=dev) \
         if plan == "global" else None
+    if build.abstract("fast_maxvol", lambda: cost(K, R, rank), V):
+        return pivots, logvol[0]
     gs.launch("fast_maxvol", dev, (V, pivots, logvol, work), (K, R, rank, int(plan == "global")))
     fast_maxvol.launches += 1
     return pivots, logvol[0]

@@ -20,8 +20,9 @@ head-major, so q stream ``i`` reads kv stream ``i // group``.
   fallback between them: bf16 runs the tensor-core kernels
   (``flash_fwd_mma_kernel``, ``flash_dq_mma_kernel``,
   ``flash_dkv_mma_kernel``: ``mma.sync`` on bf16 tiles staged by
-  ``cp.async``; the forward and dK/dV round P and dS to bf16 once before
-  their products, dQ feeds dS·K with dS as a bf16 hi + lo pair); float32
+  ``cp.async``; the forward and dK/dV round P to bf16 once before its
+  products, dQ and dK feed dS·K and dSᵀ·Q with dS as a bf16 hi + lo
+  pair); float32
   runs the float32 CUDA-core kernels. Both count under the same launch
   counters.
 * The CUDA source owns the kernels' tile plans and sizes each launch's
@@ -44,6 +45,7 @@ import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.analysis import smem
@@ -67,6 +69,31 @@ def plan_smem_bytes(kind: str, head_dim: int, dtype) -> int:
     if n < 0:
         raise ValueError(f"no flash plan at head_dim {head_dim}")
     return n
+
+
+def unmasked_pairs(Sq: int, T: int, causal: bool, window) -> int:
+    """The (q, k) pairs of one stream that the mask keeps: the work the
+    inputs need (a fully masked pair needs none)."""
+    q = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(q, T - 1) if causal else np.full(Sq, T - 1)
+    lo = np.maximum(0, q - int(window) + 1) if window is not None else np.zeros(Sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def cost(kind: str, BH: int, BHkv: int, Sq: int, T: int, Dh: int, dtype,
+         causal: bool = True, window=None) -> Tuple[int, int]:
+    """(operations, bytes) of one launch of ``kind`` (``fwd``, ``dq`` or
+    ``dkv``), whatever computes it: on the unmasked pairs QKᵀ and PV forward,
+    + dO·Vᵀ and dS·K for dQ, QKᵀ, dO·Vᵀ, Pᵀ·dO and dSᵀ·Q for dK/dV (2·Dh
+    each a pair); each input read and each output written once: q, k, v →
+    o, lse; q, do, k, v, lse, delta → dq; the same → dk, dv."""
+    el = dtype.itemsize
+    q_b, kv_b, row_b = BH * Sq * Dh * el, BHkv * T * Dh * el, BH * Sq * 4
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * Dh * BH * unmasked_pairs(Sq, T, causal, window)
+    nbytes = {"fwd": 2 * q_b + 2 * kv_b + row_b,
+              "dq": 3 * q_b + 2 * kv_b + 2 * row_b,
+              "dkv": 2 * q_b + 4 * kv_b + 2 * row_b}[kind]
+    return flops, nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +264,8 @@ def flash_forward(q, k, v, *, causal: bool = True, window=None,
                         softcap, scale, bound_loop)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    if build.abstract("flash_forward", lambda: cost("fwd", *shapes, q.dtype, causal, window), q):
+        return o, lse
     _launch("fwd", (q, k, v, o, lse), args, q.device)
     flash_attention.forward_launches += 1
     return o, lse
@@ -263,6 +292,8 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
                         ("q", "k", "v", "do", "lse", "delta"), shapes, causal,
                         window, softcap, scale, bound_loop)
     dq = torch.empty_like(q)
+    if build.abstract("flash_dq", lambda: cost("dq", *shapes, q.dtype, causal, window), q):
+        return dq
     _launch("dq", (q, k, v, do, lse, delta, dq), args, q.device)
     flash_attention.dq_launches += 1
     return dq
@@ -284,6 +315,8 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
                         ("q", "k", "v", "do", "lse", "delta"), shapes, causal,
                         window, softcap, scale, bound_loop)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if build.abstract("flash_dkv", lambda: cost("dkv", *shapes, q.dtype, causal, window), q):
+        return dk, dv
     _launch("dkv", (q, k, v, do, lse, delta, dk, dv), args, q.device)
     flash_attention.dkv_launches += 1
     return dk, dv

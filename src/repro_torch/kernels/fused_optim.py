@@ -69,6 +69,33 @@ class Hyper:
             _F(self.eps), _F(self.weight_decay), _F(self.momentum)))
 
 
+# float32 operations an element of each update rule: AdamW's as the kernels
+# line has counted them since kernel B was written; SGD's clip (1), momentum
+# (2) and decayed step (4); Lion's clip (1), interpolation and sign (4),
+# moment (3) and decayed step (4)
+UPDATE_OPS = {"adamw": 16, "sgd": 7, "lion": 12}
+
+
+def norm_cost(leaves: Sequence[Tuple[int, torch.dtype]]) -> Tuple[int, int]:
+    """(operations, bytes) of kernel A over gradients given as (numel,
+    dtype): a multiply-add an element; each gradient read once, the norm
+    and the clip factor written once."""
+    n = sum(numel for numel, _ in leaves)
+    return 2 * n, sum(numel * dt.itemsize for numel, dt in leaves) + 8
+
+
+def update_cost(rule: str, leaves: Sequence[Tuple[int, torch.dtype, torch.dtype]],
+                scaled: bool = True) -> Tuple[int, int]:
+    """(operations, bytes) of kernel B over leaves given as (numel, param
+    dtype, state dtype): each param read and written, its gradient read, and
+    each moment (two for AdamW, one else) read and written once, plus the
+    clip factor when ``scaled``."""
+    moments = 2 if rule == "adamw" else 1
+    nbytes = sum(numel * (3 * p.itemsize + 2 * moments * s.itemsize) for numel, p, s in leaves)
+    ops = UPDATE_OPS[rule] * sum(numel for numel, _, _ in leaves)
+    return ops, nbytes + (4 if scaled else 0)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -203,13 +230,17 @@ def grad_norm(grads: Sequence[torch.Tensor], max_norm: Optional[float]
     if not build.route("grad_norm", *grads):
         return grad_norm_reference(grads, max_norm)
     _check_leaves("grad_norm", grads=grads)
-    lib, dev = _lib(), grads[0].device
+    dev = grads[0].device
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    if build.abstract("grad_norm", lambda: norm_cost([(g.numel(), g.dtype) for g in grads]),
+                      grads[0]):
+        return out[0], out[1]
+    lib = _lib()
     table, chunks = _leaf_table([(None, g, None, None) for g in grads],
                                 [2 if g.dtype == torch.bfloat16 else 0 for g in grads],
                                 lib.fused_optim_chunk_elems(), dev)
     grid = _grid(lib, chunks, dev)
     partials = torch.empty(grid, dtype=torch.float32, device=dev)
-    out = torch.empty(2, dtype=torch.float32, device=dev)
     build.call(lib.fused_optim_norm_launch, "grad_norm", dev, (table, partials, out),
                (len(grads), chunks, grid, 0.0 if max_norm is None else float(max_norm),
                 int(max_norm is not None)))
@@ -256,6 +287,10 @@ def optimizer_update(rule: str, params: Sequence[torch.Tensor], grads: Sequence[
         if not build.route("optimizer_update", *group, *([] if scale is None else [scale])):
             p_, g_, m_, v_ = (list(x) for x in zip(*rows))
             update_reference(rule, p_, g_, m_, v_ if v is not None else None, hp, scale)
+            continue
+        if build.abstract("optimizer_update", lambda: update_cost(
+                rule, [(row[0].numel(), pdt, sdt) for row in rows], scale is not None),
+                rows[0][0]):
             continue
         lib, dev = _lib(), rows[0][0].device
         table, chunks = _leaf_table(rows, [0] * len(rows), lib.fused_optim_chunk_elems(), dev)

@@ -55,6 +55,26 @@ def _check_budget(K: int, R: int, d: int, rank: int) -> None:
             f"VMEM budget; shrink K={K}, d={d} or rank={rank}")
 
 
+def maxvol_flops(K: int, R: int, rank: int) -> int:
+    """Fast MaxVol's float32 operations: per pivot step a division per row
+    and a multiply-subtract on every row of the columns still to pivot on."""
+    return sum(K + 2 * K * (R - j - 1) for j in range(rank))
+
+
+def sweep_flops(d: int, n: int) -> int:
+    """The CGS2 sweep over n columns: two passes of coefficients + update
+    per column, and its norm, normalisation and dot with ĝ."""
+    return sum(2 * 4 * d * j + 6 * d for j in range(n))
+
+
+def cost(K: int, R: int, d: int, rank: int, B: int = 1) -> Tuple[int, int]:
+    """(operations, bytes) of B refreshes, whatever computes them: MaxVol
+    and the sweep; V, G and ḡ read once and pivots, errors, logvol and
+    G_sel written once, all 4-byte words."""
+    nbytes = B * 4 * (K * R + d * K + d + rank + rank + 1 + d * rank)
+    return B * (maxvol_flops(K, R, rank) + sweep_flops(d, rank)), nbytes
+
+
 def graft_select_reference(V: torch.Tensor, G: torch.Tensor,
                            g_bar: torch.Tensor, rank: int):
     """The plain version: the fused function as torch ops on any device."""
@@ -177,7 +197,7 @@ def launch(name: str, device: torch.device, pointers, ints) -> None:
     build.call(launchers()[name], name, device, pointers, ints)
 
 
-def _launch(V, G, g_bar, rank: int, B: int, K: int, R: int, d: int,
+def _launch(name: str, V, G, g_bar, rank: int, B: int, K: int, R: int, d: int,
             plan: Optional[str], basis: Optional[str]):
     build.check_kernel_operands(V=V, G=G, g_bar=g_bar)
     if B > 65535:
@@ -193,8 +213,12 @@ def _launch(V, G, g_bar, rank: int, B: int, K: int, R: int, d: int,
         if basis == "global" else None                                # Qᵀ and ĝ
     work = torch.empty(B * smem.work_words(K, R), dtype=torch.float32, device=dev) \
         if plan == "global" else None
+    if build.abstract(name, lambda: cost(K, R, d, rank, B), V):
+        return pivots, errors, logvol, G_sel
     launch("graft_select", dev, (V, G, g_bar, pivots, errors, logvol, G_sel, Qt, work),
            (B, K, R, d, rank, int(plan == "global"), int(basis == "global")))
+    # the launch counts where it happens: graft_select or graft_select_batched
+    {"graft_select": graft_select, "graft_select_batched": graft_select_batched}[name].launches += 1
     return pivots, errors, logvol, G_sel
 
 
@@ -209,8 +233,8 @@ def graft_select(V: torch.Tensor, G: torch.Tensor, g_bar: torch.Tensor,
     K, R, d = _check(V, G, g_bar, rank)
     if not build.route("graft_select", V, G, g_bar):
         return graft_select_reference(V, G, g_bar, rank)
-    pivots, errors, logvol, G_sel = _launch(V, G, g_bar, rank, 1, K, R, d, plan, basis)
-    graft_select.launches += 1
+    pivots, errors, logvol, G_sel = _launch("graft_select", V, G, g_bar, rank, 1, K, R, d,
+                                            plan, basis)
     return pivots[0], errors[0], logvol[0], G_sel[0]
 
 
@@ -223,9 +247,7 @@ def graft_select_batched(V: torch.Tensor, G: torch.Tensor, g_bar: torch.Tensor,
     B, K, R, d = _check_batched(V, G, g_bar, rank)
     if not build.route("graft_select_batched", V, G, g_bar):
         return graft_select_batched_reference(V, G, g_bar, rank)
-    out = _launch(V, G, g_bar, rank, B, K, R, d, None, None)
-    graft_select_batched.launches += 1
-    return out
+    return _launch("graft_select_batched", V, G, g_bar, rank, B, K, R, d, None, None)
 
 
 # kernel launches, counted where they happen

@@ -23,7 +23,7 @@ one block, else in a global scratch.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,6 +37,12 @@ def library_smem_bytes(R: int, plan: str) -> int:
     """The C library's own sum for the sweep block under ``plan`` (-1 above
     227 KB); ``analysis/smem.py`` ``projection_sweep_smem`` mirrors it."""
     return gs.launchers()["projection_sweep_smem_bytes"](R, int(plan == "global"))
+
+
+def cost(d: int, R: int) -> Tuple[int, int]:
+    """(operations, bytes): the sweep's operations; G and ḡ read once, the
+    errors written once, 4-byte words."""
+    return gs.sweep_flops(d, R), 4 * (d * R + d + R)
 
 
 def _check(G: torch.Tensor, g_bar: torch.Tensor) -> None:
@@ -68,6 +74,8 @@ def projection_sweep(G: torch.Tensor, g_bar: torch.Tensor, *,
     errors = torch.empty(R, dtype=torch.float32, device=dev)
     Qt = torch.empty(smem.basis_words(d, R), dtype=torch.float32, device=dev)   # Qᵀ and ĝ
     red = torch.empty(smem.sweep_red_words(R), dtype=torch.float32, device=dev) if global_red else None
+    if build.abstract("projection_sweep", lambda: cost(d, R), G):
+        return errors
     gs.launch("projection_sweep", dev, (G, g_bar, errors, Qt, red),
               (d, R, int(global_red)))
     projection_sweep.launches += 1

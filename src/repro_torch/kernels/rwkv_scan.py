@@ -68,6 +68,22 @@ def library_smem_bytes() -> int:
     return _launchers()["backward_smem_bytes"]()
 
 
+def cost(kind: str, BH: int, T: int, D: int) -> Tuple[int, int]:
+    """(operations, bytes) of the function, whatever computes it. Bytes:
+    each input read and each output written once — forward r, k, v, w, u →
+    o; backward r, k, v, w, u, do → dr, dk, dv, dw, du (the tile states the
+    kernels save and reload are a design's intermediate). Float32
+    operations per state element per step: forward 5 (r·S 2, the decay
+    update and k·vᵀ 3) plus 5 per step and k-row for the bonus (Σ r u k,
+    then its multiple of v); backward 14 (one recompute of S, the dS
+    update, and the dr, dk, dv, dw sums) plus 16 per step and row for c,
+    the u terms, du and Σ r u k."""
+    stream, vec = BH * T * D * 4, BH * D * 4
+    if kind == "fwd":
+        return BH * T * (5 * D * D + 5 * D), 5 * stream + vec
+    return BH * T * (14 * D * D + 16 * D), 9 * stream + 2 * vec
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -169,6 +185,8 @@ def rwkv_scan_forward(r, k, v, w, u, *, save_states: bool = False
     o = torch.empty_like(r)
     states = torch.empty((BH, n_tiles(T), D, D), dtype=torch.float32,
                          device=r.device) if save_states else None
+    if build.abstract("rwkv_scan", lambda: cost("fwd", BH, T, D), r):
+        return o, states
     if BH and T:
         build.call(_launchers()["forward"], "rwkv_scan forward", r.device,
                    (r, k, v, w, u, o, states), (BH, T, D))
@@ -189,6 +207,8 @@ def rwkv_scan_backward(r, k, v, w, u, do, states: Optional[torch.Tensor] = None)
     build.check_kernel_operands(r=r, k=k, v=v, w=w, u=u, do=do, states=states)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty_like(u)
+    if build.abstract("rwkv_scan_backward", lambda: cost("bwd", BH, T, D), r):
+        return dr, dk, dv, dw, du
     if BH and T:
         build.call(_launchers()["backward"], "rwkv_scan backward", r.device,
                    (r, k, v, w, u, do, states, dr, dk, dv, dw, du), (BH, T, D))

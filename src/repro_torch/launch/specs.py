@@ -1,0 +1,289 @@
+"""The assigned input-shape cells and their abstract inputs — the twin of
+the JAX package's ``launch/specs.py``.
+
+Every (arch × shape) cell resolves to the step function it runs and its
+arguments as fake tensors (``torch._subclasses.fake_tensor``: shape, dtype
+and device, no storage): the train state, the parameters, the decode cache
+and the batch. ``launch/dryrun.py`` runs the step on them once.
+
+Abstract arguments live on fake ``cuda:0`` tensors, which need PyTorch
+with CUDA (in a CPU-only build the autograd engine has no CUDA device guard
+for a fake CUDA tensor). There a request for ``cuda:0`` raises, unless the
+caller asks for the CPU stand-in by name (``stand_in=True``): fake CPU
+tensors, the step run inside ``kernels/build.py`` ``as_card`` so that it
+takes the card's routes. The stand-in differs from the card in what a
+CUDA tensor adds by itself (``torch.utils.checkpoint`` saving the CUDA RNG
+state of each block; the refresh's rank candidates copied to the device):
+a few aten ops and bytes, no FLOPs, no memory. The logical-axis trees of the JAX module (``train_state_logical``,
+``params_logical``, ``cache_logical``) only feed XLA's partitioner, which
+the port does not have, and are left out.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch import configs as config_lib
+from repro_torch.data import sources as data_sources
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import decode as decode_lib
+from repro_torch.models import model as model_lib
+from repro_torch.optim import OptimizerConfig
+from repro_torch.selection.base import GraftConfig
+
+SHAPES: Dict[str, Dict[str, Any]] = {
+    "train_4k": {"kind": "train", "seq": 4096, "batch": 256},
+    "prefill_32k": {"kind": "prefill", "seq": 32768, "batch": 32},
+    "decode_32k": {"kind": "decode", "seq": 32768, "batch": 128},
+    "long_500k": {"kind": "decode", "seq": 524288, "batch": 1},
+}
+
+# long_500k requires sub-quadratic sequence handling: only the recurrent /
+# bounded-window archs run it
+LONG_CONTEXT_ARCHS = ("rwkv6-7b", "hymba-1.5b")
+
+# per-shape logical-rule overrides
+SHAPE_RULES: Dict[str, Dict[str, Any]] = {
+    "train_4k": {},
+    "prefill_32k": {},
+    "decode_32k": {"act_kv_seq": "model", "act_kv_heads": None},
+    "long_500k": {"act_kv_seq": ("data", "model"), "act_kv_heads": None},
+}
+
+# named sharding presets: "fsdp" (batch over every axis, weights gathered
+# just in time) and "head_tp" (head-parallel attention) shard parameters;
+# the dry run refuses both (the port replicates its state)
+RULE_PRESETS: Dict[str, Dict[str, Any]] = {
+    "default": {},
+    "fsdp": {
+        "act_batch": ("pod", "data", "model"),
+        "act_res_seq": None, "act_q_seq": None, "act_heads": None,
+        "act_kv_heads": None, "act_mlp": None, "act_vocab": None,
+        "act_experts": "model",
+    },
+    "head_tp": {"act_q_seq": None, "act_kv_heads": "model"},
+}
+
+# archs whose optimizer must use factored second moments to fit
+_ADAFACTOR_ARCHS = ("kimi-k2-1t-a32b",)
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one input (``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def cell_is_supported(arch: str, shape: str) -> Tuple[bool, str]:
+    if shape == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+        return False, ("full-attention KV over 524288 positions — "
+                       "sub-quadratic archs only (DESIGN.md §4)")
+    return True, ""
+
+
+def all_cells():
+    for arch in config_lib.CANONICAL_IDS:
+        for shape in SHAPES:
+            yield arch, shape
+
+
+def default_train_config(arch: str, use_graft: bool = True,
+                         batch: int = 256, feature_mode: str = "svd",
+                         grad_mode: str = "probe") -> steps_lib.TrainConfig:
+    opt_name = "adafactor" if arch in _ADAFACTOR_ARCHS else "adamw"
+    schedule = "wsd" if arch == "minicpm-2b" else "cosine"
+    rset = tuple(r for r in (16, 32, 64, 128) if r <= batch // 2)
+    if not rset:
+        rset = (max(1, batch // 4), max(2, batch // 2))
+    graft = GraftConfig(rset=rset, eps=0.25, refresh_every=1,
+                        feature_mode=feature_mode,
+                        grad_mode=grad_mode) if use_graft else None
+    return steps_lib.TrainConfig(
+        optimizer=OptimizerConfig(name=opt_name, schedule=schedule,
+                                  total_steps=10_000, warmup_steps=200,
+                                  learning_rate=3e-4),
+        graft=graft)
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs
+# ---------------------------------------------------------------------------
+
+_NP_TO_TORCH = {"float32": torch.float32, "int32": torch.int32, "int64": torch.int64,
+                "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def source_batch_specs(source) -> Dict[str, TensorSpec]:
+    """The batch layout straight from a data source's ``spec()``."""
+    return {k: TensorSpec(tuple(s.shape), _NP_TO_TORCH[str(s.dtype)])
+            for k, s in source.spec().items()}
+
+
+def batch_specs(mcfg: model_lib.ModelConfig, batch: int, seq: int) -> Dict[str, TensorSpec]:
+    i32 = torch.int32
+    if mcfg.family == "audio":
+        return {"frame_embeds": TensorSpec((batch, seq, mcfg.d_model), mcfg.dtype),
+                "labels": TensorSpec((batch, seq), i32)}
+    if mcfg.family == "vlm":
+        s_text = seq - mcfg.num_patches
+        return {"patch_embeds": TensorSpec((batch, mcfg.num_patches, mcfg.d_model), mcfg.dtype),
+                "tokens": TensorSpec((batch, s_text), i32),
+                "labels": TensorSpec((batch, s_text), i32)}
+    return {"tokens": TensorSpec((batch, seq), i32),
+            "labels": TensorSpec((batch, seq), i32)}
+
+
+def abstract_device(device="cuda:0", stand_in: bool = False) -> Tuple[torch.device, bool]:
+    """(the device fake tensors take, whether they are the CPU stand-in for
+    the card). ``stand_in``: fake CPU tensors taking the card's routes, for
+    a ``cuda`` request only. Without it a ``cuda`` request where PyTorch has
+    no CUDA raises."""
+    device = torch.device(device)
+    if stand_in:
+        if device.type != "cuda":
+            raise ValueError(f"the CPU stand-in takes the card's routes: it stands for a "
+                             f"cuda device, not {device}")
+        return torch.device("cpu"), True
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("fake cuda tensors need PyTorch with CUDA; ask for the CPU "
+                           "stand-in (stand_in=True, the dry run's --cpu-stand-in) to take "
+                           "the card's routes on fake CPU tensors")
+    if device.type == "cuda":
+        return torch.device("cuda", device.index or 0), False
+    return device, False
+
+
+def fake_batch(specs: Dict[str, TensorSpec], device) -> Dict[str, torch.Tensor]:
+    """Fake tensors of the specs (inside a ``FakeTensorMode``)."""
+    return {k: torch.empty(s.shape, dtype=s.dtype, device=device) for k, s in specs.items()}
+
+
+@dataclasses.dataclass
+class Cell:
+    arch: str
+    shape: str
+    kind: str                      # train | prefill | decode
+    mcfg: model_lib.ModelConfig
+    step_fn: Any                   # the step over abstract_args
+    abstract_args: Tuple[Any, ...]
+    fake_mode: FakeTensorMode      # the mode that owns abstract_args
+    device: torch.device           # the device of the fake args
+    as_card: bool                  # the CPU stand-in: fake CPU tensors on the card's routes
+    batch: int                     # this device's rows
+    tcfg: Optional[steps_lib.TrainConfig] = None
+
+
+def _dry_run_config(tcfg: steps_lib.TrainConfig) -> steps_lib.TrainConfig:
+    """The train config a dry run steps: the divergence sentinel off (a host
+    read of two scalars, with no device memory)."""
+    return dataclasses.replace(tcfg, sentinel=False)
+
+
+def build_cell(arch: str, shape: str, *, variant: str = "graft",
+               smoke: bool = False, feature_mode: str = "svd",
+               grad_mode: str = "probe", data_source: Optional[str] = None,
+               batch_shards: int = 1, backend=None, device="cuda:0",
+               stand_in: bool = False) -> Cell:
+    """The abstract arguments and step of one cell.
+
+    ``variant``: 'graft' | 'baseline' | 'subset' | 'select' (train cells).
+    ``smoke``: the reduced config at ``B // 64`` (at least 4) rows and at
+    most 64 positions. ``batch_shards``: the devices the batch splits over
+    (the state is replicated on each); the args are one device's, and
+    ``backend`` (the dry run's recording backend) carries the step's
+    collectives. The global batch sizes the GRAFT state and ``rset``, as
+    in JAX. ``stand_in``: see ``abstract_device``.
+    ``data_source``: a registered source (train cells), whose task pins the
+    model's fields and whose ``spec()`` gives the batch. The train step runs
+    without the sentinel. Not smoke, attention runs in chunks of 1024 and
+    the loss in 512, JAX's production defaults."""
+    ok, why = cell_is_supported(arch, shape)
+    if not ok:
+        raise ValueError(f"cell {arch}×{shape} unsupported: {why}")
+    info = SHAPES[shape]
+    overrides: Dict[str, Any] = {}
+    if not smoke:
+        overrides["attn_chunk"] = 1024
+        overrides["loss_chunk"] = 512
+    mcfg = (config_lib.get_smoke_config(arch, **overrides) if smoke
+            else config_lib.get_config(arch, **overrides))
+
+    B, S = info["batch"], info["seq"]
+    if smoke:
+        B, S = max(4, B // 64), min(S, 64)
+    if B % batch_shards:
+        raise ValueError(f"batch {B} does not split over {batch_shards} devices")
+    local = B // batch_shards
+    dev, as_card = abstract_device(device, stand_in)
+    fake_mode = FakeTensorMode()
+    common = dict(fake_mode=fake_mode, device=dev, as_card=as_card, batch=local)
+
+    if info["kind"] == "train":
+        use_graft = variant in ("graft", "subset", "select")
+        tcfg = _dry_run_config(default_train_config(
+            arch, use_graft=use_graft, batch=B, feature_mode=feature_mode, grad_mode=grad_mode))
+        if data_source is not None and data_source != "synthetic_lm":
+            entry = data_sources.get_source(data_source)
+            dcfg = entry.task.derive(mcfg, batch=local, seq=S, seed=0)
+            mcfg = dataclasses.replace(mcfg, **entry.task.model_overrides(dcfg))
+            specs = source_batch_specs(entry.build(dcfg))
+        else:
+            specs = batch_specs(mcfg, local, S)
+        with fake_mode:
+            state = steps_lib.state_for_model(mcfg, tcfg, model_lib.Model(mcfg, dev), B)
+            batch = fake_batch(specs, dev)
+        kind = variant if variant in ("graft", "baseline", "subset", "select") else None
+        step = steps_lib.make_train_step(mcfg, tcfg, kind=kind, backend=backend)
+        return Cell(arch, shape, "train", mcfg, step, (state, batch), tcfg=tcfg, **common)
+
+    if info["kind"] == "prefill":
+        specs = batch_specs(mcfg, local, S)
+        with fake_mode:
+            params = model_lib.Model(mcfg, dev)
+            batch = fake_batch(specs, dev)
+
+        def prefill(params, b):
+            return steps_lib.prefill_step(mcfg, params, b, S)
+
+        return Cell(arch, shape, "prefill", mcfg, prefill, (params, batch), **common)
+
+    with fake_mode:
+        params = model_lib.Model(mcfg, dev)
+        cache = decode_lib.init_cache(mcfg, local, S, dev)
+        tokens = torch.empty((local, 1), dtype=torch.int32, device=dev)
+
+    def decode(params, cache, tok):
+        return steps_lib.decode_step(mcfg, params, cache, tok)
+
+    return Cell(arch, shape, "decode", mcfg, decode, (params, cache, tokens), **common)
+
+
+def experiment_cell(cfg, *, device="cuda:0", stand_in: bool = False) -> Cell:
+    """One step of an ``api.ExperimentConfig`` (its model, train config and
+    data source's batch) on fake tensors: the step ``Trainer.fit`` runs
+    first, a refresh step under GRAFT, without the sentinel."""
+    mcfg, tcfg, data = cfg.build()
+    tcfg = _dry_run_config(tcfg)
+    dev, as_card = abstract_device(device, stand_in)
+    fake_mode = FakeTensorMode()
+    with fake_mode:
+        state = steps_lib.state_for_model(mcfg, tcfg, model_lib.Model(mcfg, dev),
+                                          cfg.train.batch)
+        batch = fake_batch(source_batch_specs(data), dev)
+    return Cell(mcfg.name, f"{cfg.train.batch}x{cfg.train.seq}", "train", mcfg,
+                steps_lib.make_run_step(mcfg, tcfg), (state, batch), fake_mode=fake_mode,
+                device=dev, as_card=as_card, batch=cfg.train.batch, tcfg=tcfg)
+
+
+def input_specs(arch: str, shape: str = "train_4k"):
+    """The model inputs of a cell: the batch's specs for the train and
+    prefill shapes, the (params, cache, tokens) fake tensors of
+    ``build_cell`` for the decode shapes."""
+    info = SHAPES[shape]
+    mcfg = config_lib.get_config(arch)
+    if info["kind"] in ("train", "prefill"):
+        return batch_specs(mcfg, info["batch"], info["seq"])
+    return build_cell(arch, shape, variant="serve").abstract_args

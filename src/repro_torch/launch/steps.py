@@ -47,8 +47,9 @@ import torch
 
 from repro_torch.analysis.sync_guard import sync_allowed
 from repro_torch.backend.base import data_parallel
-from repro_torch.core.numerics import take_last
+from repro_torch.core.numerics import device_scalar, take_last
 from repro_torch.distributed.accumulate import accumulated_grads
+from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
 from repro_torch.optim import Optimizer, OptimizerConfig, make_optimizer
 from repro_torch.selection import base as selection_base
@@ -308,8 +309,7 @@ def _finish(tcfg: TrainConfig, state, loss: torch.Tensor, grads, metrics,
         metrics["lr"] = opt.lr(step)
         if "graft" in state:
             state["graft"] = state["graft"]._replace(
-                step=torch.tensor(step + 1, dtype=torch.int32,
-                                  device=state["graft"].step.device))
+                step=device_scalar(step + 1, torch.int32, state["graft"].step.device))
     state["step"] = step + 1
     return state, metrics
 
@@ -358,8 +358,7 @@ def graft_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
         graft_state, carry = refresh(state["model"].tree(), batch, carry0, step)
     else:
         graft_state = state["graft"]._replace(
-            step=torch.tensor(step, dtype=torch.int32,
-                              device=state["graft"].step.device))
+            step=device_scalar(step, torch.int32, state["graft"].step.device))
         carry = carry0
     loss = subset_loss(mcfg, state, batch, graft_state, backend)
     grads = param_grads(loss, state["params"])
@@ -377,8 +376,7 @@ def subset_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
     graft_state = state["graft"]
     loss = subset_loss(mcfg, state, batch, graft_state, backend)
     grads = param_grads(loss, state["params"])
-    step1 = torch.tensor(state["step"] + 1, dtype=torch.int32,
-                         device=graft_state.step.device)
+    step1 = device_scalar(state["step"] + 1, torch.int32, graft_state.step.device)
     return _finish(tcfg, state, loss, grads, {},
                    {"graft": graft_state._replace(step=step1)}, sentinel, opt, backend)
 
@@ -425,3 +423,18 @@ def make_run_step(mcfg, tcfg: TrainConfig, backend=None):
     needs the refresh's pivots, so a side stream would only reorder the
     same work (``ROADMAP.md``, B7). ``backend`` as in ``make_train_step``."""
     return make_train_step(mcfg, tcfg, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# serve steps
+# ---------------------------------------------------------------------------
+
+def prefill_step(mcfg, params, batch, max_seq: int):
+    """A prompt batch into a fresh cache of ``max_seq`` positions → (logits
+    of the last position, cache)."""
+    return decode_lib.prefill(mcfg, params, batch, max_seq)
+
+
+def decode_step(mcfg, params, cache, tokens):
+    """One token a row against ``cache`` → (logits, cache)."""
+    return decode_lib.decode_step(mcfg, params, cache, tokens)

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.analysis import smem
+from repro_torch.core.numerics import device_scalar
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as flash_lib
 
 
@@ -75,7 +77,9 @@ def _flash_feasible(cfg, S: int, T: int) -> bool:
 
 
 def resolve_attn_backend(cfg, S: int, T: int, device) -> str:
-    """Training backend for this shape on ``device`` → flash | chunked | dense.
+    """Training backend for this shape on ``device`` (a device, or the
+    tensor the attention runs on: ``kernels/build.py`` ``on_card``) → flash |
+    chunked | dense.
 
     "auto" takes flash on a CUDA device when the shape is feasible, as the
     JAX package does on the TPU, and the dense/chunked paths on the CPU (the
@@ -93,7 +97,7 @@ def resolve_attn_backend(cfg, S: int, T: int, device) -> str:
     if b == "flash":
         return "flash" if _flash_feasible(cfg, S, T) else chunked
     if b == "auto":
-        if torch.device(device).type == "cuda" and _flash_feasible(cfg, S, T):
+        if build.on_card(device) and _flash_feasible(cfg, S, T):
             return "flash"
         return chunked
     raise ValueError(f"unknown attn_backend: {b!r}")
@@ -147,8 +151,7 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
     if cfg.query_scale is not None:
         q = q * cfg.query_scale
     else:
-        q = q / torch.tensor(math.sqrt(Dh), dtype=torch.float32,
-                             device=q.device).to(q.dtype)
+        q = q / device_scalar(math.sqrt(Dh), torch.float32, q.device).to(q.dtype)
 
     new_cache = None
     if cache is not None:
@@ -165,7 +168,7 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
         mask = mask.expand(B, S, T)
         backend = "chunked" if cfg.attn_chunk and T > cfg.attn_chunk else "dense"
     else:
-        backend = resolve_attn_backend(cfg, S, S, x.device)
+        backend = resolve_attn_backend(cfg, S, S, x)
         if backend == "flash":
             out = _flash_attention(cfg, q, k, v, is_local)
             return out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D), None
@@ -182,7 +185,7 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
         logits = torch.einsum("bskgh,btkh->bkgst", qg, k)          # (B,Hkv,g,S,T)
         logits = softcap(logits, cfg.attn_logit_softcap)
         logits = torch.where(mask[:, None, None], logits.to(torch.float32),
-                             torch.tensor(-1e30, device=x.device))
+                             device_scalar(-1e30, torch.float32, x.device))
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum("bkgst,btkh->bskgh", probs, v)
     out = out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D)
@@ -205,7 +208,7 @@ def _chunked_attention(cfg, qg: torch.Tensor, k_all: torch.Tensor,
     m = torch.full((B, Hkv, g, S), -1e30, dtype=torch.float32, device=qg.device)
     l = torch.zeros((B, Hkv, g, S), dtype=torch.float32, device=qg.device)
     acc = torch.zeros((B, Hkv, g, S, Dh), dtype=torch.float32, device=qg.device)
-    neg = torch.tensor(-1e30, device=qg.device)
+    neg = device_scalar(-1e30, torch.float32, qg.device)
     for c0 in range(0, T, C):
         k_i, v_i, mask_i = k_all[:, c0:c0 + C], v_all[:, c0:c0 + C], mask[..., c0:c0 + C]
         s = torch.einsum("bskgh,btkh->bkgst", qg, k_i)

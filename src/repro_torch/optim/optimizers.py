@@ -37,7 +37,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
-from repro_torch.kernels import fused_optim
+from repro_torch.kernels import build, fused_optim
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 NAMES = ("adamw", "sgd", "lion", "adafactor")
@@ -97,7 +97,7 @@ def _lr_fn(cfg: OptimizerConfig):
 
 
 def _on_cuda(tensors: Sequence[torch.Tensor]) -> bool:
-    return bool(tensors) and tensors[0].device.type == "cuda"
+    return bool(tensors) and build.on_card(tensors[0])
 
 
 def _unclipped(grads) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:

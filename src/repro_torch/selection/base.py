@@ -17,6 +17,8 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.numerics import device_scalar
+
 
 @dataclasses.dataclass(frozen=True)
 class GraftConfig:
@@ -113,10 +115,10 @@ def init_state(cfg: GraftConfig, batch_size: int,
     return SelectionState(
         pivots=torch.arange(r, dtype=torch.int32, device=device),
         weights=torch.full((r,), 1.0 / r, dtype=torch.float32, device=device),
-        rank=torch.tensor(r, dtype=torch.int32, device=device),
-        last_error=torch.tensor(1.0, dtype=torch.float32, device=device),
-        alignment=torch.tensor(0.0, dtype=torch.float32, device=device),
-        step=torch.tensor(0, dtype=torch.int32, device=device),
+        rank=device_scalar(r, torch.int32, device),
+        last_error=device_scalar(1.0, torch.float32, device),
+        alignment=device_scalar(0.0, torch.float32, device),
+        step=device_scalar(0, torch.int32, device),
     )
 
 
@@ -132,7 +134,7 @@ def finalize_state(cfg: GraftConfig, pivots: torch.Tensor, weights: torch.Tensor
     err = proj_lib.prefix_projection_errors(G_sel * active[None, :], g_bar)[-1]
     align = proj_lib.cosine_alignment(G_sel @ weights, g_bar)
     return SelectionState(pivots=pivots.to(torch.int32), weights=weights,
-                          rank=torch.as_tensor(rank, dtype=torch.int32, device=G.device),
+                          rank=device_scalar(rank, torch.int32, G.device),
                           last_error=err, alignment=align, step=step)
 
 
@@ -203,7 +205,7 @@ class Sampler:
             self._require("key")
         if carry is None:
             carry = self.init_carry(cfg, CarrySpec.from_inputs(inputs))
-        step_t = torch.as_tensor(step, dtype=torch.int32, device=inputs.V.device)
+        step_t = device_scalar(step, torch.int32, inputs.V.device)
         if self.select_fn is not None:
             return self.select_fn(cfg, inputs, carry, step_t)
         return self.fn(cfg, inputs, step_t), carry

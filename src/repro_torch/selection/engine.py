@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.backend.mesh import Mesh
 from repro_torch.core import projection as proj_lib
+from repro_torch.core.numerics import device_scalar
 from repro_torch.distributed import sharding as sh
 from repro_torch.selection import graft as graft_lib
 from repro_torch.selection import registry
@@ -225,7 +226,7 @@ def _sharded_selector_cached(cfg: GraftConfig, smp: Sampler, mesh: Mesh,
             state = SelectionState(
                 pivots=(pivots + shard * K_local).to(torch.int32), weights=weights,
                 rank=rank, last_error=err, alignment=align,
-                step=torch.as_tensor(step, dtype=torch.int32, device=V_s.device))
+                step=device_scalar(step, torch.int32, V_s.device))
             return state, carry
     else:
         def shard_fn(V_s, G_s, scores_s, carry, step):
@@ -242,7 +243,7 @@ def _sharded_selector_cached(cfg: GraftConfig, smp: Sampler, mesh: Mesh,
                 rank=mesh.pmax(state.rank, axes),
                 last_error=mesh.pmean(state.last_error, axes),
                 alignment=mesh.pmean(state.alignment, axes),
-                step=torch.as_tensor(step, dtype=torch.int32, device=V_s.device))
+                step=device_scalar(step, torch.int32, V_s.device))
             return state, sync_carry(carry)
 
     def selector(V, G, step=0, *, scores=None, carry=None):

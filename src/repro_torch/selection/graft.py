@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core import maxvol as maxvol_lib
 from repro_torch.core import projection as proj_lib
+from repro_torch.core.numerics import device_scalar
 from repro_torch.selection.base import GraftConfig, SelectionInputs, SelectionState
 
 GraftState = SelectionState
@@ -73,7 +74,7 @@ def graft_select_batched(cfg: GraftConfig, V: torch.Tensor, G: torch.Tensor,
     ḡ (B, d). Semantically a loop of ``graft_select`` (the JAX ``vmap``);
     with ``cfg.use_pallas`` the stack runs as ONE launch of the batched
     kernel, then the epilogue per row (device ops, no host sync)."""
-    step = torch.as_tensor(step, dtype=torch.int32, device=V.device)
+    step = device_scalar(step, torch.int32, V.device)
     if cfg.use_pallas:
         from repro_torch.kernels.graft_select import graft_select_batched as fused
         pivots, errors, _, G_sel = fused(
@@ -89,7 +90,7 @@ def maybe_refresh(cfg: GraftConfig, state: SelectionState, step, V: torch.Tensor
                   G: torch.Tensor, g_bar: torch.Tensor) -> SelectionState:
     """Alg. 1's outer branch: refresh every ``refresh_every`` steps, else keep
     the old subset (its ``step`` updated). ``step`` is a host integer."""
-    step_t = torch.as_tensor(step, dtype=torch.int32, device=V.device)
+    step_t = device_scalar(step, torch.int32, V.device)
     if int(step) % cfg.refresh_every == 0:
         return graft_select(cfg, V, G, g_bar, step_t)
     return state._replace(step=step_t)
@@ -112,7 +113,7 @@ def select_from_batch(cfg: GraftConfig, batch_matrix: torch.Tensor, loss_fn=None
         G, g_bar = gf.per_sample_grads_full(lambda p, ex: loss_fn(p, ex["x"]), params,
                                             {"x": batch_matrix})
     return graft_select(cfg, V, G, g_bar,
-                        torch.tensor(step, dtype=torch.int32, device=V.device))
+                        device_scalar(step, torch.int32, V.device))
 
 
 def graft_sampler_fn(cfg: GraftConfig, inputs: SelectionInputs,

@@ -41,8 +41,10 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.launch_audit import wide_allowed
+from repro_torch.analysis.sync_guard import sync_allowed
 from repro_torch.core import projection as proj_lib
-from repro_torch.core.features import _finite
+from repro_torch.core.features import LINALG_SYNC, _finite
+from repro_torch.core.numerics import device_scalar
 from repro_torch.selection import graft as graft_lib
 from repro_torch.selection.base import (CarrySpec, GraftConfig, Sampler,
                                         SelectionInputs, SelectionState)
@@ -77,7 +79,7 @@ def fd_update(cfg: GraftConfig, sketch: torch.Tensor, G: torch.Tensor) -> torch.
     The eigendecomposition is taken in float64 (see the module docstring)."""
     L = cfg.sketch_rows
     stacked = torch.cat([float(_F(cfg.sketch_decay)) * sketch, G.to(torch.float32).T], 0)
-    with wide_allowed("fd_update_eigh"):
+    with wide_allowed("fd_update_eigh"), sync_allowed(LINALG_SYNC):
         evals, evecs = (x.to(torch.float32) for x in torch.linalg.eigh(
             _finite(stacked @ stacked.T).to(torch.float64)))         # ascending
     evals = torch.flip(evals, (0,))
@@ -118,7 +120,7 @@ def streaming_select_fn(cfg: GraftConfig, inputs: SelectionInputs,
     sketch = fd_update(cfg, carry.sketch, inputs.G)
 
     # bias-corrected stream mean: the EMA of n terms has total weight 1 − decayⁿ
-    decay_t = torch.tensor(decay, device=count.device)
+    decay_t = device_scalar(float(decay), torch.float32, count.device)
     corr = torch.clamp(1.0 - torch.pow(decay_t, count), min=_EPS)
     g_stream = g_ema / corr
 

@@ -17,10 +17,10 @@ standalone sweep are bit-equal to the fused single kernel. Flash attention: floa
 1e-4·max|plain| and lse within 1e-4 (float32 sums of up to T products in
 another order); bf16 outputs within one bf16 ulp of max|plain| (2^-7·max).
 The bf16 kernels run on the tensor cores. The forward and dK/dV round P
-(and dS) to bf16 once before their products: that adds at most
-2^-9·Σ pⱼ|vⱼ| to o before its own rounding, and far less for random inputs;
-dQ feeds dS·K with dS as bf16 hi + lo (~16 bits), because Σⱼ dSⱼ kⱼ cancels
-heavily. Bounded vs exhaustive KV loops and two runs on the same inputs are
+to bf16 once before its products: that adds at most 2^-9·Σ pⱼ|vⱼ| to o
+before its own rounding, and far less for random inputs; dQ and dK feed
+dS·K and dSᵀ·Q with dS as bf16 hi + lo (~16 bits), because Σⱼ dSⱼ kⱼ and
+Σᵢ dSᵢ qᵢ cancel heavily. Bounded vs exhaustive KV loops and two runs on the same inputs are
 bit-equal. RWKV scan: the output within
 1e-5·max|plain| and each gradient within 1e-4·max|plain| (float32 sums over
 D and, for the gradients, over T in another order), plus 1e-6; reruns, and
@@ -334,6 +334,20 @@ def test_flash_kernels_match_plain(cuda, name):
     for got, want, what in ((dq, dq_r, "dq"), (dk, dk_r, "dk"), (dv, dv_r, "dv")):
         assert got.dtype == want.dtype
         _assert_close(got, want, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n, c in FLASH_CASES.items() if c[5] == torch.bfloat16])
+def test_flash_dkv_holds_on_seed_8(cuda, name):
+    """dK/dV of the tensor-core kernel on the inputs of seed 8, where a
+    single bf16 rounding of dS in dSᵀ·Q came to 0.96 of the tolerance on
+    the CPU emulation; dS goes in as hi + lo."""
+    q, k, v, do, opts = _flash_inputs(name, cuda, seed=8)
+    o, lse, delta, dq, dk, dv = _run_kernels(q, k, v, do, opts)
+    dk_r, dv_r = fa.flash_dkv_reference(q, k, v, do, lse, delta, **opts)
+    _assert_close(dk, dk_r, "dk")
+    _assert_close(dv, dv_r, "dv")
+    _assert_close(dq, fa.flash_dq_reference(q, k, v, do, lse, delta, **opts), "dq")
 
 
 @pytest.mark.cuda
@@ -1183,6 +1197,98 @@ def test_audit_on_card_sanctions_the_ports_syncs(cuda):
     assert audit["unsanctioned"] == 0 and audit["recompiles"] == 0
     assert audit["sync_sites"]["step_sync:cuda.synchronize"] == 4
     assert audit["sync_sites"]["sentinel:tolist"] == 4
+
+
+@pytest.mark.cuda
+def test_strict_guard_on_card_raises_on_a_sync_inside_a_cpp_op(cuda):
+    """A boolean-mask index syncs inside the C++ op (its output size is
+    read back), past every Python entry point the guard patches: the
+    strict guard's sync debug mode raises on it, a sanctioned site lets it
+    through, and the mode is restored on exit."""
+    from repro_torch.analysis.sync_guard import SyncGuard, sync_allowed
+    x = torch.randn(64, device=cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    with SyncGuard(strict=True, label="test"):
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            x[x > 0]
+        with sync_allowed("flush"):
+            assert x[x > 0].numel() == int((x > 0).sum())
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            x[x > 0]
+    assert torch.cuda.get_sync_debug_mode() == before
+    x[x > 0]                                       # unguarded: no raise
+
+
+@pytest.mark.cuda
+def test_device_scalar_fills_where_torch_tensor_copies_and_waits(cuda):
+    """``torch.tensor(x, device=cuda)`` copies from pageable host memory and
+    waits for the stream, a sync the sync debug mode raises on; the step
+    path's ``device_scalar`` is a fill with the same value, and no sync."""
+    from repro_torch.core.numerics import device_scalar
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            torch.tensor(8.0 ** 0.5, dtype=torch.float32, device=cuda)
+        got = device_scalar(8.0 ** 0.5, torch.float32, cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, torch.tensor(8.0 ** 0.5, dtype=torch.float32, device=cuda))
+
+
+@pytest.mark.cuda
+def test_train_audit_on_card_raises_on_a_boolean_mask_in_the_step(cuda, monkeypatch):
+    """train.audit on the card: a boolean-mask index inside the step (a
+    sync no Python entry point sees) fails the run."""
+    from repro_torch.api import Trainer
+    from repro_torch.launch import steps as steps_lib
+    make = steps_lib.make_run_step
+
+    def masked(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(state, batch):
+            state, metrics = step(state, batch)
+            batch["tokens"][batch["tokens"] > 0]
+            return state, metrics
+        return run
+
+    monkeypatch.setattr(steps_lib, "make_run_step", masked)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        Trainer(_smoke_cfg("train.steps=2", "train.audit=true")).fit()
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+class _WideBackward(torch.autograd.Function):
+    """A float64 op in the backward alone, which the autograd engine runs on
+    its own thread for CUDA tensors."""
+    threads = []
+
+    @staticmethod
+    def forward(ctx, x):
+        return x * 2
+
+    @staticmethod
+    def backward(ctx, g):
+        import threading
+        _WideBackward.threads.append(threading.get_ident())
+        return (g.double() * 2).to(g.dtype)
+
+
+@pytest.mark.cuda
+def test_op_audit_reaches_the_autograd_device_thread(cuda):
+    """JX002 for a float64 op inside a custom Function's backward on the
+    card: the op audit's dispatch mode reaches the engine's device thread."""
+    import threading
+    from repro_torch.analysis import launch_audit
+    x = torch.randn(8, device=cuda, requires_grad=True)
+    _WideBackward.threads.clear()
+    report = launch_audit.audit_step(lambda: _WideBackward.apply(x).sum().backward(), (),
+                                     label="wide_backward")
+    assert _WideBackward.threads and _WideBackward.threads[0] != threading.get_ident()
+    errors = [f for f in report.by_rule("JX002") if f.severity == "error"]
+    assert errors and "float64" in errors[0].message, report.format()
 
 
 @pytest.mark.cuda

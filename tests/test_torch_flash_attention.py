@@ -178,9 +178,9 @@ def _bf16(x):
 def _emulated_kernels(q, k, v, do, causal, window, softcap, group):
     """The bf16 tensor-core kernels' arithmetic, densely: scores from bf16
     inputs with exact products and float32 sums, times the scale after the
-    product; P and dS rounded to bf16 once before the P·V, Pᵀ·dO and dSᵀ·Q
-    products; dS split into bf16 hi + lo (lo = bf16(dS − hi)) for dS·K, two
-    products; m, l, lse, delta and the accumulators in float32; dQ and dK
+    product; P rounded to bf16 once before the P·V and Pᵀ·dO products; dS
+    split into bf16 hi + lo (lo = bf16(dS − hi)) for dS·K and dSᵀ·Q, two
+    products each; m, l, lse, delta and the accumulators in float32; dQ and dK
     times the scale at the end; outputs rounded to bf16."""
     scale = q.shape[-1] ** -0.5
     qf, dof = q.float(), do.float()
@@ -206,24 +206,39 @@ def _emulated_kernels(q, k, v, do, causal, window, softcap, group):
         ds = ds * torch.where(mask, 1.0 - t * t, 0.0)
     BHkv, T, Dh = k.shape
     dv = (_bf16(p).transpose(1, 2) @ dof).view(BHkv, group, T, Dh).sum(1)
-    dk = (_bf16(ds).transpose(1, 2) @ qf).view(BHkv, group, T, Dh).sum(1) * scale
     ds_hi = _bf16(ds)
-    dq = (ds_hi @ kf + _bf16(ds - ds_hi) @ kf) * scale
+    ds_lo = _bf16(ds - ds_hi)
+    dk = (ds_hi.transpose(1, 2) @ qf + ds_lo.transpose(1, 2) @ qf
+          ).view(BHkv, group, T, Dh).sum(1) * scale
+    dq = (ds_hi @ kf + ds_lo @ kf) * scale
     return (o, lse, delta, dq.to(torch.bfloat16), dk.to(torch.bfloat16),
             dv.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("name", list(EMULATED))
 def test_bf16_rounding_points_stay_within_card_tolerance(name):
-    """Rounding P and dS to bf16 before their products (what the tensor-core
-    kernels do) keeps the forward's o and lse, dQ and dK/dV within the card
-    tests' unchanged bf16 tolerance of the plain versions: 2⁻⁷·max|plain|
-    (lse 1e-4). Rounding P adds at most 2⁻⁹·Σ pⱼ|vⱼ| to o before its own
-    rounding to bf16; for random inputs far less. dQ = Σⱼ dSⱼ kⱼ cancels
-    heavily (Σⱼ dSⱼ ≈ 0 on each row), so dS goes into dS·K as hi + lo:
-    rounded once, it comes close to the line at 1024 tokens."""
+    """Rounding P to bf16 before its products and splitting dS into hi + lo
+    (what the tensor-core kernels do) keeps the forward's o and lse, dQ and
+    dK/dV within the card tests' unchanged bf16 tolerance of the plain
+    versions: 2⁻⁷·max|plain| (lse 1e-4). Rounding P adds at most
+    2⁻⁹·Σ pⱼ|vⱼ| to o before its own rounding to bf16; for random inputs far
+    less. dQ = Σⱼ dSⱼ kⱼ and dK = Σᵢ dSᵢ qᵢ cancel heavily (Σⱼ dSⱼ ≈ 0 on
+    each row), so dS goes into both products as hi + lo: rounded once, dQ
+    comes close to the line at 1024 tokens and dK at 0.96 of it on seed 8
+    (gemma2_like)."""
+    _check_rounding_points(name, seed=7)
+
+
+@pytest.mark.parametrize("name", list(EMULATED))
+def test_bf16_rounding_points_hold_on_seed_8(name):
+    """The same bound on the inputs of seed 8, where a single bf16 rounding
+    of dS in dSᵀ·Q put dK at 0.96 of the tolerance (gemma2_like)."""
+    _check_rounding_points(name, seed=8)
+
+
+def _check_rounding_points(name, seed):
     BHkv, group, S, Dh, causal, window, softcap = EMULATED[name]
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(n, S, Dh)).astype(np.float32))
                    .to(torch.bfloat16) for n in (BHkv * group, BHkv, BHkv, BHkv * group))
     opts = dict(causal=causal, window=window, softcap=softcap, group=group)
