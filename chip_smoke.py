@@ -280,6 +280,29 @@ Phases (any failure exits nonzero and prints no result line):
                phase's 120 s: fits, peak GB, TFLOPs, collective bytes and
                trace seconds a cell, a line for each cell left out for time
                (all rows in ``build/chip_smoke_dryrun.json``).
+ 23. fsdp    — parameter sharding under JAX's ``fsdp`` preset (ZeRO-3): (a)
+               the dry run's ``fsdp`` train_4k graft cells of the non-MoE
+               archs on one device of the (16, 16) pod, fake cuda:0 tensors,
+               4 worker processes until the phase's budget, minicpm-2b and
+               qwen1.5-32b first (each must trace and fit 80 GB): peak, fit,
+               TFLOPs and collective bytes by op a cell, a line for each
+               cell left out; (b) the dry run's prediction for (c)'s mesh
+               and configuration, one device of (2, 2); (c) four gloo ranks
+               sharing the card on a (2, 2) ("data", "model") mesh, one fleet
+               of ``python -m repro_torch.backend --worker --job`` ranks:
+               minicpm-2b at full width, 2 of 40 layers, the slice's GRAFT
+               settings (batch 16 × 256, rset [2,4,8], a refresh every 2), 4
+               steps from seed 0, each rank its 4 rows: losses and every
+               step's grad norm within rtol 3e-3 of the same configuration
+               run in this process, ranks and pivots equal, each leaf of
+               step 0's gradient (AdamW's first moment, gathered) within
+               2e-2 (relative Frobenius norm) of the same step computed
+               here with its subset split into the ranks' 4 parts, the
+               gathered final parameters within 3e-3 of this process's (the
+               whole set); each rank's resident
+               parameters and moments exactly its shards' bytes, its
+               ``max_memory_allocated`` over the steps within 10 % of (b),
+               its launches as ``expected_launches(sharded=True)`` reckons.
 
 It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -287,11 +310,13 @@ It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -3243,6 +3268,300 @@ def phase_dryrun(ctx):
     assert not missing, f"required cells not traced in the budget: {missing}"
 
 
+FSDP_BUDGET_S = 100.0         # (a)'s pool of dry-run cells, which runs beside (b) and (c)
+FSDP_JOBS = 4                 # (a)'s workers: the host's other 4 cores run (c)'s ranks
+FSDP_REQUIRED = ("minicpm-2b", "qwen1.5-32b")
+FSDP_LAYERS = 2               # (c): phase shell's cut
+FSDP_STEPS = 4
+# each leaf of step 0's gradient (relative Frobenius norm) against the
+# same step split as the ranks split it, in one process: the two differ
+# in the order gloo sums the parts and the bfloat16 rounding of the
+# clipped gradient (a few ulps, 2^-8 each, at most); a wrong gradient (a
+# scale, a rank's rows missing, a shard misplaced) is off by a quarter or
+# more
+FSDP_M0_RTOL = 2e-2
+FSDP_MESH = ((2, 2), ("data", "model"))
+FSDP_OVERRIDES = ([o for o in SLICE_OVERRIDES if not o.startswith(("model.overrides",
+                                                                    "train.steps"))]
+                  + [f'model.overrides={{"attn_backend": "auto", "num_layers": {FSDP_LAYERS}}}',
+                     f"train.steps={FSDP_STEPS}", "train.log_every=0"])
+
+
+def _fsdp_sweep(box):
+    """(a), run in a thread: the non-MoE archs' fsdp train_4k graft cells on
+    the (16, 16) pod, the required ones first; ``box`` gets (results, cells
+    left out) or the error."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    try:
+        archs = [a for a in configs.CANONICAL_IDS if configs.get_config(a).family != "moe"]
+        rest = dryrun.sweep_order([(a, "train_4k", "graft", "single") for a in archs
+                                   if a not in FSDP_REQUIRED])
+        todo = [(a, "train_4k", "graft", "single") for a in FSDP_REQUIRED] + rest
+        box["cells"] = dryrun.sweep(todo, FSDP_JOBS, FSDP_BUDGET_S, device="cuda:0",
+                                    rules_preset="fsdp")
+    except BaseException as e:                      # noqa: BLE001 — raised by _fsdp_cells
+        box["error"] = e
+
+
+def _fsdp_cells(box, smi):
+    """(a)'s results: printed, the required cells held to trace and fit."""
+    from repro_torch.launch import dryrun
+    if "error" in box:
+        raise box["error"]
+    results, left = box["cells"]
+    for res in results:
+        print(f"[fsdp] {dryrun.summary(res)}", flush=True)
+        if res.get("ok"):
+            coll = res["full"]["collectives"]
+            print(f"[fsdp] {res['arch']}: state {res['state']}, args "
+                  f"{res['argument_bytes_per_device'] / 1e9:.3f} GB a device, collective bytes "
+                  f"{ {k: v for k, v in coll['bytes_by_op'].items() if v} }, counts "
+                  f"{ {k: v for k, v in coll['count_by_op'].items() if v} }, kernel launches "
+                  f"{ {k: r['launches'] for k, r in res['full']['kernels'].items()} }",
+                  flush=True)
+        else:
+            print(res["error"], file=sys.stderr)
+    for arch, shape, v, mesh_kind in left:
+        print(f"[fsdp] LEFT OUT {arch} {shape} {mesh_kind} {v} fsdp: past the phase's "
+              f"{FSDP_BUDGET_S:.0f} s budget", flush=True)
+    print(f"[fsdp] (a) {smi}: {len(results)} fsdp cells traced in {FSDP_JOBS} worker "
+          f"processes", flush=True)
+    by_arch = {r["arch"]: r for r in results}
+    for arch in FSDP_REQUIRED:
+        res = by_arch.get(arch)
+        assert res is not None, f"{arch}'s fsdp cell not traced in the budget"
+        assert res.get("ok"), f"{arch}'s fsdp cell failed"
+        assert res["state"] == "sharded", res["state"]
+        assert res["full"]["memory"]["fits"], (
+            f"{arch}'s fsdp cell peaks at {res['full']['memory']['peak_bytes'] / 1e9:.1f} GB")
+    failed = [r["arch"] for r in results if not r.get("ok")]
+    assert not failed, f"fsdp cells failed: {failed}"
+
+
+def _fsdp_prediction(cfg):
+    """(b): one device's refresh step of the (2, 2) fleet on fake cuda:0
+    tensors."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*FSDP_MESH)
+    backend = dryrun.RecordingBackend(mesh.size)
+    cell = specs.experiment_cell(cfg, mesh=dryrun.RecordingMesh(mesh, backend),
+                                 rules=dict(sh.DEFAULT_RULES, **specs.RULE_PRESETS["fsdp"]),
+                                 backend=backend)
+    assert cell.device.type == "cuda" and not cell.as_card and cell.batch == 4
+    return dryrun.trace(cell, backend)
+
+
+def _tree_paths(tree, prefix=""):
+    """The '/'-joined path of each leaf of nested dicts and lists, in
+    ``models.model._leaves``' order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _tree_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in _tree_paths(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def _fsdp_reference(mcfg, tcfg, batches, seed):
+    """(c)'s configuration in this process, unsharded: losses, grad norms,
+    ranks, pivots, step 0's first moment as the fleet computes it
+    (``m0``, ``_split_first_moment``) and the final parameters (on the
+    host)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = steps.state_for_model(mcfg, tcfg, model_lib.init_params(mcfg, gen, "cuda"),
+                                  batches[0]["tokens"].shape[0])
+    init = [p.detach().clone() for p in state["params"]]
+    fn = steps.make_train_step(mcfg, tcfg)
+    out = {"losses": [], "grad_norms": [], "ranks": [], "pivots": {}}
+    for i in range(FSDP_STEPS):
+        batch = {k: v.to("cuda") for k, v in batches[i % len(batches)].items()}
+        state, m = fn(state, batch)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["ranks"].append(int(m["rank"]))
+        if i == 0:
+            out["m0"] = _split_first_moment(mcfg, tcfg, init, batch, state["graft"],
+                                            math.prod(FSDP_MESH[0]))
+            del init
+        if i % tcfg.graft.refresh_every == 0:
+            out["pivots"][i] = state["graft"].pivots.tolist()
+    out["params"] = model_lib._map_tree(lambda t: t.detach().cpu(), state["model"].tree())
+    return out
+
+
+def _split_first_moment(mcfg, tcfg, init, batch, graft_state, parts):
+    """Step 0's first moment ``(1 - beta1) · clip · grad`` in this process,
+    computed as the fleet's ranks compute it but with no mesh: the same
+    weights, batch and selected subset, the subset's rows split into
+    ``parts`` in rank order, each part's gradient in the model's dtype, the
+    parts summed in rank order, the clip from the sum's norm (host tensors
+    in the parameter tree's layout). The split matters: on an H100,
+    final_norm's gradient from 4 parts lies 0.137 from float32's, from the
+    whole subset 0.014, whether the parts are summed in bfloat16 or in
+    float32 (``tools/fsdp_split_gaps.py``)."""
+    import types
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+    model = model_lib.Model(mcfg, "cuda")
+    params = list(model.parameters())
+    with torch.no_grad():
+        for p, q in zip(params, init):
+            p.copy_(q)
+    total = None
+    for r in range(parts):
+        rows = types.SimpleNamespace(process_index=r, process_count=parts,
+                                     all_gather_rows=lambda x: x)
+        loss = steps.subset_loss(mcfg, {"model": model}, batch, graft_state, rows)
+        grads = steps.param_grads(loss, params)
+        total = list(grads) if total is None else [a + g for a, g in zip(total, grads)]
+    norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in total)))
+    opt = tcfg.optimizer
+    clip = min(1.0, opt.clip_norm / (norm + 1e-9)) if opt.clip_norm else 1.0
+    return model_lib.values_tree(model, [((1 - opt.beta1) * clip * g.float()).cpu()
+                                         for g in total])
+
+
+def phase_fsdp(ctx):
+    """Parameter sharding under the fsdp preset: (a) the dry run's fsdp
+    train_4k cells on the (16, 16) pod; (b) its prediction for (c); (c) four
+    gloo ranks sharing the card on a (2, 2) mesh, minicpm-2b at full width
+    and 2 layers, held to the same configuration in this process, to (b)'s
+    peak, to exact resident bytes and to the reckoned launches. (a) runs in
+    a thread beside (b) and (c): its workers trace on the host's cores while
+    the ranks wait on gloo."""
+    import torch
+    ctx.pop("trainer", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = ctx.get("smi", "")
+    box = {}
+    sweep = threading.Thread(target=_fsdp_sweep, args=(box,))
+    sweep.start()
+    try:
+        _fsdp_fleet(smi)
+    finally:
+        sweep.join()
+    _fsdp_cells(box, smi)
+
+
+def _fsdp_fleet(smi):
+    """(b) and (c)."""
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.backend import fleet
+    from repro_torch.models import model as model_lib
+    cfg = ExperimentConfig().apply_overrides(FSDP_OVERRIDES)
+    mcfg, tcfg, data = cfg.build()
+    model_over = {"attn_backend": "auto", "num_layers": FSDP_LAYERS}
+    assert mcfg == configs.get_config("minicpm-2b", **model_over), "the fleet's config differs"
+    t1 = time.perf_counter()
+    pred = _fsdp_prediction(cfg)
+    print(f"[fsdp] (b) the (2, 2) fleet's device, traced in {time.perf_counter() - t1:.1f} s: "
+          f"peak {pred['memory']['peak_bytes'] / 1e9:.3f} GB, args "
+          f"{pred['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, collectives "
+          f"{ {k: v for k, v in pred['collectives']['bytes_by_op'].items() if v} }, launches "
+          f"{ {k: r['launches'] for k, r in pred['kernels'].items()} }", flush=True)
+
+    batches = [{k: torch.from_numpy(v) for k, v in data.batch_at(i).items()}
+               for i in range(FSDP_STEPS)]
+    t1 = time.perf_counter()
+    ref = _fsdp_reference(mcfg, tcfg, batches, seed=0)
+    ref_s = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_cfg = dataclasses.asdict(tcfg)
+    task = {"kind": "fsdp", "mesh": FSDP_MESH, "arch": "minicpm-2b", "model": model_over,
+            "seed": 0, "steps": FSDP_STEPS, "batches": batches,
+            "tcfg": {k: v for k, v in t_cfg.items()}}
+    work = tempfile.mkdtemp(prefix="fsdp.", dir=os.path.join(ROOT, "build"))
+    try:
+        torch.save([task], os.path.join(work, "job.pt"))
+        port = fleet.free_port()
+        t1 = time.perf_counter()
+        runs = fleet.launch([fleet.mesh_worker_command(
+            os.path.join(work, "job.pt"), os.path.join(work, "out"),
+            fleet.backend_overrides(4, r, port)) for r in range(4)], timeout=400)
+        wall = time.perf_counter() - t1
+        summaries = [r.last_json() for r in runs]
+        ranks = [torch.load(s["path"], weights_only=True) for s in summaries]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    pred_peak = pred["memory"]["peak_bytes"]
+    for r in ranks:
+        assert r["collectives"] == "gloo" and r["device"].startswith("cuda"), \
+            (r["collectives"], r["device"])
+        got = r["tasks"][0]
+        rel_peak = (pred_peak - got["peak_bytes"]) / got["peak_bytes"]
+        want = {k: v for k, v in got["launches_expected"].items() if v}
+        print(f"[fsdp] (c) rank {r['rank']}: losses {got['losses']}, ranks {got['ranks']}, "
+              f"step ms {[round(x * 1e3, 1) for x in got['step_s']]}, resident "
+              f"{got['resident_bytes']} B (shards {got['shard_bytes']} B), max_memory_allocated "
+              f"{got['peak_bytes'] / 1e9:.3f} GB (prediction {rel_peak:+.2%}), launches "
+              f"{got['launches']}", flush=True)
+        assert got["resident_bytes"] == got["shard_bytes"], "resident state is not its shards"
+        assert abs(pred_peak - got["peak_bytes"]) <= DRYRUN_PEAK_RTOL * got["peak_bytes"], \
+            f"rank {r['rank']}: peak {got['peak_bytes']} vs predicted {pred_peak}"
+        assert got["launches"] == want, f"rank {r['rank']}: launches {got['launches']} vs {want}"
+        for name in ("graft_select", "flash_forward", "flash_dq", "flash_dkv", "grad_norm",
+                     "optimizer_update"):
+            assert want.get(name), f"{name} is not on the sharded path"
+        assert got["ranks"] == ref["ranks"], (got["ranks"], ref["ranks"])
+        assert {int(k): v for k, v in got["pivots"].items()} == ref["pivots"], \
+            (got["pivots"], ref["pivots"])
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])]
+        assert max(rel) <= 3e-3, f"rank {r['rank']}: losses {got['losses']} vs {ref['losses']}"
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["grad_norms"], ref["grad_norms"])]
+        assert max(rel) <= 3e-3, \
+            f"rank {r['rank']}: grad norms {got['grad_norms']} vs {ref['grad_norms']}"
+    # step 0's gradient leaf by leaf, through AdamW's first moment (0.1 times
+    # the clipped gradient; AdamW's update hides a gradient's scale, and a
+    # small leaf, a norm scale, barely moves the global norm), against the
+    # same split computed in this process; then the gathered final
+    # parameters as a whole (AdamW moves an element by about lr whatever
+    # its gradient's size, so a near-0 gradient's rounding can flip a step:
+    # the zero-initialised norm scales show it most)
+    gaps, _ = _leaf_gaps(ranks[0]["tasks"][0]["m0"], ref["m0"])
+    _, whole = _leaf_gaps(ranks[0]["tasks"][0]["params"], ref["params"])
+    rel_norm = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["tasks"][0]["grad_norms"],
+                                                     ref["grad_norms"])]
+    furthest = sorted(gaps, key=gaps.get, reverse=True)
+    print(f"[fsdp] (c) {smi}: fleet wall {wall:.1f} s "
+          f"(the one-process run {ref_s:.1f} s); losses {ref['losses']} in one process; "
+          f"pivots {ref['pivots']} equal; grad norm relative "
+          f"{[f'{x:.3g}' for x in rel_norm]}; step 0's first moment vs its split in one "
+          f"process, the leaves furthest apart {[(p, round(gaps[p], 6)) for p in furthest[:6]]} "
+          f"(bar {FSDP_M0_RTOL}); gathered final parameters {whole:.3g} relative to one "
+          f"process in all", flush=True)
+    bad = [(p, gaps[p]) for p in furthest if not gaps[p] <= FSDP_M0_RTOL]
+    assert not bad, f"step 0's gradients differ from their split in one process: {bad}"
+    assert whole <= 3e-3, f"final parameters differ by {whole:.3g}"
+
+
+def _leaf_gaps(got, want):
+    """Each leaf's relative Frobenius gap ``|got - want| / |want|`` (float32)
+    by path, and the whole tree's."""
+    import torch
+    from repro_torch.models import model as model_lib
+    diff2 = ref2 = 0.0
+    leaves = {}
+    for path, g, w in zip(_tree_paths(got), model_lib._leaves(got), model_lib._leaves(want)):
+        assert g.shape == w.shape, (path, g.shape, w.shape)
+        g, w = g.to(torch.float32), w.to(torch.float32)
+        d = float(torch.linalg.vector_norm(g - w))
+        n = float(torch.linalg.vector_norm(w))
+        diff2, ref2 = diff2 + d * d, ref2 + n * n
+        leaves[path] = d / max(n, 1e-30)
+    return leaves, (diff2 / ref2) ** 0.5
+
+
 def main() -> int:
     try:
         import torch
@@ -3268,7 +3587,8 @@ def main() -> int:
                      ("serve", phase_serve), ("check", phase_check),
                      ("shell", phase_shell), ("chaos", phase_chaos),
                      ("analysis", phase_analysis), ("backend", phase_backend),
-                     ("sharded", phase_sharded), ("dryrun", phase_dryrun)):
+                     ("sharded", phase_sharded), ("dryrun", phase_dryrun),
+                     ("fsdp", phase_fsdp)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

@@ -119,7 +119,7 @@ def optim_groups(params) -> int:
 
 
 def expected_launches(mcfg, cfg, groups: int, flash: bool = True,
-                      card: bool = True) -> Dict[str, int]:
+                      card: bool = True, sharded: bool = False) -> Dict[str, int]:
     """Launches a run of ``cfg.train.steps`` healthy steps reckons: per step
     one forward per layer for the subset loss and, for the stacked layers,
     one more for their remat recompute (full or dots: a kernel is no matrix
@@ -134,9 +134,20 @@ def expected_launches(mcfg, cfg, groups: int, flash: bool = True,
     forward a layer for each of its 4 batches. ``flash=False``: the
     attention resolves to dense (no flash tile divides the sequence), so no
     flash kernel runs. ``card=False``: on the CPU the optimizer clips with
-    plain ops and routes no grad_norm."""
+    plain ops and routes no grad_norm.
+
+    The reckoning holds for each rank of a data-parallel fleet and of a
+    sharded one (the fsdp preset, ``launch/steps.py``) alike: a rank runs
+    every layer's kernels on its own rows (the weights gathered around
+    them launch no kernel of the port), one graft_select a refresh on the
+    gathered batch, kernel A once a step (split into its pass and its
+    finish around the psum of the ranks' sums: one launch) and kernel B
+    once per dtype group on its shards. ``sharded``: the global norm routes
+    through kernel A's wrapper on the CPU too (its plain split version),
+    once a step. With no ``cfg.graft`` (the baseline step) no refresh runs."""
     steps = cfg.train.steps
-    refreshes = sum(1 for s in range(steps) if s % cfg.graft.refresh_every == 0)
+    refreshes = (0 if cfg.graft is None else
+                 sum(1 for s in range(steps) if s % cfg.graft.refresh_every == 0))
     evals = steps // cfg.train.eval_every if cfg.train.eval_every else 0
     L = mcfg.num_layers
     recomputed = L - mcfg.first_k_dense if mcfg.remat in ("full", "dots") else 0
@@ -148,7 +159,7 @@ def expected_launches(mcfg, cfg, groups: int, flash: bool = True,
             "flash_dq": bwd if attn else 0, "flash_dkv": bwd if attn else 0,
             "graft_select_batched": 0, "fast_maxvol": 0, "projection_sweep": 0,
             "rwkv_scan": fwd if ssm else 0, "rwkv_scan_backward": bwd if ssm else 0,
-            "grad_norm": steps if card else 0, "optimizer_update": steps * groups}
+            "grad_norm": steps if card or sharded else 0, "optimizer_update": steps * groups}
 
 
 def dispatched_launches(mcfg, steps: Sequence[int], refresh_every: int,

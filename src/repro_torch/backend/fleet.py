@@ -31,7 +31,17 @@ rank's backend (``mesh_worker_command``: ``python -m repro_torch.backend
     (``arch``'s first ``layers`` residual blocks at full width from
     ``seed``, ``per_stage`` a stage), on the microbatches ``x``;
   * ``"collectives"`` — every collective of ``mesh`` over each tuple of
-    ``axes``, on a tensor that names the rank.
+    ``axes``, on a tensor that names the rank;
+  * ``"fsdp"`` — the sharded train step (ZeRO-3, the ``fsdp`` preset) on
+    ``mesh``: ``arch`` (``smoke`` for its smoke config) with the ``model``
+    overrides, the train config ``tcfg`` (``optimizer``, ``graft`` — None
+    for the baseline step — and ``TrainConfig`` fields), weights from
+    ``params`` (a JAX tree, through ``jax_bridge.sharded_params_from_numpy``)
+    or drawn from ``seed`` on the device, ``steps`` steps over the global
+    ``batches`` (cycled), each rank taking its rows. Rank 0 reports the
+    gathered final parameters and the first moment after step 0 (the
+    step's clipped gradient times 1 - beta1 under AdamW), each in the
+    parameter tree's layout.
 """
 from __future__ import annotations
 
@@ -410,11 +420,17 @@ def _pipeline_task(task, backend, device) -> Dict[str, Any]:
 def _collectives_task(task, backend, device) -> Dict[str, Any]:
     """Rank r's ``[r, r + 0.5]`` through each collective over each tuple of
     ``task["axes"]`` (in bfloat16 too, for the ones that only move data):
-    the shift moves index i to i + 1, so index 0 receives nothing."""
+    the shift moves index i to i + 1, so index 0 receives nothing; rank
+    r's ``arange(6).reshape(2, 3) + 10 r`` gathered along dim 1 (bf16) and
+    ``arange(24).reshape(3, 8) · (r + 1)`` reduce-scattered along dim 1."""
     from repro_torch.backend.mesh import make_mesh
 
     mesh = make_mesh(*task["mesh"], backend)
     x = torch.tensor([mesh.rank, mesh.rank + 0.5], device=device)
+    # (2, 3) and (3, 8) blocks that name the rank, for the dim-1 gather and
+    # reduce-scatter
+    grid = torch.arange(6, dtype=torch.float32, device=device).reshape(2, 3) + 10 * mesh.rank
+    wide = torch.arange(24, dtype=torch.float32, device=device).reshape(3, 8) * (mesh.rank + 1)
     out: Dict[str, Any] = {"coords": dict(mesh.coords)}
     for axes in task["axes"]:
         n = mesh.size(axes)
@@ -425,12 +441,114 @@ def _collectives_task(task, backend, device) -> Dict[str, Any]:
             "gather_bf16": mesh.all_gather(x.to(torch.bfloat16), axes).cpu(),
             "broadcast": mesh.broadcast(x.to(torch.bfloat16), axes, n - 1).cpu(),
             "shift": mesh.ppermute(x, axes, [(i, i + 1) for i in range(n - 1)]).cpu(),
-            "ints": mesh.gather_ints(mesh.rank, axes)}
+            "ints": mesh.gather_ints(mesh.rank, axes),
+            "gather_dim1": mesh.all_gather(grid.to(torch.bfloat16), axes, dim=1).cpu(),
+            "scatter_dim1": mesh.psum_scatter(wide, axes, dim=1).cpu()}
     return out
 
 
+def _fsdp_task(task, backend, device) -> Dict[str, Any]:
+    import types
+    from repro_torch import configs
+    from repro_torch.analysis import launch_audit
+    from repro_torch.backend.mesh import make_mesh
+    from repro_torch.checkpoint import jax_bridge
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs, steps
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.layers import resolve_attn_backend
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.selection.base import GraftConfig
+
+    mesh = make_mesh(*task["mesh"], backend)
+    get = configs.get_smoke_config if task.get("smoke") else configs.get_config
+    mcfg = get(task["arch"], **task.get("model", {}))
+    t = dict(task["tcfg"])
+    graft = t.pop("graft")
+    tcfg = steps.TrainConfig(optimizer=OptimizerConfig(**t.pop("optimizer")),
+                             graft=GraftConfig(**graft) if graft else None, **t)
+    rules = specs.RULE_PRESETS["fsdp"]
+    batches = task["batches"]
+    K = next(iter(batches[0].values())).shape[0]
+    out: Dict[str, Any] = {"losses": [], "grad_norms": [], "ranks": [], "pivots": {},
+                           "step_s": []}
+    with sh.sharding_rules(mesh, rules):
+        if task.get("params") is not None:
+            model = jax_bridge.sharded_params_from_numpy(task["params"],
+                                                         model_lib.Model(mcfg, device), mesh)
+            # every leaf gathered back, in JAX's layout, against the weights given
+            back, given = dict(_paths(jax_bridge.params_to_numpy(model))), _paths(task["params"])
+            out["gather_exact"] = len(back) == len(given) and all(
+                np.array_equal(back[path], t.float().numpy()) for path, t in given)
+        else:
+            gen = torch.Generator(device=device).manual_seed(task["seed"])
+            model = model_lib.init_params(mcfg, gen, device)
+        state = steps.state_for_model(mcfg, tcfg, model, K)
+        fn = steps.make_train_step(mcfg, tcfg, backend=backend)
+    layout = state["layout"]
+    sharded = state["model"]
+    out["specs"] = [(".".join(map(str, path)), list(s.spec), list(s.shape), list(s.local_shape))
+                    for path, s in _paths(sharded.shardings)]
+    out["batch_axes"], out["subset_axes"] = list(layout.batch_axes), list(layout.subset_axes)
+    # the resident params and moments: their storages, against the shards'
+    # sizes (a shard that kept its full tensor's storage would show)
+    moments = [m for key in ("m", "v") for m in state["opt"].get(key, [])]
+    out["resident_bytes"] = sum(x.untyped_storage().nbytes() for x in state["params"] + moments)
+    out["shard_bytes"] = sum(int(np.prod(s.local_shape)) * p.element_size()
+                             for p, s in zip(state["params"], layout.shardings))
+    for key in ("m", "v"):
+        out["shard_bytes"] += sum(int(np.prod(s.local_shape)) * m.element_size()
+                                  for m, s in zip(state["opt"].get(key, []), layout.shardings))
+    n, r = mesh.size(layout.batch_axes), mesh.axis_index(layout.batch_axes)
+    k = K // n
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    launch_audit.zero_counts()
+    with launch_audit.recording() as trace:
+        for i in range(task["steps"]):
+            batch = {name: x[r * k:(r + 1) * k].to(device)
+                     for name, x in batches[i % len(batches)].items()}
+            _sync(device)
+            t0 = time.perf_counter()
+            state, metrics = fn(state, batch)
+            out["losses"].append(float(metrics["loss"]))
+            _sync(device)
+            out["step_s"].append(time.perf_counter() - t0)
+            out["grad_norms"].append(float(metrics["grad_norm"]))
+            if i == 0:                      # kept on the host, off the peak
+                m0 = [m.detach().to("cpu", copy=True) for m in state["opt"]["m"]]
+            if tcfg.use_graft:
+                out["ranks"].append(int(metrics["rank"]))
+                if i % tcfg.graft.refresh_every == 0:
+                    out["pivots"][i] = state["graft"].pivots.tolist()
+    if cuda:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    out["launches"] = dict(trace.counts)
+    run = types.SimpleNamespace(train=types.SimpleNamespace(steps=task["steps"], eval_every=0),
+                                graft=tcfg.graft)
+    flash = resolve_attn_backend(mcfg, batch["labels"].shape[1], batch["labels"].shape[1],
+                                 device) == "flash"
+    out["launches_expected"] = launch_audit.expected_launches(
+        mcfg, run, launch_audit.optim_groups(state["params"]), flash=flash, card=cuda,
+        sharded=True)
+    final, first_moment = sharded.gathered(), model_lib.values_tree(sharded, m0)
+    if backend.process_index == 0:
+        out["params"], out["m0"] = _host(final), first_moment
+    return out
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _paths(v, prefix + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _paths(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
 _TASKS = {"sharded": _sharded_task, "unequal": _unequal_task, "pipeline": _pipeline_task,
-          "collectives": _collectives_task}
+          "collectives": _collectives_task, "fsdp": _fsdp_task}
 
 
 def run_mesh_job(job: str, out_dir: str, overrides: Sequence[str],

@@ -10,8 +10,12 @@ tuple of those axes:
 
   * ``psum``, ``pmean``, ``pmax`` — all-reduces (``pmean`` is ``psum`` over
     the group size, as ``jax.lax.pmean`` is);
-  * ``all_gather`` — every member's tensor concatenated along dim 0 in rank
-    order along the axes, first axis major (0-d tensors are stacked);
+  * ``all_gather`` — every member's tensor concatenated along a dim (0 by
+    default) in rank order along the axes, first axis major (0-d tensors
+    are stacked);
+  * ``psum_scatter`` — ``jax.lax.psum_scatter`` (tiled): the sum over the
+    axes, cut along a dim, each member keeping its block (one
+    ``reduce_scatter_tensor``);
   * ``broadcast`` — one member's tensor on every member;
   * ``ppermute`` — ``jax.lax.ppermute``'s ``(source, destination)`` pairs
     of indices along the axes; a member with no source gets zeros. Each
@@ -160,26 +164,63 @@ class Mesh:
         out = self._all_reduce(x, axes, dist.ReduceOp.MAX)
         return x if out is None else out
 
-    def all_gather(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
-        """Every member's ``x`` along dim 0 (stacked when 0-d), in rank order
-        along ``axes``, the first axis major."""
+    def _in_axes_order(self, items: List, axes: Tuple[str, ...]) -> List:
+        """``items``, one a group member in mesh order, reordered to the
+        order of ``axes`` as given (first axis major)."""
+        canon = tuple(a for a in self.axis_names if a in axes)
+        if canon == axes:
+            return items
+        sizes = [self.shape[a] for a in canon]
+        return [items[i] for i in np.arange(len(items)).reshape(sizes)
+                .transpose([canon.index(a) for a in axes]).reshape(-1)]
+
+    def all_gather(self, x: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
+        """Every member's ``x`` concatenated along ``dim`` (stacked along dim
+        0 when 0-d), in rank order along ``axes``, the first axis major
+        (``jax.lax.all_gather(..., axis=dim, tiled=True)``). On gloo the
+        pieces meet in host memory and the result moves to ``x``'s device
+        once."""
         axes = self._axes(axes)
+        part = x.reshape(1) if x.dim() == 0 else x
         if self.size(axes) == 1:
-            return x.reshape(1) if x.dim() == 0 else x
+            return part
         group, members = self._group(axes)
-        buf = self._wire(x.reshape(1) if x.dim() == 0 else x, raw=True)
+        moved = part.movedim(dim, 0)
+        buf = self._wire(moved, raw=True)
         parts = [torch.empty_like(buf) for _ in members]
         dist.all_gather(parts, buf, group=group)
-        # the group's members run first axis major in mesh order; reorder to
-        # the order of ``axes`` as given
-        canon = tuple(a for a in self.axis_names if a in axes)
-        if canon != axes:
-            sizes = [self.shape[a] for a in canon]
-            parts = [parts[i] for i in
-                     np.arange(len(parts)).reshape(sizes)
-                     .transpose([canon.index(a) for a in axes]).reshape(-1)]
-        part = x.reshape(1) if x.dim() == 0 else x
-        return torch.cat([self._back(p, part) for p in parts])
+        full = torch.cat(self._in_axes_order(parts, axes))
+        if full.dtype != part.dtype:
+            full = full.view(part.dtype)
+        full = full.reshape((len(members) * moved.shape[0],) + tuple(moved.shape[1:]))
+        return full.movedim(0, dim).contiguous().to(part.device, non_blocking=True)
+
+    def psum_scatter(self, x: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
+        """This member's block of the sum over ``axes`` of every member's
+        ``x``: ``x``'s ``dim`` cut into as many blocks as members, block i
+        to the member at index i along ``axes`` (``jax.lax.psum_scatter(...,
+        scatter_dimension=dim, tiled=True)``): one collective,
+        ``reduce_scatter_tensor``."""
+        axes = self._axes(axes)
+        n = self.size(axes)
+        if n == 1:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {n} members of {axes}")
+        group, _ = self._group(axes)
+        blocks = self._wire(x).movedim(dim, 0).chunk(n)
+        # block i goes to the member at index i along ``axes``; the group
+        # hands block p to its p-th member in mesh order, the member at
+        # position at[i] holds index i
+        at = self._in_axes_order(list(range(n)), axes)
+        order = [0] * n
+        for i, p in enumerate(at):
+            order[p] = i
+        flat = torch.cat([blocks[i] for i in order])
+        out = torch.empty_like(blocks[0], memory_format=torch.contiguous_format)
+        dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM, group=group)
+        return out.movedim(0, dim).contiguous().to(x.device, non_blocking=True)
 
     def broadcast(self, x: torch.Tensor, axes: Axes, index: int) -> torch.Tensor:
         """The ``x`` of the member at ``index`` along ``axes`` on every

@@ -6,6 +6,10 @@
   blocks — into a port ``Model``.
 * ``params_to_numpy(model)`` is the inverse (blocks re-stacked), for
   comparing the port's tensors with the JAX package's.
+* ``sharded_params_from_numpy(tree, model, mesh)`` loads the JAX tree and
+  cuts the parameters to this rank's shards (``models/model.py``
+  ``shard_model``, under the active rules); ``ShardedModel.gathered()``
+  rebuilds the full tensors, bit for bit.
 * ``load_jax_checkpoint(directory)`` reads the ``.npy`` + ``manifest.json``
   format the JAX ``CheckpointManager`` writes. bfloat16 leaves are stored
   there as their raw ``uint16`` bits with the logical dtype in the manifest;
@@ -34,7 +38,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model, stacked_leaves
+from repro_torch.models.model import Model, ShardedModel, shard_model, stacked_leaves
 
 
 def _to_tensor(value) -> torch.Tensor:
@@ -89,10 +93,20 @@ def params_from_numpy(tree: Dict[str, Any], model: Model) -> Model:
     return model
 
 
+def sharded_params_from_numpy(tree: Dict[str, Any], model: Model, mesh,
+                              rules=None) -> ShardedModel:
+    """``params_from_numpy`` into ``model``, then its parameters cut in
+    place to this rank's shards on ``mesh`` (``shard_model``; ``rules``
+    default to the active ``sharding_rules``')."""
+    return shard_model(params_from_numpy(tree, model), mesh, rules)
+
+
 def params_to_numpy(model_or_tree) -> Dict[str, Any]:
     """The port's parameters (or any tensors in the same tree shape, such
     as gradients) as a JAX-layout tree of float32/int numpy arrays with the
     blocks stacked on axis 0 and ``first_blocks`` a list."""
+    if isinstance(model_or_tree, ShardedModel):
+        model_or_tree = model_or_tree.gathered()
     tree = model_or_tree.tree() if isinstance(model_or_tree, Model) else model_or_tree
 
     def np_(t):

@@ -45,6 +45,12 @@
 //     block by a xor butterfly and the 8 warps in order, into the block's own
 //     slot; a one-block pass adds the slots in slot order and writes norm and
 //     scale. No float atomics, so reruns are bit-equal.
+//   * A also runs split, for a state sharded over ranks: its pass and a
+//     one-block sum write this rank's sum of squares (fused_optim_sumsq_launch),
+//     the caller adds the ranks' sums, and the one-block finish takes the root
+//     and the clip factor of that total (fused_optim_finish_launch). Given one
+//     rank's own sum, the split gives the unsplit launch's norm and scale bit
+//     for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -292,14 +298,17 @@ fused_norm_kernel(const Leaf* __restrict__ table, int n_leaves, long long n_chun
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
+// Adds the partials in order; with `finish` writes out[0] = norm and out[1] =
+// the clip factor, else out[0] = the sum of squares.
 __global__ void __launch_bounds__(kFinishThreads)
 norm_finish_kernel(const float* __restrict__ partials, int n_partials, float clip, int has_clip,
-                   float* __restrict__ out) {
+                   int finish, float* __restrict__ out) {
   __shared__ float smem[kFinishThreads / 32];
   float acc = 0.0f;
   for (int i = threadIdx.x; i < n_partials; i += kFinishThreads) acc += partials[i];
   const float total = block_sum<kFinishThreads / 32>(acc, smem);
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && !finish) out[0] = total;
+  if (threadIdx.x == 0 && finish) {
     const float norm = __fsqrt_rn(total);
     float scale = 1.0f;
     if (has_clip) {
@@ -353,7 +362,30 @@ int fused_optim_norm_launch(const void* table, const void* partials, const void*
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   norm_finish_kernel<<<1, kFinishThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)partials, grid, clip, has_clip, (float*)out);
+      (const float*)partials, grid, clip, has_clip, 1, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// A split, its pass: table -> out[0] = this rank's sum of g^2 (`partials` as
+// for fused_optim_norm_launch). Returns a cudaError_t code.
+int fused_optim_sumsq_launch(const void* table, const void* partials, const void* out,
+                             int n_leaves, long long n_chunks, int grid, void* stream) {
+  if (n_leaves <= 0 || n_chunks <= 0 || grid <= 0) return (int)cudaErrorInvalidValue;
+  fused_norm_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const Leaf*)table, n_leaves, n_chunks, (float*)partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  norm_finish_kernel<<<1, kFinishThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)partials, grid, 0.0f, 0, 0, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// A split, its finish: `total` (one float, the sum over the ranks) -> out[0] =
+// norm, out[1] = the clip factor (1 without clip).
+int fused_optim_finish_launch(const void* total, const void* out, float clip, int has_clip,
+                              void* stream) {
+  norm_finish_kernel<<<1, kFinishThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)total, 1, clip, has_clip, 1, (float*)out);
   return (int)cudaGetLastError();
 }
 

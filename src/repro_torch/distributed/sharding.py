@@ -1,27 +1,49 @@
-"""Logical-axis sharding rules — the rule table and mapping of the JAX
-package's ``distributed/sharding.py``, in plain Python.
+"""Logical-axis sharding rules and the eager partitioner — the twin of the
+JAX package's ``distributed/sharding.py``, in plain PyTorch.
 
 Code names the LOGICAL axes of its arrays (``act_batch``, ``heads``, ...);
 a rule table maps each to mesh axes, and ``logical_to_spec`` resolves the
 names against a mesh's axes. The port's sharded selection engine asks it
 which mesh axes the batch runs over (``act_batch`` → ``("pod", "data")``,
 filtered to the axes the mesh has). Any object with ``axis_names`` and a
-``shape`` mapping works as the mesh: a port ``Mesh``, or a JAX mesh's names
-and sizes.
+``shape`` mapping works as the mesh: a port ``Mesh``, the dry run's
+abstract meshes, or a JAX mesh's names and sizes.
 
 A spec is a tuple with one entry per logical axis, as a ``PartitionSpec``
 lists them: a mesh axis name, a tuple of two or more names, or ``None``
 (replicated).
 
-The partitioner half of the JAX module (``constrain``, ``named_sharding``,
-``param_sharding_tree``, ``param_shardings``) annotates arrays for XLA and
-has no counterpart in eager PyTorch (``ROADMAP.md``, A11).
+The partitioner half places parameters where XLA's would under
+``jax.jit(..., in_shardings=param_shardings(...))``, in eager terms:
+
+* ``param_shardings`` gives each leaf of a tree its :class:`LeafSharding`:
+  the spec after ``logical_to_spec`` and ``drop_indivisible``, the global
+  shape, and this rank's index range on every dimension (the rank's
+  coordinates on a port ``Mesh``; coordinate 0 on every axis of a mesh
+  without ranks, the device the dry run traces);
+* ``shard_tensor`` cuts a full tensor to this rank's shard (a copy of its
+  own, so that the full tensor can go);
+* ``gather_tensor`` rebuilds the full tensor over the spec's axes
+  (``Mesh.all_gather`` along each sharded dimension);
+* :class:`ShardedParam` is a sharded leaf in a parameter tree, and
+  ``materialize`` gathers it where it is read: forward ``gather_tensor``;
+  backward the full-size gradient ``psum_scatter``-ed over the axes the
+  leaf is sharded on, then ``psum``-ed over the axes it is replicated on,
+  so that each rank holds the gradient of its own shard summed over every
+  rank's rows (ZeRO-3, the ``fsdp`` preset's schedule).
+
+``constrain`` (``with_sharding_constraint`` on activations) has no
+counterpart: under ``fsdp`` no activation is constrained beyond the batch
+split, which the train step makes itself (``launch/steps.py``).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+import torch
 
 MeshAxes = Union[str, Tuple[str, ...], None]
 Spec = Tuple[MeshAxes, ...]
@@ -140,5 +162,208 @@ def drop_indivisible(spec: Spec, shape: Tuple[int, ...], mesh) -> Spec:
     return tuple(out)
 
 
+def active() -> Optional[Tuple[Any, Dict[str, MeshAxes]]]:
+    """``(mesh, rules)`` of the enclosing ``sharding_rules``, else None."""
+    if not _STATE.enabled or _STATE.mesh is None:
+        return None
+    return _STATE.mesh, dict(_STATE.rules)
+
+
+# activation axes that the fsdp preset leaves unsharded: tensor and sequence
+# parallelism, which the port's eager layers do not have
+_TP_ACTIVATIONS = ("act_seq", "act_res_seq", "act_q_seq", "act_kv_seq", "act_heads",
+                   "act_kv_heads", "act_embed", "act_mlp", "act_mlp_inner", "act_vocab")
+
+
+def check_fsdp_rules(mesh, rules: Dict[str, MeshAxes]) -> None:
+    """Raise ``ValueError`` unless ``rules`` shard activations over the
+    batch alone on ``mesh`` (the ``fsdp`` preset): the port gathers weights
+    just in time and has no tensor or sequence parallelism."""
+    split = [n for n in _TP_ACTIVATIONS if logical_to_spec((n,), mesh, rules) != (None,)]
+    if split:
+        raise ValueError(
+            f"the rules shard the activation axes {split} over the mesh (tensor or sequence "
+            "parallelism, the 'default' and 'head_tp' presets): the port's sharded step "
+            "runs the 'fsdp' preset only (ROADMAP.md A12, A13)")
+
+
+def _coords(mesh) -> Dict[str, int]:
+    """This rank's coordinate on every axis: a port ``Mesh``'s, else 0 (the
+    device a dry run traces)."""
+    coords = getattr(mesh, "coords", None)
+    return dict(coords) if coords is not None else {a: 0 for a in mesh.axis_names}
+
+
+def _entry_axes(entry: MeshAxes) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def split_axes(logical: str, rows: int, mesh, rules: Optional[Dict[str, MeshAxes]] = None
+               ) -> Tuple[str, ...]:
+    """The mesh axes a dim of ``rows`` named ``logical`` splits over (``act_batch``:
+    the batch's), cut by ``drop_indivisible``; ``()`` when none divides."""
+    spec = logical_to_spec((logical,), mesh, rules)
+    return _entry_axes(drop_indivisible(spec, (rows,), mesh)[0])
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LeafSharding:
+    """Where one leaf lives on ``mesh``: its ``spec`` (after
+    ``logical_to_spec`` and ``drop_indivisible``), its global ``shape`` and
+    this rank's ``[start, stop)`` on every dim (``bounds``)."""
+    spec: Spec
+    shape: Tuple[int, ...]
+    mesh: Any
+    bounds: Tuple[Tuple[int, int], ...]
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        return tuple(b - a for a, b in self.bounds)
+
+    @property
+    def sharded_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the leaf is split over, in mesh order."""
+        used = {a for e in self.spec for a in _entry_axes(e)}
+        return tuple(a for a in self.mesh.axis_names if a in used)
+
+    @property
+    def replicated_axes(self) -> Tuple[str, ...]:
+        """The mesh axes along which every rank holds the same shard."""
+        used = set(self.sharded_axes)
+        return tuple(a for a in self.mesh.axis_names if a not in used)
+
+    @property
+    def is_sharded(self) -> bool:
+        return self.local_shape != tuple(self.shape)
+
+    def counted(self) -> bool:
+        """Whether this rank's copy of the shard is the one a global sum over
+        ranks counts: the one at index 0 along the replicated axes."""
+        coords = _coords(self.mesh)
+        return all(coords[a] == 0 for a in self.replicated_axes)
+
+
+def leaf_sharding(shape: Sequence[int], logical: Sequence[Optional[str]], mesh,
+                  rules: Optional[Dict[str, MeshAxes]] = None) -> LeafSharding:
+    """One leaf's :class:`LeafSharding` on ``mesh`` under ``rules``."""
+    shape = tuple(int(d) for d in shape)
+    spec = drop_indivisible(logical_to_spec(logical, mesh, rules), shape, mesh)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    coords = _coords(mesh)
+    bounds = []
+    for dim, entry in zip(shape, spec):
+        index, n = 0, 1
+        for a in _entry_axes(entry):                 # the first axis major
+            index = index * mesh.shape[a] + coords[a]
+            n *= mesh.shape[a]
+        bounds.append((index * dim // n, (index + 1) * dim // n))
+    return LeafSharding(spec, shape, mesh, tuple(bounds))
+
+
+def _is_logical(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
+
+
+def param_shardings(tree, logical_tree, mesh, rules: Optional[Dict[str, MeshAxes]] = None):
+    """A :class:`LeafSharding` for each leaf of ``tree`` (tensors or
+    anything with a ``shape``; dicts and lists), ``logical_tree`` the
+    matching tree of logical-axis tuples."""
+    if _is_logical(logical_tree):
+        return leaf_sharding(tree.shape, logical_tree, mesh, rules)
+    if isinstance(logical_tree, dict):               # in ``tree``'s order
+        return {k: param_shardings(v, logical_tree[k], mesh, rules) for k, v in tree.items()}
+    return [param_shardings(t, lg, mesh, rules) for t, lg in zip(tree, logical_tree)]
+
+
+def shard_tensor(full: torch.Tensor, sharding: LeafSharding) -> torch.Tensor:
+    """This rank's shard of ``full``: a copy with a storage of its own (the
+    tensor itself when the leaf is replicated)."""
+    if tuple(full.shape) != sharding.shape:
+        raise ValueError(f"tensor of shape {tuple(full.shape)} for a leaf of shape "
+                         f"{sharding.shape}")
+    if not sharding.is_sharded:
+        return full
+    return full[tuple(slice(a, b) for a, b in sharding.bounds)].clone()
+
+
+def gather_tensor(shard: torch.Tensor, sharding: LeafSharding) -> torch.Tensor:
+    """The full tensor from every rank's shard: ``all_gather`` along each
+    sharded dim over its entry's axes (the mesh's collectives)."""
+    x = shard
+    for dim, entry in enumerate(sharding.spec):
+        if _axis_size(sharding.mesh, entry) > 1:
+            x = sharding.mesh.all_gather(x, _entry_axes(entry), dim=dim)
+    return x
+
+
+def reduce_scatter_tensor(full: torch.Tensor, sharding: LeafSharding) -> torch.Tensor:
+    """This rank's shard of the sum over every rank of ``full``:
+    ``psum_scatter`` along each sharded dim (the last first) over its
+    entry's axes, then ``psum`` of the shard over the replicated axes (a
+    sum over all ranks either way; this order moves a shard, not the full
+    tensor, over the replicated axes)."""
+    g = full
+    mesh = sharding.mesh
+    for dim in reversed(range(len(sharding.spec))):
+        entry = sharding.spec[dim]
+        if _axis_size(mesh, entry) > 1:
+            g = mesh.psum_scatter(g, _entry_axes(entry), dim=dim)
+    rest = tuple(a for a in sharding.replicated_axes if mesh.shape[a] > 1)
+    return mesh.psum(g, rest) if rest else g
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """Forward ``gather_tensor``; backward ``reduce_scatter_tensor`` of the
+    full-size gradient. Saves nothing: under ``remat`` the gather runs
+    again in the recompute."""
+
+    @staticmethod
+    def forward(ctx, shard, sharding):
+        ctx.sharding = sharding
+        return gather_tensor(shard, sharding)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_tensor(grad.contiguous(), ctx.sharding), None
+
+
+class ShardedParam:
+    """A sharded leaf of a parameter tree: the rank's ``shard`` (the
+    parameter the optimizer steps) and its ``sharding``."""
+
+    __slots__ = ("shard", "sharding")
+
+    def __init__(self, shard: torch.Tensor, sharding: LeafSharding):
+        self.shard, self.sharding = shard, sharding
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The leaf's global shape (what ``params_logical`` reads)."""
+        return self.sharding.shape
+
+
+def materialize(x):
+    """The full tensor of a parameter leaf where it is read: a
+    :class:`ShardedParam` gathered (``_GatherLeaf``: differentiable, its
+    gradient reduce-scattered back onto the shard), any other leaf as it
+    is."""
+    if isinstance(x, ShardedParam):
+        return _GatherLeaf.apply(x.shard, x.sharding)
+    return x
+
+
+def materialize_tree(tree):
+    """``materialize`` over the leaves of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: materialize_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [materialize_tree(v) for v in tree]
+    return materialize(tree)
+
+
 __all__ = ["DEFAULT_RULES", "MeshAxes", "Spec", "sharding_rules", "logical_to_spec",
-           "drop_indivisible"]
+           "drop_indivisible", "active", "check_fsdp_rules", "split_axes", "LeafSharding",
+           "leaf_sharding", "param_shardings", "shard_tensor", "gather_tensor",
+           "reduce_scatter_tensor", "ShardedParam", "materialize", "materialize_tree"]

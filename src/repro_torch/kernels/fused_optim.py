@@ -11,7 +11,11 @@ about two dozen elementwise kernels a leaf, so the step is two kernels of
   ``min(1, clip_norm / (norm + 1e-9))`` (1 when ``clip_norm`` is None) —
   kernel A, one launch (a sum-of-squares pass writing a partial per block,
   then a one-block pass adding them in order), counted in
-  ``grad_norm.launches``.
+  ``grad_norm.launches``. With ``reduce`` (a state sharded over ranks) A
+  runs split: its pass writes this rank's Σ g² over the leaves it counts,
+  ``reduce`` adds the ranks' sums (a ``psum``), and its finish takes the
+  root and the clip factor of the total — still one launch of A, counted at
+  the finish, which every rank runs once.
 * ``optimizer_update(rule, params, grads, m, v, hyper, scale)`` updates
   ``params``, ``m`` (and ``v``) in place by ``adamw``, ``sgd`` or ``lion``,
   with each gradient first clipped by ``scale`` (a device scalar, or None)
@@ -32,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,10 +104,15 @@ def update_cost(rule: str, leaves: Sequence[Tuple[int, torch.dtype, torch.dtype]
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
+def sumsq_reference(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Σ over every tensor of Σ x², in float32, on the device (kernel A's
+    pass)."""
+    return sum(torch.sum(torch.square(t.to(torch.float32))) for t in tensors)
+
+
 def global_norm_reference(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt(Σ over every tensor of Σ x²), in float32, on the device."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
-                          for t in tensors))
+    return torch.sqrt(sumsq_reference(tensors))
 
 
 def clip_scale_reference(norm: torch.Tensor, max_norm: Optional[float]) -> torch.Tensor:
@@ -112,10 +121,25 @@ def clip_scale_reference(norm: torch.Tensor, max_norm: Optional[float]) -> torch
     return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
 
 
-def grad_norm_reference(grads: Sequence[torch.Tensor], max_norm: Optional[float]
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    norm = global_norm_reference(grads)
+def norm_finish_reference(total: torch.Tensor, max_norm: Optional[float]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(√total, the clip factor): kernel A's finish on a sum of squares."""
+    norm = torch.sqrt(total)
     return norm, clip_scale_reference(norm, max_norm)
+
+
+def grad_norm_reference(grads: Sequence[torch.Tensor], max_norm: Optional[float],
+                        reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                        device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``grad_norm``'s plain version; with ``reduce`` the split: this
+    rank's sum of squares (0 over no leaf, on ``device``), reduced, then
+    the finish."""
+    if reduce is None:
+        norm = global_norm_reference(grads)
+        return norm, clip_scale_reference(norm, max_norm)
+    partial = sumsq_reference(grads) if grads else torch.zeros(
+        (), dtype=torch.float32, device=device)
+    return norm_finish_reference(reduce(partial), max_norm)
 
 
 def scale_grads(grads: Sequence[torch.Tensor], scale: torch.Tensor) -> List[torch.Tensor]:
@@ -174,6 +198,13 @@ def _lib():
         [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.fused_optim_norm_launch.restype = ctypes.c_int
+    lib.fused_optim_sumsq_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_void_p])
+    lib.fused_optim_sumsq_launch.restype = ctypes.c_int
+    lib.fused_optim_finish_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.fused_optim_finish_launch.restype = ctypes.c_int
     lib.fused_optim_update_launch.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int]
         + [ctypes.c_float] * 10 + [ctypes.c_void_p])
@@ -220,30 +251,49 @@ def _check_leaves(what: str, **lists) -> None:
                 raise ValueError(f"{what}: {arg}[{i}] must be contiguous")
 
 
-def grad_norm(grads: Sequence[torch.Tensor], max_norm: Optional[float]
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def grad_norm(grads: Sequence[torch.Tensor], max_norm: Optional[float],
+              reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+              device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(norm, scale)``: kernel A on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors. With ``reduce`` (0-d float32 → its sum over the ranks) the
+    norm is global: ``grads`` are the leaves this rank counts (none is
+    allowed; then ``device`` places the rank's zero), their sum of squares
+    is reduced between A's pass and its finish."""
     grads = [g for g in grads if g.numel()]
-    if not grads:
+    if not grads and reduce is None:
         raise ValueError("grad_norm needs at least one non-empty gradient")
-    if not build.route("grad_norm", *grads):
-        return grad_norm_reference(grads, max_norm)
+    dev = grads[0].device if grads else torch.device(device)
+    # a rank that counts no leaf routes on its (empty) output
+    operands = grads or [torch.empty(2, dtype=torch.float32, device=dev)]
+    if not build.route("grad_norm", *operands):
+        return grad_norm_reference(grads, max_norm, reduce, dev)
     _check_leaves("grad_norm", grads=grads)
-    dev = grads[0].device
+    has_clip, clip = int(max_norm is not None), 0.0 if max_norm is None else float(max_norm)
     out = torch.empty(2, dtype=torch.float32, device=dev)
     if build.abstract("grad_norm", lambda: norm_cost([(g.numel(), g.dtype) for g in grads]),
-                      grads[0]):
+                      operands[0]):
+        if reduce is not None:
+            reduce(out[:1])
         return out[0], out[1]
     lib = _lib()
-    table, chunks = _leaf_table([(None, g, None, None) for g in grads],
-                                [2 if g.dtype == torch.bfloat16 else 0 for g in grads],
-                                lib.fused_optim_chunk_elems(), dev)
-    grid = _grid(lib, chunks, dev)
-    partials = torch.empty(grid, dtype=torch.float32, device=dev)
-    build.call(lib.fused_optim_norm_launch, "grad_norm", dev, (table, partials, out),
-               (len(grads), chunks, grid, 0.0 if max_norm is None else float(max_norm),
-                int(max_norm is not None)))
+    if grads:
+        table, chunks = _leaf_table([(None, g, None, None) for g in grads],
+                                    [2 if g.dtype == torch.bfloat16 else 0 for g in grads],
+                                    lib.fused_optim_chunk_elems(), dev)
+        grid = _grid(lib, chunks, dev)
+        partials = torch.empty(grid, dtype=torch.float32, device=dev)
+    if reduce is None:
+        build.call(lib.fused_optim_norm_launch, "grad_norm", dev, (table, partials, out),
+                   (len(grads), chunks, grid, clip, has_clip))
+    else:
+        if grads:
+            build.call(lib.fused_optim_sumsq_launch, "grad_norm (sum of squares)", dev,
+                       (table, partials, out), (len(grads), chunks, grid))
+        else:
+            out[0].zero_()
+        total = reduce(out[:1]).contiguous()
+        build.call(lib.fused_optim_finish_launch, "grad_norm (finish)", dev, (total, out),
+                   (clip, has_clip))
     grad_norm.launches += 1
     return out[0], out[1]
 

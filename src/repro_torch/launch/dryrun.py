@@ -22,11 +22,18 @@ storage, nothing computed), on one device of the mesh:
   ``output_size_in_bytes`` (``alias_size_in_bytes`` of it shared with the
   arguments), ``temp_size_in_bytes`` (the peak beyond the arguments), and
   ``peak_bytes`` with ``fits`` against the H100's 80 GB.
-* **Collectives**: the port replicates the train state on every device
-  (data parallel) and splits the batch over the mesh axes that
-  ``act_batch`` maps to. A recording backend stands in for the processes:
-  ``all_gather_rows`` and ``reduce_grads`` return fake tensors of the real
-  shapes and add their operands' bytes under JAX's op names.
+* **Collectives**: under the ``default`` preset the port replicates the
+  train state on every device (data parallel) and splits the batch over
+  the mesh axes that ``act_batch`` maps to. A recording backend stands in
+  for the processes: ``all_gather_rows`` and ``reduce_grads`` return fake
+  tensors of the real shapes and add their operands' bytes under JAX's op
+  names. Under ``fsdp`` (train cells of the non-MoE archs) the state is
+  one device's shards (``"state": "sharded"``) and a recording mesh
+  stands in for the ranks: each weight's just-in-time gather, its
+  gradient's reduce-scatter and the norm's psum return fake tensors of the
+  real shapes and add their operands' bytes the same way. Under
+  ``remat="none"`` the gathered weights are saved for the backward, under
+  ``full`` only the shards: the peak shows which.
 
 The cells take the card's routes: attention ``auto`` runs flash wherever
 ``analysis/smem.py`` ``flash_feasible`` admits the shape (the JAX dry run
@@ -34,9 +41,10 @@ compiles XLA's chunked path instead), and the refresh takes the
 plain-PyTorch chain unless the train config sets ``use_pallas``. The
 divergence sentinel is off (a host read, no device memory). Eager PyTorch
 runs every layer, so the JAX run's L = p / 2p delta is not needed:
-``--no-deltas`` is accepted and ``scaled`` equals ``full``. The ``fsdp``
-and ``head_tp`` presets shard parameters, which needs a partitioner the
-port does not have: they raise.
+``--no-deltas`` is accepted and ``scaled`` equals ``full``. ``fsdp`` on a
+MoE arch (its experts need expert parallelism), ``fsdp`` on a prefill,
+decode or long cell, and ``head_tp`` (head-parallel attention) raise
+``ValueError`` with the reason.
 
 Fake tensors are ``cuda:0``'s, which needs PyTorch with CUDA. Where it has
 none, ``--cpu-stand-in`` traces fake CPU tensors on the card's routes
@@ -56,6 +64,7 @@ import traceback
 import weakref
 from typing import Any, Dict, List, Sequence
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -231,14 +240,57 @@ class RecordingBackend(Backend):
                 "total_count": sum(self.count_by_op.values())}
 
 
+class RecordingMesh:
+    """One device of ``mesh`` (coordinate 0 on every axis) with the
+    collectives a sharded step calls on a port ``Mesh``: fake results of the
+    real shapes, each collective's operand bytes recorded on ``backend``
+    under JAX's op name (all-gather, reduce-scatter, all-reduce), as
+    ``RecordingBackend`` records its own."""
+
+    def __init__(self, mesh: AbstractMesh, backend: "RecordingBackend"):
+        self.axis_names = tuple(mesh.axis_names)
+        self.shape = dict(mesh.shape)
+        self.coords = {a: 0 for a in self.axis_names}
+        self.backend = backend
+
+    def size(self, axes) -> int:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return int(np.prod([self.shape[a] for a in axes], dtype=np.int64))
+
+    def axis_index(self, axes) -> int:
+        return 0
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        x = x.reshape(1) if x.dim() == 0 else x
+        n = self.size(axes)
+        if n == 1:
+            return x
+        self.backend._record("all-gather", _nbytes(x))
+        shape = list(x.shape)
+        shape[dim] *= n
+        return x.new_empty(shape)
+
+    def psum_scatter(self, x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        n = self.size(axes)
+        if n == 1:
+            return x
+        self.backend._record("reduce-scatter", _nbytes(x))
+        shape = list(x.shape)
+        shape[dim] //= n
+        return x.new_empty(shape)
+
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        if self.size(axes) == 1:
+            return x
+        self.backend._record("all-reduce", _nbytes(x))
+        return x.new_empty(x.shape)
+
+
 def batch_shards(mesh: AbstractMesh, batch: int, rules: Dict[str, Any]) -> int:
     """The devices ``act_batch`` splits a batch of ``batch`` rows over (the
     axes whose sizes divide it, as ``drop_indivisible`` cuts them)."""
-    spec = sh.logical_to_spec(("act_batch",), mesh, dict(sh.DEFAULT_RULES, **rules))
-    entry = sh.drop_indivisible(spec, (batch,), mesh)[0]
-    if entry is None:
-        return 1
-    return mesh.axes_size((entry,) if isinstance(entry, str) else entry)
+    return mesh.axes_size(sh.split_axes("act_batch", batch, mesh,
+                                         dict(sh.DEFAULT_RULES, **rules)))
 
 
 def trace(cell: specs_lib.Cell, backend: RecordingBackend = None) -> Dict[str, Any]:
@@ -284,6 +336,26 @@ def trace(cell: specs_lib.Cell, backend: RecordingBackend = None) -> Dict[str, A
     }
 
 
+def _check_preset(cfg, shape: str, rules_preset: str) -> None:
+    """Raise ``ValueError`` for a preset the port does not run on this cell."""
+    if rules_preset not in specs_lib.RULE_PRESETS:
+        raise ValueError(f"unknown rules preset '{rules_preset}' "
+                         f"(have {sorted(specs_lib.RULE_PRESETS)})")
+    if rules_preset == "head_tp":
+        raise ValueError("rules preset 'head_tp' shards attention heads over the model axis "
+                         "(tensor parallelism of activations), which the port's eager layers "
+                         "do not have (ROADMAP.md A13)")
+    if rules_preset == "fsdp":
+        if specs_lib.SHAPES[shape]["kind"] != "train":
+            raise ValueError(f"rules preset 'fsdp' on {shape}: the port shards the train step "
+                             "only; sharded prefill and decode (and their caches) are to come "
+                             "(ROADMAP.md A15)")
+        if cfg.family == "moe":
+            raise ValueError(f"rules preset 'fsdp' on {cfg.name}: its experts stay on the model "
+                             "axis (act_experts → model), which needs expert parallelism the "
+                             "port does not have (ROADMAP.md A14)")
+
+
 def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
              with_deltas: bool = True, smoke: bool = False,
              mesh_override=None, rules_preset: str = "default",
@@ -295,15 +367,11 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
     single device. ``with_deltas`` is accepted: every layer runs, so
     ``scaled`` is ``full``. ``device``: what the fake tensors are (``cpu``
     takes the CPU's own routes, to hold a trace to a real CPU step);
-    ``stand_in``: the CPU stand-in for the card (``specs.abstract_device``)."""
-    if rules_preset not in specs_lib.RULE_PRESETS:
-        raise ValueError(f"unknown rules preset '{rules_preset}' "
-                         f"(have {sorted(specs_lib.RULE_PRESETS)})")
-    if rules_preset != "default":
-        raise ValueError(f"rules preset '{rules_preset}' shards parameters; the port "
-                         "replicates its state on every device and has no partitioner "
-                         "(ROADMAP.md A11)")
+    ``stand_in``: the CPU stand-in for the card (``specs.abstract_device``).
+    ``rules_preset``: "default" (the state replicated on every device) or
+    "fsdp" (a train cell's state sharded, ``"state": "sharded"``)."""
     cfg = config_lib.get_config(arch)
+    _check_preset(cfg, shape, rules_preset)
     if mesh_override is not None:
         mesh = mesh_override
     elif mesh_kind == "one":
@@ -315,12 +383,17 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
         sel_modes["data_source"] = data_source
     info = specs_lib.SHAPES[shape]
     rows = max(4, info["batch"] // 64) if smoke else info["batch"]
-    rules = dict(specs_lib.SHAPE_RULES[shape])
+    rules = dict(specs_lib.SHAPE_RULES[shape], **specs_lib.RULE_PRESETS[rules_preset])
     shards = batch_shards(mesh, rows, rules)
-    backend = RecordingBackend(shards) if shards > 1 else None
+    sharding: Dict[str, Any] = {}
+    if rules_preset == "fsdp":
+        backend = RecordingBackend(mesh.size)
+        sharding = dict(mesh=RecordingMesh(mesh, backend), rules=dict(sh.DEFAULT_RULES, **rules))
+    else:
+        backend = RecordingBackend(shards) if shards > 1 else None
     cell = specs_lib.build_cell(arch, shape, variant=variant, smoke=smoke,
                                 batch_shards=shards, backend=backend, device=device,
-                                stand_in=stand_in, **sel_modes)
+                                stand_in=stand_in, **sharding, **sel_modes)
     full = trace(cell, backend)
     return {
         "arch": arch, "shape": shape, "mesh": mesh_kind,
@@ -329,7 +402,9 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
         "device": str(cell.device),
         "traced_on": ("the CPU stand-in: fake cpu tensors on the card's routes" if cell.as_card
                       else f"fake {cell.device} tensors"),
-        "state": "replicated", "batch_shards": shards, "local_batch": cell.batch,
+        "state": "sharded" if sharding else "replicated", "batch_shards": shards,
+        "local_batch": cell.batch,
+        "argument_bytes_per_device": full["memory"]["argument_size_in_bytes"],
         "full": full,
         "scaled": {"flops": full["flops"], "bytes_accessed": full["bytes_accessed"],
                    "collective_bytes": full["collectives"]["total_bytes"]},
@@ -337,11 +412,13 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
 
 
 def result_path(arch: str, shape: str, mesh_kind: str, variant: str,
-                stand_in: bool = False) -> str:
-    """The cell's JSON: the card's, or the CPU stand-in's apart from it."""
+                stand_in: bool = False, rules_preset: str = "default") -> str:
+    """The cell's JSON: the card's, or the CPU stand-in's apart from it; a
+    preset other than the default names itself last."""
     out_dir = STAND_IN_DIR if stand_in else OUT_DIR
     os.makedirs(out_dir, exist_ok=True)
-    return os.path.join(out_dir, f"{arch}__{shape}__{mesh_kind}__{variant}.json")
+    tail = "" if rules_preset == "default" else f"__{rules_preset}"
+    return os.path.join(out_dir, f"{arch}__{shape}__{mesh_kind}__{variant}{tail}.json")
 
 
 def cells(arch=None, shape=None, variant=None, listing: bool = False):
@@ -383,7 +460,9 @@ def summary(res: Dict[str, Any]) -> str:
     """A result's one line: fits, per-device peak, TFLOPs and trace seconds."""
     full = res.get("full", {})
     mem = full.get("memory", {})
-    return (f"{res['arch']} {res['shape']} {res['mesh']} {res['variant']}: "
+    preset = res.get("rules_preset", "default")
+    return (f"{res['arch']} {res['shape']} {res['mesh']} {res['variant']}"
+            f"{'' if preset == 'default' else ' ' + preset}: "
             f"{'OK' if res.get('ok') else 'FAIL'} fits={mem.get('fits')} "
             f"peak={mem.get('peak_bytes', 0) / 1e9:.2f}GB "
             f"args={mem.get('argument_size_in_bytes', 0) / 1e9:.2f}GB "
@@ -402,7 +481,8 @@ def one_cell(arch: str, shape: str, variant: str, mesh_kind: str, **kw) -> Dict[
         res = {"arch": arch, "shape": shape, "mesh": mesh_kind, "variant": variant,
                "ok": False, "error": traceback.format_exc()}
     res["wall_s"] = round(time.perf_counter() - t0, 1)
-    with open(result_path(arch, shape, mesh_kind, variant, kw.get("stand_in", False)), "w") as f:
+    with open(result_path(arch, shape, mesh_kind, variant, kw.get("stand_in", False),
+                          kw.get("rules_preset", "default")), "w") as f:
         json.dump(res, f, indent=1)
     return res
 
@@ -456,6 +536,8 @@ def main(argv=None) -> int:
                     help="selection feature extractor for graft cells")
     ap.add_argument("--grad-mode", default="probe",
                     help="selection gradient source for graft cells")
+    ap.add_argument("--rules-preset", default="default", choices=list(specs_lib.RULE_PRESETS),
+                    help="default: the state replicated; fsdp: train cells' state sharded")
     ap.add_argument("--data-source", default="synthetic_lm",
                     help="task/data-source registry name for train cells")
     ap.add_argument("--cpu-stand-in", action="store_true",
@@ -499,12 +581,12 @@ def main(argv=None) -> int:
         return 1
 
     kw = dict(with_deltas=not args.no_deltas, smoke=args.smoke,
-              feature_mode=args.feature_mode,
+              rules_preset=args.rules_preset, feature_mode=args.feature_mode,
               grad_mode=args.grad_mode, data_source=args.data_source,
               stand_in=args.cpu_stand_in)
     if args.skip_existing:
         cached = [c for c in todo if os.path.exists(
-            result_path(c[0], c[1], args.mesh, c[2], args.cpu_stand_in))]
+            result_path(c[0], c[1], args.mesh, c[2], args.cpu_stand_in, args.rules_preset))]
         for arch, shape, v in cached:
             print(f"[cached] {arch} {shape} {args.mesh} {v}")
         todo = [c for c in todo if c not in cached]

@@ -14,12 +14,19 @@ tensors, the step run inside ``kernels/build.py`` ``as_card`` so that it
 takes the card's routes. The stand-in differs from the card in what a
 CUDA tensor adds by itself (``torch.utils.checkpoint`` saving the CUDA RNG
 state of each block; the refresh's rank candidates copied to the device):
-a few aten ops and bytes, no FLOPs, no memory. The logical-axis trees of the JAX module (``train_state_logical``,
-``params_logical``, ``cache_logical``) only feed XLA's partitioner, which
-the port does not have, and are left out.
+a few aten ops and bytes, no FLOPs, no memory.
+
+Under the ``fsdp`` preset a train cell's state is one device's: the
+parameters are its shards as ``train_state_logical``'s ``params`` entry
+(``models/model.py`` ``params_logical``) places them and the moments
+mirror them, on a mesh that stands in for the ranks (``launch/dryrun.py``
+``RecordingMesh``); the rest is replicated. The
+JAX module's ``cache_logical`` (the decode cache's axes) stays out: the
+port does not shard a cache.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -28,6 +35,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import configs as config_lib
 from repro_torch.data import sources as data_sources
+from repro_torch.distributed import sharding as sh
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
@@ -53,9 +61,10 @@ SHAPE_RULES: Dict[str, Dict[str, Any]] = {
     "long_500k": {"act_kv_seq": ("data", "model"), "act_kv_heads": None},
 }
 
-# named sharding presets: "fsdp" (batch over every axis, weights gathered
-# just in time) and "head_tp" (head-parallel attention) shard parameters;
-# the dry run refuses both (the port replicates its state)
+# named sharding presets: "fsdp" (pure ZeRO-3: batch over every axis, no
+# tensor or sequence parallelism on activations, weights sharded and
+# gathered just in time; the port's sharded step runs it) and "head_tp"
+# (head-parallel attention, which the port refuses)
 RULE_PRESETS: Dict[str, Dict[str, Any]] = {
     "default": {},
     "fsdp": {
@@ -186,7 +195,7 @@ def build_cell(arch: str, shape: str, *, variant: str = "graft",
                smoke: bool = False, feature_mode: str = "svd",
                grad_mode: str = "probe", data_source: Optional[str] = None,
                batch_shards: int = 1, backend=None, device="cuda:0",
-               stand_in: bool = False) -> Cell:
+               stand_in: bool = False, mesh=None, rules=None) -> Cell:
     """The abstract arguments and step of one cell.
 
     ``variant``: 'graft' | 'baseline' | 'subset' | 'select' (train cells).
@@ -195,7 +204,10 @@ def build_cell(arch: str, shape: str, *, variant: str = "graft",
     (the state is replicated on each); the args are one device's, and
     ``backend`` (the dry run's recording backend) carries the step's
     collectives. The global batch sizes the GRAFT state and ``rset``, as
-    in JAX. ``stand_in``: see ``abstract_device``.
+    in JAX. ``stand_in``: see ``abstract_device``. ``mesh`` and
+    ``rules`` (a train cell under the fsdp preset): the state is one
+    device's shards on ``mesh`` (whose collectives the step calls), built
+    and stepped under ``sharding_rules(mesh, rules)``.
     ``data_source``: a registered source (train cells), whose task pins the
     model's fields and whose ``spec()`` gives the batch. The train step runs
     without the sentinel. Not smoke, attention runs in chunks of 1024 and
@@ -232,11 +244,12 @@ def build_cell(arch: str, shape: str, *, variant: str = "graft",
             specs = source_batch_specs(entry.build(dcfg))
         else:
             specs = batch_specs(mcfg, local, S)
-        with fake_mode:
+        sharded = sh.sharding_rules(mesh, rules) if mesh is not None else contextlib.nullcontext()
+        kind = variant if variant in ("graft", "baseline", "subset", "select") else None
+        with fake_mode, sharded:
             state = steps_lib.state_for_model(mcfg, tcfg, model_lib.Model(mcfg, dev), B)
             batch = fake_batch(specs, dev)
-        kind = variant if variant in ("graft", "baseline", "subset", "select") else None
-        step = steps_lib.make_train_step(mcfg, tcfg, kind=kind, backend=backend)
+            step = steps_lib.make_train_step(mcfg, tcfg, kind=kind, backend=backend)
         return Cell(arch, shape, "train", mcfg, step, (state, batch), tcfg=tcfg, **common)
 
     if info["kind"] == "prefill":
@@ -261,21 +274,35 @@ def build_cell(arch: str, shape: str, *, variant: str = "graft",
     return Cell(arch, shape, "decode", mcfg, decode, (params, cache, tokens), **common)
 
 
-def experiment_cell(cfg, *, device="cuda:0", stand_in: bool = False) -> Cell:
+def experiment_cell(cfg, *, device="cuda:0", stand_in: bool = False, mesh=None,
+                    rules=None, backend=None) -> Cell:
     """One step of an ``api.ExperimentConfig`` (its model, train config and
     data source's batch) on fake tensors: the step ``Trainer.fit`` runs
-    first, a refresh step under GRAFT, without the sentinel."""
+    first, a refresh step under GRAFT, without the sentinel. With ``mesh``
+    and ``rules`` (the fsdp preset): one device's step of a sharded fleet,
+    its rows the global batch's share, its collectives on ``mesh`` and
+    ``backend``."""
     mcfg, tcfg, data = cfg.build()
     tcfg = _dry_run_config(tcfg)
     dev, as_card = abstract_device(device, stand_in)
     fake_mode = FakeTensorMode()
-    with fake_mode:
+    specs = source_batch_specs(data)
+    rows = cfg.train.batch
+    sharded = contextlib.nullcontext()
+    if mesh is not None:
+        sharded = sh.sharding_rules(mesh, rules)
+        n = mesh.size(sh.split_axes("act_batch", rows, mesh, rules))
+        specs = {k: TensorSpec((s.shape[0] // n,) + tuple(s.shape[1:]), s.dtype)
+                 for k, s in specs.items()}
+    with fake_mode, sharded:
         state = steps_lib.state_for_model(mcfg, tcfg, model_lib.Model(mcfg, dev),
                                           cfg.train.batch)
-        batch = fake_batch(source_batch_specs(data), dev)
+        batch = fake_batch(specs, dev)
+        step = steps_lib.make_run_step(mcfg, tcfg, backend=backend)
     return Cell(mcfg.name, f"{cfg.train.batch}x{cfg.train.seq}", "train", mcfg,
-                steps_lib.make_run_step(mcfg, tcfg), (state, batch), fake_mode=fake_mode,
-                device=dev, as_card=as_card, batch=cfg.train.batch, tcfg=tcfg)
+                step, (state, batch), fake_mode=fake_mode,
+                device=dev, as_card=as_card, batch=next(iter(specs.values())).shape[0],
+                tcfg=tcfg)
 
 
 def input_specs(arch: str, shape: str = "train_4k"):

@@ -36,6 +36,23 @@ on rows [r·R_max/W, (r+1)·R_max/W) of the R_max pivot rows of the gathered
 batch, and the loss and gradients are reduced over the ranks before the
 norm, the sentinel and the update: the sum for the subset steps, the mean
 for the baseline step. With no backend (or the local one) no op is added.
+
+Parameter sharding (ZeRO-3, JAX's ``fsdp`` preset): a state built under
+``sharding_rules(mesh, RULE_PRESETS["fsdp"])`` on a port ``Mesh`` holds
+this rank's shards of the parameters and moments (``state_for_model``,
+``models/model.py`` ``shard_model``) and its ``ShardLayout``. Its step
+gathers each weight where the forward reads it and reduce-scatters its
+gradient onto the shard (``distributed/sharding.py``), so ``_finish``
+reduces only the loss and the gradients of the replicated leaves; the norm
+is global (kernel A split: each rank's sum of squares over the shards it
+counts, a psum, the finish). The batch splits over the axes ``act_batch``
+maps to under the rules (``("pod", "data", "model")`` filtered to the
+mesh, the prefix whose size divides the rows), through the data-parallel
+path's ``all_gather_rows`` and ``_local_subset``; a rank that holds the
+same subset rows as a peer at index 0 of the axes the subset does not split
+over trains on them, as JAX's replicated shards compute, and its loss
+counts zero. ``train_state_logical`` is the twin of JAX's logical tree of
+the train state.
 """
 from __future__ import annotations
 
@@ -48,10 +65,12 @@ import torch
 from repro_torch.analysis.sync_guard import sync_allowed
 from repro_torch.backend.base import data_parallel
 from repro_torch.core.numerics import device_scalar, take_last
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.accumulate import accumulated_grads
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
 from repro_torch.optim import Optimizer, OptimizerConfig, make_optimizer
+from repro_torch.optim.optimizers import ADAFACTOR_SHARDED
 from repro_torch.selection import base as selection_base
 from repro_torch.selection import registry as sampler_registry
 from repro_torch.selection import sources as sources_lib
@@ -100,24 +119,88 @@ def init_sampler_carry(mcfg, tcfg: TrainConfig, params, batch_size: int,
     return smp.init_carry(tcfg.graft, spec)
 
 
-def state_for_model(mcfg, tcfg: TrainConfig, model: model_lib.Model,
-                    batch_size: int) -> Dict[str, Any]:
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardLayout:
+    """Where a sharded state's step runs: the ``mesh``, the axes the global
+    batch splits over (``batch_axes``) and those the selected subset of
+    ``R_max`` rows splits over (``subset_axes``), and each parameter's
+    sharding in the optimizer's order. It stands in for the data-parallel
+    backend where the step asks for rows: ``all_gather_rows`` over
+    ``batch_axes``, ``process_index``/``process_count`` along
+    ``subset_axes``."""
+    mesh: Any
+    batch_axes: Tuple[str, ...]
+    subset_axes: Tuple[str, ...]
+    shardings: Tuple[Any, ...]
+
+    @property
+    def process_index(self) -> int:
+        return self.mesh.axis_index(self.subset_axes) if self.subset_axes else 0
+
+    @property
+    def process_count(self) -> int:
+        return self.mesh.size(self.subset_axes) if self.subset_axes else 1
+
+    def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_gather(x, self.batch_axes) if self.batch_axes else x
+
+    def counts(self, axes: Tuple[str, ...]) -> bool:
+        """Whether this rank's rows count: index 0 on every mesh axis but
+        ``axes`` (the peers beyond them hold the same rows)."""
+        return all(self.mesh.coords[a] == 0 for a in self.mesh.axis_names if a not in axes)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over every rank of the mesh."""
+        return self.mesh.psum(x, self.mesh.axis_names)
+
+
+def _check_sharded(mcfg, tcfg: TrainConfig, mesh, rules) -> None:
+    """Raise ``ValueError`` for what the sharded step does not run."""
+    sh.check_fsdp_rules(mesh, rules)
+    if tcfg.optimizer.name == "adafactor":
+        raise ValueError(ADAFACTOR_SHARDED)
+    if tcfg.use_graft and tcfg.graft.grad_mode == "full":
+        raise ValueError("grad_mode 'full' takes per-sample gradients of the whole parameter "
+                         "tree, which a sharded state does not hold; use probe or logit_embed")
+
+
+def state_for_model(mcfg, tcfg: TrainConfig, model, batch_size: int) -> Dict[str, Any]:
     """A fresh train state around existing parameters (drawn by
-    ``init_params`` or loaded through the JAX bridge)."""
+    ``init_params`` or loaded through the JAX bridge). Under
+    ``sharding_rules`` (the fsdp preset on a port ``Mesh``, or the dry run's
+    recording mesh) the state is this rank's: ``model``'s parameters are
+    cut to their shards in place (``shard_model``), the moments follow
+    them, the rest is replicated, and ``layout`` says where its step runs.
+    ``batch_size`` is the global batch."""
+    active = sh.active()
+    layout = None
+    if active is not None:
+        mesh, rules = active
+        _check_sharded(mcfg, tcfg, mesh, rules)
+        if not isinstance(model, model_lib.ShardedModel):
+            model = model_lib.shard_model(model, mesh, rules)
+        batch_axes = sh.split_axes("act_batch", batch_size, mesh, rules)
+        subset = (sh.split_axes("act_batch", tcfg.graft.r_max, mesh, rules) if tcfg.use_graft
+                  else batch_axes)
+        layout = ShardLayout(mesh, batch_axes, tuple(a for a in subset if a in batch_axes),
+                             tuple(model.param_shardings()))
     device = model.embed.device
     params = list(model.parameters())
     index = {id(p): i for i, p in enumerate(params)}
     # the JAX leaves, for Adafactor's factoring: a blocks/ leaf stacks its
     # blocks on a new axis 0 (a list), any other leaf — first_blocks/ ones
     # too — is one param (an int)
+    plain = model.model if layout is not None else model
     groups = [[index[id(t)] for t in ts] if path.startswith("blocks/") else index[id(ts[0])]
-              for path, ts in model_lib.stacked_leaves(model)]
+              for path, ts in model_lib.stacked_leaves(plain)]
     state: Dict[str, Any] = {
         "model": model,
         "params": params,
         "opt": make_optimizer(tcfg.optimizer).init(params, groups),
         "step": 0,
     }
+    if layout is not None:
+        state["layout"] = layout
     if tcfg.use_graft:
         state["graft"] = selection_base.init_state(tcfg.graft, batch_size, device)
         state["sampler_carry"] = init_sampler_carry(mcfg, tcfg, model.tree(),
@@ -129,9 +212,78 @@ def state_for_model(mcfg, tcfg: TrainConfig, model: model_lib.Model,
 
 def init_train_state(mcfg, tcfg: TrainConfig, generator: torch.Generator,
                      batch_size: int, device=None) -> Dict[str, Any]:
+    """``init_params`` from ``generator``, then ``state_for_model`` (this
+    rank's shards under ``sharding_rules``)."""
     return state_for_model(mcfg, tcfg,
                            model_lib.init_params(mcfg, generator, device),
                            batch_size)
+
+
+# ---------------------------------------------------------------------------
+# logical axes of the train state
+# ---------------------------------------------------------------------------
+
+def _replicated_logical(tree):
+    """One ``None`` a dim for every leaf of ``tree`` (dicts, lists,
+    NamedTuples); ``()`` for a host scalar."""
+    if isinstance(tree, dict):
+        return {k: _replicated_logical(v) for k, v in tree.items()}
+    if hasattr(tree, "_asdict"):
+        return type(tree)(**{k: _replicated_logical(v) for k, v in tree._asdict().items()})
+    if isinstance(tree, (list, tuple)):
+        return [_replicated_logical(v) for v in tree]
+    return tuple(None for _ in getattr(tree, "shape", ()))
+
+
+def _factored(lg, shape) -> Dict[str, Tuple]:
+    if len(shape) >= 2:
+        return {"vr": tuple(lg[:-1]), "vc": tuple(lg[:-2]) + (lg[-1],)}
+    return {"v": tuple(lg)}
+
+
+def _map_logical(fn, lg, params):
+    if isinstance(lg, dict):
+        return {k: _map_logical(fn, v, params[k]) for k, v in lg.items()}
+    if isinstance(lg, list):
+        return [_map_logical(fn, v, p) for v, p in zip(lg, params)]
+    return fn(lg, tuple(params.shape))
+
+
+def opt_state_logical(opt_name: str, p_logical, params):
+    """Logical-axis tree for the optimizer state (mirrors the params';
+    Adafactor's factored moments drop the reduced axis). ``params`` is the
+    parameter tree (``Model.tree()``); Adafactor factors a ``blocks`` leaf
+    over the blocks stacked on ``layers``, as JAX and the port's Adafactor
+    do, so its ``blocks`` entry is one stacked leaf's, as in JAX."""
+    if opt_name in ("sgd", "lion"):
+        return {"m": p_logical}
+    if opt_name == "adamw":
+        return {"m": p_logical, "v": p_logical}
+    if opt_name == "adafactor":
+        out = {k: _map_logical(_factored, v, params[k])
+               for k, v in p_logical.items() if k != "blocks"}
+        n = len(params["blocks"])
+        out["blocks"] = _map_logical(lambda lg, shape: _factored(("layers",) + lg, (n,) + shape),
+                                     p_logical["blocks"][0], params["blocks"][0])
+        return {"v": out}
+    raise ValueError(opt_name)
+
+
+def train_state_logical(mcfg, tcfg: TrainConfig, state):
+    """JAX's ``train_state_logical`` over the port's train state:
+    ``params`` by ``params_logical``, ``opt`` by ``opt_state_logical``,
+    ``graft``, ``sampler_carry`` and ``health`` replicated."""
+    params = state["model"].tree()
+    p_logical = model_lib.params_logical(mcfg, params)
+    out = {
+        "params": p_logical,
+        "opt": opt_state_logical(tcfg.optimizer.name, p_logical, params),
+        "step": (),
+    }
+    for key in ("graft", "sampler_carry", "health"):
+        if key in state:
+            out[key] = _replicated_logical(state[key])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -292,12 +444,27 @@ def _finish(tcfg: TrainConfig, state, loss: torch.Tensor, grads, metrics,
             reduce_op: str = "sum"):
     """Reduce the loss and grads over the ranks (with a ``backend``), grad
     norm and clip, let the sentinel veto, apply the optimizer in place,
-    commit ``updates`` to the state and advance the step counter."""
+    commit ``updates`` to the state and advance the step counter. A sharded
+    state's sharded gradients arrive reduced (the gather's backward):
+    only the loss and the replicated leaves' gradients are summed here,
+    and the norm is the global one."""
     step = state["step"]
-    if backend is not None:
-        reduced = backend.reduce_grads([loss.detach(), *grads], reduce_op)
-        loss, grads = reduced[0], reduced[1:]
-    grads, opt_metrics = opt.preprocess(grads)
+    layout = state.get("layout")
+    if layout is not None:
+        rep = [i for i, s in enumerate(layout.shardings) if not s.is_sharded]
+        grads = list(grads)
+        if backend is not None:
+            reduced = backend.reduce_grads([loss.detach(), *[grads[i] for i in rep]], "sum")
+            loss = reduced[0]
+            for j, i in enumerate(rep):
+                grads[i] = reduced[1 + j]
+        grads, opt_metrics = opt.preprocess(grads, [s.counted() for s in layout.shardings],
+                                            layout.psum)
+    else:
+        if backend is not None:
+            reduced = backend.reduce_grads([loss.detach(), *grads], reduce_op)
+            loss, grads = reduced[0], reduced[1:]
+        grads, opt_metrics = opt.preprocess(grads)
     metrics = dict(opt_metrics, loss=loss.detach(), **metrics)
     healthy = True
     if sentinel and "health" in state:
@@ -327,23 +494,44 @@ def baseline_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer
     the means over that many sequential microbatches
     (``distributed/accumulate.py``). As in the JAX package, only this step
     reads ``microbatches``. Data parallel, each rank's mean is averaged
-    over the ranks."""
+    over the ranks; sharded, each counted rank's mean over the batch
+    shards is summed."""
+    layout = state.get("layout")
+    scale = None
+    if layout is not None:
+        n = layout.mesh.size(layout.batch_axes) if layout.batch_axes else 1
+        scale = (1.0 / n) if layout.counts(layout.batch_axes) else 0.0
+
+    def loss_of(mb):
+        loss = model_lib.loss_fn(mcfg, state["model"], mb)[0]
+        return loss if scale is None else loss * scale
+
     if tcfg.microbatches > 1:
-        loss, grads = accumulated_grads(
-            lambda mb: model_lib.loss_fn(mcfg, state["model"], mb)[0],
-            state["params"], batch, tcfg.microbatches)
-        return _finish(tcfg, state, loss, grads, {}, {}, sentinel, opt, backend, "mean")
-    loss, _ = model_lib.loss_fn(mcfg, state["model"], batch)
-    grads = param_grads(loss, state["params"])
+        loss, grads = accumulated_grads(loss_of, state["params"], batch, tcfg.microbatches)
+    else:
+        loss = loss_of(batch)
+        grads = param_grads(loss, state["params"])
     return _finish(tcfg, state, loss, grads, {}, {}, sentinel, opt, backend, "mean")
+
+
+def _rows(state, backend):
+    """Where a step's rows come from: a sharded state's layout, else the
+    data-parallel backend (None: this process's batch is the batch)."""
+    return state.get("layout", backend)
 
 
 def subset_loss(mcfg, state, batch, graft_state, backend=None) -> torch.Tensor:
     """The weighted per-example loss of the selected subset (this rank's
-    share of it with a ``backend``)."""
-    sub_batch, weights = _local_subset(batch, graft_state, backend)
+    share of it with a ``backend`` or a sharded state; zero on a sharded
+    rank whose share a peer counts)."""
+    rows = _rows(state, backend)
+    sub_batch, weights = _local_subset(batch, graft_state, rows)
     pel = model_lib.per_example_loss(mcfg, state["model"], sub_batch)
-    return torch.sum(pel * weights)
+    loss = torch.sum(pel * weights)
+    layout = state.get("layout")
+    if layout is not None and not layout.counts(layout.subset_axes):
+        loss = loss * 0.0
+    return loss
 
 
 def graft_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
@@ -354,7 +542,7 @@ def graft_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
     step = state["step"]
     carry0 = _state_carry(tcfg, state)
     if gcfg.refresh_every == 1 or step % gcfg.refresh_every == 0:
-        refresh = make_selection_refresh(mcfg, tcfg, backend)
+        refresh = make_selection_refresh(mcfg, tcfg, _rows(state, backend))
         graft_state, carry = refresh(state["model"].tree(), batch, carry0, step)
     else:
         graft_state = state["graft"]._replace(
@@ -383,7 +571,7 @@ def subset_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer,
 
 def selection_step(mcfg, tcfg: TrainConfig, state, batch, backend=None):
     """Selection only — isolates the refresh cost."""
-    refresh = make_selection_refresh(mcfg, tcfg, backend)
+    refresh = make_selection_refresh(mcfg, tcfg, _rows(state, backend))
     graft_state, carry = refresh(state["model"].tree(), batch,
                                  _state_carry(tcfg, state), state["step"])
     state["graft"] = graft_state
@@ -397,17 +585,35 @@ def make_train_step(mcfg, tcfg: TrainConfig, kind: Optional[str] = None, backend
     when ``tcfg.graft`` is set, else baseline), with the sentinel wired in
     when ``tcfg.sentinel`` is on. The optimizer is built once here, for
     every step the function takes. ``backend``: data parallel over its
-    ranks; the local backend (one process) adds no op."""
+    ranks; the local backend (one process) adds no op. Under
+    ``sharding_rules`` (the fsdp preset) the step takes the state
+    ``state_for_model`` builds under the same rules, its parameters
+    sharded over the mesh's ranks (``backend`` defaults to the mesh's)."""
+    active = sh.active()
+    if active is not None:
+        _check_sharded(mcfg, tcfg, *active)
+        if backend is None:
+            backend = getattr(active[0], "backend", None)
     backend = data_parallel(backend)
     step = {None: graft_train_step if tcfg.use_graft else baseline_train_step,
             "graft": graft_train_step, "baseline": baseline_train_step,
             "subset": subset_train_step, "select": None}[kind]
+
+    def check(state):
+        if active is not None and "layout" not in state:
+            raise ValueError("make_train_step under sharding_rules steps a sharded state: build "
+                             "it with state_for_model or init_train_state under the same rules")
+
     if step is None:
-        return lambda state, batch: selection_step(mcfg, tcfg, state, batch, backend)
+        def select(state, batch):
+            check(state)
+            return selection_step(mcfg, tcfg, state, batch, backend)
+        return select
     sentinel = tcfg.sentinel
     opt = make_optimizer(tcfg.optimizer)
 
     def fn(state, batch):
+        check(state)
         return step(mcfg, tcfg, state, batch, sentinel=sentinel, opt=opt, backend=backend)
     return fn
 

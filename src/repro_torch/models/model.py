@@ -15,6 +15,17 @@ in the JAX tree too).
 
 ``_apply_block`` also runs one block against a decode cache
 (``models/decode.py``), as the JAX block does.
+
+``params_logical`` gives each leaf its logical axes, the twin of the JAX
+package's (its ``layers`` axis aside: each block of the port's list takes
+the JAX tuple without it). ``shard_model`` cuts a model's parameters to
+this rank's shards on a mesh under those axes and the active rules
+(``distributed/sharding.py``): the ``ShardedModel`` it returns gives a
+tree whose sharded leaves are ``ShardedParam``s, and every forward
+function gathers a leaf where it reads it (``sharding.materialize``): a
+block's leaves inside the block, so that under ``remat`` only the shards
+are saved and the recompute gathers again; the (tied) unembedding once
+for all of a loss's chunks.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.numerics import take_last, take_rows
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -225,6 +237,178 @@ def stacked_leaves(model: Model) -> List[Tuple[str, List[torch.Tensor]]]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# logical axes and sharded parameters
+# ---------------------------------------------------------------------------
+
+_LOGICAL = {
+    # attention
+    "wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+    "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed"),
+    "bq": ("heads", None), "bk": ("kv_heads", None), "bv": ("kv_heads", None),
+    # mlp
+    "w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed"),
+    # moe (leaf names inside "moe" subtree get experts-first shapes)
+    "router": ("embed", None),
+    # rwkv
+    "wr": ("embed", "ssm_inner"), "wg": ("embed", "ssm_inner"),
+    "lora_A": ("embed", None), "decay_A": ("embed", None),
+    "lora_B_r": (None, "embed"), "lora_B_k": (None, "embed"),
+    "lora_B_v": (None, "embed"), "lora_B_w": (None, "embed"),
+    "lora_B_g": (None, "embed"), "decay_B": (None, "embed"),
+    # ssm heads
+    "w_in": ("embed", "ssm_inner"), "w_out": ("ssm_inner", "embed"),
+    "w_B": ("embed", "heads", None), "w_C": ("embed", "heads", None),
+    "w_delta": ("embed", "heads"),
+    # rwkv channel
+    "w_key": ("embed", "mlp"), "w_value": ("mlp", "embed"),
+    "w_recept": ("embed", "ssm_inner"),
+}
+
+_MOE_LOGICAL = {
+    "w_gate": ("experts", "embed", "mlp"), "w_up": ("experts", "embed", "mlp"),
+    "w_down": ("experts", "mlp", "embed"), "router": ("embed", None),
+}
+
+
+def _leaf_logical(path: Tuple[str, ...], leaf) -> Tuple[Optional[str], ...]:
+    name = path[-1]
+    # the RWKV time mix reuses attention's names for D×D projections: its
+    # subtree is dispatched on BEFORE the generic table
+    if "time" in path:
+        if name in ("wk", "wv"):
+            return ("embed", "ssm_inner")
+        if name == "wo":
+            return ("ssm_inner", "embed")
+    table = _MOE_LOGICAL if "moe" in path else _LOGICAL
+    if name in table:
+        return table[name]
+    return tuple(None for _ in leaf.shape)
+
+
+def _tree_logical(tree, prefix=()):
+    if isinstance(tree, dict):
+        return {k: _tree_logical(v, prefix + (k,)) for k, v in tree.items()}
+    return _leaf_logical(prefix, tree)
+
+
+def params_logical(cfg: ModelConfig, params) -> Dict[str, Any]:
+    """Logical-axis tree matching ``params`` (a ``Model``, a ``ShardedModel``
+    or their tree): JAX's ``params_logical``, each block of ``blocks`` with
+    the tuple of the JAX leaf stacked on ``layers`` without that axis
+    (``layers`` maps to no mesh axis)."""
+    params = _tree(params)
+    out: Dict[str, Any] = {
+        # vocab dim replicated: d_model shards over the fsdp axis instead
+        "embed": (None, "embed"),
+        "final_norm": (None,),
+    }
+    if "lm_head" in params:
+        out["lm_head"] = ("embed", "vocab")
+    if "first_blocks" in params:
+        out["first_blocks"] = [_tree_logical(b) for b in params["first_blocks"]]
+    out["blocks"] = [_tree_logical(b) for b in params["blocks"]]
+    return out
+
+
+def _leaves(tree) -> List[Any]:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _zip_tree(fn, tree, other):
+    """``fn(leaf, its match in other)`` over ``tree``'s leaves."""
+    if isinstance(tree, dict):
+        return {k: _zip_tree(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zip_tree(fn, v, o) for v, o in zip(tree, other)]
+    return fn(tree, other)
+
+
+def _wrap(tree, shardings):
+    return _zip_tree(lambda t, s: sh.ShardedParam(t, s) if s.is_sharded else t, tree, shardings)
+
+
+class ShardedModel:
+    """A ``Model`` whose parameters hold this rank's shards, with each
+    leaf's ``LeafSharding`` (``shardings``, a tree like ``Model.tree()``).
+    ``tree()`` gives the forward functions the sharded leaves as
+    ``ShardedParam``s and the replicated ones as they are;
+    ``parameters()`` are the shards, in the ``Model``'s order."""
+
+    def __init__(self, model: Model, shardings):
+        self.model, self.shardings = model, shardings
+        self.cfg = model.cfg
+
+    @property
+    def embed(self) -> torch.Tensor:
+        return self.model.embed
+
+    def parameters(self):
+        return self.model.parameters()
+
+    def tree(self) -> Dict[str, Any]:
+        return _wrap(self.model.tree(), self.shardings)
+
+    def gathered(self) -> Dict[str, Any]:
+        """The full parameter tree, every sharded leaf gathered (a
+        collective on every rank of the mesh)."""
+        return values_tree(self, list(self.parameters()))
+
+    def param_shardings(self) -> List[sh.LeafSharding]:
+        """Each parameter's sharding, in ``parameters()``' order."""
+        by_id = {id(p): s for p, s in zip(_leaves(self.model.tree()), _leaves(self.shardings))}
+        return [by_id[id(p)] for p in self.model.parameters()]
+
+
+@torch.no_grad()
+def values_tree(model, values: List[torch.Tensor]) -> Dict[str, Any]:
+    """``values``, one a parameter in ``model.parameters()``' order (the
+    parameters themselves, or an optimizer's moments), placed as
+    ``model.tree()`` places the parameters. Of a ``ShardedModel`` each
+    value is this rank's shard and is gathered to the full tensor (a
+    collective on every rank of the mesh)."""
+    plain = model.model if isinstance(model, ShardedModel) else model
+    index = {id(p): i for i, p in enumerate(plain.parameters())}
+    tree = plain.tree()
+    shardings = (model.shardings if isinstance(model, ShardedModel)
+                 else _map_tree(lambda p: None, tree))
+
+    def place(p, s):
+        v = values[index[id(p)]]
+        return sh.gather_tensor(v, s) if s is not None and s.is_sharded else v
+    return _zip_tree(place, tree, shardings)
+
+
+@torch.no_grad()
+def shard_model(model: Model, mesh, rules=None) -> ShardedModel:
+    """``model``'s parameters cut IN PLACE to this rank's shards on
+    ``mesh`` under ``rules`` (default: the active ``sharding_rules``'),
+    each leaf placed by ``params_logical``, ``logical_to_spec`` and
+    ``drop_indivisible``. The full tensors go with the last reference to
+    them. A MoE model refuses: its experts need expert parallelism."""
+    if model.cfg.family == "moe":
+        raise ValueError(f"{model.cfg.name}: sharding a MoE model needs expert parallelism "
+                         "(act_experts → model), which the port does not have (ROADMAP.md A14)")
+    tree = model.tree()
+    shardings = sh.param_shardings(tree, params_logical(model.cfg, tree), mesh, rules)
+    for p, s in zip(_leaves(tree), _leaves(shardings)):
+        if s.is_sharded:
+            p.data = sh.shard_tensor(p.data, s)
+    return ShardedModel(model, shardings)
+
+
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Model:
@@ -277,7 +461,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _tree(params) -> Dict[str, Any]:
-    return params.tree() if isinstance(params, Model) else params
+    return params.tree() if isinstance(params, (Model, ShardedModel)) else params
 
 
 # ---------------------------------------------------------------------------
@@ -293,6 +477,7 @@ def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
     ``None``. A one-token step through a MoE block is dropless, as in JAX."""
     fam = "dense" if dense_override else cfg.family
     new_cache = None if cache is None else {}
+    p = sh.materialize_tree(p)          # a sharded block's weights, gathered here
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     if fam == "ssm":
         t_out, t_state = S.rwkv_time_mix(cfg, p["time"], h,
@@ -360,7 +545,7 @@ def embed_inputs(cfg: ModelConfig, params, batch
         mask = torch.ones((B, Sq), dtype=torch.float32, device=x.device)
     elif cfg.family == "vlm" or cfg.frontend == "vision_patches":
         patches = batch["patch_embeds"].to(cfg.dtype)
-        tok = take_rows(params["embed"], batch["tokens"])
+        tok = take_rows(sh.materialize(params["embed"]), batch["tokens"])
         x = torch.cat([patches, tok], dim=1)
         B, Sq = x.shape[:2]
         mask = torch.cat([torch.zeros((B, patches.shape[1]), dtype=torch.float32,
@@ -368,7 +553,7 @@ def embed_inputs(cfg: ModelConfig, params, batch
                           torch.ones(batch["tokens"].shape, dtype=torch.float32,
                                      device=x.device)], dim=1)
     else:
-        x = take_rows(params["embed"], batch["tokens"])
+        x = take_rows(sh.materialize(params["embed"]), batch["tokens"])
         B, Sq = x.shape[:2]
         mask = torch.ones((B, Sq), dtype=torch.float32, device=x.device)
     positions = torch.arange(Sq, dtype=torch.int32, device=x.device).expand(B, Sq)
@@ -408,9 +593,20 @@ def forward_hiddens(cfg: ModelConfig, params, batch
     return x, mask
 
 
-def logits_from_hiddens(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+def unembedding(cfg: ModelConfig, params) -> torch.Tensor:
+    """The (D, V) head: the tied embedding's transpose or ``lm_head``,
+    gathered when sharded."""
     params = _tree(params)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if cfg.tie_embeddings:
+        return sh.materialize(params["embed"]).T
+    return sh.materialize(params["lm_head"])
+
+
+def logits_from_hiddens(cfg: ModelConfig, params, h: torch.Tensor,
+                        head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``h @ head`` softcapped; ``head`` the ``unembedding``, read from
+    ``params`` when not given."""
+    head = unembedding(cfg, params) if head is None else head
     return L.softcap(h @ head, cfg.final_logit_softcap)
 
 
@@ -433,9 +629,10 @@ def _nll(cfg: ModelConfig, params, h: torch.Tensor, labels: torch.Tensor) -> tor
     C = cfg.loss_chunk if cfg.loss_chunk and S > cfg.loss_chunk else S
     if S % C:
         raise ValueError(f"sequence {S} is not a multiple of loss_chunk {C}")
+    head = unembedding(cfg, params)     # one gather for every chunk
     out = []
     for c0 in range(0, S, C):
-        logits = logits_from_hiddens(cfg, params, h[:, c0:c0 + C])
+        logits = logits_from_hiddens(cfg, params, h[:, c0:c0 + C], head)
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         out.append(-take_last(logp, labels[:, c0:c0 + C]))
     return out[0] if len(out) == 1 else torch.cat(out, dim=1)

@@ -42,6 +42,12 @@ from repro_torch.kernels import build, fused_optim
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 NAMES = ("adamw", "sgd", "lion", "adafactor")
 
+# why Adafactor does not step a sharded state
+ADAFACTOR_SHARDED = (
+    "adafactor on a sharded state: its factored second moments vr and vc are a leaf's row "
+    "and column means, which span every shard and need a psum over the mesh that the port "
+    "does not make (ROADMAP.md A16); use adamw, sgd or lion under the fsdp preset")
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
@@ -62,8 +68,7 @@ class OptimizerConfig:
 class Optimizer(NamedTuple):
     init: Callable[..., Dict[str, Any]]
     apply: Callable[..., Dict[str, Any]]
-    preprocess: Callable[[Sequence[torch.Tensor]],
-                         Tuple[List[torch.Tensor], Dict[str, Any]]]
+    preprocess: Callable[..., Tuple[List[torch.Tensor], Dict[str, Any]]]
     update: Callable[..., float]
     lr: Callable[[int], float]
 
@@ -114,10 +119,24 @@ def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
     def zeros(params):
         return [torch.zeros(p.shape, dtype=sdt, device=p.device) for p in params]
 
-    def preprocess(grads):
+    def preprocess(grads, counted=None, reduce=None):
         """(grads, {"grad_norm"}): on the card the norm kernel's factor
-        rides the untouched grads; on the CPU the clipped copies."""
+        rides the untouched grads; on the CPU the clipped copies. With
+        ``reduce`` (a state sharded over ranks) the norm is the global one:
+        this rank's sum of squares covers the leaves ``counted`` flags, and
+        ``reduce`` adds the ranks' sums (kernel A split)."""
         grads = list(grads)
+        if reduce is not None:
+            if cfg.name == "adafactor":
+                raise ValueError(ADAFACTOR_SHARDED)
+            mine = [g for g, c in zip(grads, counted) if c]
+            norm, scale = fused_optim.grad_norm(mine, cfg.clip_norm, reduce,
+                                                device=grads[0].device)
+            if cfg.clip_norm is None:
+                return grads, {"grad_norm": norm}
+            if _on_cuda(grads):
+                return ClippedGrads(grads, scale), {"grad_norm": norm}
+            return fused_optim.scale_grads(grads, scale), {"grad_norm": norm}
         if _on_cuda(grads):
             norm, scale = fused_optim.grad_norm(grads, cfg.clip_norm)
             return (ClippedGrads(grads, scale) if cfg.clip_norm is not None else grads,

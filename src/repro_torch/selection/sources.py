@@ -25,6 +25,7 @@ import torch
 from repro_torch.core import features as features_lib
 from repro_torch.core.numerics import one_hot_valid
 from repro_torch.core.grad_features import logit_error_embeddings, per_sample_grads_full
+from repro_torch.distributed.sharding import materialize
 from repro_torch.registry import Registry
 
 # what the ``full`` source may hold as its (K, |Θ|) float32 gradient matrix:
@@ -179,11 +180,11 @@ def logit_embed_grad_source(inp: GradSourceInputs) -> torch.Tensor:
     the vocabulary subtracts nothing, as its all-zero one-hot row does."""
     mcfg, params = inp.mcfg, inp.params
     if mcfg is not None and getattr(mcfg, "tie_embeddings", False):
-        head = params["embed"].T                       # (D, V)
+        head = materialize(params["embed"]).T          # (D, V)
     elif "lm_head" in params:
-        head = params["lm_head"]
+        head = materialize(params["lm_head"])
     elif "embed" in params:
-        head = params["embed"].T
+        head = materialize(params["embed"]).T
     else:
         raise ValueError("logit_embed grad source needs an unembedding "
                          "('lm_head' or tied 'embed') in params")

@@ -609,6 +609,38 @@ def test_grad_norm_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grad_norm_split_matches_unsplit_and_plain(cuda, dtype):
+    """Kernel A split (a sharded state's global norm): with the identity
+    for the ranks' reduce its pass and finish give the unsplit launch's
+    norm and clip factor bit for bit; its finish on a given total is the
+    plain finish bit for bit; a rank that counts no leaf finishes the
+    reduced total alone; one launch of A each call."""
+    from repro_torch.kernels import fused_optim as fo
+    grads = _opt_leaves(cuda, dtype, seed=1) + _opt_leaves(cuda, torch.float32, seed=2)
+    whole = fo.grad_norm(grads, 1.0)
+    partials = []
+    before = fo.grad_norm.launches
+    split = fo.grad_norm(grads, 1.0, reduce=lambda t: partials.append(t.clone()) or t)
+    assert fo.grad_norm.launches == before + 1
+    assert torch.equal(split[0], whole[0]) and torch.equal(split[1], whole[1])
+    total = partials[0].reshape(())
+    want = fo.sumsq_reference(grads)
+    assert abs(total.item() - want.item()) <= 1e-6 * want.item()
+    for clip in (1.0, None, 1e6):
+        got = fo.grad_norm(grads, clip, reduce=lambda t: t)
+        plain = fo.norm_finish_reference(total, clip)
+        assert torch.equal(got[0], plain[0]), clip
+        # the finish divides once (__fdiv_rn); PyTorch's scalar / tensor is a
+        # reciprocal then a product: one float32 ulp apart at most
+        assert abs(got[1].item() - plain[1].item()) <= 2.4e-7 * plain[1].item(), clip
+    # a rank with no leaf of its own: the finish of (its zero + the peers' total)
+    doubled = fo.grad_norm([], 1.0, reduce=lambda t: t + 2 * total, device=cuda)
+    plain = fo.norm_finish_reference(0 + 2 * total, 1.0)
+    assert torch.equal(doubled[0], plain[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rule", ["adamw", "sgd", "lion"])
 @pytest.mark.parametrize("pdt,sdt", [(torch.bfloat16, torch.float32),
                                      (torch.bfloat16, torch.bfloat16),

@@ -18,7 +18,8 @@ JAX package's, on the CPU.
 * The memory tracker's peak on a toy is known to the byte; ``remat=full``
   peaks below ``none``.
 * JAX's ``TestDryrunSmoke`` cases in process, and the presets the port
-  refuses.
+  refuses (``fsdp`` on a MoE arch or a decode cell, ``head_tp``; the fsdp
+  cells themselves are ``tests/test_torch_fsdp.py``'s).
 
 Where PyTorch has no CUDA (a CPU-only build) the card's routes are taken on
 fake CPU tensors, asked for by name (``stand_in=True``: ``kernels/build.py``
@@ -315,11 +316,20 @@ def test_production_mesh_shapes():
     assert dryrun.batch_shards(m1, 1, {}) == 1          # indivisible: replicated
 
 
-@pytest.mark.parametrize("preset", ["fsdp", "head_tp"])
-def test_parameter_sharding_presets_raise(preset):
-    with pytest.raises(ValueError, match="partitioner"):
-        dryrun.run_cell("minicpm-2b", "train_4k", "single", "graft", smoke=True,
+@pytest.mark.parametrize("arch,preset,reason", [
+    ("qwen3-moe-235b-a22b", "fsdp", "expert parallelism"),
+    ("minicpm-2b", "head_tp", "tensor parallelism")])
+def test_parameter_sharding_presets_raise(arch, preset, reason):
+    """What the port's partitioner does not run: fsdp on a MoE arch (its
+    experts stay on the model axis) and head-parallel attention; fsdp on a
+    decode cell too."""
+    with pytest.raises(ValueError, match=reason):
+        dryrun.run_cell(arch, "train_4k", "single", "graft", smoke=True,
                         rules_preset=preset)
+    if preset == "fsdp":
+        with pytest.raises(ValueError, match="train step only"):
+            dryrun.run_cell("minicpm-2b", "decode_32k", "single", "serve", smoke=True,
+                            rules_preset=preset)
 
 
 # ---------------------------------------------------------------------------
