@@ -303,6 +303,29 @@ Phases (any failure exits nonzero and prints no result line):
                parameters and moments exactly its shards' bytes, its
                ``max_memory_allocated`` over the steps within 10 % of (b),
                its launches as ``expected_launches(sharded=True)`` reckons.
+ 24. tp      — JAX's ``default`` preset on the dense family (the sequence,
+               the attention queries, the MLP hidden and the vocabulary over
+               ``"model"``): (a) the dry run's ``default`` train_4k graft
+               cells of minicpm-2b, qwen1.5-32b (required; each must trace
+               and fit 80 GB), stablelm-12b and gemma2-27b on one device of
+               the (16, 16) pod, 4 worker processes until the phase's
+               budget: peak, fit, TFLOPs and collective bytes by op, a line
+               for each cell left out; (b) the dry run's prediction for (c);
+               (c) four gloo ranks sharing the card on a (2, 2) ("data",
+               "model") mesh, phase fsdp's run under ``default``: minicpm-2b
+               at full width (vocabulary 122753: the logits stay whole over
+               "model"), 2 layers, 4 steps, each rank its 8 rows' 128 of the
+               256 positions; held to the same run in this process as phase
+               fsdp holds its fleet (step 0's gradient against the subset
+               split into its 2 row parts), each rank's peak within 10 % of
+               (b), its launches as ``expected_launches(sharded=True)``
+               reckons, each flash launch with its rank's query offset; (d)
+               the flash kernels with a query offset against their plain
+               versions (halves and sixteenths of a sequence, a window, a
+               softcap, GQA 2, Dh 64 and 128, bf16 and float32), the slices'
+               forward and dQ bit-equal to the rows of the whole sequence's
+               launch where a slice is whole tiles, and the offset kernels
+               timed at the slice's 576-stream shape beside the whole one.
 
 It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -3287,70 +3310,80 @@ FSDP_OVERRIDES = ([o for o in SLICE_OVERRIDES if not o.startswith(("model.overri
                      f"train.steps={FSDP_STEPS}", "train.log_every=0"])
 
 
-def _fsdp_sweep(box):
-    """(a), run in a thread: the non-MoE archs' fsdp train_4k graft cells on
-    the (16, 16) pod, the required ones first; ``box`` gets (results, cells
-    left out) or the error."""
+def _fsdp_sweep(box, preset="fsdp", archs=None, required=None):
+    """(a), run in a thread: ``preset``'s train_4k graft cells of ``archs``
+    (the non-MoE archs) on the (16, 16) pod, the ``required`` ones
+    (``FSDP_REQUIRED``) first; ``box`` gets (results, cells left out) or
+    the error."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
+    required = FSDP_REQUIRED if required is None else required
     try:
-        archs = [a for a in configs.CANONICAL_IDS if configs.get_config(a).family != "moe"]
+        if archs is None:
+            archs = [a for a in configs.CANONICAL_IDS if configs.get_config(a).family != "moe"]
         rest = dryrun.sweep_order([(a, "train_4k", "graft", "single") for a in archs
-                                   if a not in FSDP_REQUIRED])
-        todo = [(a, "train_4k", "graft", "single") for a in FSDP_REQUIRED] + rest
+                                   if a not in required])
+        todo = [(a, "train_4k", "graft", "single") for a in required] + rest
         box["cells"] = dryrun.sweep(todo, FSDP_JOBS, FSDP_BUDGET_S, device="cuda:0",
-                                    rules_preset="fsdp")
+                                    rules_preset=preset)
     except BaseException as e:                      # noqa: BLE001 — raised by _fsdp_cells
         box["error"] = e
 
 
-def _fsdp_cells(box, smi):
+def _fsdp_cells(box, smi, preset="fsdp", required=None):
     """(a)'s results: printed, the required cells held to trace and fit."""
     from repro_torch.launch import dryrun
+    tag = {"fsdp": "fsdp", "default": "tp"}[preset]
+    required = FSDP_REQUIRED if required is None else required
     if "error" in box:
         raise box["error"]
     results, left = box["cells"]
     for res in results:
-        print(f"[fsdp] {dryrun.summary(res)}", flush=True)
+        print(f"[{tag}] {dryrun.summary(res)}", flush=True)
         if res.get("ok"):
             coll = res["full"]["collectives"]
-            print(f"[fsdp] {res['arch']}: state {res['state']}, args "
-                  f"{res['argument_bytes_per_device'] / 1e9:.3f} GB a device, collective bytes "
-                  f"{ {k: v for k, v in coll['bytes_by_op'].items() if v} }, counts "
+            print(f"[{tag}] {smi}: {res['arch']} {preset}: state {res['state']}, peak "
+                  f"{res['full']['memory']['peak_bytes'] / 1e9:.3f} GB (fits 80 GB: "
+                  f"{res['full']['memory']['fits']}), {res['full']['flops'] / 1e12:.2f} TFLOP, "
+                  f"args {res['argument_bytes_per_device'] / 1e9:.3f} GB a device, collective "
+                  f"bytes { {k: v for k, v in coll['bytes_by_op'].items() if v} }, counts "
                   f"{ {k: v for k, v in coll['count_by_op'].items() if v} }, kernel launches "
                   f"{ {k: r['launches'] for k, r in res['full']['kernels'].items()} }",
                   flush=True)
         else:
             print(res["error"], file=sys.stderr)
     for arch, shape, v, mesh_kind in left:
-        print(f"[fsdp] LEFT OUT {arch} {shape} {mesh_kind} {v} fsdp: past the phase's "
+        print(f"[{tag}] LEFT OUT {arch} {shape} {mesh_kind} {v} {preset}: past the phase's "
               f"{FSDP_BUDGET_S:.0f} s budget", flush=True)
-    print(f"[fsdp] (a) {smi}: {len(results)} fsdp cells traced in {FSDP_JOBS} worker "
+    print(f"[{tag}] (a) {smi}: {len(results)} {preset} cells traced in {FSDP_JOBS} worker "
           f"processes", flush=True)
     by_arch = {r["arch"]: r for r in results}
-    for arch in FSDP_REQUIRED:
+    for arch in required:
         res = by_arch.get(arch)
-        assert res is not None, f"{arch}'s fsdp cell not traced in the budget"
-        assert res.get("ok"), f"{arch}'s fsdp cell failed"
+        assert res is not None, f"{arch}'s {preset} cell not traced in the budget"
+        assert res.get("ok"), f"{arch}'s {preset} cell failed"
         assert res["state"] == "sharded", res["state"]
         assert res["full"]["memory"]["fits"], (
-            f"{arch}'s fsdp cell peaks at {res['full']['memory']['peak_bytes'] / 1e9:.1f} GB")
+            f"{arch}'s {preset} cell peaks at "
+            f"{res['full']['memory']['peak_bytes'] / 1e9:.1f} GB")
     failed = [r["arch"] for r in results if not r.get("ok")]
-    assert not failed, f"fsdp cells failed: {failed}"
+    assert not failed, f"{preset} cells failed: {failed}"
 
 
-def _fsdp_prediction(cfg):
+def _fsdp_prediction(cfg, preset="fsdp"):
     """(b): one device's refresh step of the (2, 2) fleet on fake cuda:0
-    tensors."""
+    tensors: 4 rows under fsdp (the batch over both axes), 8 under default
+    (over data, each rank half of the positions)."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import dryrun, specs
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(*FSDP_MESH)
     backend = dryrun.RecordingBackend(mesh.size)
     cell = specs.experiment_cell(cfg, mesh=dryrun.RecordingMesh(mesh, backend),
-                                 rules=dict(sh.DEFAULT_RULES, **specs.RULE_PRESETS["fsdp"]),
+                                 rules=dict(sh.DEFAULT_RULES, **specs.RULE_PRESETS[preset]),
                                  backend=backend)
-    assert cell.device.type == "cuda" and not cell.as_card and cell.batch == 4
+    assert cell.device.type == "cuda" and not cell.as_card
+    assert cell.batch == {"fsdp": 4, "default": 8}[preset], cell.batch
     return dryrun.trace(cell, backend)
 
 
@@ -3364,7 +3397,7 @@ def _tree_paths(tree, prefix=""):
     return [prefix.rstrip("/")]
 
 
-def _fsdp_reference(mcfg, tcfg, batches, seed):
+def _fsdp_reference(mcfg, tcfg, batches, seed, parts=None):
     """(c)'s configuration in this process, unsharded: losses, grad norms,
     ranks, pivots, step 0's first moment as the fleet computes it
     (``m0``, ``_split_first_moment``) and the final parameters (on the
@@ -3386,7 +3419,7 @@ def _fsdp_reference(mcfg, tcfg, batches, seed):
         out["ranks"].append(int(m["rank"]))
         if i == 0:
             out["m0"] = _split_first_moment(mcfg, tcfg, init, batch, state["graft"],
-                                            math.prod(FSDP_MESH[0]))
+                                            parts or math.prod(FSDP_MESH[0]))
             del init
         if i % tcfg.graft.refresh_every == 0:
             out["pivots"][i] = state["graft"].pivots.tolist()
@@ -3450,8 +3483,10 @@ def phase_fsdp(ctx):
     _fsdp_cells(box, smi)
 
 
-def _fsdp_fleet(smi):
-    """(b) and (c)."""
+def _fsdp_fleet(smi, preset="fsdp"):
+    """(b) and (c), under ``preset``: "fsdp" (phase fsdp: each rank 4 of the
+    16 rows) or "default" (phase tp: each rank 8 rows' half of the
+    positions)."""
     import tempfile
     import torch
     from repro_torch import configs
@@ -3463,8 +3498,9 @@ def _fsdp_fleet(smi):
     model_over = {"attn_backend": "auto", "num_layers": FSDP_LAYERS}
     assert mcfg == configs.get_config("minicpm-2b", **model_over), "the fleet's config differs"
     t1 = time.perf_counter()
-    pred = _fsdp_prediction(cfg)
-    print(f"[fsdp] (b) the (2, 2) fleet's device, traced in {time.perf_counter() - t1:.1f} s: "
+    tag = {"fsdp": "fsdp", "default": "tp"}[preset]
+    pred = _fsdp_prediction(cfg, preset)
+    print(f"[{tag}] (b) the (2, 2) fleet's device, traced in {time.perf_counter() - t1:.1f} s: "
           f"peak {pred['memory']['peak_bytes'] / 1e9:.3f} GB, args "
           f"{pred['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, collectives "
           f"{ {k: v for k, v in pred['collectives']['bytes_by_op'].items() if v} }, launches "
@@ -3473,15 +3509,18 @@ def _fsdp_fleet(smi):
     batches = [{k: torch.from_numpy(v) for k, v in data.batch_at(i).items()}
                for i in range(FSDP_STEPS)]
     t1 = time.perf_counter()
-    ref = _fsdp_reference(mcfg, tcfg, batches, seed=0)
+    # the subset's rows split as the fleet splits them: over both axes
+    # under fsdp, over data alone under default
+    parts = {"fsdp": 4, "default": 2}[preset]
+    ref = _fsdp_reference(mcfg, tcfg, batches, seed=0, parts=parts)
     ref_s = time.perf_counter() - t1
     gc.collect()
     torch.cuda.empty_cache()
     t_cfg = dataclasses.asdict(tcfg)
-    task = {"kind": "fsdp", "mesh": FSDP_MESH, "arch": "minicpm-2b", "model": model_over,
+    task = {"kind": {"fsdp": "fsdp", "default": "tp"}[preset], "mesh": FSDP_MESH, "arch": "minicpm-2b", "model": model_over,
             "seed": 0, "steps": FSDP_STEPS, "batches": batches,
             "tcfg": {k: v for k, v in t_cfg.items()}}
-    work = tempfile.mkdtemp(prefix="fsdp.", dir=os.path.join(ROOT, "build"))
+    work = tempfile.mkdtemp(prefix=f"{tag}.", dir=os.path.join(ROOT, "build"))
     try:
         torch.save([task], os.path.join(work, "job.pt"))
         port = fleet.free_port()
@@ -3501,15 +3540,18 @@ def _fsdp_fleet(smi):
         got = r["tasks"][0]
         rel_peak = (pred_peak - got["peak_bytes"]) / got["peak_bytes"]
         want = {k: v for k, v in got["launches_expected"].items() if v}
-        print(f"[fsdp] (c) rank {r['rank']}: losses {got['losses']}, ranks {got['ranks']}, "
+        print(f"[{tag}] (c) {smi}: rank {r['rank']}: losses {got['losses']}, ranks {got['ranks']}, "
               f"step ms {[round(x * 1e3, 1) for x in got['step_s']]}, resident "
               f"{got['resident_bytes']} B (shards {got['shard_bytes']} B), max_memory_allocated "
               f"{got['peak_bytes'] / 1e9:.3f} GB (prediction {rel_peak:+.2%}), launches "
-              f"{got['launches']}", flush=True)
+              f"{got['launches']}, layout {got['layout']}", flush=True)
         assert got["resident_bytes"] == got["shard_bytes"], "resident state is not its shards"
         assert abs(pred_peak - got["peak_bytes"]) <= DRYRUN_PEAK_RTOL * got["peak_bytes"], \
             f"rank {r['rank']}: peak {got['peak_bytes']} vs predicted {pred_peak}"
         assert got["launches"] == want, f"rank {r['rank']}: launches {got['launches']} vs {want}"
+        if preset == "default":     # the sequence and the MLP over "model", the logits whole
+            assert got["layout"] == {"seq": ["model"], "mlp": ["model"], "vocab": []}, \
+                got["layout"]
         for name in ("graft_select", "flash_forward", "flash_dq", "flash_dkv", "grad_norm",
                      "optimizer_update"):
             assert want.get(name), f"{name} is not on the sharded path"
@@ -3533,7 +3575,7 @@ def _fsdp_fleet(smi):
     rel_norm = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["tasks"][0]["grad_norms"],
                                                      ref["grad_norms"])]
     furthest = sorted(gaps, key=gaps.get, reverse=True)
-    print(f"[fsdp] (c) {smi}: fleet wall {wall:.1f} s "
+    print(f"[{tag}] (c) {smi}: fleet wall {wall:.1f} s "
           f"(the one-process run {ref_s:.1f} s); losses {ref['losses']} in one process; "
           f"pivots {ref['pivots']} equal; grad norm relative "
           f"{[f'{x:.3g}' for x in rel_norm]}; step 0's first moment vs its split in one "
@@ -3543,6 +3585,143 @@ def _fsdp_fleet(smi):
     bad = [(p, gaps[p]) for p in furthest if not gaps[p] <= FSDP_M0_RTOL]
     assert not bad, f"step 0's gradients differ from their split in one process: {bad}"
     assert whole <= 3e-3, f"final parameters differ by {whole:.3g}"
+
+
+TP_REQUIRED = ("minicpm-2b", "qwen1.5-32b")
+TP_ARCHS = ("minicpm-2b", "qwen1.5-32b", "stablelm-12b", "gemma2-27b")
+# (d): (name, B, H, Hkv, T, Dh, dtype, window, softcap, parts): each q
+# stream's T positions cut into ``parts`` slices, each run with its query
+# offset against the whole K/V. "slice" is phase flash's 576 streams
+TP_OFFSET_SHAPES = [
+    ("slice", 16, 36, 36, 256, 64, "bfloat16", None, None, 2),
+    ("slice", 16, 36, 36, 256, 64, "bfloat16", None, None, 16),
+    ("minicpm_4096", 1, 36, 36, 4096, 64, "bfloat16", None, None, 16),
+    ("gemma2_27b", 1, 32, 16, 8192, 128, "bfloat16", 4096, 50.0, 2),
+    ("gemma2_27b", 1, 32, 16, 8192, 128, "bfloat16", 4096, 50.0, 16),
+    ("f32_gqa2_window", 2, 8, 4, 512, 64, "float32", 128, 30.0, 2),
+    ("f32_gqa2_window", 2, 8, 4, 512, 64, "float32", 128, 30.0, 16),
+    ("f32_dh128", 1, 4, 4, 1024, 128, "float32", None, None, 16),
+]
+# the forward and dQ kernels' q tile (bf16 64 rows; float32 64, or 32 above
+# Dh 128): a slice of whole tiles walks the same KV tiles as the whole
+# sequence's launch does for those rows, so its rows are bit-equal
+TP_TILE_ROWS = 64
+
+
+def _offset_check(name, B, H, Hkv, T, Dh, dtype, window, softcap, parts, smi):
+    """(d) for one shape: each slice's forward, dQ and dK/dV against the
+    plain versions with the same offset (phase flash's tolerances), the
+    forward and dQ rows against the whole sequence's launch."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    group = H // Hkv
+    q, k, v, do = _flash_inputs(B, H, Hkv, T, Dh, dtype, seed=5)
+    kw = dict(causal=True, window=window, softcap=softcap, group=group)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    delta = (o.float() * do.float()).sum(-1)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, **kw)
+    n = T // parts
+    errs = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    rows_equal = True
+    for i in range(parts):
+        rows = slice(i * n, (i + 1) * n)
+        qi, doi = q[:, rows].contiguous(), do[:, rows].contiguous()
+        opt = dict(kw, q_offset=i * n)
+        oi, lsei = fa.flash_forward(qi, k, v, **opt)
+        di = (oi.float() * doi.float()).sum(-1)
+        dqi = fa.flash_dq(qi, k, v, doi, lsei, di, **opt)
+        dki, dvi = fa.flash_dkv(qi, k, v, doi, lsei, di, **opt)
+        plain = {key: val for key, val in opt.items() if key != "group"}
+        ref_o, ref_lse = _flash_plain(fa.flash_forward_reference, qi, k, v, None, None, None,
+                                      group, plain)
+        ref_dq = _flash_plain(fa.flash_dq_reference, qi, k, v, doi, lsei, di, group, plain)
+        ref_dk, ref_dv = _flash_plain(fa.flash_dkv_reference, qi, k, v, doi, lsei, di, group,
+                                      plain)
+        for what, a, b in (("o", oi, ref_o), ("dq", dqi, ref_dq), ("dk", dki, ref_dk),
+                           ("dv", dvi, ref_dv)):
+            scale = b.float().abs().max().item()
+            tol = 2.0 ** -7 * scale if dtype == "bfloat16" else 1e-4 * scale + 1e-6
+            err = (a.float() - b.float()).abs().max().item()
+            errs[what] = max(errs[what], err)
+            assert err <= tol and a.dtype == b.dtype, \
+                f"{name} parts {parts} slice {i}: {what} differs by {err:.3g} (tol {tol:.3g})"
+        fin = torch.isfinite(ref_lse)
+        assert torch.equal(fin, torch.isfinite(lsei))
+        errs["lse"] = max(errs["lse"], (lsei[fin] - ref_lse[fin]).abs().max().item())
+        assert errs["lse"] <= 1e-4, f"{name} slice {i}: lse differs by {errs['lse']:.3g}"
+        if n % TP_TILE_ROWS == 0:
+            rows_equal = rows_equal and torch.equal(oi, o[:, rows]) and \
+                torch.equal(lsei, lse[:, rows]) and torch.equal(dqi, dq[:, rows])
+        del oi, lsei, dqi, dki, dvi, ref_o, ref_lse, ref_dq, ref_dk, ref_dv
+    print(f"[tp] (d) {smi}: {name} B={B} H={H} Hkv={Hkv} T={T} Dh={Dh} {dtype} "
+          f"window={window} softcap={softcap}, {parts} slices of {n} positions: max|diff| vs "
+          f"the plain versions " + ", ".join(f"{key} {e:.3g}" for key, e in errs.items())
+          + (f"; forward and dQ rows bit-equal to the whole sequence's launch: {rows_equal}"
+             if n % TP_TILE_ROWS == 0 else "") + " -> ok", flush=True)
+    assert rows_equal, f"{name}: a slice's rows differ from the whole sequence's launch"
+    times = None
+    if name == "slice" and parts == 2:
+        times = _offset_times(q, k, v, do, kw, parts, smi)
+    del q, k, v, do, o, lse, delta, dq
+    torch.cuda.empty_cache()
+    return times
+
+
+def _offset_times(q, k, v, do, kw, parts, smi):
+    """The kernels on each slice (its query offset) beside the whole
+    sequence, CUDA events, each beside its bound (``cost`` counts the pairs
+    the offset leaves)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    BH, T, Dh = q.shape
+    n = T // parts
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    out = []
+    for label, start, rows in [("whole", 0, T)] + [(f"slice {i}", i * n, n)
+                                                   for i in range(parts)]:
+        qi, doi = q[:, start:start + rows].contiguous(), do[:, start:start + rows].contiguous()
+        opt = dict(kw, q_offset=start)
+        oi, lsei = fa.flash_forward(qi, k, v, **opt)
+        di = (oi.float() * doi.float()).sum(-1)
+        t = {"fwd": _time_auto(lambda: fa.flash_forward(qi, k, v, **opt)),
+             "dq": _time_auto(lambda: fa.flash_dq(qi, k, v, doi, lsei, di, **opt)),
+             "dkv": _time_auto(lambda: fa.flash_dkv(qi, k, v, doi, lsei, di, **opt))}
+        for kind, ms in t.items():
+            b_ms, b_by, nbytes, flops = _cost_bound(fa.cost(
+                kind, BH, k.shape[0], rows, T, Dh, q.dtype, True, kw["window"], start), peak)
+            print(f"[tp] (d) {smi}: slice shape {label} (Sq {rows}, q_offset {start}) {kind}: "
+                  f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, "
+                  f"{flops} flop), {ms / b_ms:.1f}x the bound", flush=True)
+            out.append({"slice": label, "q_offset": start, "Sq": rows, "kind": kind, "ms": ms,
+                        "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
+def phase_tp(ctx):
+    """JAX's ``default`` preset on the dense family: (a) the dry run's
+    default train_4k cells on the (16, 16) pod in a thread, beside (b) its
+    prediction for (c) and (c) four gloo ranks sharing the card under the
+    preset, held to one process; then (d) the flash kernels' query offset
+    against their plain versions, and timed."""
+    import torch
+    ctx.pop("trainer", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = ctx.get("smi", "")
+    box = {}
+    sweep = threading.Thread(target=_fsdp_sweep, args=(box, "default", TP_ARCHS, TP_REQUIRED))
+    sweep.start()
+    try:
+        _fsdp_fleet(smi, preset="default")
+    finally:
+        sweep.join()
+    _fsdp_cells(box, smi, preset="default", required=TP_REQUIRED)
+    rows = []
+    for shape in TP_OFFSET_SHAPES:
+        rows += _offset_check(*shape, smi) or []
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "chip_smoke_tp.json"), "w") as f:
+        json.dump({"device": smi, "offset_times": rows}, f, indent=1)
 
 
 def _leaf_gaps(got, want):
@@ -3588,7 +3767,7 @@ def main() -> int:
                      ("shell", phase_shell), ("chaos", phase_chaos),
                      ("analysis", phase_analysis), ("backend", phase_backend),
                      ("sharded", phase_sharded), ("dryrun", phase_dryrun),
-                     ("fsdp", phase_fsdp)):
+                     ("fsdp", phase_fsdp), ("tp", phase_tp)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

@@ -144,7 +144,14 @@ def expected_launches(mcfg, cfg, groups: int, flash: bool = True,
     finish around the psum of the ranks' sums: one launch) and kernel B
     once per dtype group on its shards. ``sharded``: the global norm routes
     through kernel A's wrapper on the CPU too (its plain split version),
-    once a step. With no ``cfg.graft`` (the baseline step) no refresh runs."""
+    once a step. With no ``cfg.graft`` (the baseline step) no refresh runs.
+
+    Under JAX's ``default`` preset (a sharded dense model, ``sharded``) the
+    counts are the same a rank: each rank runs one flash forward, dQ and
+    dK/dV a layer and pass on its slice of the queries against the whole
+    K/V (the query offset), the MLP and vocabulary slices on aten ops, and
+    the one graft_select a refresh on the gathered batch. ``flash`` is the
+    route of the whole sequence."""
     steps = cfg.train.steps
     refreshes = (0 if cfg.graft is None else
                  sum(1 for s in range(steps) if s % cfg.graft.refresh_every == 0))

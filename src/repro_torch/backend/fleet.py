@@ -41,7 +41,11 @@ rank's backend (``mesh_worker_command``: ``python -m repro_torch.backend
     ``batches`` (cycled), each rank taking its rows. Rank 0 reports the
     gathered final parameters and the first moment after step 0 (the
     step's clipped gradient times 1 - beta1 under AdamW), each in the
-    parameter tree's layout.
+    parameter tree's layout;
+  * ``"tp"`` — the same under JAX's ``default`` preset (the dense family):
+    the batch over ``("pod", "data")``, each row's sequence, the MLP hidden
+    and the vocabulary over ``"model"``; the model peers of a batch shard
+    take the same rows.
 """
 from __future__ import annotations
 
@@ -447,7 +451,7 @@ def _collectives_task(task, backend, device) -> Dict[str, Any]:
     return out
 
 
-def _fsdp_task(task, backend, device) -> Dict[str, Any]:
+def _fsdp_task(task, backend, device, preset: str = "fsdp") -> Dict[str, Any]:
     import types
     from repro_torch import configs
     from repro_torch.analysis import launch_audit
@@ -467,7 +471,7 @@ def _fsdp_task(task, backend, device) -> Dict[str, Any]:
     graft = t.pop("graft")
     tcfg = steps.TrainConfig(optimizer=OptimizerConfig(**t.pop("optimizer")),
                              graft=GraftConfig(**graft) if graft else None, **t)
-    rules = specs.RULE_PRESETS["fsdp"]
+    rules = specs.RULE_PRESETS[preset]
     batches = task["batches"]
     K = next(iter(batches[0].values())).shape[0]
     out: Dict[str, Any] = {"losses": [], "grad_norms": [], "ranks": [], "pivots": {},
@@ -526,6 +530,12 @@ def _fsdp_task(task, backend, device) -> Dict[str, Any]:
     if cuda:
         out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
     out["launches"] = dict(trace.counts)
+    with sh.sharding_rules(mesh, rules):             # the default preset's activation layout
+        sp = model_lib.sequence_layout(mcfg, batch)
+    out["layout"] = {name: list(sp.split(logical, n)) if sp is not None else []
+                     for name, logical, n in (("seq", "act_res_seq", sp and sp.length),
+                                              ("mlp", "act_mlp", mcfg.d_ff),
+                                              ("vocab", "act_vocab", mcfg.vocab_size))}
     run = types.SimpleNamespace(train=types.SimpleNamespace(steps=task["steps"], eval_every=0),
                                 graft=tcfg.graft)
     flash = resolve_attn_backend(mcfg, batch["labels"].shape[1], batch["labels"].shape[1],
@@ -548,7 +558,8 @@ def _paths(tree, prefix=()):
 
 
 _TASKS = {"sharded": _sharded_task, "unequal": _unequal_task, "pipeline": _pipeline_task,
-          "collectives": _collectives_task, "fsdp": _fsdp_task}
+          "collectives": _collectives_task, "fsdp": _fsdp_task,
+          "tp": lambda task, backend, device: _fsdp_task(task, backend, device, "default")}
 
 
 def run_mesh_job(job: str, out_dir: str, overrides: Sequence[str],

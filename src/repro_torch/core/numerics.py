@@ -40,7 +40,7 @@ def safe_pivot(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < PIVOT_EPS, sign * PIVOT_EPS, x)
 
 
-def _wrapped(idx: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def wrapped_index(idx: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(index safe to read, validity): as ``jnp.take`` normalizes them, an
     index in [-n, 0) counts from the end; one outside [-n, n) is invalid and
     reads row 0 in its place."""
@@ -53,7 +53,7 @@ def _wrapped(idx: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, ids, axis=0)``: ``embedding`` whose row for an
     invalid id is NaN and passes no gradient to ``table``."""
-    safe, valid = _wrapped(ids, table.shape[0])
+    safe, valid = wrapped_index(ids, table.shape[0])
     rows = torch.nn.functional.embedding(safe, table)
     return rows.masked_fill(~valid[..., None], float("nan"))
 
@@ -61,7 +61,7 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``jnp.take_along_axis(x, idx[..., None], -1)[..., 0]``: the entry of
     an invalid index is NaN and passes no gradient to ``x``."""
-    safe, valid = _wrapped(idx, x.shape[-1])
+    safe, valid = wrapped_index(idx, x.shape[-1])
     out = torch.gather(x, -1, safe[..., None])[..., 0]
     return out.masked_fill(~valid, float("nan"))
 

@@ -14,6 +14,12 @@
 // filled with -1e30, and the masked-row guard: a row whose whole horizon is
 // masked gets p = 0, o = 0 and lse = +inf. m, l, the accumulators and every
 // softmax step run in float32 whatever the input type, as on the TPU.
+// Beyond the TPU kernels, a query offset q_start places local q row i at
+// position q_start + i of the key stream, so that a rank holding a slice of a
+// sequence-parallel sequence attends its queries against the whole K/V: the
+// causal test is k <= q_start + i and the window's k > q_start + i - w, in
+// the per-element mask and in every tile bound. q_start = 0 is the TPU
+// kernels' mask, bit for bit.
 //
 // Dispatch is by the input type, explicitly, with no fallback:
 //   bf16 -> flash_fwd_mma_kernel, flash_dq_mma_kernel, flash_dkv_mma_kernel
@@ -139,9 +145,11 @@ inline size_t dkv_smem(int Dh, int tile) {      // Kt, Vt, Qt, dOt; P, dS; lse, 
   return 4 * ((size_t)(4 * Dh + 2 * tile) * (tile + 4) + 2 * (size_t)tile);
 }
 
+// Local q row qi sits at position q_start + qi of the key stream.
 __device__ __forceinline__ bool valid(int qi, int kj, int Sq, int Tk, int causal,
-                                      int window) {
-  return qi < Sq && kj < Tk && (!causal || kj <= qi) && kj > qi - window;
+                                      int window, int q_start) {
+  const int qp = q_start + qi;
+  return qi < Sq && kj < Tk && (!causal || kj <= qp) && kj > qp - window;
 }
 
 // Rows [row0, row0 + TILE) of a (nrows, Dh) row-major stream into shared
@@ -233,30 +241,33 @@ __device__ __forceinline__ float dscore(float s, float p, float dp, float delta,
 }
 
 // [lo, hi) KV tiles of KR rows that can hold an unmasked entry for q rows
-// [q0, q0 + QR) (`_kv_bounds` for these tiles).
+// [q0, q0 + QR) (`_kv_bounds` for these tiles), at positions from q_start.
 __device__ __forceinline__ void kv_bounds(int q0, int QR, int KR, int Sq, int Tk, int causal,
-                                          int window, int bound_loop, int* lo, int* hi) {
+                                          int window, int q_start, int bound_loop, int* lo,
+                                          int* hi) {
   const int nk = (Tk + KR - 1) / KR;
   *lo = 0;
   *hi = nk;
   if (!bound_loop) return;
   if (causal) {
-    const int q_end = min(q0 + QR, Sq);  // keys <= q_end - 1
+    const int q_end = q_start + min(q0 + QR, Sq);  // keys <= q_end - 1
     *hi = min(nk, (q_end + KR - 1) / KR);
   }
-  *lo = max(0, (q0 - window + 1) / KR);  // keys >= q0 - window + 1
+  *lo = max(0, q_start + q0 - window + 1) / KR;  // keys >= q0 - window + 1
 }
 
 // [lo, hi) q tiles of QR rows that can see KV rows [k0, k0 + KR) (the dK/dV
-// q-loop bounds): causal needs q >= k0, the window q <= k_end - 1 + window - 1.
+// q-loop bounds): causal needs q >= k0, the window q <= k_end - 1 + window - 1,
+// for the position q_start + q of local row q.
 __device__ __forceinline__ void q_bounds(int k0, int KR, int QR, int Sq, int Tk, int causal,
-                                         int window, int bound_loop, int* lo, int* hi) {
+                                         int window, int q_start, int bound_loop, int* lo,
+                                         int* hi) {
   const int nq = (Sq + QR - 1) / QR;
   *lo = 0;
   *hi = nq;
   if (!bound_loop) return;
-  if (causal) *lo = k0 / QR;
-  const int last = min(k0 + KR, Tk) + window - 2;
+  if (causal) *lo = max(0, k0 - q_start) / QR;
+  const int last = min(k0 + KR, Tk) + window - 2 - q_start;
   *hi = last < 0 ? 0 : min(nq, last / QR + 1);
 }
 
@@ -268,7 +279,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Tk, int Dh, int group, int causal,
-                 int window, float softcap, float scale, int bound_loop) {
+                 int window, int q_start, float softcap, float scale, int bound_loop) {
   constexpr int R = TILE / 16, LD = TILE + 4;
   extern __shared__ float4 smem_f4[];
   float* Qt = reinterpret_cast<float*>(smem_f4);
@@ -295,7 +306,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   int lo, hi;
-  kv_bounds(q0, TILE, TILE, Sq, Tk, causal, window, bound_loop, &lo, &hi);
+  kv_bounds(q0, TILE, TILE, Sq, Tk, causal, window, q_start, bound_loop, &lo, &hi);
   for (int it = lo; it < hi; ++it) {
     const int k0 = it * TILE;
     __syncthreads();  // the previous tile's readers are done
@@ -309,7 +320,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mt = kMask;
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        s[i][j] = score(s[i][j], valid(q0 + ra + i, k0 + cb + j, Sq, Tk, causal, window),
+        s[i][j] = score(s[i][j], valid(q0 + ra + i, k0 + cb + j, Sq, Tk, causal, window, q_start),
                         softcap);
         mt = fmaxf(mt, s[i][j]);
       }
@@ -356,7 +367,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dq, int Sq, int Tk, int Dh, int group, int causal,
-                int window, float softcap, float scale, int bound_loop) {
+                int window, int q_start, float softcap, float scale, int bound_loop) {
   constexpr int R = TILE / 16, LD = TILE + 4;
   extern __shared__ float4 smem_f4[];
   float* Qt = reinterpret_cast<float*>(smem_f4);
@@ -385,7 +396,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   int lo, hi;
-  kv_bounds(q0, TILE, TILE, Sq, Tk, causal, window, bound_loop, &lo, &hi);
+  kv_bounds(q0, TILE, TILE, Sq, Tk, causal, window, q_start, bound_loop, &lo, &hi);
   for (int it = lo; it < hi; ++it) {
     const int k0 = it * TILE;
     __syncthreads();
@@ -399,7 +410,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const bool ok = valid(q0 + ra + i, k0 + cb + j, Sq, Tk, causal, window);
+        const bool ok = valid(q0 + ra + i, k0 + cb + j, Sq, Tk, causal, window, q_start);
         const float x = score(s[i][j], ok, softcap);
         const float p = expf(x - row_lse[i]);  // normalized; 0 where masked
         dSt[(cb + j) * LD + ra + i] = dscore(x, p, dp[i][j], row_delta[i], ok, softcap);
@@ -430,7 +441,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dk, float* __restrict__ dv, int Sq, int Tk, int Dh,
-                 int group, int causal, int window, float softcap, float scale,
+                 int group, int causal, int window, int q_start, float softcap, float scale,
                  int bound_loop) {
   constexpr int R = TILE / 16, LD = TILE + 4;
   extern __shared__ float4 smem_f4[];
@@ -457,7 +468,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
   int lo, hi;
-  q_bounds(k0, TILE, TILE, Sq, Tk, causal, window, bound_loop, &lo, &hi);
+  q_bounds(k0, TILE, TILE, Sq, Tk, causal, window, q_start, bound_loop, &lo, &hi);
   for (int g = 0; g < group; ++g) {
     const int bh = bkv * group + g;
     const size_t qoff = (size_t)bh * Sq * Dh;
@@ -480,7 +491,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < R; ++j) {
           const int r = cb + j;
-          const bool ok = valid(q0 + r, k0 + ra + i, Sq, Tk, causal, window);
+          const bool ok = valid(q0 + r, k0 + ra + i, Sq, Tk, causal, window, q_start);
           const float x = score(s[i][j], ok, softcap);
           const float p = expf(x - s_lse[r]);
           Pr[r * LD + ra + i] = p;
@@ -670,9 +681,10 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const bf16* s
 // Whether every (q, k) of q rows [q0, q0 + QR) and keys [k0, k0 + KR) is
 // unmasked, so that the tile needs no mask test.
 __device__ __forceinline__ bool interior(int q0, int QR, int k0, int KR, int Sq, int Tk,
-                                         int causal, int window) {
-  return q0 + QR <= Sq && k0 + KR <= Tk && (!causal || k0 + KR - 1 <= q0) &&
-         k0 > q0 + QR - 1 - window;
+                                         int causal, int window, int q_start) {
+  const int qp = q_start + q0;
+  return q0 + QR <= Sq && k0 + KR <= Tk && (!causal || k0 + KR - 1 <= qp) &&
+         k0 > qp + QR - 1 - window;
 }
 
 // ldmatrix lane addressing: rows and columns (within a 16x16 tile) of the row
@@ -691,7 +703,7 @@ __global__ void __launch_bounds__(kMmaThreads, fwd_min_blocks(DP))
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int Sq, int Tk, int Dh, int group, int causal,
-                     int window, float softcap, float scale, int bound_loop, int vec) {
+                     int window, int q_start, float softcap, float scale, int bound_loop, int vec) {
   constexpr int BK = fwd_kv_rows(DP), LDS = DP + 8;
   constexpr int KD = DP / 16, NS = BK / 8, NO = DP / 8;
   constexpr bool kQRegs = DP <= 160;  // Q's A fragments live in registers
@@ -711,7 +723,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   v += (size_t)(bh / group) * Tk * Dh;
 
   int lo, hi;
-  kv_bounds(q0, kBlockRows, BK, Sq, Tk, causal, window, bound_loop, &lo, &hi);
+  kv_bounds(q0, kBlockRows, BK, Sq, Tk, causal, window, q_start, bound_loop, &lo, &hi);
   load_rows<kBlockRows, DP>(sQ, q, q0, Sq, Dh, vec);
   if (lo < hi) {
     load_rows<BK, DP>(sK, k, lo * BK, Tk, Dh, vec);
@@ -772,14 +784,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // scale, softcap, mask; online softmax over the quad's rows
     const int k0 = it * BK;
-    const bool edge = !interior(q0, kBlockRows, k0, BK, Sq, Tk, causal, window);
+    const bool edge = !interior(q0, kBlockRows, k0, BK, Sq, Tk, causal, window, q_start);
     float mt[2] = {kMask, kMask};
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool ok =
-            !edge || valid(qr[e >> 1], k0 + j * 8 + 2 * t + (e & 1), Sq, Tk, causal, window);
+            !edge ||
+            valid(qr[e >> 1], k0 + j * 8 + 2 * t + (e & 1), Sq, Tk, causal, window, q_start);
         s[j][e] = score(s[j][e] * scale, ok, softcap);
         mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
       }
@@ -851,7 +864,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, int Sq, int Tk, int Dh, int group, int causal,
-                    int window, float softcap, float scale, int bound_loop, int vec) {
+                    int window, int q_start, float softcap, float scale, int bound_loop, int vec) {
   constexpr int BK = fwd_kv_rows(DP), LDS = DP + 8;
   constexpr int KD = DP / 16, NO = DP / 8;
   constexpr bool kRegs = DP <= 64;  // Q's and dO's A fragments live in registers
@@ -871,7 +884,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   v += (size_t)(bh / group) * Tk * Dh;
 
   int lo, hi;
-  kv_bounds(q0, kBlockRows, BK, Sq, Tk, causal, window, bound_loop, &lo, &hi);
+  kv_bounds(q0, kBlockRows, BK, Sq, Tk, causal, window, q_start, bound_loop, &lo, &hi);
   load_rows<kBlockRows, DP>(sQ, q + qoff, q0, Sq, Dh, vec);
   load_rows<kBlockRows, DP>(sdO, dout + qoff, q0, Sq, Dh, vec);
   if (lo < hi) {
@@ -917,7 +930,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* cK = sK + buf * BK * LDS;
     const bf16* cV = sV + buf * BK * LDS;
     const int k0 = it * BK;
-    const bool edge = !interior(q0, kBlockRows, k0, BK, Sq, Tk, causal, window);
+    const bool edge = !interior(q0, kBlockRows, k0, BK, Sq, Tk, causal, window, q_start);
 #pragma unroll
     for (int c = 0; c < BK / 16; ++c) {  // 16 keys at a time
       // S = Q K^T and dP = dO V^T (16 q rows x 16 keys a warp)
@@ -953,7 +966,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
           const bool ok = !edge || valid(qr[h], k0 + c * 16 + j * 8 + 2 * t + (e & 1), Sq, Tk,
-                                         causal, window);
+                                         causal, window, q_start);
           const float x = score(s[j][e] * scale, ok, softcap);
           const float p = expf(x - row_lse[h]);  // normalized; 0 where masked
           dp[j][e] = dscore(x, p, dp[j][e], row_delta[h], ok, softcap);
@@ -995,7 +1008,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Tk, int Dh,
-                     int group, int causal, int window, float softcap, float scale,
+                     int group, int causal, int window, int q_start, float softcap, float scale,
                      int bound_loop, int vec) {
   constexpr int BQ = dkv_q_rows(DP), LDS = DP + 8, KD = DP / 16;
   constexpr int DC = DP / dkv_splits(DP), NO = DC / 8;  // output columns of a block
@@ -1017,7 +1030,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_rows<kBlockRows, DP>(sK, k + kvoff, k0, Tk, Dh, vec);
   load_rows<kBlockRows, DP>(sV, v + kvoff, k0, Tk, Dh, vec);
   int lo, hi;
-  q_bounds(k0, kBlockRows, BQ, Sq, Tk, causal, window, bound_loop, &lo, &hi);
+  q_bounds(k0, kBlockRows, BQ, Sq, Tk, causal, window, q_start, bound_loop, &lo, &hi);
   const int nq = max(0, hi - lo), n_it = group * nq;  // (q head, q tile) pairs
   // Q, dO, lse and delta of pair i into buffer buf; past Sq they are zero,
   // where every p is 0 (the mask) and so is every ds
@@ -1065,7 +1078,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* cdO = sdO + buf * BQ * LDS;
     const float* cL = sL + buf * BQ;
     const float* cD = sD + buf * BQ;
-    const bool edge = !interior(q0, BQ, k0, kBlockRows, Sq, Tk, causal, window);
+    const bool edge = !interior(q0, BQ, k0, kBlockRows, Sq, Tk, causal, window, q_start);
 #pragma unroll
     for (int c = 0; c < BQ / 16; ++c) {  // 16 q rows at a time
       // S^T = K Q^T and dP^T = V dO^T (16 KV rows x 16 q rows a warp)
@@ -1100,7 +1113,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = c * 16 + j * 8 + 2 * t + (e & 1);  // q row of the tile
-          const bool ok = !edge || valid(q0 + r, kr[e >> 1], Sq, Tk, causal, window);
+          const bool ok = !edge || valid(q0 + r, kr[e >> 1], Sq, Tk, causal, window, q_start);
           const float x = score(s[j][e] * scale, ok, softcap);
           const float p = expf(x - cL[r]);  // normalized; 0 where masked
           dp[j][e] = dscore(x, p, dp[j][e], cD[r], ok, softcap);
@@ -1148,7 +1161,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // host side: argument checks and dispatch on (dtype, head-dim class)
 // ---------------------------------------------------------------------------
 struct Args {
-  int BH, BHkv, Sq, Tk, Dh, causal, window, bound_loop;
+  int BH, BHkv, Sq, Tk, Dh, causal, window, bound_loop, q_start;
   float softcap, scale;
 };
 
@@ -1176,6 +1189,7 @@ int grid_rows(int kind, int dtype, const Args& a) {
 // Nonzero (a cudaError_t) for arguments the kernels do not take.
 int check(const Args& a, int kind, int dtype) {
   if (a.BH < 1 || a.BHkv < 1 || a.BH % a.BHkv || a.Sq < 1 || a.Tk < 1 || a.Dh < 1 ||
+      a.q_start < 0 ||
       a.Dh > kMaxHeadDim || (dtype != 0 && dtype != 1) || !(a.softcap >= 0.f) ||
       grid_rows(kind, dtype, a) > 65535 || plan_smem(kind, dtype, a.Dh) > (size_t)kMaxSmemBytes)
     return (int)cudaErrorInvalidValue;
@@ -1206,7 +1220,8 @@ int fwd(const Args& a, const void* q, const void* k, const void* v, void* o, voi
   dim3 grid(a.BH, grid_rows(kFwd, 0, a));
   kern<<<grid, kThreads, smem, st>>>((const float*)q, (const float*)k, (const float*)v, (float*)o,
                                      (float*)lse, a.Sq, a.Tk, a.Dh, a.BH / a.BHkv,
-                                     a.causal, a.window, a.softcap, a.scale, a.bound_loop);
+                                     a.causal, a.window, a.q_start, a.softcap, a.scale,
+                                     a.bound_loop);
   return (int)cudaGetLastError();
 }
 
@@ -1219,7 +1234,7 @@ int fwd_mma(const Args& a, const void* q, const void* k, const void* v, void* o,
   dim3 grid(a.BH, grid_rows(kFwd, 1, a));
   kern<<<grid, kMmaThreads, smem, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
                                         (bf16*)o, (float*)lse, a.Sq, a.Tk, a.Dh,
-                                        a.BH / a.BHkv, a.causal, a.window, a.softcap,
+                                        a.BH / a.BHkv, a.causal, a.window, a.q_start, a.softcap,
                                         a.scale, a.bound_loop, vec_ok(a.Dh, {q, k, v, o}));
   return (int)cudaGetLastError();
 }
@@ -1235,7 +1250,7 @@ int dq(const Args& a, const void* q, const void* k, const void* v, const void* d
   kern<<<grid, kThreads, smem, st>>>((const float*)q, (const float*)k, (const float*)v,
                                      (const float*)dout, (const float*)lse,
                                      (const float*)delta, (float*)dqp, a.Sq, a.Tk, a.Dh,
-                                     a.BH / a.BHkv, a.causal, a.window, a.softcap,
+                                     a.BH / a.BHkv, a.causal, a.window, a.q_start, a.softcap,
                                      a.scale, a.bound_loop);
   return (int)cudaGetLastError();
 }
@@ -1250,7 +1265,7 @@ int dq_mma(const Args& a, const void* q, const void* k, const void* v, const voi
   kern<<<grid, kMmaThreads, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
       (const float*)delta, (bf16*)dqp, a.Sq, a.Tk, a.Dh, a.BH / a.BHkv, a.causal, a.window,
-      a.softcap, a.scale, a.bound_loop, vec_ok(a.Dh, {q, k, v, dout, dqp}));
+      a.q_start, a.softcap, a.scale, a.bound_loop, vec_ok(a.Dh, {q, k, v, dout, dqp}));
   return (int)cudaGetLastError();
 }
 
@@ -1265,7 +1280,7 @@ int dkv(const Args& a, const void* q, const void* k, const void* v, const void* 
   kern<<<grid, kThreads, smem, st>>>((const float*)q, (const float*)k, (const float*)v,
                                      (const float*)dout, (const float*)lse,
                                      (const float*)delta, (float*)dkp, (float*)dvp, a.Sq, a.Tk,
-                                     a.Dh, a.BH / a.BHkv, a.causal, a.window, a.softcap,
+                                     a.Dh, a.BH / a.BHkv, a.causal, a.window, a.q_start, a.softcap,
                                      a.scale, a.bound_loop);
   return (int)cudaGetLastError();
 }
@@ -1280,7 +1295,7 @@ int dkv_mma(const Args& a, const void* q, const void* k, const void* v, const vo
   kern<<<grid, kMmaThreads, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
       (const float*)delta, (bf16*)dkp, (bf16*)dvp, a.Sq, a.Tk, a.Dh, a.BH / a.BHkv,
-      a.causal, a.window, a.softcap, a.scale, a.bound_loop,
+      a.causal, a.window, a.q_start, a.softcap, a.scale, a.bound_loop,
       vec_ok(a.Dh, {q, k, v, dout, dkp, dvp}));
   return (int)cudaGetLastError();
 }
@@ -1314,14 +1329,16 @@ extern "C" {
 // are device pointers to contiguous buffers: q, dout, o, dq (BH, Sq, Dh) and
 // k, v, dk, dv (BHkv, T, Dh) in the input type (dtype 0 float32, 1 bf16),
 // lse and delta (BH, Sq) float32. `window` is the sliding window (a value
-// >= Sq + T turns it off); `softcap` 0 means none. Each sizes its kernel's
-// shared memory itself. bf16 takes the tensor-core kernels, float32 the
-// float32-core kernels.
+// >= q_start + Sq + T turns it off); `q_start` is the position of the first q
+// row in the key stream (0: q and k start together); `softcap` 0 means none.
+// Each sizes its kernel's shared memory itself. bf16 takes the tensor-core
+// kernels, float32 the float32-core kernels.
 
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                      int dtype, int BH, int BHkv, int Sq, int T, int Dh, int causal,
-                     int window, float softcap, float scale, int bound_loop, void* stream) {
-  const Args a{BH, BHkv, Sq, T, Dh, causal, window, bound_loop, softcap, scale};
+                     int window, int q_start, float softcap, float scale, int bound_loop,
+                     void* stream) {
+  const Args a{BH, BHkv, Sq, T, Dh, causal, window, bound_loop, q_start, softcap, scale};
   const cudaStream_t st = (cudaStream_t)stream;
   if (int e = check(a, kFwd, dtype)) return e;
   if (dtype == 1) {
@@ -1337,8 +1354,8 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void*
 int flash_dq_launch(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dq_out, int dtype, int BH,
                     int BHkv, int Sq, int T, int Dh, int causal, int window,
-                    float softcap, float scale, int bound_loop, void* stream) {
-  const Args a{BH, BHkv, Sq, T, Dh, causal, window, bound_loop, softcap, scale};
+                    int q_start, float softcap, float scale, int bound_loop, void* stream) {
+  const Args a{BH, BHkv, Sq, T, Dh, causal, window, bound_loop, q_start, softcap, scale};
   const cudaStream_t st = (cudaStream_t)stream;
   if (int e = check(a, kDq, dtype)) return e;
   if (dtype == 1) {
@@ -1354,8 +1371,9 @@ int flash_dq_launch(const void* q, const void* k, const void* v, const void* dou
 int flash_dkv_launch(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dk_out, void* dv_out,
                      int dtype, int BH, int BHkv, int Sq, int T, int Dh, int causal,
-                     int window, float softcap, float scale, int bound_loop, void* stream) {
-  const Args a{BH, BHkv, Sq, T, Dh, causal, window, bound_loop, softcap, scale};
+                     int window, int q_start, float softcap, float scale, int bound_loop,
+                     void* stream) {
+  const Args a{BH, BHkv, Sq, T, Dh, causal, window, bound_loop, q_start, softcap, scale};
   const cudaStream_t st = (cudaStream_t)stream;
   if (int e = check(a, kDkv, dtype)) return e;
   if (dtype == 1) {

@@ -34,7 +34,11 @@ The partitioner half places parameters where XLA's would under
 
 ``constrain`` (``with_sharding_constraint`` on activations) has no
 counterpart: under ``fsdp`` no activation is constrained beyond the batch
-split, which the train step makes itself (``launch/steps.py``).
+split, which the train step makes itself (``launch/steps.py``); under the
+``default`` preset the dense family's layers place their activations
+where JAX's ``constrain`` calls declare them, with the collectives
+written out (:class:`SeqParallel`). ``check_rules`` says which layouts the
+port runs.
 """
 from __future__ import annotations
 
@@ -170,21 +174,192 @@ def active() -> Optional[Tuple[Any, Dict[str, MeshAxes]]]:
 
 
 # activation axes that the fsdp preset leaves unsharded: tensor and sequence
-# parallelism, which the port's eager layers do not have
+# parallelism
 _TP_ACTIVATIONS = ("act_seq", "act_res_seq", "act_q_seq", "act_kv_seq", "act_heads",
                    "act_kv_heads", "act_embed", "act_mlp", "act_mlp_inner", "act_vocab")
+# the families whose layers run the default preset's layout
+TP_FAMILIES = ("dense",)
 
 
-def check_fsdp_rules(mesh, rules: Dict[str, MeshAxes]) -> None:
-    """Raise ``ValueError`` unless ``rules`` shard activations over the
-    batch alone on ``mesh`` (the ``fsdp`` preset): the port gathers weights
-    just in time and has no tensor or sequence parallelism."""
-    split = [n for n in _TP_ACTIVATIONS if logical_to_spec((n,), mesh, rules) != (None,)]
-    if split:
+def rules_mode(mesh, rules: Dict[str, MeshAxes]) -> str:
+    """Which layout ``rules`` give the activations on ``mesh``: ``"fsdp"``
+    (the batch alone is split), ``"default"`` (JAX's ``DEFAULT_RULES`` on
+    this mesh: the residual's sequence, the attention queries, the MLP
+    hidden and the vocabulary over ``"model"``) or ``"other"``."""
+    def resolve(r):
+        return {n: logical_to_spec((n,), mesh, r) for n in _TP_ACTIVATIONS + ("act_batch",)}
+    got = resolve(rules)
+    if all(got[n] == (None,) for n in _TP_ACTIVATIONS):
+        return "fsdp"
+    if got == resolve(DEFAULT_RULES):
+        return "default"
+    return "other"
+
+
+def check_rules(mesh, rules: Dict[str, MeshAxes], family: str = "dense") -> str:
+    """Raise ``ValueError`` unless the port's sharded step runs ``rules`` on
+    ``mesh`` for a model of ``family``; return the mode (``rules_mode``).
+    It runs the ``fsdp`` layout for every family it shards, and the
+    ``default`` preset's layout for the dense family."""
+    mode = rules_mode(mesh, rules)
+    if mode == "fsdp":
+        return mode
+    if mode == "default":
+        if family == "moe":
+            raise ValueError(
+                "the 'default' preset on the moe family: its experts stay on the model axis "
+                "(act_experts → model), which needs expert parallelism (ROADMAP.md A14)")
+        if family not in TP_FAMILIES:
+            raise ValueError(
+                f"the 'default' preset's sequence and tensor parallelism on the {family} family: "
+                "the port lays it out for the dense family only (ROADMAP.md A12b)")
+        return mode
+    heads = [n for n in ("act_heads", "act_kv_heads")
+             if logical_to_spec((n,), mesh, rules) != (None,)]
+    if logical_to_spec(("act_q_seq",), mesh, rules) == (None,) and heads:
         raise ValueError(
-            f"the rules shard the activation axes {split} over the mesh (tensor or sequence "
-            "parallelism, the 'default' and 'head_tp' presets): the port's sharded step "
-            "runs the 'fsdp' preset only (ROADMAP.md A12, A13)")
+            f"the rules shard the attention heads ({heads}) over the mesh, the 'head_tp' "
+            "preset's head-parallel attention, which the port does not have (ROADMAP.md A13)")
+    raise ValueError(
+        "the rules shard the activations neither as the 'fsdp' preset nor as the 'default' "
+        "one: the port's sharded step runs those two layouts only (ROADMAP.md A12, A13)")
+
+
+# ---------------------------------------------------------------------------
+# the default preset's activation layout: sequence and tensor parallelism
+# ---------------------------------------------------------------------------
+
+class _Gather(torch.autograd.Function):
+    """Forward ``all_gather`` along ``dim`` over ``axes``; backward the
+    reduce-scatter of the gradient along it (every rank's rows summed)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.all_gather(x.contiguous(), axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.psum_scatter(g.contiguous(), ctx.axes, dim=ctx.dim), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Forward the reduce-scatter along ``dim`` over ``axes`` (the partial
+    sums of every rank added, each keeping its block); backward the
+    all-gather of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.psum_scatter(x.contiguous(), axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g.contiguous(), ctx.axes, dim=ctx.dim), None, None, None
+
+
+class _PSum(torch.autograd.Function):
+    """Forward ``psum`` over ``axes``; backward ``psum`` of the gradient:
+    the global objective is the sum of every rank's loss, and each rank's
+    loss may read the sum."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh.psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.psum(g.contiguous(), ctx.axes), None, None
+
+
+def psum(x: torch.Tensor, mesh, axes: Tuple[str, ...]) -> torch.Tensor:
+    """The differentiable ``psum`` of ``x`` over ``axes`` (the identity over
+    none)."""
+    return _PSum.apply(x, mesh, axes) if axes and mesh.size(axes) > 1 else x
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SeqParallel:
+    """The ``default`` preset's layout of one forward over sequences of
+    ``length`` positions on ``mesh``: the residual stream's sequence splits
+    over ``axes`` (``act_res_seq`` after ``drop_indivisible``; ``()`` when
+    the length does not divide, and every rank then holds it whole), this
+    rank holding positions ``[start, stop)``.
+
+    The gradients follow one rule: the objective is the sum over every rank
+    of its own loss. A collective's backward is its adjoint under that sum
+    (gather ↔ reduce-scatter, psum ↔ psum), and an activation that every
+    model rank computes alike (replicated compute: the gathered logits,
+    the nll) counts on the rank at index 0 of the axes it is replicated
+    over (the train step's ``ShardLayout.counts``)."""
+    mesh: Any
+    rules: Dict[str, MeshAxes]
+    length: int
+    axes: Tuple[str, ...]
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size(self.axes) if self.axes else 1
+
+    @property
+    def index(self) -> int:
+        return self.mesh.axis_index(self.axes) if self.axes else 0
+
+    @property
+    def local(self) -> int:
+        return self.length // self.size
+
+    @property
+    def start(self) -> int:
+        return self.index * self.local
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.local
+
+    def split(self, logical: str, n: int) -> Tuple[str, ...]:
+        """The mesh axes a dim of ``n`` named ``logical`` splits over."""
+        return split_axes(logical, n, self.mesh, self.rules)
+
+    def part(self, logical: str, n: int) -> Tuple[int, int]:
+        """This rank's ``[start, stop)`` of a dim of ``n`` named ``logical``."""
+        axes = self.split(logical, n)
+        if not axes:
+            return 0, n
+        k, i = self.mesh.size(axes), self.mesh.axis_index(axes)
+        return i * n // k, (i + 1) * n // k
+
+    def take(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's positions of a whole sequence (a view)."""
+        return x.narrow(dim, self.start, self.local) if self.axes else x
+
+    def gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The whole sequence from every rank's positions: all-gather,
+        its backward a reduce-scatter."""
+        return _Gather.apply(x, self.mesh, self.axes, dim) if self.size > 1 else x
+
+    def scatter(self, x: torch.Tensor, axes: Tuple[str, ...], dim: int = 1) -> torch.Tensor:
+        """This rank's positions of the sum over ``axes`` of every rank's
+        whole-sequence partial sum ``x``: a reduce-scatter where the
+        sequence splits over ``axes`` (its backward an all-gather), else the
+        psum, then this rank's positions."""
+        if axes == self.axes:
+            return _Scatter.apply(x, self.mesh, axes, dim) if self.size > 1 else x
+        return self.take(psum(x, self.mesh, axes), dim)
+
+
+def sequence_parallel(length: int) -> Optional[SeqParallel]:
+    """The ``SeqParallel`` of a forward over ``length`` positions under the
+    active ``sharding_rules`` when they are the ``default`` preset's, else
+    None (no rules, or the ``fsdp`` layout)."""
+    act = active()
+    if act is None:
+        return None
+    mesh, rules = act
+    if rules_mode(mesh, rules) != "default":
+        return None
+    return SeqParallel(mesh, rules, int(length), split_axes("act_res_seq", length, mesh, rules))
 
 
 def _coords(mesh) -> Dict[str, int]:
@@ -288,27 +463,43 @@ def shard_tensor(full: torch.Tensor, sharding: LeafSharding) -> torch.Tensor:
     return full[tuple(slice(a, b) for a, b in sharding.bounds)].clone()
 
 
-def gather_tensor(shard: torch.Tensor, sharding: LeafSharding) -> torch.Tensor:
+def _kept(entry: MeshAxes, keep: Tuple[str, ...]) -> bool:
+    """Whether a dim sharded over ``entry`` stays local under ``keep``."""
+    axes = _entry_axes(entry)
+    if axes and set(axes) & set(keep):
+        if not set(axes) <= set(keep):
+            raise ValueError(f"a dim sharded over {axes} cannot stay local over {keep} alone")
+        return True
+    return False
+
+
+def gather_tensor(shard: torch.Tensor, sharding: LeafSharding,
+                  keep: Tuple[str, ...] = ()) -> torch.Tensor:
     """The full tensor from every rank's shard: ``all_gather`` along each
-    sharded dim over its entry's axes (the mesh's collectives)."""
+    sharded dim over its entry's axes (the mesh's collectives). A dim
+    sharded over the axes in ``keep`` stays this rank's block (a
+    tensor-parallel weight's slice)."""
     x = shard
     for dim, entry in enumerate(sharding.spec):
-        if _axis_size(sharding.mesh, entry) > 1:
+        if _axis_size(sharding.mesh, entry) > 1 and not _kept(entry, keep):
             x = sharding.mesh.all_gather(x, _entry_axes(entry), dim=dim)
     return x
 
 
-def reduce_scatter_tensor(full: torch.Tensor, sharding: LeafSharding) -> torch.Tensor:
+def reduce_scatter_tensor(full: torch.Tensor, sharding: LeafSharding,
+                          keep: Tuple[str, ...] = ()) -> torch.Tensor:
     """This rank's shard of the sum over every rank of ``full``:
     ``psum_scatter`` along each sharded dim (the last first) over its
     entry's axes, then ``psum`` of the shard over the replicated axes (a
     sum over all ranks either way; this order moves a shard, not the full
-    tensor, over the replicated axes)."""
+    tensor, over the replicated axes). A dim kept local (``keep``) is
+    already this rank's block: the ranks along its axes hold other blocks
+    and add nothing to it."""
     g = full
     mesh = sharding.mesh
     for dim in reversed(range(len(sharding.spec))):
         entry = sharding.spec[dim]
-        if _axis_size(mesh, entry) > 1:
+        if _axis_size(mesh, entry) > 1 and not _kept(entry, keep):
             g = mesh.psum_scatter(g, _entry_axes(entry), dim=dim)
     rest = tuple(a for a in sharding.replicated_axes if mesh.shape[a] > 1)
     return mesh.psum(g, rest) if rest else g
@@ -316,17 +507,17 @@ def reduce_scatter_tensor(full: torch.Tensor, sharding: LeafSharding) -> torch.T
 
 class _GatherLeaf(torch.autograd.Function):
     """Forward ``gather_tensor``; backward ``reduce_scatter_tensor`` of the
-    full-size gradient. Saves nothing: under ``remat`` the gather runs
+    gathered-size gradient. Saves nothing: under ``remat`` the gather runs
     again in the recompute."""
 
     @staticmethod
-    def forward(ctx, shard, sharding):
-        ctx.sharding = sharding
-        return gather_tensor(shard, sharding)
+    def forward(ctx, shard, sharding, keep):
+        ctx.sharding, ctx.keep = sharding, keep
+        return gather_tensor(shard, sharding, keep)
 
     @staticmethod
     def backward(ctx, grad):
-        return reduce_scatter_tensor(grad.contiguous(), ctx.sharding), None
+        return reduce_scatter_tensor(grad.contiguous(), ctx.sharding, ctx.keep), None, None
 
 
 class ShardedParam:
@@ -344,14 +535,25 @@ class ShardedParam:
         return self.sharding.shape
 
 
-def materialize(x):
+def materialize(x, keep: Tuple[str, ...] = ()):
     """The full tensor of a parameter leaf where it is read: a
     :class:`ShardedParam` gathered (``_GatherLeaf``: differentiable, its
     gradient reduce-scattered back onto the shard), any other leaf as it
-    is."""
+    is. A dim sharded over the axes in ``keep`` stays this rank's block."""
     if isinstance(x, ShardedParam):
-        return _GatherLeaf.apply(x.shard, x.sharding)
+        return _GatherLeaf.apply(x.shard, x.sharding, tuple(keep))
     return x
+
+
+def materialize_part(x, dim: int, part: Tuple[int, int], keep: Tuple[str, ...]):
+    """Rows ``[part[0], part[1])`` along ``dim`` of a parameter leaf: its
+    shard's block where the leaf is sharded on ``dim`` over ``keep``
+    (gathered over its other axes), else that slice of the gathered leaf
+    (whose gradient is zero elsewhere, summed over the ranks in the
+    gather's backward)."""
+    w = materialize(x, keep)
+    a, b = part
+    return w if w.shape[dim] == b - a else w.narrow(dim, a, b - a)
 
 
 def materialize_tree(tree):
@@ -364,6 +566,8 @@ def materialize_tree(tree):
 
 
 __all__ = ["DEFAULT_RULES", "MeshAxes", "Spec", "sharding_rules", "logical_to_spec",
-           "drop_indivisible", "active", "check_fsdp_rules", "split_axes", "LeafSharding",
+           "drop_indivisible", "active", "rules_mode", "check_rules", "TP_FAMILIES", "psum",
+           "SeqParallel", "sequence_parallel", "split_axes", "LeafSharding",
            "leaf_sharding", "param_shardings", "shard_tensor", "gather_tensor",
-           "reduce_scatter_tensor", "ShardedParam", "materialize", "materialize_tree"]
+           "reduce_scatter_tensor", "ShardedParam", "materialize", "materialize_part",
+           "materialize_tree"]

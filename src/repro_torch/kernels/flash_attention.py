@@ -7,7 +7,11 @@ The port of the JAX package's ``repro/kernels/flash_attention.py``: causal
 softcap, GQA by reading kv stream ``bh // group``, and the masked-row guard
 (a row whose whole horizon is masked gets output 0 and ``lse = +inf``).
 Layouts are the JAX function's: q (B·H, Sq, Dh), k/v (B·Hkv, T, Dh),
-head-major, so q stream ``i`` reads kv stream ``i // group``.
+head-major, so q stream ``i`` reads kv stream ``i // group``. Beyond the
+JAX function, ``q_offset`` places local q row ``i`` at key position
+``q_offset + i`` (causal ``k <= q_offset + i``, window ``k > q_offset + i -
+w``): a sequence-parallel rank's query slice against the whole K/V. At 0 it
+is the JAX mask.
 
 * ``flash_forward`` → ``(o, lse)`` (TPU kernel ``_forward``),
   ``flash_dq`` → ``dq`` and ``flash_dkv`` → ``(dk, dv)`` (the two kernels of
@@ -71,17 +75,18 @@ def plan_smem_bytes(kind: str, head_dim: int, dtype) -> int:
     return n
 
 
-def unmasked_pairs(Sq: int, T: int, causal: bool, window) -> int:
+def unmasked_pairs(Sq: int, T: int, causal: bool, window, q_offset: int = 0) -> int:
     """The (q, k) pairs of one stream that the mask keeps: the work the
-    inputs need (a fully masked pair needs none)."""
-    q = np.arange(Sq, dtype=np.int64)
+    inputs need (a fully masked pair needs none). Local q row i sits at
+    position ``q_offset + i``."""
+    q = np.arange(Sq, dtype=np.int64) + int(q_offset)
     hi = np.minimum(q, T - 1) if causal else np.full(Sq, T - 1)
     lo = np.maximum(0, q - int(window) + 1) if window is not None else np.zeros(Sq, np.int64)
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
 def cost(kind: str, BH: int, BHkv: int, Sq: int, T: int, Dh: int, dtype,
-         causal: bool = True, window=None) -> Tuple[int, int]:
+         causal: bool = True, window=None, q_offset: int = 0) -> Tuple[int, int]:
     """(operations, bytes) of one launch of ``kind`` (``fwd``, ``dq`` or
     ``dkv``), whatever computes it: on the unmasked pairs QKᵀ and PV forward,
     + dO·Vᵀ and dS·K for dQ, QKᵀ, dO·Vᵀ, Pᵀ·dO and dSᵀ·Q for dK/dV (2·Dh
@@ -89,7 +94,8 @@ def cost(kind: str, BH: int, BHkv: int, Sq: int, T: int, Dh: int, dtype,
     o, lse; q, do, k, v, lse, delta → dq; the same → dk, dv."""
     el = dtype.itemsize
     q_b, kv_b, row_b = BH * Sq * Dh * el, BHkv * T * Dh * el, BH * Sq * 4
-    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * Dh * BH * unmasked_pairs(Sq, T, causal, window)
+    pairs = unmasked_pairs(Sq, T, causal, window, q_offset)
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * Dh * BH * pairs
     nbytes = {"fwd": 2 * q_b + 2 * kv_b + row_b,
               "dq": 3 * q_b + 2 * kv_b + 2 * row_b,
               "dkv": 2 * q_b + 4 * kv_b + 2 * row_b}[kind]
@@ -100,8 +106,9 @@ def cost(kind: str, BH: int, BHkv: int, Sq: int, T: int, Dh: int, dtype,
 # plain PyTorch versions (dense, float32)
 # ---------------------------------------------------------------------------
 
-def _mask(Sq: int, T: int, causal: bool, window: Optional[int], device) -> torch.Tensor:
-    q_pos = torch.arange(Sq, device=device)[:, None]
+def _mask(Sq: int, T: int, causal: bool, window: Optional[int], device,
+          q_offset: int = 0) -> torch.Tensor:
+    q_pos = q_offset + torch.arange(Sq, device=device)[:, None]
     k_pos = torch.arange(T, device=device)[None, :]
     mask = torch.ones((Sq, T), dtype=torch.bool, device=device)
     if causal:
@@ -111,7 +118,7 @@ def _mask(Sq: int, T: int, causal: bool, window: Optional[int], device) -> torch
     return mask
 
 
-def _scores(q, k, *, causal, window, softcap, group, scale):
+def _scores(q, k, *, causal, window, softcap, group, scale, q_offset=0):
     """Scaled q (BH,Sq,Dh) f32, k repeated over the group (BH,T,Dh) f32, the
     masked (softcapped) scores (BH,Sq,T) and the mask (Sq,T)."""
     qs = q.to(torch.float32) * scale
@@ -119,7 +126,7 @@ def _scores(q, k, *, causal, window, softcap, group, scale):
     s = qs @ kf.transpose(1, 2)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device, q_offset)
     return qs, kf, torch.where(mask, s, _MASK), mask
 
 
@@ -129,12 +136,12 @@ def _defaults(q, scale):
 
 def flash_forward_reference(q, k, v, *, causal: bool = True, window=None,
                             softcap: Optional[float] = None, group: int = 1,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None, q_offset: int = 0):
     """Dense masked softmax in float32 → ``(o in q's type, lse f32)``.
     A fully masked row has ``lse = +inf`` and ``o = 0``."""
     scale = _defaults(q, scale)
     _, _, s, _ = _scores(q, k, causal=causal, window=window, softcap=softcap,
-                         group=group, scale=scale)
+                         group=group, scale=scale, q_offset=q_offset)
     m = s.amax(dim=-1)
     p = torch.where(m[..., None] > _MASK_GUARD, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)
@@ -159,23 +166,25 @@ def _dscores(q, k, v, do, lse, delta, opts):
 
 def flash_dq_reference(q, k, v, do, lse, delta, *, causal: bool = True,
                        window=None, softcap: Optional[float] = None,
-                       group: int = 1, scale: Optional[float] = None):
+                       group: int = 1, scale: Optional[float] = None, q_offset: int = 0):
     """dQ by recompute: ``p = exp(s - lse)``, ``ds = p (do vᵀ - delta)``
     (times ``1 - t²`` under a softcap), ``dq = ds k · scale``."""
     scale = _defaults(q, scale)
     _, kf, _, ds = _dscores(q, k, v, do, lse, delta, dict(
-        causal=causal, window=window, softcap=softcap, group=group, scale=scale))
+        causal=causal, window=window, softcap=softcap, group=group, scale=scale,
+        q_offset=q_offset))
     return ((ds @ kf) * scale).to(q.dtype)
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, *, causal: bool = True,
                         window=None, softcap: Optional[float] = None,
-                        group: int = 1, scale: Optional[float] = None):
+                        group: int = 1, scale: Optional[float] = None, q_offset: int = 0):
     """dK/dV by recompute: ``dk = dsᵀ q·scale``, ``dv = pᵀ do``, summed over
     the ``group`` q heads that share each kv stream."""
     scale = _defaults(q, scale)
     qs, _, p, ds = _dscores(q, k, v, do, lse, delta, dict(
-        causal=causal, window=window, softcap=softcap, group=group, scale=scale))
+        causal=causal, window=window, softcap=softcap, group=group, scale=scale,
+        q_offset=q_offset))
     BHkv, T, Dh = k.shape
     dk = (ds.transpose(1, 2) @ qs).view(BHkv, group, T, Dh).sum(dim=1)
     dv = (p.transpose(1, 2) @ do.to(torch.float32)).view(BHkv, group, T, Dh).sum(dim=1)
@@ -192,7 +201,7 @@ def _launchers():
     with their signatures: pointers and the stream ``c_void_p`` (a plain int
     would cut them to 32 bits), the softcap and scale ``c_float``."""
     lib = build.load("flash_attention").lib
-    ints = [ctypes.c_int] * 8                 # dtype, BH, BHkv, Sq, T, Dh, causal, window
+    ints = [ctypes.c_int] * 9       # dtype, BH, BHkv, Sq, T, Dh, causal, window, q_start
     tail = [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fns = {"fwd": (lib.flash_fwd_launch, 5), "dq": (lib.flash_dq_launch, 7),
            "dkv": (lib.flash_dkv_launch, 8)}
@@ -219,7 +228,7 @@ def _check(q, k, v, group: int) -> Tuple[int, int, int, int, int]:
 
 
 def _kernel_args(tensors, names, shapes, causal, window, softcap, scale,
-                 bound_loop) -> list:
+                 bound_loop, q_offset: int = 0) -> list:
     """The wrapper's checks before a launch, then the C arguments after the
     pointers. Raises on what the kernel does not take; the C entry point
     refuses a grid or a tile plan past the card's limits."""
@@ -238,10 +247,13 @@ def _kernel_args(tensors, names, shapes, causal, window, softcap, scale,
                          "keep their output accumulators in registers")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
-    # a window past Sq + T masks nothing, so clamping keeps the int32 exact
-    no_window = Sq + T
+    if not 0 <= q_offset < 2 ** 30:
+        raise ValueError(f"q_offset must be in [0, 2^30), got {q_offset}")
+    # a window past q_offset + Sq + T masks nothing, so clamping keeps the
+    # int32 exact
+    no_window = q_offset + Sq + T
     w = no_window if window is None else max(-no_window, min(int(window), no_window))
-    return [_DTYPE_CODES[dtype], BH, BHkv, Sq, T, Dh, int(bool(causal)), w,
+    return [_DTYPE_CODES[dtype], BH, BHkv, Sq, T, Dh, int(bool(causal)), w, int(q_offset),
             0.0 if softcap is None else float(softcap), float(scale),
             int(bool(bound_loop))]
 
@@ -252,19 +264,22 @@ def _launch(kind: str, ptrs, args, device) -> None:
 
 def flash_forward(q, k, v, *, causal: bool = True, window=None,
                   softcap: Optional[float] = None, group: int = 1,
-                  scale: Optional[float] = None, bound_loop: bool = True):
+                  scale: Optional[float] = None, bound_loop: bool = True,
+                  q_offset: int = 0):
     """``(o, lse)``: the forward kernel on CUDA tensors, the plain version
-    on CPU tensors."""
+    on CPU tensors. ``q_offset``: the key position of the first query."""
     shapes = _check(q, k, v, group)
     scale = _defaults(q, scale)
     if not build.route("flash_forward", q, k, v):
         return flash_forward_reference(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, group=group, scale=scale)
+                                       softcap=softcap, group=group, scale=scale,
+                                       q_offset=q_offset)
     args = _kernel_args((q, k, v), ("q", "k", "v"), shapes, causal, window,
-                        softcap, scale, bound_loop)
+                        softcap, scale, bound_loop, q_offset)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    if build.abstract("flash_forward", lambda: cost("fwd", *shapes, q.dtype, causal, window), q):
+    if build.abstract("flash_forward",
+                      lambda: cost("fwd", *shapes, q.dtype, causal, window, q_offset), q):
         return o, lse
     _launch("fwd", (q, k, v, o, lse), args, q.device)
     flash_attention.forward_launches += 1
@@ -279,7 +294,7 @@ def _check_grads_in(q, do, lse, delta):
 
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
              softcap: Optional[float] = None, group: int = 1,
-             scale: Optional[float] = None, bound_loop: bool = True):
+             scale: Optional[float] = None, bound_loop: bool = True, q_offset: int = 0):
     """dQ: the dQ kernel on CUDA tensors, the plain version on CPU tensors."""
     shapes = _check(q, k, v, group)
     _check_grads_in(q, do, lse, delta)
@@ -287,12 +302,13 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
     if not build.route("flash_dq", q, k, v, do, lse, delta):
         return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
                                   window=window, softcap=softcap, group=group,
-                                  scale=scale)
+                                  scale=scale, q_offset=q_offset)
     args = _kernel_args((q, k, v, do, lse, delta),
                         ("q", "k", "v", "do", "lse", "delta"), shapes, causal,
-                        window, softcap, scale, bound_loop)
+                        window, softcap, scale, bound_loop, q_offset)
     dq = torch.empty_like(q)
-    if build.abstract("flash_dq", lambda: cost("dq", *shapes, q.dtype, causal, window), q):
+    if build.abstract("flash_dq",
+                      lambda: cost("dq", *shapes, q.dtype, causal, window, q_offset), q):
         return dq
     _launch("dq", (q, k, v, do, lse, delta, dq), args, q.device)
     flash_attention.dq_launches += 1
@@ -301,7 +317,7 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
 
 def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
               softcap: Optional[float] = None, group: int = 1,
-              scale: Optional[float] = None, bound_loop: bool = True):
+              scale: Optional[float] = None, bound_loop: bool = True, q_offset: int = 0):
     """``(dk, dv)``: the dK/dV kernel on CUDA tensors, the plain version on
     CPU tensors."""
     shapes = _check(q, k, v, group)
@@ -310,12 +326,13 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True, window=None,
     if not build.route("flash_dkv", q, k, v, do, lse, delta):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal=causal,
                                    window=window, softcap=softcap, group=group,
-                                   scale=scale)
+                                   scale=scale, q_offset=q_offset)
     args = _kernel_args((q, k, v, do, lse, delta),
                         ("q", "k", "v", "do", "lse", "delta"), shapes, causal,
-                        window, softcap, scale, bound_loop)
+                        window, softcap, scale, bound_loop, q_offset)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if build.abstract("flash_dkv", lambda: cost("dkv", *shapes, q.dtype, causal, window), q):
+    if build.abstract("flash_dkv",
+                      lambda: cost("dkv", *shapes, q.dtype, causal, window, q_offset), q):
         return dk, dv
     _launch("dkv", (q, k, v, do, lse, delta, dk, dv), args, q.device)
     flash_attention.dkv_launches += 1
@@ -346,14 +363,17 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     softcap: Optional[float] = None, group: int = 1,
-                    scale: Optional[float] = None, bound_loop: bool = True):
+                    scale: Optional[float] = None, bound_loop: bool = True,
+                    q_offset: int = 0):
     """Attention over q (B·H, Sq, Dh) and k/v (B·Hkv, T, Dh) with
     ``B·Hkv·group == B·H``; returns (B·H, Sq, Dh) in q's type.
     Differentiable. ``scale`` defaults to 1/sqrt(Dh) (pass 1.0 for
-    pre-scaled queries); ``window`` is an int or None."""
+    pre-scaled queries); ``window`` is an int or None; ``q_offset`` is the
+    key position of the first query (a sequence-parallel rank's slice)."""
     opts = dict(causal=bool(causal), window=None if window is None else int(window),
                 softcap=None if softcap is None else float(softcap), group=int(group),
-                scale=_defaults(q, scale), bound_loop=bool(bound_loop))
+                scale=_defaults(q, scale), bound_loop=bool(bound_loop),
+                q_offset=int(q_offset))
     return _FlashAttention.apply(q, k, v, opts)
 
 

@@ -22,18 +22,21 @@ storage, nothing computed), on one device of the mesh:
   ``output_size_in_bytes`` (``alias_size_in_bytes`` of it shared with the
   arguments), ``temp_size_in_bytes`` (the peak beyond the arguments), and
   ``peak_bytes`` with ``fits`` against the H100's 80 GB.
-* **Collectives**: under the ``default`` preset the port replicates the
-  train state on every device (data parallel) and splits the batch over
-  the mesh axes that ``act_batch`` maps to. A recording backend stands in
-  for the processes: ``all_gather_rows`` and ``reduce_grads`` return fake
-  tensors of the real shapes and add their operands' bytes under JAX's op
-  names. Under ``fsdp`` (train cells of the non-MoE archs) the state is
-  one device's shards (``"state": "sharded"``) and a recording mesh
-  stands in for the ranks: each weight's just-in-time gather, its
-  gradient's reduce-scatter and the norm's psum return fake tensors of the
+* **Collectives**: a cell whose state stays replicated on every device
+  (data parallel) splits the batch over the mesh axes that ``act_batch``
+  maps to. A recording backend stands in for the processes:
+  ``all_gather_rows`` and ``reduce_grads`` return fake tensors of the real
+  shapes and add their operands' bytes under JAX's op names. Under
+  ``fsdp`` (train cells of the non-MoE archs) and under ``default`` (train
+  cells of the dense archs) the state is one device's shards (``"state":
+  "sharded"``) and a recording mesh stands in for the ranks: each weight's
+  just-in-time gather, its gradient's reduce-scatter, the norm's psum and,
+  under ``default``, the sequence's gathers and reduce-scatters and the
+  vocabulary-parallel loss's pmax and psums return fake tensors of the
   real shapes and add their operands' bytes the same way. Under
   ``remat="none"`` the gathered weights are saved for the backward, under
-  ``full`` only the shards: the peak shows which.
+  ``full`` only the shards: the peak shows which. The other ``default``
+  cells keep the state replicated and say why (``replicated_why``).
 
 The cells take the card's routes: attention ``auto`` runs flash wherever
 ``analysis/smem.py`` ``flash_feasible`` admits the shape (the JAX dry run
@@ -285,6 +288,8 @@ class RecordingMesh:
         self.backend._record("all-reduce", _nbytes(x))
         return x.new_empty(x.shape)
 
+    pmax = psum
+
 
 def batch_shards(mesh: AbstractMesh, batch: int, rules: Dict[str, Any]) -> int:
     """The devices ``act_batch`` splits a batch of ``batch`` rows over (the
@@ -336,8 +341,10 @@ def trace(cell: specs_lib.Cell, backend: RecordingBackend = None) -> Dict[str, A
     }
 
 
-def _check_preset(cfg, shape: str, rules_preset: str) -> None:
-    """Raise ``ValueError`` for a preset the port does not run on this cell."""
+def _check_preset(cfg, shape: str, rules_preset: str) -> str:
+    """Raise ``ValueError`` for a preset the port does not run on this cell;
+    else return why the cell's state stays replicated (``""``: it is
+    sharded)."""
     if rules_preset not in specs_lib.RULE_PRESETS:
         raise ValueError(f"unknown rules preset '{rules_preset}' "
                          f"(have {sorted(specs_lib.RULE_PRESETS)})")
@@ -345,6 +352,16 @@ def _check_preset(cfg, shape: str, rules_preset: str) -> None:
         raise ValueError("rules preset 'head_tp' shards attention heads over the model axis "
                          "(tensor parallelism of activations), which the port's eager layers "
                          "do not have (ROADMAP.md A13)")
+    if rules_preset == "default":
+        if specs_lib.SHAPES[shape]["kind"] != "train":
+            return ("the port shards the train step only: prefill and decode keep the state "
+                    "replicated under 'default' (ROADMAP.md A15)")
+        if cfg.family == "moe":
+            return "the experts need expert parallelism (ROADMAP.md A14)"
+        if cfg.family not in sh.TP_FAMILIES or cfg.frontend is not None:
+            return (f"the {cfg.family} family's layers have no sequence-parallel layout "
+                    "(ROADMAP.md A12b)")
+        return ""
     if rules_preset == "fsdp":
         if specs_lib.SHAPES[shape]["kind"] != "train":
             raise ValueError(f"rules preset 'fsdp' on {shape}: the port shards the train step "
@@ -354,6 +371,7 @@ def _check_preset(cfg, shape: str, rules_preset: str) -> None:
             raise ValueError(f"rules preset 'fsdp' on {cfg.name}: its experts stay on the model "
                              "axis (act_experts → model), which needs expert parallelism the "
                              "port does not have (ROADMAP.md A14)")
+    return ""
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
@@ -368,10 +386,13 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
     ``scaled`` is ``full``. ``device``: what the fake tensors are (``cpu``
     takes the CPU's own routes, to hold a trace to a real CPU step);
     ``stand_in``: the CPU stand-in for the card (``specs.abstract_device``).
-    ``rules_preset``: "default" (the state replicated on every device) or
-    "fsdp" (a train cell's state sharded, ``"state": "sharded"``)."""
+    ``rules_preset``: "fsdp" (a train cell's state sharded, ``"state":
+    "sharded"``) or "default" (the dense archs' train cells sharded as
+    well, with the batch over ``("pod", "data")`` and the sequence, the MLP
+    hidden and the vocabulary over ``"model"``; every other cell keeps the
+    state replicated on each device and ``replicated_why`` says why)."""
     cfg = config_lib.get_config(arch)
-    _check_preset(cfg, shape, rules_preset)
+    replicated_why = _check_preset(cfg, shape, rules_preset)
     if mesh_override is not None:
         mesh = mesh_override
     elif mesh_kind == "one":
@@ -385,8 +406,10 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
     rows = max(4, info["batch"] // 64) if smoke else info["batch"]
     rules = dict(specs_lib.SHAPE_RULES[shape], **specs_lib.RULE_PRESETS[rules_preset])
     shards = batch_shards(mesh, rows, rules)
+    if rules_preset == "default" and not replicated_why and mesh.size == 1:
+        replicated_why = "one device: nothing to shard"
     sharding: Dict[str, Any] = {}
-    if rules_preset == "fsdp":
+    if not replicated_why:
         backend = RecordingBackend(mesh.size)
         sharding = dict(mesh=RecordingMesh(mesh, backend), rules=dict(sh.DEFAULT_RULES, **rules))
     else:
@@ -403,6 +426,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
         "traced_on": ("the CPU stand-in: fake cpu tensors on the card's routes" if cell.as_card
                       else f"fake {cell.device} tensors"),
         "state": "sharded" if sharding else "replicated", "batch_shards": shards,
+        **({"replicated_why": replicated_why} if replicated_why else {}),
         "local_batch": cell.batch,
         "argument_bytes_per_device": full["memory"]["argument_size_in_bytes"],
         "full": full,
@@ -537,7 +561,8 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-mode", default="probe",
                     help="selection gradient source for graft cells")
     ap.add_argument("--rules-preset", default="default", choices=list(specs_lib.RULE_PRESETS),
-                    help="default: the state replicated; fsdp: train cells' state sharded")
+                    help="fsdp: train cells' state sharded; default: the dense archs' train "
+                         "cells sharded too, the rest replicated")
     ap.add_argument("--data-source", default="synthetic_lm",
                     help="task/data-source registry name for train cells")
     ap.add_argument("--cpu-stand-in", action="store_true",

@@ -53,9 +53,22 @@ same subset rows as a peer at index 0 of the axes the subset does not split
 over trains on them, as JAX's replicated shards compute, and its loss
 counts zero. ``train_state_logical`` is the twin of JAX's logical tree of
 the train state.
+
+JAX's ``default`` preset (the dense family): the same state (``fsdp``
+overrides activation rules only), the batch over ``("pod", "data")`` and
+each row's sequence over ``"model"`` (``models/model.py``
+``sequence_layout``): the model peers of a batch shard hold the same rows
+and each runs its positions of the residual stream, the attention queries
+and its slices of the MLP and of the vocabulary, with the collectives of
+``distributed/sharding.py`` ``SeqParallel``. The loss comes out whole on
+every model peer, and only the peer at model index 0 counts it (the
+``counts`` rule above, ``model`` not being a batch axis). The selection
+forward gathers the final hiddens over the sequence, so its per-row
+outputs are the one-process values on every model peer.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -155,8 +168,10 @@ class ShardLayout:
 
 
 def _check_sharded(mcfg, tcfg: TrainConfig, mesh, rules) -> None:
-    """Raise ``ValueError`` for what the sharded step does not run."""
-    sh.check_fsdp_rules(mesh, rules)
+    """Raise ``ValueError`` for what the sharded step does not run: rules
+    other than the ``fsdp`` layout and, for the dense family, the
+    ``default`` one (``sharding.check_rules``)."""
+    sh.check_rules(mesh, rules, mcfg.family)
     if tcfg.optimizer.name == "adafactor":
         raise ValueError(ADAFACTOR_SHARDED)
     if tcfg.use_graft and tcfg.graft.grad_mode == "full":
@@ -298,7 +313,9 @@ def selection_rows(mcfg, tcfg: TrainConfig, params, batch
     (K,)). Each row's outputs depend on that row alone."""
     gcfg = tcfg.graft
     grad_source = sources_lib.resolve_grad_source(gcfg.grad_mode)
-    h, mask = model_lib.forward_hiddens(mcfg, params, batch)
+    # under the default preset the sequence is gathered first: the probe
+    # positions and the pooling see the whole of it, as one process does
+    h, mask = model_lib.whole_hiddens(mcfg, params, batch)
     S = h.shape[1]
     stride = max(1, S // tcfg.probe_positions) if tcfg.probe_positions else 1
     hp = h[:, ::stride, :]
@@ -604,17 +621,24 @@ def make_train_step(mcfg, tcfg: TrainConfig, kind: Optional[str] = None, backend
             raise ValueError("make_train_step under sharding_rules steps a sharded state: build "
                              "it with state_for_model or init_train_state under the same rules")
 
+    def rules():
+        """The rules the step was made under, active while it runs: the
+        forward reads the ``default`` preset's layout from them."""
+        return sh.sharding_rules(*active) if active is not None else contextlib.nullcontext()
+
     if step is None:
         def select(state, batch):
             check(state)
-            return selection_step(mcfg, tcfg, state, batch, backend)
+            with rules():
+                return selection_step(mcfg, tcfg, state, batch, backend)
         return select
     sentinel = tcfg.sentinel
     opt = make_optimizer(tcfg.optimizer)
 
     def fn(state, batch):
         check(state)
-        return step(mcfg, tcfg, state, batch, sentinel=sentinel, opt=opt, backend=backend)
+        with rules():
+            return step(mcfg, tcfg, state, batch, sentinel=sentinel, opt=opt, backend=backend)
     return fn
 
 
@@ -635,12 +659,24 @@ def make_run_step(mcfg, tcfg: TrainConfig, backend=None):
 # serve steps
 # ---------------------------------------------------------------------------
 
+def _check_serve_rules() -> None:
+    """Raise ``ValueError`` under the ``default`` preset's sharding rules:
+    the serve steps and their caches have no sharded layout yet."""
+    active = sh.active()
+    if active is not None and sh.rules_mode(*active) == "default":
+        raise ValueError("prefill and decode under the 'default' preset: the port shards the "
+                         "train step only; sharded serving and its caches are to come "
+                         "(ROADMAP.md A15)")
+
+
 def prefill_step(mcfg, params, batch, max_seq: int):
     """A prompt batch into a fresh cache of ``max_seq`` positions → (logits
     of the last position, cache)."""
+    _check_serve_rules()
     return decode_lib.prefill(mcfg, params, batch, max_seq)
 
 
 def decode_step(mcfg, params, cache, tokens):
     """One token a row against ``cache`` → (logits, cache)."""
+    _check_serve_rules()
     return decode_lib.decode_step(mcfg, params, cache, tokens)

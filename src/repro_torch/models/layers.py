@@ -12,8 +12,10 @@ kernels of ``kernels/flash_attention.py``, one forward launch per layer and
 a dQ and a dK/dV launch in its backward), or the dense or KV-chunked path
 as plain tensor ops, which is what the JAX package leaves to XLA outside
 the flash kernel. With a KV cache (prefill into the cache and decode) it
-always runs the dense or chunked path, as the JAX package does: the flash
-kernels assume positions from zero. ``moe`` is the capacity-factor MoE
+always runs the dense or chunked path, as the JAX package does. Under the
+``default`` preset (``sp``, a ``sharding.SeqParallel``) a rank's queries
+are a slice of the sequence, and the flash kernels take its first
+position as their query offset. ``moe`` is the capacity-factor MoE
 layer with sort-based dispatch; ``dropless=True`` (a one-token decode step)
 sets each expert's capacity to the group size.
 """
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.analysis import smem
 from repro_torch.core.numerics import device_scalar
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as flash_lib
 
@@ -104,22 +107,23 @@ def resolve_attn_backend(cfg, S: int, T: int, device) -> str:
 
 
 def _flash_attention(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     is_local: bool) -> torch.Tensor:
-    """One flash launch per layer. q (B,S,H,Dh) pre-scaled (kernel scale 1);
-    k/v (B,S,Hkv,Dh). Streams fold head-major (a copy) so q stream i reads kv
-    stream i // group without repeating K/V. Assumes contiguous from-zero
-    positions (``forward_hiddens``' layout)."""
-    B, S, H, Dh = q.shape
-    Hkv = k.shape[2]
+                     is_local: bool, q_offset: int = 0) -> torch.Tensor:
+    """One flash launch per layer. q (B,Sq,H,Dh) pre-scaled (kernel scale 1);
+    k/v (B,T,Hkv,Dh). Streams fold head-major (a copy) so q stream i reads kv
+    stream i // group without repeating K/V. Assumes contiguous positions,
+    the keys' from zero and the queries' from ``q_offset``
+    (``forward_hiddens``' layout; a sequence-parallel rank's slice)."""
+    B, Sq, H, Dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
 
-    def fold(x, heads):
-        return x.transpose(1, 2).contiguous().view(B * heads, S, Dh)
+    def fold(x, heads, n):
+        return x.transpose(1, 2).contiguous().view(B * heads, n, Dh)
 
     window = cfg.sliding_window if cfg.sliding_window is not None and is_local else None
     out = flash_lib.flash_attention(
-        fold(q, H), fold(k, Hkv), fold(v, Hkv), causal=True, window=window,
-        softcap=cfg.attn_logit_softcap, group=H // Hkv, scale=1.0)
-    return out.view(B, H, S, Dh).transpose(1, 2)
+        fold(q, H, Sq), fold(k, Hkv, T), fold(v, Hkv, T), causal=True, window=window,
+        softcap=cfg.attn_logit_softcap, group=H // Hkv, scale=1.0, q_offset=q_offset)
+    return out.view(B, H, Sq, Dh).transpose(1, 2)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -130,7 +134,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
               *, is_local: bool = False, cache: Optional[dict] = None,
-              cache_index: int = 0) -> Tuple[torch.Tensor, Optional[dict]]:
+              cache_index: int = 0, sp=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """GQA attention. x: (B, S, D) → ``(out, new cache or None)``.
 
     Without ``cache``: self-attention over the S positions with a causal
@@ -139,15 +143,29 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
     cache IN PLACE at ``cache_index`` and the S queries attend over the
     whole cache with per-query absolute causality (and the window on a local
     layer), by dense scores, or chunked when ``attn_chunk`` is set and below
-    ``max_seq``; the returned cache holds the same tensors."""
+    ``max_seq``; the returned cache holds the same tensors.
+
+    ``sp`` (a ``sharding.SeqParallel``, the ``default`` preset): x and
+    ``positions`` are this rank's positions ``[sp.start, sp.stop)`` of the
+    sequence. The queries come from them (JAX's ``act_q_seq``), the keys and
+    values from x gathered over the sequence (``act_seq``: whole), each at
+    its global position; the kernels mask with the query offset
+    ``sp.start`` and ``wo`` maps the local rows back to the residual's
+    layout. The backend is chosen on the whole sequence, as JAX's
+    ``resolve_attn_backend(cfg, S, kv_len)`` sees it."""
     B, S, D = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    xkv, kv_positions, q_offset = x, positions, 0
+    if sp is not None and cache is None and sp.size > 1:
+        xkv, q_offset = sp.gather(x), sp.start
+        kv_positions = torch.arange(sp.length, dtype=positions.dtype,
+                                    device=positions.device).expand(B, sp.length)
+    q, k, v = _proj(x, p["wq"]), _proj(xkv, p["wk"]), _proj(xkv, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    k = rope(k, kv_positions, cfg.rope_theta)
     if cfg.query_scale is not None:
         q = q * cfg.query_scale
     else:
@@ -168,11 +186,12 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
         mask = mask.expand(B, S, T)
         backend = "chunked" if cfg.attn_chunk and T > cfg.attn_chunk else "dense"
     else:
-        backend = resolve_attn_backend(cfg, S, S, x)
+        T = k.shape[1]
+        backend = resolve_attn_backend(cfg, T, T, x)
         if backend == "flash":
-            out = _flash_attention(cfg, q, k, v, is_local)
+            out = _flash_attention(cfg, q, k, v, is_local, q_offset)
             return out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D), None
-        qpos, kpos = positions[:, :, None], positions[:, None, :]
+        qpos, kpos = positions[:, :, None], kv_positions[:, None, :]
         mask = kpos <= qpos                                             # (B,S,T)
         if cfg.sliding_window is not None and is_local:
             mask = mask & (kpos > qpos - cfg.sliding_window)
@@ -230,10 +249,31 @@ def _chunked_attention(cfg, qg: torch.Tensor, k_all: torch.Tensor,
 # dense MLP
 # ---------------------------------------------------------------------------
 
-def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    """Gated MLP (SwiGLU / GeGLU per cfg.mlp_activation)."""
+def mlp(cfg, p, x: torch.Tensor, sp=None) -> torch.Tensor:
+    """Gated MLP (SwiGLU / GeGLU per cfg.mlp_activation).
+
+    ``sp`` (a ``sharding.SeqParallel``): x is this rank's positions and the
+    weights are the block's leaves as stored (``ShardedParam``s or
+    tensors). Where ``d_ff`` splits over ``act_mlp``'s axes (JAX's
+    tensor-parallel hidden) x is gathered over the sequence, the rank
+    computes its ``d_ff`` slice with its columns of ``w_gate``/``w_up`` and
+    rows of ``w_down`` and the partial sums are reduce-scattered back onto
+    the sequence; else the rank runs its own positions with the whole
+    weights (the same values, without the gather)."""
     act = _activation(cfg.mlp_activation)
-    return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    if sp is None:
+        p = sh.materialize_tree(p)
+        return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    Fd = p["w_gate"].shape[1]
+    axes = sp.split("act_mlp", Fd)
+    if not axes:
+        return mlp(cfg, p, x)
+    part = sp.part("act_mlp", Fd)
+    w_gate = sh.materialize_part(p["w_gate"], 1, part, axes)
+    w_up = sh.materialize_part(p["w_up"], 1, part, axes)
+    w_down = sh.materialize_part(p["w_down"], 0, part, axes)
+    h = sp.gather(x)
+    return sp.scatter((act(h @ w_gate) * (h @ w_up)) @ w_down, axes)
 
 
 # ---------------------------------------------------------------------------

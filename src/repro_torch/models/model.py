@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +39,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.core.numerics import take_last, take_rows
+from repro_torch.core.numerics import take_last, take_rows, wrapped_index
 from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -469,15 +469,21 @@ def _tree(params) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
-                 dense_override: bool = False, cache=None, cache_index: int = 0):
+                 dense_override: bool = False, cache=None, cache_index: int = 0, sp=None):
     """One residual block of the config's family (dense for a
     ``first_blocks`` layer) → ``(x, new layer cache)``. With ``cache`` (the
     layer's dict of ``models/decode.py``) the block runs S new positions
     against it from ``cache_index`` and returns the updated cache, else
-    ``None``. A one-token step through a MoE block is dropless, as in JAX."""
+    ``None``. A one-token step through a MoE block is dropless, as in JAX.
+    ``sp`` (a ``sharding.SeqParallel``): x holds this rank's positions of
+    the sequence, and the attention and MLP lay out their work as the
+    ``default`` preset declares it (``layers.attention``, ``layers.mlp``)."""
     fam = "dense" if dense_override else cfg.family
     new_cache = None if cache is None else {}
-    p = sh.materialize_tree(p)          # a sharded block's weights, gathered here
+    # a sharded block's weights, gathered here; under ``sp`` the MLP takes
+    # its leaves as stored and gathers its own slices
+    mlp_p = p.get("mlp") if sp is not None else None
+    p = sh.materialize_tree({k: v for k, v in p.items() if mlp_p is None or k != "mlp"})
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     if fam == "ssm":
         t_out, t_state = S.rwkv_time_mix(cfg, p["time"], h,
@@ -491,7 +497,7 @@ def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
         return x + c_out, new_cache
     attn_out, attn_cache = L.attention(
         cfg, p["attn"], h, positions, is_local=is_local,
-        cache=None if cache is None else cache["attn"], cache_index=cache_index)
+        cache=None if cache is None else cache["attn"], cache_index=cache_index, sp=sp)
     if fam == "hybrid":                 # attention and SSM heads in parallel
         ssm_out, ssm_state = S.ssm_heads(cfg, p["ssm"], h,
                                          state=None if cache is None else cache["ssm"])
@@ -505,7 +511,7 @@ def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
     if fam == "moe":
         ff = L.moe(cfg, p["moe"], h2, dropless=cache is not None and x.shape[1] == 1)
     else:
-        ff = L.mlp(cfg, p["mlp"], h2)
+        ff = L.mlp(cfg, p["mlp"] if mlp_p is None else mlp_p, h2, sp)
     if cfg.post_block_norm:
         ff = L.rms_norm(ff, p["ln2_post"], cfg.rms_eps)
     if cache is not None:
@@ -530,15 +536,33 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _dots_po
 # forward / loss / features
 # ---------------------------------------------------------------------------
 
-def embed_inputs(cfg: ModelConfig, params, batch
+def sequence_layout(cfg: ModelConfig, batch) -> Optional[sh.SeqParallel]:
+    """The ``default`` preset's layout of ``batch``'s forward under the
+    active ``sharding_rules`` (``sharding.sequence_parallel``), for a
+    family whose layers run it; else None."""
+    if cfg.family not in sh.TP_FAMILIES or cfg.frontend is not None:
+        return None
+    return sh.sequence_parallel(batch["tokens"].shape[1])
+
+
+def embed_inputs(cfg: ModelConfig, params, batch, sp: Optional[sh.SeqParallel] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (x (B,S,D), positions (B,S) int32, loss_mask (B,S) f32).
 
     The frontend decides the input: ``frame_embeds`` (audio: every position
     labeled), ``patch_embeds`` followed by the embedded ``tokens`` (vlm: the
-    mask is 0 on the patches and 1 on the text), or the embedded ``tokens``."""
+    mask is 0 on the patches and 1 on the text), or the embedded ``tokens``.
+    ``sp``: this rank's positions ``[sp.start, sp.stop)`` of the tokens,
+    embedded at their global positions (JAX's ``act_res_seq``)."""
     _check_supported(cfg)
     params = _tree(params)
+    if sp is not None:
+        tokens = sp.take(batch["tokens"])
+        x = take_rows(sh.materialize(params["embed"]), tokens)
+        B, Sq = x.shape[:2]
+        positions = torch.arange(sp.start, sp.start + Sq, dtype=torch.int32,
+                                 device=x.device).expand(B, Sq)
+        return x, positions, torch.ones((B, Sq), dtype=torch.float32, device=x.device)
     if cfg.family == "audio" or cfg.frontend == "audio_frames":
         x = batch["frame_embeds"].to(cfg.dtype)
         B, Sq = x.shape[:2]
@@ -563,6 +587,9 @@ def embed_inputs(cfg: ModelConfig, params, batch
 def forward_hiddens(cfg: ModelConfig, params, batch
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward through the stack → (hiddens (B,S,D), loss_mask (B,S)).
+    Under the ``default`` preset (``sequence_layout``) both are this rank's
+    positions of the sequence: the residual stream stays split through
+    every block, its norms and ``final_norm``.
 
     The ``first_blocks`` run first, dense, global and never recomputed, as
     in the JAX package. Then each block of the stack: ``remat="full"``
@@ -574,21 +601,22 @@ def forward_hiddens(cfg: ModelConfig, params, batch
     the dispatcher and is recomputed, as a ``pallas_call`` is under
     ``checkpoint_dots``."""
     params = _tree(params)
-    x, positions, mask = embed_inputs(cfg, params, batch)
+    sp = sequence_layout(cfg, batch)
+    x, positions, mask = embed_inputs(cfg, params, batch, sp)
     is_local = cfg.is_local_pattern()
     for p in params.get("first_blocks", []):
-        x, _ = _apply_block(cfg, p, x, positions, False, dense_override=True)
+        x, _ = _apply_block(cfg, p, x, positions, False, dense_override=True, sp=sp)
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     for i, p in enumerate(params["blocks"]):
         local = bool(is_local[cfg.first_k_dense + i])
         if remat == "full":
             x, _ = checkpoint(_apply_block, cfg, p, x, positions, local,
-                              use_reentrant=False)
+                              use_reentrant=False, sp=sp)
         elif remat == "dots":
             x, _ = checkpoint(_apply_block, cfg, p, x, positions, local,
-                              use_reentrant=False, context_fn=_DOTS_CONTEXT)
+                              use_reentrant=False, context_fn=_DOTS_CONTEXT, sp=sp)
         else:
-            x, _ = _apply_block(cfg, p, x, positions, local)
+            x, _ = _apply_block(cfg, p, x, positions, local, sp=sp)
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return x, mask
 
@@ -620,28 +648,106 @@ def _pad_labels(labels: torch.Tensor, S: int) -> torch.Tensor:
     return labels
 
 
-def _nll(cfg: ModelConfig, params, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+class VocabSlice(NamedTuple):
+    """A vocabulary-parallel head's layout: this rank's columns ``[start,
+    stop)`` of ``size``, the rest on the ranks along ``axes`` of ``mesh``."""
+    mesh: Any
+    axes: Tuple[str, ...]
+    start: int
+    stop: int
+    size: int
+
+
+def loss_head(cfg: ModelConfig, params, sp: Optional[sh.SeqParallel] = None
+              ) -> Tuple[torch.Tensor, Optional[VocabSlice]]:
+    """The head a loss reads, gathered once for all of its chunks: the whole
+    ``unembedding``, or under ``sp`` where the vocabulary splits over
+    ``act_vocab``'s axes (JAX's vocab-parallel logits) this rank's columns
+    of it and their ``VocabSlice``."""
+    if sp is None:
+        return unembedding(cfg, params), None
+    V = cfg.vocab_size
+    axes = sp.split("act_vocab", V)
+    if not axes:
+        return unembedding(cfg, params), None
+    part = sp.part("act_vocab", V)
+    params = _tree(params)
+    if cfg.tie_embeddings:
+        head = sh.materialize_part(params["embed"], 0, part, axes).T
+    else:
+        head = sh.materialize_part(params["lm_head"], 1, part, axes)
+    return head, VocabSlice(sp.mesh, axes, part[0], part[1], V)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       vs: VocabSlice) -> torch.Tensor:
+    """The next-token nll from each rank's columns ``logits`` (..., V/n) of
+    the whole logits: the log-sum-exp from a ``pmax`` and a ``psum`` over
+    ``vs.axes``, the label's logit from the rank whose columns hold it (a
+    ``psum``); NaN at a label outside the vocabulary, as ``take_last``
+    gives it. Every rank gets the same values; the psums' backward adds
+    the ranks' gradients, so each rank's columns get their share."""
+    lf = logits.to(torch.float32)
+    with torch.no_grad():
+        m = vs.mesh.pmax(lf.amax(dim=-1), vs.axes)
+    se = sh.psum(torch.exp(lf - m[..., None]).sum(dim=-1), vs.mesh, vs.axes)
+    lse = m + torch.log(se)
+    safe, valid = wrapped_index(labels, vs.size)
+    local = safe - vs.start
+    owned = valid & (local >= 0) & (local < vs.stop - vs.start)
+    picked = torch.gather(lf, -1, torch.where(owned, local, 0)[..., None])[..., 0]
+    label_logit = sh.psum(torch.where(owned, picked, 0.0), vs.mesh, vs.axes)
+    return (lse - label_logit).masked_fill(~valid, float("nan"))
+
+
+def _chunk_nll(cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor, head: torch.Tensor,
+               vs: Optional[VocabSlice]) -> torch.Tensor:
+    """One loss chunk: logits → float32 log-softmax → nll."""
+    logits = L.softcap(h @ head, cfg.final_logit_softcap)
+    if vs is not None:
+        return vocab_parallel_nll(logits, labels, vs)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -take_last(logp, labels)
+
+
+def _nll(cfg: ModelConfig, params, h: torch.Tensor, labels: torch.Tensor,
+         sp: Optional[sh.SeqParallel] = None) -> torch.Tensor:
     """(B, S) next-token negative log-likelihood, ``labels`` padded to S by
     ``_pad_labels``; seq-chunked with ``cfg.loss_chunk`` so the (B, S, V)
-    float32 log-softmax never materializes whole."""
+    float32 log-softmax never materializes whole. With more than one chunk
+    each chunk runs under a non-reentrant ``torch.utils.checkpoint`` (JAX's
+    ``jax.checkpoint(body)``): the backward keeps the chunk's inputs and
+    recomputes its logits, so no chunk's float32 log-softmax is saved.
+
+    ``sp``: ``h`` holds this rank's positions; they are gathered over the
+    sequence (JAX's logits: sequence whole), and every model rank returns
+    the whole (B, S) nll — with the vocabulary split where it divides
+    (``loss_head``), else from the whole logits (replicated compute: the
+    step counts one replica, ``launch/steps.py``)."""
+    if sp is not None:
+        h = sp.gather(h)
     S = h.shape[1]
     labels = _pad_labels(labels, S)
     C = cfg.loss_chunk if cfg.loss_chunk and S > cfg.loss_chunk else S
     if S % C:
         raise ValueError(f"sequence {S} is not a multiple of loss_chunk {C}")
-    head = unembedding(cfg, params)     # one gather for every chunk
+    head, vs = loss_head(cfg, params, sp)     # one gather for every chunk
+    recompute = C < S and torch.is_grad_enabled()
     out = []
     for c0 in range(0, S, C):
-        logits = logits_from_hiddens(cfg, params, h[:, c0:c0 + C], head)
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        out.append(-take_last(logp, labels[:, c0:c0 + C]))
+        args = (cfg, h[:, c0:c0 + C], labels[:, c0:c0 + C], head, vs)
+        out.append(checkpoint(_chunk_nll, *args, use_reentrant=False) if recompute
+                   else _chunk_nll(*args))
     return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
 
 def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token CE over valid positions."""
+    """Mean next-token CE over valid positions. Under the ``default``
+    preset every model rank returns the whole batch shard's loss."""
     h, mask = forward_hiddens(cfg, params, batch)
-    nll = _nll(cfg, params, h, batch["labels"])
+    sp = sequence_layout(cfg, batch)
+    nll = _nll(cfg, params, h, batch["labels"], sp)
+    mask = mask if sp is None else sp.gather(mask)
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return loss, {"nll": loss}
 
@@ -649,7 +755,9 @@ def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict[str, to
 def per_example_loss(cfg: ModelConfig, params, batch) -> torch.Tensor:
     """(B,) per-sequence loss — GRAFT's per-sample signal."""
     h, mask = forward_hiddens(cfg, params, batch)
-    nll = _nll(cfg, params, h, batch["labels"])
+    sp = sequence_layout(cfg, batch)
+    nll = _nll(cfg, params, h, batch["labels"], sp)
+    mask = mask if sp is None else sp.gather(mask)
     return torch.sum(nll * mask, dim=1) / torch.clamp(torch.sum(mask, dim=1), min=1.0)
 
 
@@ -661,6 +769,16 @@ def pooled_hiddens(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         torch.clamp(torch.sum(mask, dim=1), min=1.0)[:, None]
 
 
+def whole_hiddens(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``forward_hiddens`` with the sequence whole on every rank (gathered
+    under the ``default`` preset)."""
+    h, mask = forward_hiddens(cfg, params, batch)
+    sp = sequence_layout(cfg, batch)
+    if sp is None:
+        return h, mask
+    return sp.gather(h), sp.gather(mask)
+
+
 def pooled_features(cfg: ModelConfig, params, batch) -> torch.Tensor:
     """(B, D) mean-pooled final hiddens — GRAFT's feature source."""
-    return pooled_hiddens(*forward_hiddens(cfg, params, batch))
+    return pooled_hiddens(*whole_hiddens(cfg, params, batch))

@@ -362,6 +362,56 @@ def test_flash_bounded_loops_and_reruns_are_bit_equal(cuda, name):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
+# the cases of the query offset: (FLASH_CASES name, slices); each q stream's
+# positions cut into that many slices, each run with its offset against the
+# whole K/V (the default preset's sequence-parallel attention)
+OFFSET_CASES = [("slice", 2), ("slice", 16), ("gemma2_like", 2), ("gemma2_like", 16),
+                ("stablelm_dh160_gqa4", 4), ("dh256_f32_ragged", 2),
+                ("dh32_bf16_gqa2_window", 3), ("bidirectional_f32", 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,parts", OFFSET_CASES)
+def test_flash_query_offset_matches_plain(cuda, name, parts):
+    """Each slice's forward, dQ and dK/dV against the plain versions at its
+    offset; a slice of whole 64-row tiles gives the forward and dQ rows of
+    the whole sequence's launch bit for bit; every call one launch."""
+    q, k, v, do, opts = _flash_inputs(name, cuda, seed=4)
+    whole = _run_kernels(q, k, v, do, opts)
+    S = q.shape[1]
+    bounds = [S * i // parts for i in range(parts + 1)]
+    for a, b in zip(bounds, bounds[1:]):
+        qi, doi = q[:, a:b].contiguous(), do[:, a:b].contiguous()
+        off = dict(opts, q_offset=a)
+        before = _flash_counts()
+        o, lse, delta, dq, dk, dv = _run_kernels(qi, k, v, doi, off)
+        assert tuple(x - y for x, y in zip(_flash_counts(), before)) == (1, 1, 1)
+        o_r, lse_r = fa.flash_forward_reference(qi, k, v, **off)
+        _assert_close(o, o_r, "o")
+        fin = torch.isfinite(lse_r)
+        assert torch.equal(fin, torch.isfinite(lse))
+        assert (lse[fin] - lse_r[fin]).abs().max().item() <= 1e-4
+        _assert_close(dq, fa.flash_dq_reference(qi, k, v, doi, lse, delta, **off), "dq")
+        dk_r, dv_r = fa.flash_dkv_reference(qi, k, v, doi, lse, delta, **off)
+        _assert_close(dk, dk_r, "dk")
+        _assert_close(dv, dv_r, "dv")
+        if a % 64 == 0 and (b - a) % 64 == 0:
+            assert torch.equal(o, whole[0][:, a:b]) and torch.equal(lse, whole[1][:, a:b])
+            assert torch.equal(dq, whole[3][:, a:b])
+        bounded = _run_kernels(qi, k, v, doi, off, bound_loop=False)
+        assert all(torch.equal(x, y) for x, y in zip((o, lse, delta, dq, dk, dv), bounded))
+
+
+@pytest.mark.cuda
+def test_flash_query_offset_zero_is_the_default(cuda):
+    q, k, v, do, opts = _flash_inputs("gemma2_like", cuda, seed=2)
+    plain = _run_kernels(q, k, v, do, opts)
+    zero = _run_kernels(q, k, v, do, dict(opts, q_offset=0))
+    assert all(torch.equal(a, b) for a, b in zip(plain, zero))
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_forward(q, k, v, q_offset=-1, **opts)
+
+
 @pytest.mark.cuda
 def test_flash_fully_masked_rows_are_exactly_zero(cuda):
     """window = 0 masks every key of every row: o, dq, dk, dv exactly 0 and

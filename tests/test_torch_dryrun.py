@@ -50,6 +50,7 @@ from repro_torch.analysis import launch_audit
 from repro_torch.api import ExperimentConfig
 from repro_torch.checkpoint.jax_bridge import train_state_spec
 from repro_torch.data import sources as tsources
+from repro_torch.distributed import sharding as tsharding
 from repro_torch.kernels import fast_maxvol, flash_attention, fused_optim, graft_select
 from repro_torch.kernels import projection_sweep, rwkv_scan
 from repro_torch.launch import dryrun
@@ -58,6 +59,7 @@ from repro_torch.launch import specs as tspecs
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import decode as tdecode
 from repro_torch.models import model as tmodel
+from repro_torch.selection.base import GraftConfig as TGraftConfig
 
 ARCHS = list(jconfigs.CANONICAL_IDS)
 # the card's routes: fake cuda:0 tensors, or the CPU stand-in where there is no CUDA
@@ -295,7 +297,9 @@ def test_train_cell_on_2x4():
                           smoke=True, mesh_override=mesh, **CARD)
     assert res["full"]["flops"] > 0
     assert res["full"]["collectives"]["total_count"] > 0
-    assert res["batch_shards"] == 2 and res["state"] == "replicated"
+    # the default preset shards a dense arch's train cell (the sequence over
+    # the model axis), the batch over data alone
+    assert res["batch_shards"] == 2 and res["state"] == "sharded"
     assert res["scaled"]["flops"] == res["full"]["flops"]
 
 
@@ -318,11 +322,25 @@ def test_production_mesh_shapes():
 
 @pytest.mark.parametrize("arch,preset,reason", [
     ("qwen3-moe-235b-a22b", "fsdp", "expert parallelism"),
-    ("minicpm-2b", "head_tp", "tensor parallelism")])
+    ("minicpm-2b", "head_tp", "tensor parallelism"),
+    ("rwkv6-7b", "default", "A12b"), ("musicgen-medium", "default", "A12b"),
+    ("qwen3-moe-235b-a22b", "default", "A14")])
 def test_parameter_sharding_presets_raise(arch, preset, reason):
     """What the port's partitioner does not run: fsdp on a MoE arch (its
-    experts stay on the model axis) and head-parallel attention; fsdp on a
-    decode cell too."""
+    experts stay on the model axis) and head-parallel attention in the dry
+    run, fsdp on a decode cell too; the ``default`` preset's sequence and
+    tensor parallelism on the families other than dense and on MoE at the
+    train step (their dry-run cells keep the state replicated), and the
+    serve steps under it."""
+    if preset == "default":
+        mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+        mcfg = tconfigs.get_smoke_config(arch)
+        tt = tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4)))
+        with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match=reason):
+            tsteps.make_train_step(mcfg, tt)
+        with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match="A15"):
+            tsteps.decode_step(mcfg, None, None, None)
+        return
     with pytest.raises(ValueError, match=reason):
         dryrun.run_cell(arch, "train_4k", "single", "graft", smoke=True,
                         rules_preset=preset)

@@ -48,8 +48,10 @@ package, on the CPU.
   argument bytes equal JAX's shard sizes (each rounded to the allocator's
   512-byte blocks) plus the replicated rest; under ``remat="full"`` the
   peak is below the replicated cell's on the same mesh.
-* The refusals: Adafactor and ``grad_mode="full"`` on a sharded state, a
-  tensor-parallel rule set, a MoE model.
+* The refusals: Adafactor and ``grad_mode="full"`` on a sharded state,
+  the ``head_tp`` preset's head-parallel rule set (ROADMAP.md A13), the
+  ``default`` preset on the ssm family (A12b; the dense family runs it,
+  ``tests/test_torch_tp.py``), a MoE model.
 """
 import functools
 import threading
@@ -296,20 +298,28 @@ def test_fsdp_remat_full_peaks_below_replicated(monkeypatch):
     """minicpm-2b's smoke config with ``remat="full"`` (the full-size
     configs' setting), replicated and sharded on one (2, 2) mesh."""
     smoke, built = tconfigs.get_smoke_config, []
+    me = threading.current_thread()
 
     def full_remat(arch, **kw):
+        if threading.current_thread() is not me:     # the module's fleet, still preparing
+            return smoke(arch, **kw)
         built.append(smoke(arch, **dict(kw, remat="full")))
         return built[-1]
     monkeypatch.setattr(tconfigs, "get_smoke_config", full_remat)
     mesh = tmesh.make_mesh((2, 2), ("data", "model"))
-    peaks = {p: dryrun.run_cell("minicpm-2b", "train_4k", "t", "graft", smoke=True,
-                                mesh_override=mesh, rules_preset=p, **CARD)
-             for p in ("default", "fsdp")}
+    fsdp = dryrun.run_cell("minicpm-2b", "train_4k", "t", "graft", smoke=True,
+                           mesh_override=mesh, rules_preset="fsdp", **CARD)
+    # the replicated state with the batch over data, as the default preset
+    # ran before it sharded the dense archs' train cells
+    backend = dryrun.RecordingBackend(2)
+    replicated = dryrun.trace(tspecs.build_cell("minicpm-2b", "train_4k", smoke=True,
+                                                batch_shards=2, backend=backend, **CARD),
+                              backend)
     assert [c.remat for c in built] == ["full", "full"]
-    mem = {p: r["full"]["memory"] for p, r in peaks.items()}
+    mem = {"fsdp": fsdp["full"]["memory"], "default": replicated["memory"]}
     assert mem["fsdp"]["peak_bytes"] < mem["default"]["peak_bytes"]
     assert mem["fsdp"]["argument_size_in_bytes"] < mem["default"]["argument_size_in_bytes"]
-    coll = peaks["fsdp"]["full"]["collectives"]["count_by_op"]
+    coll = fsdp["full"]["collectives"]["count_by_op"]
     assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
 
 
@@ -328,8 +338,12 @@ def test_sharded_step_refusals():
         with tsharding.sharding_rules(mesh, fsdp), pytest.raises(ValueError, match=what):
             tsteps.init_train_state(mcfg, tt, torch.Generator().manual_seed(0), K)
     tt = tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4)))
-    with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match="fsdp"):
+    with tsharding.sharding_rules(mesh, tspecs.RULE_PRESETS["head_tp"]), \
+            pytest.raises(ValueError, match="A13"):
         tsteps.make_train_step(mcfg, tt)
+    rwkv = tconfigs.get_smoke_config("rwkv6-7b")
+    with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match="A12b"):
+        tsteps.make_train_step(rwkv, tt)
     moe = tconfigs.get_smoke_config("qwen3-moe-235b-a22b")
     with tsharding.sharding_rules(mesh, fsdp), pytest.raises(ValueError, match="expert"):
         tsteps.init_train_state(moe, tt, torch.Generator().manual_seed(0), 64)

@@ -1,0 +1,449 @@
+"""JAX's ``default`` sharding preset on the port (the dense family): a
+sequence-parallel residual stream, sequence-sharded attention queries
+through the flash kernels' query offset, a tensor-parallel MLP and a
+vocabulary-parallel loss, against the JAX package on the CPU.
+
+* One 4-rank gloo fleet on a (2, 2) ``("data", "model")`` mesh (``python -m
+  repro_torch.backend --worker --job``, task kind ``tp``) runs 3 float32
+  steps of ``graft_train_step`` (AdamW, a refresh every 2) under
+  ``sharding_rules(mesh, RULE_PRESETS["default"])`` for three cases
+  (``CASES``), each from the same weights (seed 0, JAX's layout as numpy,
+  through ``jax_bridge.sharded_params_from_numpy``): the minicpm-2b smoke
+  config (vocabulary 257: the logits stay whole, one model replica
+  counted), the stablelm-12b smoke config (vocabulary 256: the
+  vocabulary-parallel loss; GQA 4/2; here with ``remat="full"`` and
+  ``loss_chunk=8``, so that the blocks' and the loss chunks' recompute
+  replays the sequence collectives) and the gemma2-27b smoke config at 32
+  positions (alternating windows of 16 that the query offset must honour,
+  both softcaps, the post-block norms); then the baseline step on the
+  stablelm case under Lion, and the minicpm case with the ``logit_embed``
+  grad source under SGD. Each is held against
+  ``jax.jit(repro.launch.steps.make_train_step)`` with no mesh on the same
+  global batches: pivots and ranks EXACT, losses at rtol 1e-4, the grad
+  norm at rtol 1e-5, each leaf of step 0's first moment at rtol 1e-4 /
+  atol 1e-4 of its largest element; each rank's resident params and
+  moments exactly its shards; launches as ``expected_launches(...,
+  sharded=True)`` reckons; the layout each rank reports (the sequence,
+  the MLP hidden and, for stablelm and gemma2, the vocabulary over
+  ``"model"``).
+* The flash plain versions with ``q_offset``: each half and sixteenth of a
+  sequence equals the matching rows of the full-sequence plain version and
+  of JAX's Pallas kernel in interpret mode, forward and gradients (the
+  slices' dK/dV summed).
+* ``vocab_parallel_nll`` over two threads standing in for two ranks (a
+  mesh whose collectives meet at a barrier) equals ``_nll`` of the whole
+  logits, values and gradients.
+* The dry run on the CPU stand-in at smoke size: the four dense archs'
+  ``default`` train cells report ``"state": "sharded"`` and a peak below
+  the replicated state's on the same (2, 2) mesh; the other families keep
+  the state replicated and say why.
+* The loss chunks' recompute: a chunked loss's backward saves no (B, C, V)
+  float32 tensor, and its loss and gradients are bit-equal to the chunked
+  loss without recompute.
+"""
+import dataclasses
+import pickle
+import sys
+import threading
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.data.pipeline import DataConfig, SyntheticLM
+from repro.kernels import flash_attention as jfa
+from repro_torch import configs as tconfigs
+from repro_torch.backend import fleet
+from repro_torch.checkpoint import params_to_numpy
+from repro_torch.core.numerics import take_last
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import specs as tspecs
+from repro_torch.models import layers as tlayers
+from repro_torch.models import model as tmodel
+
+CARD = dict(stand_in=not torch.cuda.is_available())
+OPT = dict(name="adamw", learning_rate=3e-4, schedule="cosine", total_steps=8, warmup_steps=1)
+GC = dict(rset=(2, 4), eps=0.25, refresh_every=2, use_pallas=True)
+STEPS, K = 3, 8
+F32 = dict(param_dtype="float32")
+STABLELM = dict(F32, remat="full", loss_chunk=8)
+# arch, model overrides, sequence length, optimizer, GRAFT config (None: the
+# baseline step), and the axes each rank's layout reports: (sequence, MLP
+# hidden, vocabulary)
+CASES = {
+    "minicpm-2b": dict(arch="minicpm-2b", model=F32, seq=16, opt=OPT, graft=GC,
+                       layout=(["model"], ["model"], [])),
+    "stablelm-12b": dict(arch="stablelm-12b", model=STABLELM, seq=16, opt=OPT, graft=GC,
+                         layout=(["model"], ["model"], ["model"])),
+    "gemma2-27b": dict(arch="gemma2-27b", model=F32, seq=32, opt=OPT, graft=GC,
+                       layout=(["model"], ["model"], ["model"])),
+    "stablelm-12b-baseline-lion": dict(arch="stablelm-12b", model=STABLELM, seq=16,
+                                       opt=dict(OPT, name="lion", learning_rate=1e-4),
+                                       graft=None, layout=(["model"], ["model"], ["model"])),
+    "minicpm-2b-logit-embed-sgd": dict(arch="minicpm-2b", model=F32, seq=16,
+                                       opt=dict(OPT, name="sgd", learning_rate=1e-2),
+                                       graft=dict(GC, grad_mode="logit_embed"),
+                                       layout=(["model"], ["model"], [])),
+}
+FLEET_TIMEOUT_S = 150
+
+_JAX_SCRIPT = """
+import pickle, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro import configs
+from repro.launch import steps
+from repro.optim import OptimizerConfig
+from repro.selection.base import GraftConfig
+for path in sys.argv[1:]:
+    with open(path + ".pkl", "rb") as f:
+        job = pickle.load(f)
+    jm = configs.get_smoke_config(job["arch"], **job["model"])
+    graft = GraftConfig(**job["graft"]) if job["graft"] else None
+    jt = steps.TrainConfig(optimizer=OptimizerConfig(**job["opt"]), graft=graft,
+                           probe_positions=8)
+    state = jax.jit(lambda k: steps.init_train_state(jm, jt, k, job["K"]))(jax.random.PRNGKey(0))
+    state["params"] = jax.tree_util.tree_map(jnp.asarray, job["params"])
+    fn = jax.jit(steps.make_train_step(jm, jt))
+    res = {"losses": [], "grad_norms": [], "ranks": [], "pivots": {}}
+    for step, b in enumerate(job["batches"]):
+        state, met = fn(state, {k: jnp.asarray(v) for k, v in b.items()})
+        res["losses"].append(float(met["loss"]))
+        res["grad_norms"].append(float(met["grad_norm"]))
+        if step == 0:
+            res["m0"] = jax.tree_util.tree_map(np.asarray, state["opt"]["m"])
+        if graft is not None:
+            res["ranks"].append(int(met["rank"]))
+            if step % graft.refresh_every == 0:
+                res["pivots"][step] = np.asarray(state["graft"].pivots).tolist()
+    with open(path + ".out", "wb") as f:
+        pickle.dump(res, f)
+"""
+JAX_PROCESSES = 3
+
+
+def _leaves(tree, path=()):
+    if not isinstance(tree, (dict, list)):
+        return [(path, tree)]
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    return [x for k, v in items for x in _leaves(v, path + (k,))]
+
+
+class _Fleet:
+    """The fleet and JAX's runs, started when the module starts and run
+    beside its other tests."""
+
+    def __init__(self, work):
+        self.work, self.got, self.errors = work, {}, []
+        self.threads = [threading.Thread(target=self._run, args=("prep", self._start))]
+        self.threads[0].start()
+
+    def _start(self):
+        work, job, jax_jobs = self.work, [], []
+        for name, case in CASES.items():
+            mcfg = tconfigs.get_smoke_config(case["arch"], **case["model"])
+            init = params_to_numpy(tmodel.init_params(mcfg, torch.Generator().manual_seed(0)))
+            data = SyntheticLM(DataConfig(vocab_size=mcfg.vocab_size, seq_len=case["seq"],
+                                          global_batch=K))
+            batches = [data.batch_at(s) for s in range(STEPS)]
+            job.append({"kind": "tp", "mesh": ((2, 2), ("data", "model")),
+                        "arch": case["arch"], "smoke": True, "model": case["model"],
+                        "steps": STEPS,
+                        "tcfg": {"optimizer": case["opt"], "graft": case["graft"],
+                                 "probe_positions": 8},
+                        "params": jax.tree_util.tree_map(torch.from_numpy, init),
+                        "batches": [{k: torch.from_numpy(v) for k, v in b.items()}
+                                    for b in batches]})
+            with open(work / f"jax_{name}.pkl", "wb") as f:
+                graft = case["graft"] and dict(case["graft"], use_pallas=False)
+                pickle.dump({"arch": case["arch"], "model": case["model"], "opt": case["opt"],
+                             "graft": graft, "K": K, "params": init, "batches": batches}, f)
+            jax_jobs.append(str(work / f"jax_{name}"))
+        torch.save(job, work / "job.pt")
+        port = fleet.free_port()
+        cmds = [fleet.mesh_worker_command(str(work / "job.pt"), str(work / "out"),
+                                          fleet.backend_overrides(4, r, port), device="cpu")
+                for r in range(4)]
+        jax_cmds = [[sys.executable, "-c", _JAX_SCRIPT, *jax_jobs[i::JAX_PROCESSES]]
+                    for i in range(JAX_PROCESSES)]
+        jax_env = fleet.fleet_env(JAX_PROCESSES, {"JAX_PLATFORMS": "cpu"})
+        more = [threading.Thread(target=self._run, args=(
+                    "fleet", lambda: fleet.launch(cmds, timeout=FLEET_TIMEOUT_S))),
+                threading.Thread(target=self._run, args=(
+                    "jax", lambda: fleet.launch(jax_cmds, timeout=FLEET_TIMEOUT_S,
+                                                env=jax_env)))]
+        for t in more:
+            t.start()
+        self.threads += more
+
+    def _run(self, key, fn):
+        try:
+            self.got[key] = fn()
+        except BaseException as e:                  # noqa: BLE001 — raised in result()
+            self.errors.append(e)
+
+    def join(self):
+        self.threads[0].join()              # it starts the others
+        for t in self.threads[1:]:
+            t.join()
+
+    def result(self):
+        self.join()
+        if self.errors:
+            raise self.errors[0]
+        summaries = [r.last_json() for r in self.got["fleet"]]
+        assert [s["rank"] for s in summaries] == [0, 1, 2, 3]
+        ranks = [torch.load(s["path"], weights_only=True)["tasks"] for s in summaries]
+        jax_runs = {}
+        for name in CASES:
+            with open(self.work / f"jax_{name}.out", "rb") as f:
+                jax_runs[name] = pickle.load(f)
+        return ranks, jax_runs
+
+
+@pytest.fixture(scope="module", autouse=True)
+def background(tmp_path_factory):
+    bg = _Fleet(tmp_path_factory.mktemp("tp"))
+    yield bg
+    bg.join()
+
+
+@pytest.fixture(scope="module")
+def runs(background):
+    return background.result()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_fleet_matches_jax_step(case, runs):
+    ranks, jax_runs = runs
+    want = jax_runs[case]
+    task = list(CASES).index(case)
+    seq, mlp, vocab = CASES[case]["layout"]
+    for rank in ranks:
+        got = rank[task]
+        assert got["gather_exact"]
+        assert got["layout"] == {"seq": seq, "mlp": mlp, "vocab": vocab}
+        assert (got["batch_axes"], got["subset_axes"]) == (["data"], ["data"])
+        assert got["ranks"] == want["ranks"]
+        assert {int(k): v for k, v in got["pivots"].items()} == want["pivots"]
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
+        np.testing.assert_allclose(got["grad_norms"], want["grad_norms"], rtol=1e-5)
+        assert got["resident_bytes"] == got["shard_bytes"]
+        assert got["launches"] == {k: v for k, v in got["launches_expected"].items() if v}
+    want_leaves = dict(_leaves(want["m0"]))
+    got_leaves = _leaves(params_to_numpy(ranks[0][task]["m0"]))
+    assert len(got_leaves) == len(want_leaves)
+    for path, g in got_leaves:
+        w = want_leaves[path]
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * np.abs(w).max(),
+                                   err_msg=str(path))
+
+
+# ---------------------------------------------------------------------------
+# the query offset of the flash plain versions
+# ---------------------------------------------------------------------------
+
+# name: (BHkv, group, T, Dh, window, softcap)
+OFFSET_CASES = {
+    "causal": (2, 1, 64, 32, None, None),
+    "gqa2_window_softcap": (2, 2, 64, 16, 24, 30.0),
+}
+
+
+@pytest.mark.parametrize("parts", [2, 16])
+@pytest.mark.parametrize("name", list(OFFSET_CASES))
+def test_flash_query_offset_is_the_rows_of_the_whole(name, parts):
+    BHkv, group, T, Dh, window, softcap = OFFSET_CASES[name]
+    rng = np.random.default_rng(3)
+    q, do = (rng.normal(size=(BHkv * group, T, Dh)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(BHkv, T, Dh)).astype(np.float32) for _ in range(2))
+    opts = dict(causal=True, window=window, softcap=softcap, group=group)
+    blk = 16 if T % 16 == 0 else 8
+
+    def jloss(q, k, v):
+        o = jfa.flash_attention_pallas(q, k, v, block_q=blk, block_k=blk, interpret=True,
+                                       **opts)
+        return (o * do).sum(), o
+
+    (_, jo), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+    whole = tfa.flash_forward(*(torch.from_numpy(a) for a in (q, k, v)), **opts)
+    tk, tv = (torch.from_numpy(a).requires_grad_() for a in (k, v))
+    n = T // parts
+    for i in range(parts):
+        rows = slice(i * n, (i + 1) * n)
+        tq = torch.from_numpy(q[:, rows].copy()).requires_grad_()
+        o, lse = tfa.flash_forward(tq.detach(), tk.detach(), tv.detach(), q_offset=i * n,
+                                   **opts)
+        assert torch.equal(o, whole[0][:, rows]) and torch.equal(lse, whole[1][:, rows])
+        np.testing.assert_allclose(o.numpy(), np.asarray(jo)[:, rows], atol=2e-5)
+        out = tfa.flash_attention(tq, tk, tv, q_offset=i * n, **opts)
+        (out * torch.from_numpy(do[:, rows].copy())).sum().backward()
+        np.testing.assert_allclose(tq.grad.numpy(), np.asarray(jg[0])[:, rows], atol=5e-4)
+    for got, want in zip((tk.grad, tv.grad), jg[1:]):            # the slices' sum
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4)
+    work = sum(tfa.unmasked_pairs(n, T, True, window, i * n) for i in range(parts))
+    assert work == tfa.unmasked_pairs(T, T, True, window)
+
+
+def test_dense_attention_takes_the_offset():
+    """``layers.attention``'s dense path with a query slice: the rows of the
+    whole sequence's output."""
+    cfg = tconfigs.get_smoke_config("gemma2-27b", param_dtype="float32")
+    model = tmodel.init_params(cfg, torch.Generator().manual_seed(0))
+    p = model.blocks[0].tree()["attn"]
+    x = torch.randn((2, 32, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(32, dtype=torch.int32).expand(2, 32)
+    whole, _ = tlayers.attention(cfg, p, x, pos, is_local=True)
+
+    class Half:                                   # a SeqParallel stand-in, rank 1 of 2
+        size, start, length = 2, 16, 32
+
+        def gather(self, h):
+            return x
+    got, _ = tlayers.attention(cfg, p, x[:, 16:], pos[:, 16:], is_local=True, sp=Half())
+    torch.testing.assert_close(got, whole[:, 16:], rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the vocabulary-parallel loss over two threads
+# ---------------------------------------------------------------------------
+
+class _ThreadMesh:
+    """Rank ``rank`` of ``n`` threads whose collectives meet at a barrier."""
+
+    def __init__(self, rank, n, slots, barrier):
+        self.rank, self.n, self.slots, self.barrier = rank, n, slots, barrier
+
+    def size(self, axes):
+        return self.n
+
+    def _all(self, x):
+        self.slots[self.rank] = x
+        self.barrier.wait()
+        every = list(self.slots)
+        self.barrier.wait()
+        return every
+
+    def psum(self, x, axes):
+        return sum(self._all(x))
+
+    def pmax(self, x, axes):
+        return torch.stack(self._all(x)).amax(dim=0)
+
+
+def test_vocab_parallel_nll_equals_nll():
+    V, n = 12, 2
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn((3, 5, V), generator=gen)
+    labels = torch.randint(0, V, (3, 5), generator=gen)
+    labels[0, 0] = V + 3                          # outside the vocabulary: NaN
+    weight = torch.rand((3, 5), generator=gen)
+    weight[0, 0] = 0.0
+    whole = logits.clone().requires_grad_()
+    want = -take_last(torch.log_softmax(whole, dim=-1), labels)
+    torch.nan_to_num(want * weight).sum().backward()
+    slots, barrier, got = [None] * n, threading.Barrier(n), [None] * n
+
+    def rank(r):
+        mesh = _ThreadMesh(r, n, slots, barrier)
+        part = logits[..., r * V // n:(r + 1) * V // n].clone().requires_grad_()
+        vs = tmodel.VocabSlice(mesh, ("model",), r * V // n, (r + 1) * V // n, V)
+        nll = tmodel.vocab_parallel_nll(part, labels, vs)
+        # rank 0 counts the replicated nll; the psums' backward reach both
+        (torch.nan_to_num(nll * weight).sum() * (1.0 if r == 0 else 0.0)).backward()
+        got[r] = (nll.detach(), part.grad)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for nll, _ in got:
+        torch.testing.assert_close(nll, want.detach(), rtol=1e-6, atol=1e-6, equal_nan=True)
+    torch.testing.assert_close(torch.cat([g for _, g in got], dim=-1), whole.grad,
+                               rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the dry run's default cells
+# ---------------------------------------------------------------------------
+
+DENSE = ["minicpm-2b", "stablelm-12b", "gemma2-27b", "qwen1.5-32b"]
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_default_cell_runs_sharded_below_replicated(arch):
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    res = dryrun.run_cell(arch, "train_4k", "t", "graft", smoke=True, mesh_override=mesh,
+                          rules_preset="default", **CARD)
+    assert res["state"] == "sharded" and res["batch_shards"] == 2 and res["local_batch"] == 2
+    assert "replicated_why" not in res
+    coll = res["full"]["collectives"]["count_by_op"]
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+    backend = dryrun.RecordingBackend(2)             # the state replicated, the batch over data
+    cell = tspecs.build_cell(arch, "train_4k", smoke=True, batch_shards=2, backend=backend,
+                             **CARD)
+    replicated = dryrun.trace(cell, backend)
+    assert res["full"]["memory"]["peak_bytes"] < replicated["memory"]["peak_bytes"]
+
+
+@pytest.mark.parametrize("arch,label", [("rwkv6-7b", "A12b"), ("musicgen-medium", "A12b"),
+                                        ("qwen3-moe-235b-a22b", "A14")])
+def test_default_cell_of_other_families_stays_replicated(arch, label):
+    res = dryrun.run_cell(arch, "train_4k", "single", "graft", smoke=True,
+                          rules_preset="default", **CARD)
+    assert res["state"] == "replicated" and label in res["replicated_why"]
+
+
+# ---------------------------------------------------------------------------
+# the loss chunks' recompute
+# ---------------------------------------------------------------------------
+
+def _chunked_without_recompute(cfg, params, h, labels):
+    """``_nll`` as it was before the chunks were recomputed."""
+    head = tmodel.unembedding(cfg, params)
+    C = cfg.loss_chunk
+    return torch.cat([-take_last(torch.log_softmax(
+        tmodel.logits_from_hiddens(cfg, params, h[:, c0:c0 + C], head).to(torch.float32),
+        dim=-1), labels[:, c0:c0 + C]) for c0 in range(0, h.shape[1], C)], dim=1)
+
+
+def test_loss_chunks_save_no_log_softmax():
+    base = tconfigs.get_smoke_config("minicpm-2b", param_dtype="float32")
+    cfg = dataclasses.replace(base, loss_chunk=8)
+    model = tmodel.init_params(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    params = list(model.parameters())
+
+    def run(loss_of):
+        saved = []
+
+        def pack(t):
+            saved.append(t.numel() * t.element_size()
+                         if t.dtype == torch.float32 and t.dim() == 3
+                         and t.shape[-1] == cfg.vocab_size else 0)
+            return t
+        h, mask = tmodel.forward_hiddens(cfg, model, batch)
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            nll = loss_of(h)
+            loss = torch.sum(nll * mask) / torch.sum(mask)
+        return loss, torch.autograd.grad(loss, params), sum(saved)
+
+    new = run(lambda h: tmodel._nll(cfg, model, h, batch["labels"]))
+    old = run(lambda h: _chunked_without_recompute(cfg, model.tree(), h, batch["labels"]))
+    whole = run(lambda h: tmodel._nll(base, model, h, batch["labels"]))
+    # before: at least each chunk's float32 log-softmax, (4, 8, V) a chunk
+    assert new[2] == 0 and old[2] >= 4 * 32 * cfg.vocab_size * 4 and whole[2] > 0
+    assert torch.equal(new[0], old[0]) and torch.equal(new[0], whole[0])
+    assert all(torch.equal(a, b) for a, b in zip(new[1], old[1]))
+    names = [n for n, _ in model.named_parameters()]
+    for name, a, b in zip(names, new[1], whole[1]):
+        # the head's gradient adds the chunks' products, the whole loss one
+        if name == "embed":
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+        else:
+            assert torch.equal(a, b), name

@@ -19,8 +19,13 @@ forward (``sdpa_fwd``) and one backward call for dQ, dK and dV
 the call; the same library runs in both turns, so their B/A is the noise.
 Prints the card's name and power limit, one row per (shape, kernel) with
 the four times of each kind and B's mean over A's, and writes every time
-to FILE as JSON. Needs one card; imports nothing of JAX.
+to FILE as JSON. Each turn also hashes the outputs of the three kernels (o,
+lse, dQ, dK, dV, sha256 of their bytes) at every shape of ``FLASH_SHAPES``,
+float32 ones too, called as both checkouts take them (no query offset), and
+the driver prints whether A's and B's are bit-equal shape by shape. Needs
+one card; imports nothing of JAX.
 """
+import hashlib
 import json
 import os
 import subprocess
@@ -72,14 +77,21 @@ def _worker(root: str, build_only: bool) -> None:
     if build_only:
         build.load("flash_attention")
         return
-    rows = []
+    rows, digests = [], {}
     for name, B, H, Hkv, S, Dh, dtype, causal, window, softcap in FLASH_SHAPES:
-        if dtype != "bfloat16":
-            continue
         q, k, v, do = _inputs(B, H, Hkv, S, Dh, dtype)
         kw = dict(causal=causal, window=window, softcap=softcap, group=H // Hkv)
         o, lse = fa.flash_forward(q, k, v, **kw)
         delta = (o.float() * do.float()).sum(-1)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, **kw)
+        h = hashlib.sha256()
+        for t in (o, lse, dq, dk, dv):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()
+        del dq, dk, dv
+        if dtype != "bfloat16":
+            continue
         for kind, fn in (("fwd", lambda: fa.flash_forward(q, k, v, **kw)),
                          ("dq", lambda: fa.flash_dq(q, k, v, do, lse, delta, **kw)),
                          ("dkv", lambda: fa.flash_dkv(q, k, v, do, lse, delta, **kw))):
@@ -99,7 +111,7 @@ def _worker(root: str, build_only: bool) -> None:
             del q4, k4, v4, o4
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
-    print(json.dumps({"root": root, "rows": rows}))
+    print(json.dumps({"root": root, "rows": rows, "digests": digests}))
 
 
 def _run(script: str, root: str, *flags: str) -> str:
@@ -138,9 +150,11 @@ def run_ab(script: str, worker, doc: str) -> int:
     for turn, out in zip(roots, built):
         for line in out.strip().splitlines():
             print(f"build {turn}: {line}")
-    by_row = {}
+    by_row, digests = {}, {"A": [], "B": []}
     for turn in "ABBA":
         res = json.loads(_run(script, roots[turn]).strip().splitlines()[-1])
+        if "digests" in res:
+            digests[turn].append(res["digests"])
         for row in res["rows"]:
             t = by_row.setdefault((row["shape"], row["kind"]),
                                  {m: {"A": [], "B": []} for m in ("ms", "device_ms")})
@@ -156,11 +170,17 @@ def run_ab(script: str, worker, doc: str) -> int:
                         f"A {ab['A'][1]:.4f} B/A {b / a:.3f}")
         print(f"{shape:16s} {kind:10s} " + " | ".join(cols))
         table.append({"shape": shape, "kind": kind, **t})
+    equal = None
+    if digests["A"] and digests["B"]:
+        every = digests["A"] + digests["B"]
+        equal = {shape: all(d[shape] == every[0][shape] for d in every) for shape in every[0]}
+        print("outputs bit-equal in every turn (A and B): "
+              + ", ".join(f"{shape} {'yes' if same else 'NO'}" for shape, same in equal.items()))
     if len(sys.argv) == 4:
         os.makedirs(os.path.dirname(os.path.abspath(sys.argv[3])), exist_ok=True)
         with open(sys.argv[3], "w") as f:
-            json.dump({"device": smi.stdout.strip(), "roots": roots, "rows": table}, f,
-                      indent=1)
+            json.dump({"device": smi.stdout.strip(), "roots": roots, "rows": table,
+                       "outputs_bit_equal": equal}, f, indent=1)
     return 0
 
 
