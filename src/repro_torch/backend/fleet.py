@@ -45,7 +45,17 @@ rank's backend (``mesh_worker_command``: ``python -m repro_torch.backend
   * ``"tp"`` — the same under JAX's ``default`` preset (the dense family):
     the batch over ``("pod", "data")``, each row's sequence, the MLP hidden
     and the vocabulary over ``"model"``; the model peers of a batch shard
-    take the same rows.
+    take the same rows;
+  * ``"serve"`` — sharded serving on ``mesh`` under ``preset``'s rules with
+    ``shape``'s ``SHAPE_RULES``: ``arch`` (``smoke``, ``model``) with
+    weights from ``params`` or ``seed``; a prefill of the rank's rows of the prompt
+    batch ``tokens`` into a cache of ``max_seq``, then ``ticks`` decode ticks
+    (greedy, or fed the whole batch's ``feed`` tokens a tick), or with
+    ``wave`` (``serve_model``'s keywords) one ``serve_model`` run. Each rank
+    reports its cache's layout, its rows' logits, the whole batch's greedy
+    tokens, its cache (with ``return_cache``) after the prefill and the
+    last tick, the cache's resident bytes, the seconds and, on the card,
+    its peak.
 """
 from __future__ import annotations
 
@@ -549,6 +559,79 @@ def _fsdp_task(task, backend, device, preset: str = "fsdp") -> Dict[str, Any]:
     return out
 
 
+def _serve_task(task, backend, device) -> Dict[str, Any]:
+    from repro_torch import configs
+    from repro_torch.backend.mesh import make_mesh
+    from repro_torch.checkpoint import jax_bridge
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import specs, steps
+    from repro_torch.models import model as model_lib
+
+    mesh = make_mesh(*task["mesh"], backend)
+    get = configs.get_smoke_config if task.get("smoke") else configs.get_config
+    mcfg = get(task["arch"], **task.get("model", {}))
+    rules = dict(specs.SHAPE_RULES[task["shape"]], **specs.RULE_PRESETS[task["preset"]])
+    with sh.sharding_rules(mesh, rules):
+        if task.get("params") is not None:
+            model = jax_bridge.sharded_params_from_numpy(task["params"],
+                                                         model_lib.Model(mcfg, device), mesh)
+        else:
+            gen = torch.Generator(device=device).manual_seed(task["seed"])
+            model = model_lib.shard_model(model_lib.init_params(mcfg, gen, device), mesh)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    out: Dict[str, Any] = {}
+    if task.get("wave") is not None:
+        out["wave"] = serve_lib.serve_model(mcfg, model, mesh=mesh, rules=rules, **task["wave"])
+        return out
+
+    def leaves(cache):
+        return [t for layer in cache["layers"] for sub in layer.values()
+                for t in (sub.values() if isinstance(sub, dict) else [sub])]
+
+    def copy(cache):            # the K/V tensors are written in place by later ticks
+        return model_lib._map_tree(lambda t: t.detach().to("cpu", copy=True), cache["layers"])
+
+    def greedy(logits, kv):
+        return kv.gather_rows(logits[:, 0].argmax(-1).to(torch.int32)).cpu()[:, None]
+
+    with sh.sharding_rules(mesh, rules):
+        kv = sh.cache_layout(task["tokens"].shape[0], task["max_seq"])
+        tokens = kv.take_rows(task["tokens"]).to(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = steps.prefill_step(mcfg, model, {"tokens": tokens, "labels": tokens},
+                                           task["max_seq"], kv)
+        _sync(device)
+        out["prefill_s"] = time.perf_counter() - t0
+        out["layout"] = {"rows": [kv.row_start, kv.row_stop], "seq": [kv.start, kv.stop],
+                         "batch_axes": list(kv.batch_axes), "seq_axes": list(kv.seq_axes)}
+        if task.get("return_cache"):
+            out["prefill_cache"] = copy(cache)
+        out["logits"], out["tokens"], out["tick_s"] = [logits.float().cpu()], [], []
+        cur = greedy(logits, kv)
+        for i in range(task["ticks"]):
+            out["tokens"].append(cur)
+            fed = cur if task.get("feed") is None else task["feed"][i]
+            _sync(device)
+            t0 = time.perf_counter()
+            logits, cache = steps.decode_step(mcfg, model, cache, kv.take_rows(fed.to(device)))
+            _sync(device)
+            out["tick_s"].append(time.perf_counter() - t0)
+            out["logits"].append(logits.float().cpu())
+            cur = greedy(logits, kv)
+        out["tokens"].append(cur)
+    if task.get("return_cache"):
+        out["cache"] = copy(cache)
+    out["resident_bytes"] = sum(t.untyped_storage().nbytes() for t in leaves(cache))
+    if cuda:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
 def _paths(tree, prefix=()):
     if isinstance(tree, dict):
         return [x for k, v in tree.items() for x in _paths(v, prefix + (k,))]
@@ -559,7 +642,8 @@ def _paths(tree, prefix=()):
 
 _TASKS = {"sharded": _sharded_task, "unequal": _unequal_task, "pipeline": _pipeline_task,
           "collectives": _collectives_task, "fsdp": _fsdp_task,
-          "tp": lambda task, backend, device: _fsdp_task(task, backend, device, "default")}
+          "tp": lambda task, backend, device: _fsdp_task(task, backend, device, "default"),
+          "serve": _serve_task}
 
 
 def run_mesh_job(job: str, out_dir: str, overrides: Sequence[str],

@@ -178,29 +178,28 @@ class Mesh:
         """Every member's ``x`` concatenated along ``dim`` (stacked along dim
         0 when 0-d), in rank order along ``axes``, the first axis major
         (``jax.lax.all_gather(..., axis=dim, tiled=True)``). On gloo the
-        pieces meet in host memory and the result moves to ``x``'s device
-        once."""
+        pieces meet in host memory, each in its own layout, are joined
+        along ``dim`` there (whole runs of memory, never element by
+        element) and the result moves to ``x``'s device once."""
         axes = self._axes(axes)
         part = x.reshape(1) if x.dim() == 0 else x
         if self.size(axes) == 1:
             return part
         group, members = self._group(axes)
-        moved = part.movedim(dim, 0)
-        buf = self._wire(moved, raw=True)
+        buf = self._wire(part, raw=True)
         parts = [torch.empty_like(buf) for _ in members]
         dist.all_gather(parts, buf, group=group)
-        full = torch.cat(self._in_axes_order(parts, axes))
-        if full.dtype != part.dtype:
-            full = full.view(part.dtype)
-        full = full.reshape((len(members) * moved.shape[0],) + tuple(moved.shape[1:]))
-        return full.movedim(0, dim).contiguous().to(part.device, non_blocking=True)
+        parts = [p.view(part.dtype).reshape(part.shape) for p in self._in_axes_order(parts, axes)]
+        return torch.cat(parts, dim=dim).to(part.device, non_blocking=True)
 
     def psum_scatter(self, x: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
         """This member's block of the sum over ``axes`` of every member's
         ``x``: ``x``'s ``dim`` cut into as many blocks as members, block i
         to the member at index i along ``axes`` (``jax.lax.psum_scatter(...,
         scatter_dimension=dim, tiled=True)``): one collective,
-        ``reduce_scatter_tensor``."""
+        ``reduce_scatter_tensor`` over the blocks laid end to end, each in
+        its own layout (on gloo cut from the host copy in whole runs of
+        memory)."""
         axes = self._axes(axes)
         n = self.size(axes)
         if n == 1:
@@ -209,7 +208,7 @@ class Mesh:
             raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does not split "
                              f"over {n} members of {axes}")
         group, _ = self._group(axes)
-        blocks = self._wire(x).movedim(dim, 0).chunk(n)
+        blocks = self.backend._wire(x.contiguous()).chunk(n, dim=dim)
         # block i goes to the member at index i along ``axes``; the group
         # hands block p to its p-th member in mesh order, the member at
         # position at[i] holds index i
@@ -217,10 +216,10 @@ class Mesh:
         order = [0] * n
         for i, p in enumerate(at):
             order[p] = i
-        flat = torch.cat([blocks[i] for i in order])
-        out = torch.empty_like(blocks[0], memory_format=torch.contiguous_format)
+        flat = torch.cat([blocks[i] for i in order])                 # a fresh copy
+        out = torch.empty(blocks[0].shape, dtype=flat.dtype, device=flat.device)
         dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM, group=group)
-        return out.movedim(0, dim).contiguous().to(x.device, non_blocking=True)
+        return out.to(x.device, non_blocking=True)
 
     def broadcast(self, x: torch.Tensor, axes: Axes, index: int) -> torch.Tensor:
         """The ``x`` of the member at ``index`` along ``axes`` on every

@@ -37,8 +37,10 @@ counterpart: under ``fsdp`` no activation is constrained beyond the batch
 split, which the train step makes itself (``launch/steps.py``); under the
 ``default`` preset the dense family's layers place their activations
 where JAX's ``constrain`` calls declare them, with the collectives
-written out (:class:`SeqParallel`). ``check_rules`` says which layouts the
-port runs.
+written out (:class:`SeqParallel`). A decode cache lies as JAX's
+``cache_logical`` declares it (:class:`CacheLayout`: its rows over the
+batch's axes, its positions over ``act_kv_seq``'s). ``check_rules`` says
+which layouts the port runs.
 """
 from __future__ import annotations
 
@@ -175,8 +177,12 @@ def active() -> Optional[Tuple[Any, Dict[str, MeshAxes]]]:
 
 # activation axes that the fsdp preset leaves unsharded: tensor and sequence
 # parallelism
-_TP_ACTIVATIONS = ("act_seq", "act_res_seq", "act_q_seq", "act_kv_seq", "act_heads",
-                   "act_kv_heads", "act_embed", "act_mlp", "act_mlp_inner", "act_vocab")
+_TP_ACTIVATIONS = ("act_seq", "act_res_seq", "act_q_seq", "act_heads", "act_kv_heads",
+                   "act_embed", "act_mlp", "act_mlp_inner", "act_vocab")
+# the decode cache's positions: a shape's rules (JAX's ``SHAPE_RULES`` of
+# decode_32k and long_500k) split them over the mesh under either preset,
+# and only the cache reads them (``cache_layout``)
+_CACHE_ACTIVATIONS = ("act_kv_seq",)
 # the families whose layers run the default preset's layout
 TP_FAMILIES = ("dense",)
 
@@ -185,7 +191,8 @@ def rules_mode(mesh, rules: Dict[str, MeshAxes]) -> str:
     """Which layout ``rules`` give the activations on ``mesh``: ``"fsdp"``
     (the batch alone is split), ``"default"`` (JAX's ``DEFAULT_RULES`` on
     this mesh: the residual's sequence, the attention queries, the MLP
-    hidden and the vocabulary over ``"model"``) or ``"other"``."""
+    hidden and the vocabulary over ``"model"``) or ``"other"``. Either
+    preset may split the cache's positions (``act_kv_seq``) any way."""
     def resolve(r):
         return {n: logical_to_spec((n,), mesh, r) for n in _TP_ACTIVATIONS + ("act_batch",)}
     got = resolve(rules)
@@ -196,11 +203,14 @@ def rules_mode(mesh, rules: Dict[str, MeshAxes]) -> str:
     return "other"
 
 
-def check_rules(mesh, rules: Dict[str, MeshAxes], family: str = "dense") -> str:
-    """Raise ``ValueError`` unless the port's sharded step runs ``rules`` on
-    ``mesh`` for a model of ``family``; return the mode (``rules_mode``).
-    It runs the ``fsdp`` layout for every family it shards, and the
-    ``default`` preset's layout for the dense family."""
+def check_rules(mesh, rules: Dict[str, MeshAxes], family: str = "dense",
+                frontend: Optional[str] = None) -> str:
+    """Raise ``ValueError`` unless the port's sharded steps run ``rules`` on
+    ``mesh`` for a model of ``family`` with ``frontend``; return the mode
+    (``rules_mode``). They run the ``fsdp`` layout for every family they
+    shard, and the ``default`` preset's layout for the dense family
+    without a frontend (``models/model.py`` ``sequence_layout`` lays out
+    token sequences only)."""
     mode = rules_mode(mesh, rules)
     if mode == "fsdp":
         return mode
@@ -213,6 +223,11 @@ def check_rules(mesh, rules: Dict[str, MeshAxes], family: str = "dense") -> str:
             raise ValueError(
                 f"the 'default' preset's sequence and tensor parallelism on the {family} family: "
                 "the port lays it out for the dense family only (ROADMAP.md A12b)")
+        if frontend is not None:
+            raise ValueError(
+                f"the 'default' preset's sequence and tensor parallelism on a {family} model "
+                f"with the {frontend} frontend: the port lays out token sequences only "
+                "(ROADMAP.md A12b)")
         return mode
     heads = [n for n in ("act_heads", "act_kv_heads")
              if logical_to_spec((n,), mesh, rules) != (None,)]
@@ -360,6 +375,58 @@ def sequence_parallel(length: int) -> Optional[SeqParallel]:
     if rules_mode(mesh, rules) != "default":
         return None
     return SeqParallel(mesh, rules, int(length), split_axes("act_res_seq", length, mesh, rules))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CacheLayout:
+    """Where this rank's part of a decode cache for ``rows`` sequences of
+    ``length`` positions lies on ``mesh``: the K/V leaves' logical axes
+    (``("act_batch", "act_kv_seq", "act_kv_heads", None)``, JAX's
+    ``cache_logical``) after ``drop_indivisible``, so that the rows take
+    their axes first and the positions what is left. The rank holds rows
+    ``[row_start, row_stop)`` (over ``batch_axes``) and positions ``[start,
+    stop)`` (over ``seq_axes``); its peers along ``seq_axes`` hold the same
+    rows, and their attention states meet in a split-KV combine
+    (``models/layers.py``)."""
+    mesh: Any
+    rows: int
+    length: int
+    batch_axes: Tuple[str, ...]
+    seq_axes: Tuple[str, ...]
+    row_start: int
+    row_stop: int
+    start: int
+    stop: int
+
+    @property
+    def split(self) -> bool:
+        """Whether the positions are split over more than one rank."""
+        return bool(self.seq_axes) and self.mesh.size(self.seq_axes) > 1
+
+    def take_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole batch's tensor (a view)."""
+        return x.narrow(0, self.row_start, self.row_stop - self.row_start)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole batch's rows from every rank's: an all-gather over
+        ``batch_axes``."""
+        return self.mesh.all_gather(x, self.batch_axes) if self.batch_axes else x
+
+
+def cache_layout(rows: int, length: int, mesh=None,
+                 rules: Optional[Dict[str, MeshAxes]] = None) -> Optional[CacheLayout]:
+    """The :class:`CacheLayout` of a cache for ``rows`` sequences of
+    ``length`` positions on ``mesh`` under ``rules`` (default: the active
+    ``sharding_rules``'; None where there are none)."""
+    if mesh is None:
+        act = active()
+        if act is None:
+            return None
+        mesh, rules = act
+    s = leaf_sharding((rows, length), ("act_batch", "act_kv_seq"), mesh, rules)
+    (r0, r1), (t0, t1) = s.bounds
+    return CacheLayout(mesh, int(rows), int(length), _entry_axes(s.spec[0]),
+                       _entry_axes(s.spec[1]), r0, r1, t0, t1)
 
 
 def _coords(mesh) -> Dict[str, int]:
@@ -556,6 +623,23 @@ def materialize_part(x, dim: int, part: Tuple[int, int], keep: Tuple[str, ...]):
     return w if w.shape[dim] == b - a else w.narrow(dim, a, b - a)
 
 
+def materialize_rows(x, ids: torch.Tensor) -> torch.Tensor:
+    """``embedding(ids, materialize(x))`` of a 2-D parameter leaf whose
+    first dim is whole (the embedding table, ``(None, "embed")``), without
+    a gradient, moving the rows' bytes and not the table's: the ids of
+    every peer along the axes that split the second dim are gathered (the
+    peers may hold other rows of the batch), looked up in this rank's
+    columns, the columns gathered, and this rank's own rows kept."""
+    if not isinstance(x, ShardedParam) or x.sharding.spec[0] is not None:
+        return torch.nn.functional.embedding(ids, materialize(x))
+    mesh, axes = x.sharding.mesh, _entry_axes(x.sharding.spec[1])
+    if _axis_size(mesh, axes) == 1:
+        return torch.nn.functional.embedding(ids, x.shard)
+    rows = torch.nn.functional.embedding(mesh.all_gather(ids, axes), x.shard)
+    rows = mesh.all_gather(rows, axes, dim=rows.dim() - 1)
+    return rows.narrow(0, mesh.axis_index(axes) * ids.shape[0], ids.shape[0])
+
+
 def materialize_tree(tree):
     """``materialize`` over the leaves of nested dicts and lists."""
     if isinstance(tree, dict):
@@ -567,7 +651,7 @@ def materialize_tree(tree):
 
 __all__ = ["DEFAULT_RULES", "MeshAxes", "Spec", "sharding_rules", "logical_to_spec",
            "drop_indivisible", "active", "rules_mode", "check_rules", "TP_FAMILIES", "psum",
-           "SeqParallel", "sequence_parallel", "split_axes", "LeafSharding",
-           "leaf_sharding", "param_shardings", "shard_tensor", "gather_tensor",
+           "SeqParallel", "sequence_parallel", "CacheLayout", "cache_layout", "split_axes",
+           "LeafSharding", "leaf_sharding", "param_shardings", "shard_tensor", "gather_tensor",
            "reduce_scatter_tensor", "ShardedParam", "materialize", "materialize_part",
-           "materialize_tree"]
+           "materialize_rows", "materialize_tree"]

@@ -27,13 +27,17 @@ storage, nothing computed), on one device of the mesh:
   maps to. A recording backend stands in for the processes:
   ``all_gather_rows`` and ``reduce_grads`` return fake tensors of the real
   shapes and add their operands' bytes under JAX's op names. Under
-  ``fsdp`` (train cells of the non-MoE archs) and under ``default`` (train
-  cells of the dense archs) the state is one device's shards (``"state":
-  "sharded"``) and a recording mesh stands in for the ranks: each weight's
-  just-in-time gather, its gradient's reduce-scatter, the norm's psum and,
-  under ``default``, the sequence's gathers and reduce-scatters and the
+  ``fsdp`` (the non-MoE archs) and under ``default`` (the dense archs)
+  the state is one device's shards (``"state": "sharded"``) and a
+  recording mesh stands in for the ranks: each weight's just-in-time
+  gather, its gradient's reduce-scatter, the norm's psum and, under
+  ``default``, the sequence's gathers and reduce-scatters and the
   vocabulary-parallel loss's pmax and psums return fake tensors of the
-  real shapes and add their operands' bytes the same way. Under
+  real shapes and add their operands' bytes the same way. A prefill or
+  decode cell's cache is one device's part of it (``specs.cache_logical``
+  under the shape's ``SHAPE_RULES``: decode_32k's positions over
+  ``"model"``), and the split-KV combine's pmax and psum and the gathered
+  logits count too. Under
   ``remat="none"`` the gathered weights are saved for the backward, under
   ``full`` only the shards: the peak shows which. The other ``default``
   cells keep the state replicated and say why (``replicated_why``).
@@ -45,9 +49,8 @@ plain-PyTorch chain unless the train config sets ``use_pallas``. The
 divergence sentinel is off (a host read, no device memory). Eager PyTorch
 runs every layer, so the JAX run's L = p / 2p delta is not needed:
 ``--no-deltas`` is accepted and ``scaled`` equals ``full``. ``fsdp`` on a
-MoE arch (its experts need expert parallelism), ``fsdp`` on a prefill,
-decode or long cell, and ``head_tp`` (head-parallel attention) raise
-``ValueError`` with the reason.
+MoE arch (its experts need expert parallelism) and ``head_tp``
+(head-parallel attention) raise ``ValueError`` with the reason.
 
 Fake tensors are ``cuda:0``'s, which needs PyTorch with CUDA. Where it has
 none, ``--cpu-stand-in`` traces fake CPU tensors on the card's routes
@@ -59,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -75,10 +79,12 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs as config_lib
 from repro_torch.backend.base import Backend
+from repro_torch.data import sources as data_sources
 from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import build
 from repro_torch.launch import specs as specs_lib
 from repro_torch.launch.mesh import AbstractMesh, make_mesh, make_production_mesh
+from repro_torch.models.model import ShardedModel
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
@@ -97,7 +103,10 @@ _ALLOCATING = frozenset(("empty", "empty_like", "empty_strided", "new_empty",
 
 
 def _tensors(tree) -> List[torch.Tensor]:
-    """Every tensor of nested dicts, lists, tuples, NamedTuples and modules."""
+    """Every tensor of nested dicts, lists, tuples, NamedTuples, modules and
+    sharded models (their shards)."""
+    if isinstance(tree, ShardedModel):
+        tree = tree.model
     if isinstance(tree, torch.nn.Module):
         tree = list(tree.parameters()) + list(tree.buffers())
     leaves, _ = tree_flatten(tree)
@@ -105,7 +114,7 @@ def _tensors(tree) -> List[torch.Tensor]:
     for leaf in leaves:
         if isinstance(leaf, torch.Tensor):
             out.append(leaf)
-        elif isinstance(leaf, torch.nn.Module):
+        elif isinstance(leaf, (torch.nn.Module, ShardedModel)):
             out += _tensors(leaf)
     return out
 
@@ -341,7 +350,7 @@ def trace(cell: specs_lib.Cell, backend: RecordingBackend = None) -> Dict[str, A
     }
 
 
-def _check_preset(cfg, shape: str, rules_preset: str) -> str:
+def _check_preset(cfg, rules_preset: str) -> str:
     """Raise ``ValueError`` for a preset the port does not run on this cell;
     else return why the cell's state stays replicated (``""``: it is
     sharded)."""
@@ -353,20 +362,16 @@ def _check_preset(cfg, shape: str, rules_preset: str) -> str:
                          "(tensor parallelism of activations), which the port's eager layers "
                          "do not have (ROADMAP.md A13)")
     if rules_preset == "default":
-        if specs_lib.SHAPES[shape]["kind"] != "train":
-            return ("the port shards the train step only: prefill and decode keep the state "
-                    "replicated under 'default' (ROADMAP.md A15)")
         if cfg.family == "moe":
             return "the experts need expert parallelism (ROADMAP.md A14)"
-        if cfg.family not in sh.TP_FAMILIES or cfg.frontend is not None:
+        if cfg.family not in sh.TP_FAMILIES:
             return (f"the {cfg.family} family's layers have no sequence-parallel layout "
+                    "(ROADMAP.md A12b)")
+        if cfg.frontend is not None:
+            return (f"the {cfg.frontend} frontend has no sequence-parallel layout "
                     "(ROADMAP.md A12b)")
         return ""
     if rules_preset == "fsdp":
-        if specs_lib.SHAPES[shape]["kind"] != "train":
-            raise ValueError(f"rules preset 'fsdp' on {shape}: the port shards the train step "
-                             "only; sharded prefill and decode (and their caches) are to come "
-                             "(ROADMAP.md A15)")
         if cfg.family == "moe":
             raise ValueError(f"rules preset 'fsdp' on {cfg.name}: its experts stay on the model "
                              "axis (act_experts → model), which needs expert parallelism the "
@@ -386,13 +391,19 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
     ``scaled`` is ``full``. ``device``: what the fake tensors are (``cpu``
     takes the CPU's own routes, to hold a trace to a real CPU step);
     ``stand_in``: the CPU stand-in for the card (``specs.abstract_device``).
-    ``rules_preset``: "fsdp" (a train cell's state sharded, ``"state":
-    "sharded"``) or "default" (the dense archs' train cells sharded as
-    well, with the batch over ``("pod", "data")`` and the sequence, the MLP
-    hidden and the vocabulary over ``"model"``; every other cell keeps the
-    state replicated on each device and ``replicated_why`` says why)."""
+    ``rules_preset``: "fsdp" (a cell's state sharded, ``"state":
+    "sharded"``) or "default" (the dense archs' cells sharded as well, with
+    the batch over ``("pod", "data")`` and the sequence, the MLP hidden and
+    the vocabulary over ``"model"``; every other cell keeps the state
+    replicated on each device and ``replicated_why`` says why). The shape's
+    ``SHAPE_RULES`` come under the preset's."""
     cfg = config_lib.get_config(arch)
-    replicated_why = _check_preset(cfg, shape, rules_preset)
+    info = specs_lib.SHAPES[shape]
+    if info["kind"] == "train" and data_source != "synthetic_lm":     # the task pins fields
+        task = data_sources.get_source(data_source).task
+        cfg = dataclasses.replace(cfg, **task.model_overrides(
+            task.derive(cfg, batch=info["batch"], seq=info["seq"], seed=0)))
+    replicated_why = _check_preset(cfg, rules_preset)
     if mesh_override is not None:
         mesh = mesh_override
     elif mesh_kind == "one":
@@ -402,7 +413,6 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
     sel_modes: Dict[str, Any] = {"feature_mode": feature_mode, "grad_mode": grad_mode}
     if shape.startswith("train"):
         sel_modes["data_source"] = data_source
-    info = specs_lib.SHAPES[shape]
     rows = max(4, info["batch"] // 64) if smoke else info["batch"]
     rules = dict(specs_lib.SHAPE_RULES[shape], **specs_lib.RULE_PRESETS[rules_preset])
     shards = batch_shards(mesh, rows, rules)
@@ -512,13 +522,15 @@ def one_cell(arch: str, shape: str, variant: str, mesh_kind: str, **kw) -> Dict[
 
 
 def _pool_cell(cell, kw):
-    arch, shape, variant, mesh_kind = cell
-    return one_cell(arch, shape, variant, mesh_kind, **kw)
+    arch, shape, variant, mesh_kind, *preset = cell
+    return one_cell(arch, shape, variant, mesh_kind, **dict(kw, **(
+        {"rules_preset": preset[0]} if preset else {})))
 
 
 def sweep(todo, jobs: int, deadline_s: float = None, **kw):
-    """Each (arch, shape, variant, mesh kind) of ``todo`` through
-    ``one_cell`` (``run_cell``'s keywords in ``kw``) in a pool of ``jobs``
+    """Each (arch, shape, variant, mesh kind[, rules preset]) of ``todo``
+    through ``one_cell`` (``run_cell``'s keywords in ``kw``; a cell's preset
+    comes over ``kw``'s) in a pool of ``jobs``
     worker processes, in order; at ``deadline_s`` after the start the
     workers are killed. Returns (results of the cells that finished, cells
     left out). The workers are spawned: they import the caller's
@@ -561,8 +573,8 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-mode", default="probe",
                     help="selection gradient source for graft cells")
     ap.add_argument("--rules-preset", default="default", choices=list(specs_lib.RULE_PRESETS),
-                    help="fsdp: train cells' state sharded; default: the dense archs' train "
-                         "cells sharded too, the rest replicated")
+                    help="fsdp: the non-MoE archs' state sharded; default: the dense archs' "
+                         "state sharded, the rest replicated")
     ap.add_argument("--data-source", default="synthetic_lm",
                     help="task/data-source registry name for train cells")
     ap.add_argument("--cpu-stand-in", action="store_true",

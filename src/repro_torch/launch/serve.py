@@ -14,10 +14,21 @@ greedy argmax, read to the host each tick, as in the JAX package's serve.
 
 It runs on the GPU unless ``--device`` says otherwise, with the smoke
 config of ``--arch`` and random weights from the seed.
+
+``serve_model`` also runs on a port ``Mesh`` under sharding rules (JAX's
+serve runs under ``sharding_rules(mesh)``): the ``fsdp`` preset for every
+non-MoE family, the ``default`` one for the dense family, each with a
+shape's ``SHAPE_RULES`` (decode_32k's split the cache's positions over
+``"model"``). Every rank draws the same prompts and prefills its rows of
+each wave; the cache and the logits are its rows' (``models/decode.py``).
+The next tokens are gathered over the batch's axes each tick, so that every
+rank reads the same tokens, makes the same ticks (their collectives must
+meet) and reports the same results.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from typing import Dict, List, Optional
@@ -27,6 +38,7 @@ import torch
 
 from repro_torch import configs as config_lib
 from repro_torch.api.trainer import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
 
@@ -45,18 +57,34 @@ def serve(arch: str = "minicpm-2b", smoke: bool = True, slots: int = 4,
                        requests=requests, seed=seed)
 
 
-def serve_model(mcfg: model_lib.ModelConfig, model: model_lib.Model, *, slots: int = 4,
+def serve_model(mcfg: model_lib.ModelConfig, model, *, slots: int = 4,
                 max_seq: int = 128, max_new_tokens: int = 16, eos_token: int = 1,
-                requests: int = 8, seed: int = 0) -> Dict:
+                requests: int = 8, seed: int = 0, mesh=None, rules=None) -> Dict:
     """The wave loop over an existing model (on its device). Prompts come
-    from ``np.random.default_rng(seed)``, as in the JAX package's serve."""
+    from ``np.random.default_rng(seed)``, as in the JAX package's serve.
+    With ``mesh`` (a port ``Mesh``) the loop runs under
+    ``sharding_rules(mesh, rules)`` over ``model``'s shards there (a
+    ``ShardedModel``: ``shard_model`` under the same rules)."""
+    if mesh is not None and not isinstance(model, model_lib.ShardedModel):
+        raise TypeError("serve_model on a mesh takes a ShardedModel (models.model.shard_model)")
+    scope = sh.sharding_rules(mesh, rules) if mesh is not None else contextlib.nullcontext()
+    with scope:
+        return _waves(mcfg, model, slots=slots, max_seq=max_seq,
+                      max_new_tokens=max_new_tokens, eos_token=eos_token, requests=requests,
+                      seed=seed)
+
+
+def _waves(mcfg, model, *, slots, max_seq, max_new_tokens, eos_token, requests, seed) -> Dict:
     rng = np.random.default_rng(seed)
     prompts = [list(rng.integers(2, mcfg.vocab_size, size=8)) for _ in range(requests)]
     params = model.tree()
     dev = model.embed.device
 
-    def host_argmax(logits: torch.Tensor) -> np.ndarray:
-        return logits[:, 0, :].argmax(-1).to(torch.int32).cpu().numpy()
+    def host_argmax(logits: torch.Tensor, kv) -> np.ndarray:
+        """The greedy tokens of every slot: this rank's rows' gathered over
+        the batch's axes."""
+        ids = logits[:, 0, :].argmax(-1).to(torch.int32)
+        return (ids if kv is None else kv.gather_rows(ids)).cpu().numpy()
 
     results: List[Dict] = []
     t0 = time.perf_counter()
@@ -70,19 +98,23 @@ def serve_model(mcfg: model_lib.ModelConfig, model: model_lib.Model, *, slots: i
         toks = np.stack([p[:plen] for p in wave]).astype(np.int32)
         if len(wave) < slots:            # idle slots decode zeros, discarded
             toks = np.concatenate([toks, np.zeros((slots - len(wave), plen), np.int32)])
+        kv = sh.cache_layout(slots, max_seq)
         t = torch.from_numpy(toks).to(dev)
-        logits, cache = decode_lib.prefill(mcfg, params, {"tokens": t, "labels": t}, max_seq)
-        last = host_argmax(logits)
+        t = t if kv is None else kv.take_rows(t)
+        logits, cache = decode_lib.prefill(mcfg, params, {"tokens": t, "labels": t}, max_seq,
+                                           kv)
+        last = host_argmax(logits, kv)
         outs: List[List[int]] = [[int(last[i])] for i in range(len(wave))]
         done = [last[i] == eos_token for i in range(len(wave))]
         cur = last[:, None]
         for _ in range(max_new_tokens - 1):
             if all(done):
                 break
+            tok = torch.from_numpy(cur).to(dev)
             logits, cache = decode_lib.decode_step(mcfg, params, cache,
-                                                   torch.from_numpy(cur).to(dev))
+                                                   tok if kv is None else kv.take_rows(tok))
             ticks += 1
-            nxt = host_argmax(logits)
+            nxt = host_argmax(logits, kv)
             for i in range(len(wave)):
                 if not done[i]:
                     outs[i].append(int(nxt[i]))

@@ -20,9 +20,10 @@ Under the ``fsdp`` preset a train cell's state is one device's: the
 parameters are its shards as ``train_state_logical``'s ``params`` entry
 (``models/model.py`` ``params_logical``) places them and the moments
 mirror them, on a mesh that stands in for the ranks (``launch/dryrun.py``
-``RecordingMesh``); the rest is replicated. The
-JAX module's ``cache_logical`` (the decode cache's axes) stays out: the
-port does not shard a cache.
+``RecordingMesh``); the rest is replicated. A prefill or decode cell's
+parameters are one device's shards the same way, and its decode cache is
+one device's part of it, each leaf cut by ``cache_logical`` (the twin of
+JAX's: ``models/decode.py`` ``CACHE_LOGICAL``).
 """
 from __future__ import annotations
 
@@ -165,6 +166,20 @@ def abstract_device(device="cuda:0", stand_in: bool = False) -> Tuple[torch.devi
     return device, False
 
 
+def cache_logical(cache) -> Dict[str, Any]:
+    """The logical-axis tree of a decode cache (``models/decode.py``): JAX's
+    ``cache_logical``, each layer of the port's list with the tuple of the
+    JAX leaf stacked on ``layers`` without that axis, ``index`` ``()``; the
+    port's ``layout`` is no array and has none."""
+    def leaf(name, x):
+        if isinstance(x, dict):
+            return {k: leaf(k, v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [leaf(name, v) for v in x]
+        return decode_lib.CACHE_LOGICAL.get(name, tuple(None for _ in x.shape))
+    return {k: () if k == "index" else leaf(k, v) for k, v in cache.items() if k != "layout"}
+
+
 def fake_batch(specs: Dict[str, TensorSpec], device) -> Dict[str, torch.Tensor]:
     """Fake tensors of the specs (inside a ``FakeTensorMode``)."""
     return {k: torch.empty(s.shape, dtype=s.dtype, device=device) for k, s in specs.items()}
@@ -205,9 +220,10 @@ def build_cell(arch: str, shape: str, *, variant: str = "graft",
     ``backend`` (the dry run's recording backend) carries the step's
     collectives. The global batch sizes the GRAFT state and ``rset``, as
     in JAX. ``stand_in``: see ``abstract_device``. ``mesh`` and
-    ``rules`` (a train cell under the fsdp preset): the state is one
-    device's shards on ``mesh`` (whose collectives the step calls), built
-    and stepped under ``sharding_rules(mesh, rules)``.
+    ``rules`` (a sharded cell): the state is one device's shards on
+    ``mesh`` (whose collectives the step calls), built and stepped under
+    ``sharding_rules(mesh, rules)``; a serve cell's cache is the device's
+    part of it (``serve_cell``).
     ``data_source``: a registered source (train cells), whose task pins the
     model's fields and whose ``spec()`` gives the batch. The train step runs
     without the sentinel. Not smoke, attention runs in chunks of 1024 and
@@ -252,26 +268,52 @@ def build_cell(arch: str, shape: str, *, variant: str = "graft",
             step = steps_lib.make_train_step(mcfg, tcfg, kind=kind, backend=backend)
         return Cell(arch, shape, "train", mcfg, step, (state, batch), tcfg=tcfg, **common)
 
-    if info["kind"] == "prefill":
-        specs = batch_specs(mcfg, local, S)
+    if mesh is None:
         with fake_mode:
             params = model_lib.Model(mcfg, dev)
-            batch = fake_batch(specs, dev)
+        return serve_cell(mcfg, info["kind"], local, S, params, arch=arch, shape=shape,
+                          **common)
+    with fake_mode, sh.sharding_rules(mesh, rules):
+        params = model_lib.shard_model(model_lib.Model(mcfg, dev), mesh, rules)
+    return serve_cell(mcfg, info["kind"], B, S, params, mesh=mesh, rules=rules, arch=arch,
+                      shape=shape, **common)
+
+
+def serve_cell(mcfg, kind: str, rows: int, max_seq: int, params, *, fake_mode, device,
+               as_card: bool, batch: int, seq: Optional[int] = None, mesh=None,
+               rules=None, arch: Optional[str] = None, shape: str = "serve") -> Cell:
+    """A prefill (``kind`` "prefill": ``rows`` prompts of ``seq`` positions,
+    ``max_seq`` by default, into a cache of ``max_seq``) or decode ("decode":
+    one token a row against a cache of ``max_seq`` at index 0) step over
+    ``params`` (fake tensors of ``fake_mode``). ``rows`` is the whole batch
+    and ``batch`` the device's rows of it: the prompts and the tokens are
+    its rows'. With ``mesh`` and ``rules`` the step runs under
+    ``sharding_rules(mesh, rules)``: ``params`` are one device's shards and
+    the cache is the device's part (``sharding.cache_layout``)."""
+    sharded = (lambda: sh.sharding_rules(mesh, rules)) if mesh is not None \
+        else contextlib.nullcontext
+    common = dict(fake_mode=fake_mode, device=device, as_card=as_card, batch=batch)
+    name = arch or mcfg.name
+    if kind == "prefill":
+        with fake_mode:
+            prompts = fake_batch(batch_specs(mcfg, batch, seq or max_seq), device)
 
         def prefill(params, b):
-            return steps_lib.prefill_step(mcfg, params, b, S)
+            with sharded():
+                return steps_lib.prefill_step(mcfg, params, b, max_seq,
+                                              sh.cache_layout(rows, max_seq))
 
-        return Cell(arch, shape, "prefill", mcfg, prefill, (params, batch), **common)
+        return Cell(name, shape, "prefill", mcfg, prefill, (params, prompts), **common)
 
-    with fake_mode:
-        params = model_lib.Model(mcfg, dev)
-        cache = decode_lib.init_cache(mcfg, local, S, dev)
-        tokens = torch.empty((local, 1), dtype=torch.int32, device=dev)
+    with fake_mode, sharded():
+        cache = decode_lib.init_cache(mcfg, rows, max_seq, device)
+        tokens = torch.empty((batch, 1), dtype=torch.int32, device=device)
 
     def decode(params, cache, tok):
-        return steps_lib.decode_step(mcfg, params, cache, tok)
+        with sharded():
+            return steps_lib.decode_step(mcfg, params, cache, tok)
 
-    return Cell(arch, shape, "decode", mcfg, decode, (params, cache, tokens), **common)
+    return Cell(name, shape, "decode", mcfg, decode, (params, cache, tokens), **common)
 
 
 def experiment_cell(cfg, *, device="cuda:0", stand_in: bool = False, mesh=None,

@@ -171,7 +171,7 @@ def _check_sharded(mcfg, tcfg: TrainConfig, mesh, rules) -> None:
     """Raise ``ValueError`` for what the sharded step does not run: rules
     other than the ``fsdp`` layout and, for the dense family, the
     ``default`` one (``sharding.check_rules``)."""
-    sh.check_rules(mesh, rules, mcfg.family)
+    sh.check_rules(mesh, rules, mcfg.family, mcfg.frontend)
     if tcfg.optimizer.name == "adafactor":
         raise ValueError(ADAFACTOR_SHARDED)
     if tcfg.use_graft and tcfg.graft.grad_mode == "full":
@@ -659,24 +659,17 @@ def make_run_step(mcfg, tcfg: TrainConfig, backend=None):
 # serve steps
 # ---------------------------------------------------------------------------
 
-def _check_serve_rules() -> None:
-    """Raise ``ValueError`` under the ``default`` preset's sharding rules:
-    the serve steps and their caches have no sharded layout yet."""
-    active = sh.active()
-    if active is not None and sh.rules_mode(*active) == "default":
-        raise ValueError("prefill and decode under the 'default' preset: the port shards the "
-                         "train step only; sharded serving and its caches are to come "
-                         "(ROADMAP.md A15)")
-
-
-def prefill_step(mcfg, params, batch, max_seq: int):
+def prefill_step(mcfg, params, batch, max_seq: int, layout=None):
     """A prompt batch into a fresh cache of ``max_seq`` positions → (logits
-    of the last position, cache)."""
-    _check_serve_rules()
-    return decode_lib.prefill(mcfg, params, batch, max_seq)
+    of the last position, cache). Under ``sharding_rules`` ``layout`` is
+    the cache's (``sharding.cache_layout``) and the batch, the logits and
+    the cache are its rows' (``models/decode.py``); rules the serve path
+    does not run raise ``ValueError`` (``decode.check_serve_rules``:
+    ``sharding.check_rules`` for the model's family, and no MoE)."""
+    return decode_lib.prefill(mcfg, params, batch, max_seq, layout)
 
 
 def decode_step(mcfg, params, cache, tokens):
-    """One token a row against ``cache`` → (logits, cache)."""
-    _check_serve_rules()
+    """One token a row of ``cache`` (its rows, under ``sharding_rules``)
+    → (logits, cache)."""
     return decode_lib.decode_step(mcfg, params, cache, tokens)

@@ -12,7 +12,9 @@ kernels of ``kernels/flash_attention.py``, one forward launch per layer and
 a dQ and a dK/dV launch in its backward), or the dense or KV-chunked path
 as plain tensor ops, which is what the JAX package leaves to XLA outside
 the flash kernel. With a KV cache (prefill into the cache and decode) it
-always runs the dense or chunked path, as the JAX package does. Under the
+always runs the dense or chunked path, as the JAX package does; where
+the cache's positions split over ranks (``sharding.CacheLayout``) each
+rank attends its slice and the ranks combine (the split-KV path). Under the
 ``default`` preset (``sp``, a ``sharding.SeqParallel``) a rank's queries
 are a slice of the sequence, and the flash kernels take its first
 position as their query offset. ``moe`` is the capacity-factor MoE
@@ -134,7 +136,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
               *, is_local: bool = False, cache: Optional[dict] = None,
-              cache_index: int = 0, sp=None) -> Tuple[torch.Tensor, Optional[dict]]:
+              cache_index: int = 0, sp=None, kv=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """GQA attention. x: (B, S, D) → ``(out, new cache or None)``.
 
     Without ``cache``: self-attention over the S positions with a causal
@@ -152,15 +154,20 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
     its global position; the kernels mask with the query offset
     ``sp.start`` and ``wo`` maps the local rows back to the residual's
     layout. The backend is chosen on the whole sequence, as JAX's
-    ``resolve_attn_backend(cfg, S, kv_len)`` sees it."""
+    ``resolve_attn_backend(cfg, S, kv_len)`` sees it.
+
+    ``kv`` (a ``sharding.CacheLayout``): the cache holds this rank's
+    positions ``[kv.start, kv.stop)`` of ``kv.length``; see
+    ``_cached_attention``."""
     B, S, D = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     xkv, kv_positions, q_offset = x, positions, 0
-    if sp is not None and cache is None and sp.size > 1:
+    if sp is not None and sp.size > 1:
         xkv, q_offset = sp.gather(x), sp.start
-        kv_positions = torch.arange(sp.length, dtype=positions.dtype,
-                                    device=positions.device).expand(B, sp.length)
+        first = cache_index if cache is not None else 0
+        kv_positions = (first + torch.arange(sp.length, dtype=positions.dtype,
+                                             device=positions.device)).expand(B, sp.length)
     q, k, v = _proj(x, p["wq"]), _proj(xkv, p["wk"]), _proj(xkv, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -171,57 +178,109 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
     else:
         q = q / device_scalar(math.sqrt(Dh), torch.float32, q.device).to(q.dtype)
 
-    new_cache = None
     if cache is not None:
-        cache["k"][:, cache_index:cache_index + S] = k
-        cache["v"][:, cache_index:cache_index + S] = v
-        new_cache = {"k": cache["k"], "v": cache["v"]}
-        k, v = cache["k"], cache["v"]
-        T = k.shape[1]
-        kv_pos = torch.arange(T, device=x.device)[None, :]                     # (1,T)
-        q_abs = cache_index + torch.arange(S, device=x.device)[:, None]        # (S,1)
-        mask = kv_pos <= q_abs                                                 # (S,T)
-        if cfg.sliding_window is not None and is_local:
-            mask = mask & (kv_pos > q_abs - cfg.sliding_window)
-        mask = mask.expand(B, S, T)
-        backend = "chunked" if cfg.attn_chunk and T > cfg.attn_chunk else "dense"
-    else:
-        T = k.shape[1]
-        backend = resolve_attn_backend(cfg, T, T, x)
-        if backend == "flash":
-            out = _flash_attention(cfg, q, k, v, is_local, q_offset)
-            return out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D), None
-        qpos, kpos = positions[:, :, None], kv_positions[:, None, :]
-        mask = kpos <= qpos                                             # (B,S,T)
-        if cfg.sliding_window is not None and is_local:
-            mask = mask & (kpos > qpos - cfg.sliding_window)
+        out, new_cache = _cached_attention(cfg, q, k, v, positions[0], is_local, cache,
+                                           cache_index, sp, kv)
+        return out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D), new_cache
 
-    group = H // Hkv
-    qg = q.reshape(B, S, Hkv, group, Dh)
-    if backend == "chunked":
-        out = _chunked_attention(cfg, qg, k, v, mask)
-    else:
-        logits = torch.einsum("bskgh,btkh->bkgst", qg, k)          # (B,Hkv,g,S,T)
-        logits = softcap(logits, cfg.attn_logit_softcap)
-        logits = torch.where(mask[:, None, None], logits.to(torch.float32),
-                             device_scalar(-1e30, torch.float32, x.device))
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        out = torch.einsum("bkgst,btkh->bskgh", probs, v)
-    out = out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D)
-    return out, new_cache
+    T = k.shape[1]
+    backend = resolve_attn_backend(cfg, T, T, x)
+    if backend == "flash":
+        out = _flash_attention(cfg, q, k, v, is_local, q_offset)
+        return out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D), None
+    qpos, kpos = positions[:, :, None], kv_positions[:, None, :]
+    mask = kpos <= qpos                                             # (B,S,T)
+    if cfg.sliding_window is not None and is_local:
+        mask = mask & (kpos > qpos - cfg.sliding_window)
+    qg = q.reshape(B, S, Hkv, H // Hkv, Dh)
+    out = (_chunked_attention(cfg, qg, k, v, mask) if backend == "chunked"
+           else _dense_attention(cfg, qg, k, v, mask))
+    return out.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, D), None
 
 
-def _chunked_attention(cfg, qg: torch.Tensor, k_all: torch.Tensor,
-                       v_all: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Online-softmax attention over KV chunks of ``cfg.attn_chunk``.
+def _cached_attention(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, is_local: bool, cache: dict, cache_index: int,
+                      sp, kv) -> Tuple[torch.Tensor, dict]:
+    """The cached branch of ``attention``: q (B, S, H, Dh) at global
+    positions ``q_pos`` (S,), k/v (B, S_new, Hkv, Dh) the new positions
+    ``[cache_index, cache_index + S_new)`` → ((B, S, Hkv, g, Dh), cache).
 
-    qg: (B,S,Hkv,g,Dh); k/v: (B,T,Hkv,Dh); mask: (B,S,T) bool. Returns
-    (B,S,Hkv,g,Dh) in v's dtype. A chunk whose mask row is all false keeps
-    ``m`` at -1e30 and contributes p = 0 (the masked-row guard).
-    """
+    ``kv`` (a ``sharding.CacheLayout``): this rank's cache holds positions
+    ``[kv.start, kv.stop)``. It writes the new positions that fall in its
+    slice (a decode tick's one position on the rank that owns it; the host
+    int ``cache_index`` decides, with no sync) and masks with global key
+    positions, so that a sliding window crosses the ranks' slices. Where
+    the positions split over ranks (the split-KV path) each rank attends
+    its slice and the ranks combine: the chunked branch keeps the
+    online-softmax state (m, l, acc) that ``_chunked_attention`` keeps,
+    through the masked-row guard (a slice that lies wholly past a query
+    gives m = -1e30 and p = 0, never a local softmax's uniform weights),
+    and combines the states (``_combine``); the dense branch runs one
+    softmax across the ranks (``_split_dense_attention``), so that it
+    rounds where one process's does. The peers along the split hold the
+    same rows; under ``sp`` their queries are different positions, so the
+    queries are gathered over the sequence first and each rank keeps
+    its own rows of the result."""
+    B, _, H, Dh = q.shape
+    Hkv = k.shape[2]
+    t0 = kv.start if kv is not None else 0
+    T = cache["k"].shape[1]
+    lo, hi = max(cache_index, t0), min(cache_index + k.shape[1], t0 + T)
+    if lo < hi:
+        cache["k"][:, lo - t0:hi - t0] = k[:, lo - cache_index:hi - cache_index]
+        cache["v"][:, lo - t0:hi - t0] = v[:, lo - cache_index:hi - cache_index]
+    new_cache = {"k": cache["k"], "v": cache["v"]}
+    k, v = cache["k"], cache["v"]
+    split = kv is not None and kv.split
+    gathered = split and sp is not None and sp.size > 1
+    if gathered:
+        q = sp.gather(q)
+        q_pos = cache_index + torch.arange(sp.length, dtype=q_pos.dtype, device=q.device)
+    S = q.shape[1]
+    kv_pos = t0 + torch.arange(T, device=q.device)[None, :]                  # (1,T)
+    q_abs = q_pos[:, None]                                                   # (S,1)
+    mask = kv_pos <= q_abs                                                   # (S,T)
+    if cfg.sliding_window is not None and is_local:
+        mask = mask & (kv_pos > q_abs - cfg.sliding_window)
+    mask = mask.expand(B, S, T)
+    length = kv.length if kv is not None else T
+    chunked = bool(cfg.attn_chunk) and length > cfg.attn_chunk
+    qg = q.reshape(B, S, Hkv, H // Hkv, Dh)
+    if split:
+        if chunked:
+            m, l, acc = _attention_state(cfg, qg, k, v, mask, min(cfg.attn_chunk, T))
+            out = _combine(m, l, acc, kv)
+        else:
+            out = _split_dense_attention(cfg, qg, k, v, mask, kv)
+        out = out.to(v.dtype)
+        return (sp.take(out) if gathered else out), new_cache
+    if chunked:
+        return _chunked_attention(cfg, qg, k, v, mask), new_cache
+    return _dense_attention(cfg, qg, k, v, mask), new_cache
+
+
+def _dense_attention(cfg, qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Dense scores and one softmax. qg: (B,S,Hkv,g,Dh); k/v: (B,T,Hkv,Dh);
+    mask: (B,S,T) bool → (B,S,Hkv,g,Dh) in v's dtype."""
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, k)          # (B,Hkv,g,S,T)
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    logits = torch.where(mask[:, None, None], logits.to(torch.float32),
+                         device_scalar(-1e30, torch.float32, qg.device))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bkgst,btkh->bskgh", probs, v)
+
+
+def _attention_state(cfg, qg: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                     mask: torch.Tensor, C: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The online-softmax state over KV chunks of C: the running max ``m``
+    and sum ``l`` (B,Hkv,g,S) and the unnormalized output ``acc``
+    (B,Hkv,g,S,Dh), float32. qg: (B,S,Hkv,g,Dh); k/v: (B,T,Hkv,Dh); mask:
+    (B,S,T) bool. A chunk whose mask row is all false keeps ``m`` at -1e30
+    and contributes p = 0 (the masked-row guard)."""
     B, S, Hkv, g, Dh = qg.shape
     T = k_all.shape[1]
-    C = cfg.attn_chunk
     if T % C:
         raise ValueError(f"sequence {T} is not a multiple of attn_chunk {C}")
     m = torch.full((B, Hkv, g, S), -1e30, dtype=torch.float32, device=qg.device)
@@ -241,8 +300,52 @@ def _chunked_attention(cfg, qg: torch.Tensor, k_all: torch.Tensor,
         acc = acc * alpha[..., None] + torch.einsum(
             "bkgst,btkh->bkgsh", p.to(v_i.dtype), v_i).to(torch.float32)
         m = m_new
+    return m, l, acc
+
+
+def _chunked_attention(cfg, qg: torch.Tensor, k_all: torch.Tensor,
+                       v_all: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``cfg.attn_chunk``
+    (``_attention_state``), normalized. Returns (B,S,Hkv,g,Dh) in v's
+    dtype."""
+    _, l, acc = _attention_state(cfg, qg, k_all, v_all, mask, cfg.attn_chunk)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(v_all.dtype)
+
+
+def _split_dense_attention(cfg, qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: torch.Tensor, kv) -> torch.Tensor:
+    """``_dense_attention`` over this rank's slice of a cache split over
+    ``kv.seq_axes``, as one softmax across the ranks: the scores' max by a
+    ``pmax`` and their exponentials' sum by a ``psum`` (a slice wholly past
+    a query adds exp(-1e30 − m) = 0: the masked-row guard), p normalized
+    and rounded to v's dtype as one process's softmax is, and the products
+    summed in float32 over the slice and then over the ranks (a ``psum``).
+    The output, float32 (B,S,Hkv,g,Dh), then rounds once, as one process's
+    product does: the split changes only the order of float32 sums."""
+    mesh, axes = kv.mesh, kv.seq_axes
+    s = softcap(torch.einsum("bskgh,btkh->bkgst", qg, k), cfg.attn_logit_softcap)
+    s = torch.where(mask[:, None, None], s.to(torch.float32),
+                    device_scalar(-1e30, torch.float32, qg.device))
+    m = mesh.pmax(s.amax(dim=-1), axes)[..., None]
+    e = torch.where(m > -0.5e30, torch.exp(s - m), 0.0)
+    l = mesh.psum(e.sum(dim=-1), axes)[..., None]
+    p = (e / torch.clamp(l, min=1e-30)).to(v.dtype)
+    return mesh.psum(torch.einsum("bkgst,btkh->bskgh", p.float(), v.float()), axes)
+
+
+def _combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, kv) -> torch.Tensor:
+    """The split-KV combine of every rank's online-softmax state over
+    ``kv.seq_axes``: the global max by a ``pmax``, each state rescaled by
+    exp(m_r − m), then one ``psum`` of l and acc together → the normalized
+    output (B,S,Hkv,g,Dh), float32. A rank whose slice is wholly masked
+    (m_r = -1e30) adds nothing."""
+    mesh, axes = kv.mesh, kv.seq_axes
+    top = mesh.pmax(m, axes)
+    alpha = torch.exp(m - top)
+    both = mesh.psum(torch.cat([acc * alpha[..., None], (l * alpha)[..., None]], dim=-1), axes)
+    out = both[..., :-1] / torch.clamp(both[..., -1:], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -258,8 +361,9 @@ def mlp(cfg, p, x: torch.Tensor, sp=None) -> torch.Tensor:
     tensor-parallel hidden) x is gathered over the sequence, the rank
     computes its ``d_ff`` slice with its columns of ``w_gate``/``w_up`` and
     rows of ``w_down`` and the partial sums are reduce-scattered back onto
-    the sequence; else the rank runs its own positions with the whole
-    weights (the same values, without the gather)."""
+    the sequence (psum-ed where the sequence does not split, as a decode
+    tick's one position); else the rank runs its own positions with the
+    whole weights (the same values, without the gather)."""
     act = _activation(cfg.mlp_activation)
     if sp is None:
         p = sh.materialize_tree(p)

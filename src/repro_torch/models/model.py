@@ -469,15 +469,18 @@ def _tree(params) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
-                 dense_override: bool = False, cache=None, cache_index: int = 0, sp=None):
+                 dense_override: bool = False, cache=None, cache_index: int = 0, sp=None,
+                 kv=None):
     """One residual block of the config's family (dense for a
     ``first_blocks`` layer) → ``(x, new layer cache)``. With ``cache`` (the
     layer's dict of ``models/decode.py``) the block runs S new positions
     against it from ``cache_index`` and returns the updated cache, else
-    ``None``. A one-token step through a MoE block is dropless, as in JAX.
-    ``sp`` (a ``sharding.SeqParallel``): x holds this rank's positions of
-    the sequence, and the attention and MLP lay out their work as the
-    ``default`` preset declares it (``layers.attention``, ``layers.mlp``)."""
+    ``None``; ``kv`` (a ``sharding.CacheLayout``) says where this rank's
+    part of the cache lies. A one-token step through a MoE block is
+    dropless, as in JAX. ``sp`` (a ``sharding.SeqParallel``): x holds this
+    rank's positions of the sequence, and the attention and MLP lay out
+    their work as the ``default`` preset declares it (``layers.attention``,
+    ``layers.mlp``)."""
     fam = "dense" if dense_override else cfg.family
     new_cache = None if cache is None else {}
     # a sharded block's weights, gathered here; under ``sp`` the MLP takes
@@ -497,7 +500,7 @@ def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
         return x + c_out, new_cache
     attn_out, attn_cache = L.attention(
         cfg, p["attn"], h, positions, is_local=is_local,
-        cache=None if cache is None else cache["attn"], cache_index=cache_index, sp=sp)
+        cache=None if cache is None else cache["attn"], cache_index=cache_index, sp=sp, kv=kv)
     if fam == "hybrid":                 # attention and SSM heads in parallel
         ssm_out, ssm_state = S.ssm_heads(cfg, p["ssm"], h,
                                          state=None if cache is None else cache["ssm"])
@@ -631,11 +634,19 @@ def unembedding(cfg: ModelConfig, params) -> torch.Tensor:
 
 
 def logits_from_hiddens(cfg: ModelConfig, params, h: torch.Tensor,
-                        head: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        head: Optional[torch.Tensor] = None,
+                        sp: Optional[sh.SeqParallel] = None) -> torch.Tensor:
     """``h @ head`` softcapped; ``head`` the ``unembedding``, read from
-    ``params`` when not given."""
-    head = unembedding(cfg, params) if head is None else head
-    return L.softcap(h @ head, cfg.final_logit_softcap)
+    ``params`` when not given. ``sp`` (the ``default`` preset, no ``head``
+    given): where the vocabulary splits (``loss_head``) each rank computes
+    its columns and the whole logits are all-gathered over the
+    vocabulary's axes, so that every rank holds them (JAX leaves them
+    sharded over ``act_vocab``)."""
+    vs = None
+    if head is None:
+        head, vs = loss_head(cfg, params, sp)
+    logits = L.softcap(h @ head, cfg.final_logit_softcap)
+    return logits if vs is None else vs.mesh.all_gather(logits, vs.axes, dim=logits.dim() - 1)
 
 
 def _pad_labels(labels: torch.Tensor, S: int) -> torch.Tensor:

@@ -327,26 +327,26 @@ def test_production_mesh_shapes():
     ("qwen3-moe-235b-a22b", "default", "A14")])
 def test_parameter_sharding_presets_raise(arch, preset, reason):
     """What the port's partitioner does not run: fsdp on a MoE arch (its
-    experts stay on the model axis) and head-parallel attention in the dry
-    run, fsdp on a decode cell too; the ``default`` preset's sequence and
-    tensor parallelism on the families other than dense and on MoE at the
-    train step (their dry-run cells keep the state replicated), and the
-    serve steps under it."""
+    experts stay on the model axis), its decode cell too, and head-parallel
+    attention in the dry run; the ``default`` preset's sequence and tensor
+    parallelism on the families other than dense and on MoE at the train
+    step and at the serve steps (their dry-run cells keep the state
+    replicated)."""
     if preset == "default":
         mesh = tmesh.make_mesh((2, 2), ("data", "model"))
         mcfg = tconfigs.get_smoke_config(arch)
         tt = tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4)))
         with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match=reason):
             tsteps.make_train_step(mcfg, tt)
-        with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match="A15"):
+        with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match=reason):
             tsteps.decode_step(mcfg, None, None, None)
         return
     with pytest.raises(ValueError, match=reason):
         dryrun.run_cell(arch, "train_4k", "single", "graft", smoke=True,
                         rules_preset=preset)
     if preset == "fsdp":
-        with pytest.raises(ValueError, match="train step only"):
-            dryrun.run_cell("minicpm-2b", "decode_32k", "single", "serve", smoke=True,
+        with pytest.raises(ValueError, match=reason):
+            dryrun.run_cell(arch, "decode_32k", "single", "serve", smoke=True,
                             rules_preset=preset)
 
 

@@ -26,6 +26,35 @@ vocabulary-parallel loss, against the JAX package on the CPU.
   sharded=True)`` reckons; the layout each rank reports (the sequence,
   the MLP hidden and, for stablelm and gemma2, the vocabulary over
   ``"model"``).
+* The same fleet serves (task kind ``serve``, ``SERVE_CASES``): sharded
+  ``prefill_step`` and ``decode_step`` on the (2, 2) mesh, float32, smoke
+  configs, weights from seed 0 through ``jax_bridge``, against
+  ``jax.jit(repro.models.decode.prefill / decode_step)`` with no mesh on the
+  same whole prompt batch: (a) minicpm-2b under ``default`` with
+  decode_32k's rules (the cache's positions over ``"model"``: the split-KV
+  combine), a prefill of 4 × 16 into 32 positions and 6 greedy ticks; (b)
+  the same under prefill_32k's rules (the whole cache on each model rank);
+  (c) stablelm-12b with ``attn_chunk=8`` (the combine across chunks and
+  ranks; the logits from the vocabulary's slices); (d) gemma2-27b at 64
+  positions after a prefill of 30, so that the window of 16 straddles the
+  ranks' slices; (e) under ``fsdp`` with decode_32k's rules, rwkv6-7b with
+  4 rows (the rows over both axes) and hymba-1.5b with 2 (the rows over
+  ``"data"``, the KV cache's positions over ``"model"``, the SSM state by
+  rows); (f) one ``serve_model`` wave under ``default``. The bars: greedy
+  tokens EXACT at every tick; each rank's logits (its rows) at rtol 1e-4
+  / atol 1e-4 of their largest; each rank's cache after the prefill and
+  after the last tick within 1e-5 (of the largest) of its rows and
+  positions of JAX's cache, and its resident bytes exactly that slice's;
+  the layout each rank reports derived here from its coordinates.
+* The split-KV combine over two threads standing in for two ranks equals
+  the whole cache's dense and chunked attention, a slice wholly masked
+  among the cases; the cache's logical axes equal JAX's ``cache_logical``;
+  the serve path's refusals (MoE, the other families under ``default``,
+  ``head_tp``, a dense model with a frontend under ``default``); the serve
+  entry points taking the cache's rows (``prefill`` given the cache's
+  layout, ``serve_model`` a sharded model); the dry run's dense serve cells
+  sharded below the replicated state's peak, its sharded prefill cells
+  passing one device's rows of the prompts.
 * The flash plain versions with ``q_offset``: each half and sixteenth of a
   sequence equals the matching rows of the full-sequence plain version and
   of JAX's Pallas kernel in interpret mode, forward and gradients (the
@@ -89,6 +118,29 @@ CASES = {
                                        layout=(["model"], ["model"], [])),
 }
 FLEET_TIMEOUT_S = 150
+# the serve cases: arch, model overrides, shape (its SHAPE_RULES), preset,
+# the prompt batch (rows × positions), the cache's positions, greedy ticks
+# after the prefill, and the axes each rank's cache layout reports (rows,
+# positions); "wave": serve_model's keywords instead of the ticks
+SERVE_CASES = {
+    "a_minicpm_split_kv": dict(arch="minicpm-2b", model=F32, shape="decode_32k",
+                               preset="default", rows=4, plen=16, max_seq=32, ticks=6,
+                               layout=(["data"], ["model"])),
+    "b_minicpm_whole_cache": dict(arch="minicpm-2b", model=F32, shape="prefill_32k",
+                                  preset="default", rows=4, plen=16, max_seq=32, ticks=6,
+                                  layout=(["data"], [])),
+    "c_stablelm_chunked": dict(arch="stablelm-12b", model=dict(F32, attn_chunk=8),
+                               shape="decode_32k", preset="default", rows=4, plen=16,
+                               max_seq=32, ticks=6, layout=(["data"], ["model"])),
+    "d_gemma2_window": dict(arch="gemma2-27b", model=F32, shape="decode_32k", preset="default",
+                            rows=4, plen=30, max_seq=64, ticks=6, layout=(["data"], ["model"])),
+    "e_rwkv6_fsdp": dict(arch="rwkv6-7b", model=F32, shape="decode_32k", preset="fsdp", rows=4,
+                         plen=16, max_seq=32, ticks=6, layout=(["data", "model"], [])),
+    "e_hymba_fsdp": dict(arch="hymba-1.5b", model=F32, shape="decode_32k", preset="fsdp",
+                         rows=2, plen=16, max_seq=32, ticks=6, layout=(["data"], ["model"])),
+    "f_wave": dict(arch="minicpm-2b", model=F32, shape="decode_32k", preset="default",
+                   wave=dict(slots=4, requests=4, max_new_tokens=6, max_seq=32, seed=0)),
+}
 
 _JAX_SCRIPT = """
 import pickle, sys
@@ -97,9 +149,71 @@ from repro import configs
 from repro.launch import steps
 from repro.optim import OptimizerConfig
 from repro.selection.base import GraftConfig
+from repro.models import decode
+
+
+def serve(job):
+    # decode.prefill and greedy decode_steps, or the wave loop of
+    # repro.launch.serve without its mesh
+    jm = configs.get_smoke_config(job["arch"], **job["model"])
+    params = jax.tree_util.tree_map(jnp.asarray, job["params"])
+    w = job.get("wave")
+    max_seq = w["max_seq"] if w else job["max_seq"]
+    prefill = jax.jit(lambda p, b: decode.prefill(jm, p, b, max_seq))
+    step = jax.jit(lambda p, c, t: decode.decode_step(jm, p, c, t))
+
+    def greedy(logits):
+        return np.asarray(logits[:, 0, :]).argmax(-1).astype(np.int32)[:, None]
+    if w:
+        rng = np.random.default_rng(w["seed"])
+        prompts = [list(rng.integers(2, jm.vocab_size, size=8)) for _ in range(w["requests"])]
+        results, start = [], 0
+        while start < len(prompts):
+            wave = prompts[start:start + w["slots"]]
+            ids = list(range(start, start + len(wave)))
+            start += len(wave)
+            plen = min(len(p) for p in wave)
+            toks = np.stack([p[:plen] for p in wave]).astype(np.int32)
+            if len(wave) < w["slots"]:
+                toks = np.concatenate([toks, np.zeros((w["slots"] - len(wave), plen), np.int32)])
+            logits, cache = prefill(params, {"tokens": jnp.asarray(toks),
+                                             "labels": jnp.asarray(toks)})
+            cur = greedy(logits)
+            outs = [[int(cur[i, 0])] for i in range(len(wave))]
+            done = [cur[i, 0] == 1 for i in range(len(wave))]
+            for _ in range(w["max_new_tokens"] - 1):
+                if all(done):
+                    break
+                logits, cache = step(params, cache, jnp.asarray(cur))
+                cur = greedy(logits)
+                for i in range(len(wave)):
+                    if not done[i]:
+                        outs[i].append(int(cur[i, 0]))
+                        done[i] = cur[i, 0] == 1
+            results += [{"request_id": rid, "tokens": outs[i]} for i, rid in enumerate(ids)]
+        return {"results": results}
+    toks = jnp.asarray(job["tokens"])
+    logits, cache = prefill(params, {"tokens": toks, "labels": toks})
+    res = {"prefill_cache": jax.tree_util.tree_map(np.asarray, cache["layers"]),
+           "logits": [np.asarray(logits)], "tokens": []}
+    cur = greedy(logits)
+    for _ in range(job["ticks"]):
+        res["tokens"].append(cur)
+        logits, cache = step(params, cache, jnp.asarray(cur))
+        res["logits"].append(np.asarray(logits))
+        cur = greedy(logits)
+    res["tokens"].append(cur)
+    res["cache"] = jax.tree_util.tree_map(np.asarray, cache["layers"])
+    return res
+
+
 for path in sys.argv[1:]:
     with open(path + ".pkl", "rb") as f:
         job = pickle.load(f)
+    if job.get("serve"):
+        with open(path + ".out", "wb") as f:
+            pickle.dump(serve(job), f)
+        continue
     jm = configs.get_smoke_config(job["arch"], **job["model"])
     graft = GraftConfig(**job["graft"]) if job["graft"] else None
     jt = steps.TrainConfig(optimizer=OptimizerConfig(**job["opt"]), graft=graft,
@@ -161,6 +275,26 @@ class _Fleet:
                 pickle.dump({"arch": case["arch"], "model": case["model"], "opt": case["opt"],
                              "graft": graft, "K": K, "params": init, "batches": batches}, f)
             jax_jobs.append(str(work / f"jax_{name}"))
+        for name, case in SERVE_CASES.items():
+            mcfg = tconfigs.get_smoke_config(case["arch"], **case["model"])
+            init = params_to_numpy(tmodel.init_params(mcfg, torch.Generator().manual_seed(0)))
+            task = {"kind": "serve", "mesh": ((2, 2), ("data", "model")), "arch": case["arch"],
+                    "smoke": True, "model": case["model"], "shape": case["shape"],
+                    "preset": case["preset"],
+                    "params": jax.tree_util.tree_map(torch.from_numpy, init)}
+            want = {"serve": True, "arch": case["arch"], "model": case["model"], "params": init}
+            if "wave" in case:
+                task["wave"] = want["wave"] = case["wave"]
+            else:
+                toks = np.random.default_rng(1).integers(
+                    0, mcfg.vocab_size, (case["rows"], case["plen"])).astype(np.int32)
+                task.update(tokens=torch.from_numpy(toks), max_seq=case["max_seq"],
+                            ticks=case["ticks"], return_cache=True)
+                want.update(tokens=toks, max_seq=case["max_seq"], ticks=case["ticks"])
+            job.append(task)
+            with open(work / f"jax_{name}.pkl", "wb") as f:
+                pickle.dump(want, f)
+            jax_jobs.append(str(work / f"jax_{name}"))
         torch.save(job, work / "job.pt")
         port = fleet.free_port()
         cmds = [fleet.mesh_worker_command(str(work / "job.pt"), str(work / "out"),
@@ -197,7 +331,7 @@ class _Fleet:
         assert [s["rank"] for s in summaries] == [0, 1, 2, 3]
         ranks = [torch.load(s["path"], weights_only=True)["tasks"] for s in summaries]
         jax_runs = {}
-        for name in CASES:
+        for name in list(CASES) + list(SERVE_CASES):
             with open(self.work / f"jax_{name}.out", "rb") as f:
                 jax_runs[name] = pickle.load(f)
         return ranks, jax_runs
@@ -239,6 +373,260 @@ def test_fleet_matches_jax_step(case, runs):
         w = want_leaves[path]
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * np.abs(w).max(),
                                    err_msg=str(path))
+
+
+def _part(n, axes, coords):
+    """The ``[start, stop)`` of a dim of ``n`` split over ``axes`` (each of
+    size 2, the first major) at a rank's ``coords``."""
+    index, k = 0, 1
+    for a in axes:
+        index, k = index * 2 + coords[a], k * 2
+    return index * n // k, (index + 1) * n // k
+
+
+def _port_layers(jlayers):
+    """JAX's stacked (L, …) cache leaves as one dict a layer."""
+    L = jax.tree_util.tree_leaves(jlayers)[0].shape[0]
+    return [jax.tree_util.tree_map(lambda a: a[i], jlayers) for i in range(L)]
+
+
+def _slices(got_layers, want_layers, rows, seq):
+    """(got, want) leaf pairs: each rank leaf beside its rows (and, for k/v,
+    positions) of JAX's."""
+    pairs = []
+    for g, w in zip(got_layers, _port_layers(want_layers)):
+        for path, leaf in _leaves(g):
+            want = w
+            for key in path:
+                want = want[key]
+            want = want[rows[0]:rows[1]]
+            if path[-1] in ("k", "v"):
+                want = want[:, seq[0]:seq[1]]
+            pairs.append((path, leaf.numpy(), want))
+    return pairs
+
+
+@pytest.mark.parametrize("case", list(SERVE_CASES))
+def test_sharded_serving_matches_jax(case, runs):
+    ranks, jax_runs = runs
+    want = jax_runs[case]
+    spec = SERVE_CASES[case]
+    task = len(CASES) + list(SERVE_CASES).index(case)
+    for r, rank in enumerate(ranks):
+        got = rank[task]
+        if "wave" in spec:
+            assert got["wave"]["results"] == want["results"]
+            assert got["wave"]["requests"] == spec["wave"]["requests"]
+            continue
+        coords = {"data": r // 2, "model": r % 2}
+        batch_axes, seq_axes = spec["layout"]
+        rows = _part(spec["rows"], batch_axes, coords)
+        seq = _part(spec["max_seq"], seq_axes, coords)
+        assert got["layout"] == {"rows": list(rows), "seq": list(seq),
+                                 "batch_axes": batch_axes, "seq_axes": seq_axes}
+        assert len(got["tokens"]) == spec["ticks"] + 1
+        for t, (a, b) in enumerate(zip(got["tokens"], want["tokens"])):
+            np.testing.assert_array_equal(a.numpy(), b, err_msg=f"rank {r} tick {t}")
+        for t, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+            b = b[rows[0]:rows[1]]
+            np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4 * np.abs(b).max(),
+                                       err_msg=f"rank {r} logits at tick {t}")
+        for key in ("prefill_cache", "cache"):
+            pairs = _slices(got[key], want[key], rows, seq)
+            for path, a, b in pairs:
+                assert a.shape == b.shape, (key, path)
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max(),
+                                           err_msg=f"rank {r} {key} {path}")
+        assert got["resident_bytes"] == sum(b.nbytes for _, _, b in pairs)
+
+
+# ---------------------------------------------------------------------------
+# the split-KV combine over two threads, the cache's axes, the refusals
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("index", [5, 20, 31])
+@pytest.mark.parametrize("arch,over", [("minicpm-2b", {}), ("minicpm-2b", {"attn_chunk": 8}),
+                                       ("gemma2-27b", {})])
+def test_split_kv_combine_equals_the_whole_cache(arch, over, index):
+    """One decode position against a cache of 32 split over two threads
+    standing in for the ranks of ``"model"``: the combine of the two slices'
+    states equals the whole cache's attention (dense, chunked; gemma2's
+    local layer, whose window of 16 crosses the slices), and each slice is
+    written as the whole cache's. At index 5 the second slice is wholly
+    masked; at 31 the first lies wholly outside the window."""
+    from repro_torch.distributed import sharding as tsharding
+    cfg = tconfigs.get_smoke_config(arch, param_dtype="float32", **over)
+    model = tmodel.init_params(cfg, torch.Generator().manual_seed(0))
+    p = model.blocks[0].tree()["attn"]
+    gen = torch.Generator().manual_seed(2)
+    B, T, n = 2, 32, 2
+    x = torch.randn((B, 1, cfg.d_model), generator=gen)
+    whole = {name: torch.randn((B, T, cfg.num_kv_heads, cfg.head_dim), generator=gen)
+             for name in ("k", "v")}
+    pos = torch.full((B, 1), index, dtype=torch.int32)
+    local = arch == "gemma2-27b"
+    parts = [{k: v[:, r * T // n:(r + 1) * T // n].clone() for k, v in whole.items()}
+             for r in range(n)]
+    want, _ = tlayers.attention(cfg, p, x, pos, is_local=local, cache=whole, cache_index=index)
+    slots, barrier, got = [None] * n, threading.Barrier(n), [None] * n
+
+    def rank(r):
+        kv = tsharding.CacheLayout(_ThreadMesh(r, n, slots, barrier), B, T, (), ("model",),
+                                   0, B, r * T // n, (r + 1) * T // n)
+        got[r], _ = tlayers.attention(cfg, p, x, pos, is_local=local, cache=parts[r],
+                                      cache_index=index, kv=kv)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for r in range(n):
+        torch.testing.assert_close(got[r], want, rtol=1e-5, atol=1e-6)
+        for k in ("k", "v"):
+            assert torch.equal(parts[r][k], whole[k][:, r * T // n:(r + 1) * T // n])
+
+
+FAMILY_ARCHS = ["minicpm-2b", "rwkv6-7b", "hymba-1.5b", "qwen3-moe-235b-a22b",
+                "kimi-k2-1t-a32b", "musicgen-medium"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_cache_logical_equals_jax(arch):
+    from repro.configs import get_smoke_config as jsmoke
+    from repro.launch import specs as jspecs
+    from repro.models import decode as jdecode
+    from repro_torch.models import decode as tdecode
+    jl = jspecs.cache_logical(jax.eval_shape(lambda: jdecode.init_cache(jsmoke(arch), 2, 8)))
+    tl = tspecs.cache_logical(tdecode.init_cache(tconfigs.get_smoke_config(arch), 2, 8))
+    assert tl["index"] == jl["index"] == ()
+    assert tl.get("first") == jl.get("first")
+    for layer in tl["layers"]:                       # JAX's without its ``layers`` axis
+        assert layer == jax.tree_util.tree_map(lambda t: t[1:], jl["layers"],
+                                               is_leaf=lambda t: isinstance(t, tuple))
+
+
+@pytest.mark.parametrize("arch,preset,label", [
+    ("qwen3-moe-235b-a22b", "default", "A14"), ("qwen3-moe-235b-a22b", "fsdp", "A14"),
+    ("rwkv6-7b", "default", "A12b"), ("hymba-1.5b", "default", "A12b"),
+    ("musicgen-medium", "default", "A12b"), ("internvl2-26b", "default", "A12b"),
+    ("minicpm-2b", "head_tp", "A13")])
+def test_serving_refuses_what_it_does_not_shard(arch, preset, label):
+    from repro_torch.distributed import sharding as tsharding
+    from repro_torch.launch import steps as tsteps
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    mcfg = tconfigs.get_smoke_config(arch)
+    toks = torch.zeros((4, 8), dtype=torch.int32)
+    rules = dict(tspecs.SHAPE_RULES["decode_32k"], **tspecs.RULE_PRESETS[preset])
+    with tsharding.sharding_rules(mesh, rules):
+        with pytest.raises(ValueError, match=label):
+            tsteps.prefill_step(mcfg, None, {"tokens": toks, "labels": toks}, 16)
+        with pytest.raises(ValueError, match=label):
+            tsteps.decode_step(mcfg, None, None, toks[:, :1])
+
+
+def test_serve_entry_points_take_the_cache_rows():
+    """Under ``sharding_rules`` the caller takes the cache's rows, as the
+    train step's caller takes its rows: ``prefill`` refuses prompts without
+    the cache's layout, prompts whose rows are not the layout's, and a
+    layout without rules; ``serve_model`` on a mesh refuses a model not yet
+    sharded."""
+    from repro_torch.distributed import sharding as tsharding
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import decode as tdecode
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    mcfg = tconfigs.get_smoke_config("minicpm-2b")
+    toks = torch.zeros((4, 8), dtype=torch.int32)
+    rules = dict(tspecs.SHAPE_RULES["decode_32k"], **tspecs.RULE_PRESETS["default"])
+    with tsharding.sharding_rules(mesh, rules):
+        kv = tsharding.cache_layout(4, 16)
+        assert (kv.row_start, kv.row_stop, kv.batch_axes) == (0, 2, ("data",))
+        with pytest.raises(ValueError, match="layout under sharding_rules"):
+            tdecode.prefill(mcfg, None, {"tokens": toks, "labels": toks}, 16)
+        with pytest.raises(ValueError, match=r"4 rows of prompts for a cache of rows \[0, 2\)"):
+            tdecode.prefill(mcfg, None, {"tokens": toks, "labels": toks}, 16, kv)
+    with pytest.raises(ValueError, match="only there"):
+        tdecode.prefill(mcfg, None, {"tokens": toks[:2], "labels": toks[:2]}, 16, kv)
+    model = tmodel.init_params(mcfg, torch.Generator().manual_seed(0))
+    with pytest.raises(TypeError, match="ShardedModel"):
+        tserve.serve_model(mcfg, model, mesh=mesh, rules=rules)
+
+
+@pytest.mark.parametrize("preset", ["default", "fsdp"])
+def test_sharded_prefill_cell_takes_the_device_rows(preset):
+    """The dry run's sharded prefill cell passes one device's rows of the
+    prompts, as a rank of the fleet does, and its cache is that device's
+    part."""
+    from repro_torch.distributed import sharding as tsharding
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    rules = dict(tsharding.DEFAULT_RULES, **tspecs.SHAPE_RULES["prefill_32k"],
+                 **tspecs.RULE_PRESETS[preset])
+    shards = dryrun.batch_shards(mesh, 4, rules)
+    backend = dryrun.RecordingBackend(mesh.size)
+    cell = tspecs.build_cell("minicpm-2b", "prefill_32k", variant="serve", smoke=True,
+                             batch_shards=shards, backend=backend,
+                             mesh=dryrun.RecordingMesh(mesh, backend), rules=rules, **CARD)
+    assert shards > 1 and cell.batch == 4 // shards
+    assert all(t.shape[0] == cell.batch for t in cell.abstract_args[1].values())
+    res = dryrun.trace(cell, backend)
+    assert res["memory"]["peak_bytes"] > 0
+
+
+def test_default_refuses_a_dense_model_with_a_frontend():
+    """A dense arch given a frontend (the classification task) has no
+    sequence-parallel layout (``sequence_layout`` keeps it whole): the
+    ``default`` preset refuses it, ``fsdp`` runs it."""
+    from repro_torch.distributed import sharding as tsharding
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.selection.base import GraftConfig as TGraftConfig
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    mcfg = tconfigs.get_smoke_config("minicpm-2b", frontend="audio_frames")
+    with pytest.raises(ValueError, match="audio_frames frontend.*A12b"):
+        tsharding.check_rules(mesh, {}, "dense", "audio_frames")
+    assert tsharding.check_rules(mesh, {}, "dense") == "default"
+    assert tsharding.check_rules(mesh, tspecs.RULE_PRESETS["fsdp"], "dense",
+                                 "audio_frames") == "fsdp"
+    with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match="A12b"):
+        tsteps.make_train_step(mcfg, tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4))))
+    # the dry run's cell whose data source pins the frontend stays replicated
+    res = dryrun.run_cell("minicpm-2b", "train_4k", "t", "graft", smoke=True,
+                          mesh_override=mesh, rules_preset="default",
+                          data_source="synthetic_classification", **CARD)
+    assert res["state"] == "replicated" and "audio_frames frontend" in res["replicated_why"]
+
+
+@pytest.mark.parametrize("preset", ["default", "fsdp"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_dense_serve_cells_run_sharded_below_replicated(shape, preset):
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    res = dryrun.run_cell("minicpm-2b", shape, "t", "serve", smoke=True, mesh_override=mesh,
+                          rules_preset=preset, **CARD)
+    assert res["state"] == "sharded" and "replicated_why" not in res
+    coll = res["full"]["collectives"]["count_by_op"]
+    assert coll["all-gather"] > 0                    # the weights' just-in-time gathers
+    if shape == "decode_32k" and preset == "default":
+        assert coll["all-reduce"] > 0                # the combine, the MLP's partial sums
+    backend = dryrun.RecordingBackend(res["batch_shards"])       # the state replicated
+    cell = tspecs.build_cell("minicpm-2b", shape, variant="serve", smoke=True,
+                             batch_shards=res["batch_shards"], backend=backend, **CARD)
+    replicated = dryrun.trace(cell, backend)
+    assert res["full"]["memory"]["peak_bytes"] < replicated["memory"]["peak_bytes"]
+
+
+def test_long_context_cache_splits_over_both_axes():
+    """long_500k's rules split the cache's positions over ``("data",
+    "model")`` where the rows leave both free (its smoke cell's 4 rows do
+    not divide the 8 of "data"): hymba-1.5b's cell under ``fsdp`` runs its
+    combine over both axes."""
+    from repro_torch.distributed import sharding as tsharding
+    mesh = tmesh.make_mesh((8, 2), ("data", "model"))
+    rules = dict(tspecs.SHAPE_RULES["long_500k"], **tspecs.RULE_PRESETS["fsdp"])
+    kv = tsharding.cache_layout(4, 64, mesh, rules)
+    assert (kv.batch_axes, kv.seq_axes, kv.start, kv.stop) == ((), ("data", "model"), 0, 4)
+    res = dryrun.run_cell("hymba-1.5b", "long_500k", "t", "serve", smoke=True,
+                          mesh_override=mesh, rules_preset="fsdp", **CARD)
+    assert res["state"] == "sharded" and res["local_batch"] == 4
+    assert res["full"]["collectives"]["count_by_op"]["all-reduce"] > 0
 
 
 # ---------------------------------------------------------------------------
