@@ -3436,33 +3436,44 @@ def _tree_paths(tree, prefix=""):
     return [prefix.rstrip("/")]
 
 
-def _fsdp_reference(mcfg, tcfg, batches, seed, parts=None):
+def _fsdp_reference(mcfg, tcfg, batches, seed, parts=None, n_steps=None, max_leaf_bytes=None):
     """(c)'s configuration in this process, unsharded: losses, grad norms,
     ranks, pivots, step 0's first moment as the fleet computes it
-    (``m0``, ``_split_first_moment``) and the final parameters (on the
-    host)."""
+    (``m0``, ``_split_first_moment``; with ``parts`` 1 the state's own;
+    none under Adafactor) and the final parameters (on the host), over
+    ``n_steps`` steps (``FSDP_STEPS``); each leaf cut to its leading rows
+    over ``max_leaf_bytes`` (``models/model.py`` ``values_tree``)."""
     import torch
     from repro_torch.launch import steps
     from repro_torch.models import model as model_lib
     gen = torch.Generator(device="cuda").manual_seed(seed)
     state = steps.state_for_model(mcfg, tcfg, model_lib.init_params(mcfg, gen, "cuda"),
                                   batches[0]["tokens"].shape[0])
-    init = [p.detach().clone() for p in state["params"]]
+    # the unsplit step's first moment is the state's own (no copy of the
+    # weights: a MoE layer's would not fit beside the state)
+    init = [p.detach().clone() for p in state["params"]] if parts != 1 else None
     fn = steps.make_train_step(mcfg, tcfg)
     out = {"losses": [], "grad_norms": [], "ranks": [], "pivots": {}}
-    for i in range(FSDP_STEPS):
+    for i in range(n_steps or FSDP_STEPS):
         batch = {k: v.to("cuda") for k, v in batches[i % len(batches)].items()}
         state, m = fn(state, batch)
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
         out["ranks"].append(int(m["rank"]))
         if i == 0:
-            out["m0"] = _split_first_moment(mcfg, tcfg, init, batch, state["graft"],
-                                            parts or math.prod(FSDP_MESH[0]))
+            if "m" in state["opt"] and parts == 1:
+                out["m0"] = model_lib._map_tree(
+                    lambda t: t.detach().to("cpu", copy=True),
+                    model_lib.values_tree(state["model"], state["opt"]["m"], max_leaf_bytes))
+            elif "m" in state["opt"]:
+                out["m0"] = _split_first_moment(mcfg, tcfg, init, batch, state["graft"],
+                                                parts or math.prod(FSDP_MESH[0]))
             del init
         if i % tcfg.graft.refresh_every == 0:
             out["pivots"][i] = state["graft"].pivots.tolist()
-    out["params"] = model_lib._map_tree(lambda t: t.detach().cpu(), state["model"].tree())
+    out["params"] = model_lib._map_tree(
+        lambda t: t.detach().to("cpu", copy=True),
+        model_lib.values_tree(state["model"], list(state["model"].parameters()), max_leaf_bytes))
     return out
 
 
@@ -3763,6 +3774,178 @@ def phase_tp(ctx):
         json.dump({"device": smi, "offset_times": rows}, f, indent=1)
 
 
+MOE_EP_ARCH = "qwen3-moe-235b-a22b"
+MOE_EP_LAYERS = 2             # phase families' cut
+MOE_EP_STEPS = 1              # a refresh step: the selection forward and the subset's step
+# two gloo ranks on a (1, 2) mesh: the experts split over "model" and no
+# expert weight crosses gloo (a (2, 2) mesh would gather 4.8 GB a layer
+# through host memory)
+MOE_EP_MESH = ((1, 2), ("data", "model"))
+# (tag, preset, overrides): (a) the default preset under AdamW with
+# bfloat16 moments at phase families' batch; (b) fsdp under Adafactor at 6
+# × 256 tokens (3 groups of 512) and a subset of 2 rows (1 group): neither
+# count of groups divides over "model", so the experts split there too.
+# A constant learning rate, so that the one step's update moves the
+# parameters (the warmup's is 0 at step 0)
+MOE_EP_TASKS = (("a", "default", ["optimizer.state_dtype=bfloat16",
+                                  "optimizer.schedule=constant"]),
+                ("b", "fsdp", ["optimizer.name=adafactor", "optimizer.schedule=constant",
+                               "train.batch=6", "graft.rset=[1,2]"]))
+# a leaf larger than this is reported, by rank 0 and by the one process,
+# as its leading rows of at most this size (rank 0's shard's, cut the same
+# way): gathered whole, the experts (1.6 GB a leaf), the embedding and
+# lm_head would cross gloo and the host's disk for each check
+MOE_EP_LEAF_BYTES = 64 << 20
+
+
+def _moe_ep_config(extra):
+    from repro_torch.api import ExperimentConfig
+    over = {"attn_backend": "auto", "num_layers": MOE_EP_LAYERS}
+    return ExperimentConfig().apply_overrides(
+        [o for o in SLICE_OVERRIDES if not o.startswith(("model.overrides", "train.steps"))]
+        + [f"model.arch={MOE_EP_ARCH}", f"model.overrides={json.dumps(over)}",
+           f"train.steps={MOE_EP_STEPS}", "train.log_every=0"] + extra)
+
+
+def _moe_ep_prediction(cfg, preset):
+    """One rank's refresh step of the (1, 2) fleet on fake cuda:0 tensors."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*MOE_EP_MESH)
+    backend = dryrun.RecordingBackend(mesh.size)
+    cell = specs.experiment_cell(cfg, mesh=dryrun.RecordingMesh(mesh, backend),
+                                 rules=dict(sh.DEFAULT_RULES, **specs.RULE_PRESETS[preset]),
+                                 backend=backend)
+    return dryrun.trace(cell, backend)
+
+
+def _leading_block(want, got):
+    """Each leaf of ``want`` cut to ``got``'s leaf's shape from index 0 on
+    every dim: rank 0's shard's block where the fleet reported one."""
+    from repro_torch.models import model as model_lib
+    return model_lib._zip_tree(lambda w, g: w[tuple(slice(0, n) for n in g.shape)], want, got)
+
+
+def phase_moe_ep(ctx):
+    """Expert parallelism: qwen3-moe-235b-a22b at full width, 2 layers, on
+    two gloo ranks sharing the card on a (1, 2) ("data", "model") mesh, two
+    tasks in one launch: (a) the default preset under AdamW with bfloat16
+    moments, (b) fsdp under Adafactor at a batch whose groups do not divide
+    over "model". Each is first run in this process (then freed), and
+    traced by the dry run on fake cuda:0 tensors while the fleet runs; each
+    rank is held to the one process (losses and grad norms at 3e-3, ranks and pivots equal;
+    (a)'s step-0 first moment leaf by leaf, the router and the norms
+    first, at ``FSDP_M0_RTOL``; the final parameters as a whole at 3e-3),
+    to the prediction's peak (``DRYRUN_PEAK_RTOL``), to its shards'
+    resident bytes, to ``expected_launches`` and to the regime its MoE
+    forwards report (the experts over "model")."""
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.backend import fleet
+    ctx.pop("trainer", None)
+    smi = ctx.get("smi", "")
+    jobs, refs, preds, cfgs = [], {}, {}, {}
+    for tag, preset, extra in MOE_EP_TASKS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfgs[tag] = cfg = _moe_ep_config(extra)
+        mcfg, tcfg, data = cfg.build()
+        batches = [{k: torch.from_numpy(v) for k, v in data.batch_at(i).items()}
+                   for i in range(MOE_EP_STEPS)]
+        t1 = time.perf_counter()
+        refs[tag] = _fsdp_reference(mcfg, tcfg, batches, seed=0, parts=1,
+                                    n_steps=MOE_EP_STEPS, max_leaf_bytes=MOE_EP_LEAF_BYTES)
+        print(f"[moe_ep] ({tag}) {preset}, {tcfg.optimizer.name} ({cfg.optimizer.state_dtype} "
+              f"state), {cfg.train.batch} x {cfg.train.seq}, rset {list(tcfg.graft.rset)}: "
+              f"one process {time.perf_counter() - t1:.1f} s, losses {refs[tag]['losses']}, "
+              f"grad norms {refs[tag]['grad_norms']}", flush=True)
+        model_over = {"attn_backend": "auto", "num_layers": MOE_EP_LAYERS}
+        assert mcfg == configs.get_config(MOE_EP_ARCH, **model_over), "the fleet's config differs"
+        jobs.append({"kind": "tp", "preset": preset, "mesh": MOE_EP_MESH, "arch": MOE_EP_ARCH,
+                     "model": model_over, "seed": 0, "steps": MOE_EP_STEPS,
+                     "batches": batches, "max_leaf_bytes": MOE_EP_LEAF_BYTES,
+                     "tcfg": dataclasses.asdict(tcfg)})
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="moe_ep.", dir=os.path.join(ROOT, "build"))
+    box = {}
+
+    def run_fleet():
+        try:
+            port = fleet.free_port()
+            t1 = time.perf_counter()
+            runs = fleet.launch([fleet.mesh_worker_command(
+                os.path.join(work, "job.pt"), os.path.join(work, "out"),
+                fleet.backend_overrides(2, r, port)) for r in range(2)], timeout=300)
+            box["wall"] = time.perf_counter() - t1
+            box["ranks"] = [torch.load(r.last_json()["path"], weights_only=True) for r in runs]
+        except BaseException as e:                  # noqa: BLE001 — raised below
+            box["error"] = e
+
+    try:
+        torch.save(jobs, os.path.join(work, "job.pt"))
+        thread = threading.Thread(target=run_fleet)
+        thread.start()
+        try:
+            for tag, preset, _ in MOE_EP_TASKS:     # the ranks' prediction, beside them
+                t1 = time.perf_counter()
+                preds[tag] = _moe_ep_prediction(cfgs[tag], preset)
+                print(f"[moe_ep] ({tag}) prediction traced in {time.perf_counter() - t1:.1f} s: "
+                      f"peak {preds[tag]['memory']['peak_bytes'] / 1e9:.3f} GB a rank, args "
+                      f"{preds[tag]['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, "
+                      f"collectives { {k: v for k, v in preds[tag]['collectives']['bytes_by_op'].items() if v} }",
+                      flush=True)
+        finally:
+            thread.join()
+        if "error" in box:
+            raise box["error"]
+        wall, ranks = box["wall"], box["ranks"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[moe_ep] {smi}: the fleet's two tasks in {wall:.1f} s of wall", flush=True)
+    for i, (tag, preset, _) in enumerate(MOE_EP_TASKS):
+        ref, pred_peak = refs[tag], preds[tag]["memory"]["peak_bytes"]
+        for r in ranks:
+            assert r["collectives"] == "gloo" and r["device"].startswith("cuda")
+            got = r["tasks"][i]
+            want = {k: v for k, v in got["launches_expected"].items() if v}
+            rel_peak = (pred_peak - got["peak_bytes"]) / got["peak_bytes"]
+            print(f"[moe_ep] ({tag}) {smi}: rank {r['rank']}: losses {got['losses']}, grad "
+                  f"norms {got['grad_norms']}, ranks {got['ranks']}, step ms "
+                  f"{[round(x * 1e3, 1) for x in got['step_s']]}, resident "
+                  f"{got['resident_bytes']} B (shards {got['shard_bytes']} B), "
+                  f"max_memory_allocated {got['peak_bytes'] / 1e9:.3f} GB (prediction "
+                  f"{rel_peak:+.2%}), launches {got['launches']}, layout {got['layout']}, "
+                  f"moe {got['moe']}", flush=True)
+            assert got["resident_bytes"] == got["shard_bytes"], "resident state is not its shards"
+            assert abs(pred_peak - got["peak_bytes"]) <= DRYRUN_PEAK_RTOL * got["peak_bytes"], \
+                f"({tag}) rank {r['rank']}: peak {got['peak_bytes']} vs predicted {pred_peak}"
+            assert got["launches"] == want, f"({tag}) launches {got['launches']} vs {want}"
+            for name in ("graft_select", "flash_forward", "flash_dq", "flash_dkv", "grad_norm"):
+                assert want.get(name), f"{name} is not on the expert-parallel path"
+            assert got["moe"] and all(e == ["model"] for _, _, e in got["moe"]), got["moe"]
+            assert got["ranks"] == ref["ranks"], (got["ranks"], ref["ranks"])
+            assert {int(k): v for k, v in got["pivots"].items()} == ref["pivots"]
+            for key in ("losses", "grad_norms"):
+                rel = max(abs(a - b) / abs(b) for a, b in zip(got[key], ref[key]))
+                assert rel <= 3e-3, f"({tag}) rank {r['rank']}: {key} {got[key]} vs {ref[key]}"
+        got0 = ranks[0]["tasks"][i]
+        _, whole = _leaf_gaps(got0["params"], _leading_block(ref["params"], got0["params"]))
+        line = f"[moe_ep] ({tag}) {smi}: final parameters {whole:.3g} relative to one process"
+        if got0.get("m0") is not None:
+            gaps, _ = _leaf_gaps(got0["m0"], _leading_block(ref["m0"], got0["m0"]))
+            first = sorted(gaps, key=lambda p: ("router" not in p, "ln" not in p
+                                                and "norm" not in p, p))
+            line += (f"; step 0's first moment vs one process, the router and the norms "
+                     f"first: {[(p, round(gaps[p], 6)) for p in first]} (bar {FSDP_M0_RTOL})")
+            bad = [(p, gaps[p]) for p in first if not gaps[p] <= FSDP_M0_RTOL]
+            assert not bad, f"({tag}) step 0's gradients differ from one process: {bad}"
+        print(line, flush=True)
+        assert whole <= 3e-3, f"({tag}) final parameters differ by {whole:.3g}"
+
+
 SERVE_TP_BUDGET_S = 80.0      # (a)'s pool, beside (b) and (c)
 SERVE_TP_JOBS = 4
 # (a)'s archs under ``fsdp``; their ``default`` decode_32k cells are phase
@@ -4035,7 +4218,8 @@ def main() -> int:
                      ("shell", phase_shell), ("chaos", phase_chaos),
                      ("analysis", phase_analysis), ("backend", phase_backend),
                      ("sharded", phase_sharded), ("dryrun", phase_dryrun),
-                     ("fsdp", phase_fsdp), ("tp", phase_tp), ("serve_tp", phase_serve_tp)):
+                     ("fsdp", phase_fsdp), ("tp", phase_tp), ("serve_tp", phase_serve_tp),
+                     ("moe_ep", phase_moe_ep)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

@@ -119,7 +119,8 @@ def optim_groups(params) -> int:
 
 
 def expected_launches(mcfg, cfg, groups: int, flash: bool = True,
-                      card: bool = True, sharded: bool = False) -> Dict[str, int]:
+                      card: bool = True, sharded: bool = False,
+                      optimizer: str = "adamw") -> Dict[str, int]:
     """Launches a run of ``cfg.train.steps`` healthy steps reckons: per step
     one forward per layer for the subset loss and, for the stacked layers,
     one more for their remat recompute (full or dots: a kernel is no matrix
@@ -145,9 +146,11 @@ def expected_launches(mcfg, cfg, groups: int, flash: bool = True,
     once per dtype group on its shards. ``sharded``: the global norm routes
     through kernel A's wrapper on the CPU too (its plain split version),
     once a step. With no ``cfg.graft`` (the baseline step) no refresh runs.
+    ``optimizer`` "adafactor": the update is plain PyTorch (no kernel B).
 
-    Under JAX's ``default`` preset (a sharded dense model, ``sharded``) the
-    counts are the same a rank: each rank runs one flash forward, dQ and
+    Under JAX's ``default`` preset (a sharded dense or MoE model,
+    ``sharded``) the counts are the same a rank (a MoE layer's experts run
+    on aten ops): each rank runs one flash forward, dQ and
     dK/dV a layer and pass on its slice of the queries against the whole
     K/V (the query offset), the MLP and vocabulary slices on aten ops, and
     the one graft_select a refresh on the gathered batch. ``flash`` is the
@@ -166,7 +169,8 @@ def expected_launches(mcfg, cfg, groups: int, flash: bool = True,
             "flash_dq": bwd if attn else 0, "flash_dkv": bwd if attn else 0,
             "graft_select_batched": 0, "fast_maxvol": 0, "projection_sweep": 0,
             "rwkv_scan": fwd if ssm else 0, "rwkv_scan_backward": bwd if ssm else 0,
-            "grad_norm": steps if card or sharded else 0, "optimizer_update": steps * groups}
+            "grad_norm": steps if card or sharded else 0,
+            "optimizer_update": 0 if optimizer == "adafactor" else steps * groups}
 
 
 def dispatched_launches(mcfg, steps: Sequence[int], refresh_every: int,

@@ -40,12 +40,18 @@ rank's backend (``mesh_worker_command``: ``python -m repro_torch.backend
     or drawn from ``seed`` on the device, ``steps`` steps over the global
     ``batches`` (cycled), each rank taking its rows. Rank 0 reports the
     gathered final parameters and the first moment after step 0 (the
-    step's clipped gradient times 1 - beta1 under AdamW), each in the
-    parameter tree's layout;
-  * ``"tp"`` — the same under JAX's ``default`` preset (the dense family):
-    the batch over ``("pod", "data")``, each row's sequence, the MLP hidden
-    and the vocabulary over ``"model"``; the model peers of a batch shard
-    take the same rows;
+    step's clipped gradient times 1 - beta1 under AdamW; none under
+    Adafactor, whose state is factored), each in the parameter tree's
+    layout (a leaf larger than ``max_leaf_bytes``, where given, its
+    leading rows: ``models/model.py`` ``values_tree``). Each rank reports
+    its layout, the MoE regimes its forwards ran (``moe``: the tokens, the
+    groups' and the experts' axes), its resident and shard bytes and its
+    launches;
+  * ``"tp"`` — the same under ``preset`` (default: JAX's ``default``
+    preset, for the dense and moe families): the batch over ``("pod",
+    "data")``, each row's sequence, the MLP hidden, the experts and the
+    vocabulary over ``"model"``; the model peers of a batch shard take the
+    same rows;
   * ``"serve"`` — sharded serving on ``mesh`` under ``preset``'s rules with
     ``shape``'s ``SHAPE_RULES``: ``arch`` (``smoke``, ``model``) with
     weights from ``params`` or ``seed``; a prefill of the rank's rows of the prompt
@@ -470,7 +476,7 @@ def _fsdp_task(task, backend, device, preset: str = "fsdp") -> Dict[str, Any]:
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import specs, steps
     from repro_torch.models import model as model_lib
-    from repro_torch.models.layers import resolve_attn_backend
+    from repro_torch.models.layers import EXPERT_RUNS, resolve_attn_backend
     from repro_torch.optim import OptimizerConfig
     from repro_torch.selection.base import GraftConfig
 
@@ -506,13 +512,11 @@ def _fsdp_task(task, backend, device, preset: str = "fsdp") -> Dict[str, Any]:
     out["batch_axes"], out["subset_axes"] = list(layout.batch_axes), list(layout.subset_axes)
     # the resident params and moments: their storages, against the shards'
     # sizes (a shard that kept its full tensor's storage would show)
-    moments = [m for key in ("m", "v") for m in state["opt"].get(key, [])]
-    out["resident_bytes"] = sum(x.untyped_storage().nbytes() for x in state["params"] + moments)
+    out["resident_bytes"] = sum(x.untyped_storage().nbytes()
+                                for x in state["params"] + _moments(state["opt"]))
     out["shard_bytes"] = sum(int(np.prod(s.local_shape)) * p.element_size()
                              for p, s in zip(state["params"], layout.shardings))
-    for key in ("m", "v"):
-        out["shard_bytes"] += sum(int(np.prod(s.local_shape)) * m.element_size()
-                                  for m, s in zip(state["opt"].get(key, []), layout.shardings))
+    out["shard_bytes"] += _moment_shard_bytes(state["opt"], layout.shardings)
     n, r = mesh.size(layout.batch_axes), mesh.axis_index(layout.batch_axes)
     k = K // n
     cuda = torch.device(device).type == "cuda"
@@ -520,6 +524,7 @@ def _fsdp_task(task, backend, device, preset: str = "fsdp") -> Dict[str, Any]:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     launch_audit.zero_counts()
+    EXPERT_RUNS.clear()
     with launch_audit.recording() as trace:
         for i in range(task["steps"]):
             batch = {name: x[r * k:(r + 1) * k].to(device)
@@ -531,7 +536,7 @@ def _fsdp_task(task, backend, device, preset: str = "fsdp") -> Dict[str, Any]:
             _sync(device)
             out["step_s"].append(time.perf_counter() - t0)
             out["grad_norms"].append(float(metrics["grad_norm"]))
-            if i == 0:                      # kept on the host, off the peak
+            if i == 0 and "m" in state["opt"]:          # kept on the host, off the peak
                 m0 = [m.detach().to("cpu", copy=True) for m in state["opt"]["m"]]
             if tcfg.use_graft:
                 out["ranks"].append(int(metrics["rank"]))
@@ -546,17 +551,52 @@ def _fsdp_task(task, backend, device, preset: str = "fsdp") -> Dict[str, Any]:
                      for name, logical, n in (("seq", "act_res_seq", sp and sp.length),
                                               ("mlp", "act_mlp", mcfg.d_ff),
                                               ("vocab", "act_vocab", mcfg.vocab_size))}
+    # the MoE regimes its forwards ran: (tokens, the groups' axes, the
+    # experts' axes), the experts whole where they split over none
+    out["moe"] = sorted([tokens, list(g), list(e)] for tokens, g, e in EXPERT_RUNS)
     run = types.SimpleNamespace(train=types.SimpleNamespace(steps=task["steps"], eval_every=0),
                                 graft=tcfg.graft)
     flash = resolve_attn_backend(mcfg, batch["labels"].shape[1], batch["labels"].shape[1],
                                  device) == "flash"
     out["launches_expected"] = launch_audit.expected_launches(
         mcfg, run, launch_audit.optim_groups(state["params"]), flash=flash, card=cuda,
-        sharded=True)
-    final, first_moment = sharded.gathered(), model_lib.values_tree(sharded, m0)
+        sharded=True, optimizer=tcfg.optimizer.name)
+    limit = task.get("max_leaf_bytes")
+    final = sharded.gathered(limit)
+    first_moment = model_lib.values_tree(sharded, m0, limit) if "m" in state["opt"] else None
     if backend.process_index == 0:
         out["params"], out["m0"] = _host(final), first_moment
     return out
+
+
+def _moments(opt) -> List[torch.Tensor]:
+    """The optimizer state's tensors: the moments ``m``/``v`` of the
+    elementwise rules, Adafactor's factored ``vr``/``vc``/``v`` a leaf."""
+    out: List[torch.Tensor] = []
+    for key in ("m", "v"):
+        for x in opt.get(key, []):
+            out += list(x.values()) if isinstance(x, dict) else [x]
+    return out
+
+
+def _moment_shard_bytes(opt, shardings) -> int:
+    """The bytes the optimizer state's shards take: a moment each param's
+    shard's size; Adafactor's factors of each JAX leaf (the blocks of a
+    ``groups`` list stacked) the rank's shard of it less a reduced dim."""
+    total = 0
+    for key in ("m", "v"):
+        for i, x in enumerate(opt.get(key, [])):
+            if not isinstance(x, dict):
+                total += int(np.prod(shardings[i].local_shape)) * x.element_size()
+    if "groups" in opt:
+        for grp, factors in zip(opt["groups"], opt["v"]):
+            local = tuple(shardings[grp[0] if isinstance(grp, list) else grp].local_shape)
+            if isinstance(grp, list):
+                local = (len(grp),) + local
+            shapes = ({"vr": local[:-1], "vc": local[:-2] + local[-1:]} if len(local) >= 2
+                      else {"v": local})
+            total += sum(int(np.prod(shapes[k])) * t.element_size() for k, t in factors.items())
+    return total
 
 
 def _serve_task(task, backend, device) -> Dict[str, Any]:
@@ -642,7 +682,8 @@ def _paths(tree, prefix=()):
 
 _TASKS = {"sharded": _sharded_task, "unequal": _unequal_task, "pipeline": _pipeline_task,
           "collectives": _collectives_task, "fsdp": _fsdp_task,
-          "tp": lambda task, backend, device: _fsdp_task(task, backend, device, "default"),
+          "tp": lambda task, backend, device: _fsdp_task(task, backend, device,
+                                                         task.get("preset", "default")),
           "serve": _serve_task}
 
 

@@ -39,7 +39,10 @@ split, which the train step makes itself (``launch/steps.py``); under the
 where JAX's ``constrain`` calls declare them, with the collectives
 written out (:class:`SeqParallel`). A decode cache lies as JAX's
 ``cache_logical`` declares it (:class:`CacheLayout`: its rows over the
-batch's axes, its positions over ``act_kv_seq``'s). ``check_rules`` says
+batch's axes, its positions over ``act_kv_seq``'s). A MoE layer's token
+groups and experts lie as JAX's flat grouping declares them
+(:class:`ExpertLayout`: the groups over ``act_batch``'s axes, the experts
+over ``act_experts``', after ``drop_indivisible``). ``check_rules`` says
 which layouts the port runs.
 """
 from __future__ import annotations
@@ -90,6 +93,7 @@ class _State(threading.local):
         self.rules: Dict[str, MeshAxes] = dict(DEFAULT_RULES)
         self.mesh = None
         self.enabled: bool = False
+        self.rows: Optional[Tuple[str, ...]] = None
 
 
 _STATE = _State()
@@ -184,7 +188,7 @@ _TP_ACTIVATIONS = ("act_seq", "act_res_seq", "act_q_seq", "act_heads", "act_kv_h
 # and only the cache reads them (``cache_layout``)
 _CACHE_ACTIVATIONS = ("act_kv_seq",)
 # the families whose layers run the default preset's layout
-TP_FAMILIES = ("dense",)
+TP_FAMILIES = ("dense", "moe")
 
 
 def rules_mode(mesh, rules: Dict[str, MeshAxes]) -> str:
@@ -204,25 +208,28 @@ def rules_mode(mesh, rules: Dict[str, MeshAxes]) -> str:
 
 
 def check_rules(mesh, rules: Dict[str, MeshAxes], family: str = "dense",
-                frontend: Optional[str] = None) -> str:
+                frontend: Optional[str] = None, local_groups: bool = False) -> str:
     """Raise ``ValueError`` unless the port's sharded steps run ``rules`` on
     ``mesh`` for a model of ``family`` with ``frontend``; return the mode
     (``rules_mode``). They run the ``fsdp`` layout for every family they
-    shard, and the ``default`` preset's layout for the dense family
-    without a frontend (``models/model.py`` ``sequence_layout`` lays out
-    token sequences only)."""
+    shard, and the ``default`` preset's layout for the dense and moe
+    families without a frontend (``models/model.py`` ``sequence_layout``
+    lays out token sequences only). A MoE's chunk-major grouping
+    (``local_groups``, ``moe_local_groups``) moves its groups between the
+    ranks of "model", an all-to-all the port's ``Mesh`` does not have."""
     mode = rules_mode(mesh, rules)
+    if family == "moe" and local_groups and mode in ("fsdp", "default"):
+        raise ValueError(
+            "moe_local_groups under a mesh: the chunk-major groups (act_moe_groups → "
+            "act_moe_dispatch) move between the ranks by an all-to-all, which the port's Mesh "
+            "does not have (ROADMAP.md A14c)")
     if mode == "fsdp":
         return mode
     if mode == "default":
-        if family == "moe":
-            raise ValueError(
-                "the 'default' preset on the moe family: its experts stay on the model axis "
-                "(act_experts → model), which needs expert parallelism (ROADMAP.md A14)")
         if family not in TP_FAMILIES:
             raise ValueError(
                 f"the 'default' preset's sequence and tensor parallelism on the {family} family: "
-                "the port lays it out for the dense family only (ROADMAP.md A12b)")
+                "the port lays it out for the dense and moe families only (ROADMAP.md A12b)")
         if frontend is not None:
             raise ValueError(
                 f"the 'default' preset's sequence and tensor parallelism on a {family} model "
@@ -377,6 +384,123 @@ def sequence_parallel(length: int) -> Optional[SeqParallel]:
     return SeqParallel(mesh, rules, int(length), split_axes("act_res_seq", length, mesh, rules))
 
 
+@contextlib.contextmanager
+def batch_rows(axes: Tuple[str, ...]):
+    """Within: a forward's batch holds this rank's rows of the global batch,
+    split over ``axes`` of the active mesh (the peers along the other axes
+    hold the same rows). The train step says it around each forward under
+    ``sharding_rules`` (``launch/steps.py``): the batch, or the subset,
+    splits over its own axes, and a MoE layer groups the global batch's
+    tokens (``models/model.py`` ``expert_layout``)."""
+    prev = _STATE.rows
+    _STATE.rows = tuple(axes)
+    try:
+        yield
+    finally:
+        _STATE.rows = prev
+
+
+def row_axes() -> Optional[Tuple[str, ...]]:
+    """The axes of the enclosing ``batch_rows``, else None."""
+    return _STATE.rows
+
+
+def moe_axes(groups: int, experts: int, mesh, rules: Optional[Dict[str, MeshAxes]] = None
+             ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(the axes a MoE layer's G token groups split over, those its E
+    experts split over): JAX's flat grouping constrains the expert buffers
+    to ``("act_batch", "act_experts", None, None)`` (``repro/models/
+    layers.py`` ``moe``), cut by ``drop_indivisible`` on (G, E), so the
+    groups take their axes first and the experts what is left."""
+    spec = drop_indivisible(logical_to_spec(("act_batch", "act_experts"), mesh, rules),
+                            (groups, experts), mesh)
+    return _entry_axes(spec[0]), _entry_axes(spec[1])
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ExpertLayout:
+    """Where one MoE forward's work lies on ``mesh``: the global batch's
+    ``tokens`` in ``groups`` of ``group_size`` (capacity ``capacity`` a
+    group and expert), the groups over ``group_axes`` and the ``experts``
+    over ``expert_axes`` (``moe_axes``); the forward's input holds this
+    rank's rows, split over ``row_axes``, and under the ``default`` preset
+    (``sp``) its positions of them.
+
+    ``dispatch`` gives the rank the tokens of its groups: the rows whole
+    (``sp.gather``), then its groups' part of them, or its rows gathered
+    over the batch axes the groups do not split over. Every rank that holds
+    a group routes it whole and runs its own experts on it. ``combine``
+    sums the float32 partials of the ranks that share the rank's groups
+    (a ``psum_scatter`` back onto its rows and positions where those ranks
+    split them, a ``psum`` where they hold them alike). The peers along
+    axes that split neither the groups nor the experts run the same
+    experts on the same groups: only the one at index 0 adds its partial
+    (``counted``), the others add zeros, so that the sum counts it once.
+    The gradients follow the rule of :class:`SeqParallel`: each
+    collective's backward is its adjoint, so the router's gradient and the
+    gathered tokens', partial on each rank, sum over the ranks."""
+    mesh: Any
+    tokens: int
+    group_size: int
+    capacity: int
+    experts: int
+    row_axes: Tuple[str, ...]
+    group_axes: Tuple[str, ...]
+    expert_axes: Tuple[str, ...]
+    sp: Optional[SeqParallel]
+
+    @property
+    def expert_range(self) -> Tuple[int, int]:
+        """This rank's experts ``[start, stop)``."""
+        if not self.expert_axes:
+            return 0, self.experts
+        k, i = self.mesh.size(self.expert_axes), self.mesh.axis_index(self.expert_axes)
+        return i * self.experts // k, (i + 1) * self.experts // k
+
+    @property
+    def counted(self) -> bool:
+        """Whether this rank's partial is the one the combine adds: index 0
+        along the axes that split neither the groups nor the experts."""
+        coords = _coords(self.mesh)
+        return all(coords[a] == 0 for a in self.mesh.axis_names
+                   if a not in self.group_axes and a not in self.expert_axes)
+
+    def dispatch(self, x: torch.Tensor) -> torch.Tensor:
+        """(rows, positions, D) this rank's input → (G_r, gs, D) the tokens of
+        its groups."""
+        if self.sp is not None:
+            x = self.sp.gather(x)
+        D = x.shape[-1]
+        t = x.reshape(-1, D)
+        g, r = self.group_axes, self.row_axes
+        if len(g) > len(r):                 # the rank's groups: a part of its rows
+            n = t.shape[0] // self.mesh.size(g[len(r):])
+            t = t.narrow(0, self.mesh.axis_index(g[len(r):]) * n, n)
+        elif len(g) < len(r):               # its rows: a part of its groups
+            t = _Gather.apply(t.contiguous(), self.mesh, r[len(g):], 0)
+        return t.reshape(-1, self.group_size, D)
+
+    def combine(self, out: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+        """The float32 partial ``out`` (G_r, gs, D) of this rank's experts →
+        the sum over every rank's experts, float32, in the input's
+        ``shape`` (this rank's rows and positions)."""
+        mesh, g, r = self.mesh, self.group_axes, self.row_axes
+        t = out.reshape(-1, out.shape[-1])
+        if not self.counted:
+            t = t * 0.0
+        rest = tuple(a for a in mesh.axis_names if a not in g)
+        if len(g) > len(r):
+            t = _Gather.apply(t.contiguous(), mesh, g[len(r):], 0)
+        elif len(g) < len(r):
+            t = _Scatter.apply(t.contiguous(), mesh, r[len(g):], 0)
+            rest = tuple(a for a in rest if a not in r)
+        sp = self.sp
+        if sp is not None and sp.size > 1:
+            t = _Scatter.apply(t.reshape(shape[0], sp.length, shape[-1]), mesh, sp.axes, 1)
+            rest = tuple(a for a in rest if a not in sp.axes)
+        return psum(t.reshape(shape), mesh, rest)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class CacheLayout:
     """Where this rank's part of a decode cache for ``rows`` sequences of
@@ -479,6 +603,10 @@ class LeafSharding:
     @property
     def is_sharded(self) -> bool:
         return self.local_shape != tuple(self.shape)
+
+    def dim_axes(self, dim: int) -> Tuple[str, ...]:
+        """The mesh axes that split dim ``dim``."""
+        return _entry_axes(self.spec[dim])
 
     def counted(self) -> bool:
         """Whether this rank's copy of the shard is the one a global sum over
@@ -651,7 +779,8 @@ def materialize_tree(tree):
 
 __all__ = ["DEFAULT_RULES", "MeshAxes", "Spec", "sharding_rules", "logical_to_spec",
            "drop_indivisible", "active", "rules_mode", "check_rules", "TP_FAMILIES", "psum",
-           "SeqParallel", "sequence_parallel", "CacheLayout", "cache_layout", "split_axes",
+           "SeqParallel", "sequence_parallel", "batch_rows", "row_axes", "moe_axes",
+           "ExpertLayout", "CacheLayout", "cache_layout", "split_axes",
            "LeafSharding", "leaf_sharding", "param_shardings", "shard_tensor", "gather_tensor",
            "reduce_scatter_tensor", "ShardedParam", "materialize", "materialize_part",
            "materialize_rows", "materialize_tree"]

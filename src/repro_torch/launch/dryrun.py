@@ -27,13 +27,15 @@ storage, nothing computed), on one device of the mesh:
   maps to. A recording backend stands in for the processes:
   ``all_gather_rows`` and ``reduce_grads`` return fake tensors of the real
   shapes and add their operands' bytes under JAX's op names. Under
-  ``fsdp`` (the non-MoE archs) and under ``default`` (the dense archs)
-  the state is one device's shards (``"state": "sharded"``) and a
-  recording mesh stands in for the ranks: each weight's just-in-time
-  gather, its gradient's reduce-scatter, the norm's psum and, under
-  ``default``, the sequence's gathers and reduce-scatters and the
-  vocabulary-parallel loss's pmax and psums return fake tensors of the
-  real shapes and add their operands' bytes the same way. A prefill or
+  ``fsdp`` (every arch; a MoE arch's train cells only) and under
+  ``default`` (the dense and MoE archs' train cells) the state is one
+  device's shards (``"state": "sharded"``) and a recording mesh stands in
+  for the ranks: each weight's just-in-time gather, its gradient's
+  reduce-scatter, the norm's psum and, under ``default``, the sequence's
+  gathers and reduce-scatters and the vocabulary-parallel loss's pmax and
+  psums, and a MoE layer's gathered rows and its combine's reduce-scatter
+  return fake tensors of the real shapes and add their operands' bytes the
+  same way. A prefill or
   decode cell's cache is one device's part of it (``specs.cache_logical``
   under the shape's ``SHAPE_RULES``: decode_32k's positions over
   ``"model"``), and the split-KV combine's pmax and psum and the gathered
@@ -49,8 +51,9 @@ plain-PyTorch chain unless the train config sets ``use_pallas``. The
 divergence sentinel is off (a host read, no device memory). Eager PyTorch
 runs every layer, so the JAX run's L = p / 2p delta is not needed:
 ``--no-deltas`` is accepted and ``scaled`` equals ``full``. ``fsdp`` on a
-MoE arch (its experts need expert parallelism) and ``head_tp``
-(head-parallel attention) raise ``ValueError`` with the reason.
+MoE arch's serve cells (A14s), a MoE's chunk-major groups (A14c) and
+``head_tp`` (head-parallel attention) raise ``ValueError`` with the
+reason.
 
 Fake tensors are ``cuda:0``'s, which needs PyTorch with CUDA. Where it has
 none, ``--cpu-stand-in`` traces fake CPU tensors on the card's routes
@@ -350,10 +353,10 @@ def trace(cell: specs_lib.Cell, backend: RecordingBackend = None) -> Dict[str, A
     }
 
 
-def _check_preset(cfg, rules_preset: str) -> str:
-    """Raise ``ValueError`` for a preset the port does not run on this cell;
-    else return why the cell's state stays replicated (``""``: it is
-    sharded)."""
+def _check_preset(cfg, rules_preset: str, kind: str = "train") -> str:
+    """Raise ``ValueError`` for a preset the port does not run on this cell
+    (a cell of ``kind`` train, prefill or decode); else return why the
+    cell's state stays replicated (``""``: it is sharded)."""
     if rules_preset not in specs_lib.RULE_PRESETS:
         raise ValueError(f"unknown rules preset '{rules_preset}' "
                          f"(have {sorted(specs_lib.RULE_PRESETS)})")
@@ -361,21 +364,22 @@ def _check_preset(cfg, rules_preset: str) -> str:
         raise ValueError("rules preset 'head_tp' shards attention heads over the model axis "
                          "(tensor parallelism of activations), which the port's eager layers "
                          "do not have (ROADMAP.md A13)")
+    if cfg.family == "moe" and cfg.moe_local_groups:
+        raise ValueError(f"rules preset '{rules_preset}' on {cfg.name} with moe_local_groups: "
+                         "its chunk-major groups need an all-to-all (ROADMAP.md A14c)")
+    if cfg.family == "moe" and kind != "train":
+        if rules_preset == "fsdp":
+            raise ValueError(f"rules preset 'fsdp' on {cfg.name}'s {kind} cell: sharded "
+                             "serving of the moe family has no expert parallelism laid out "
+                             "(ROADMAP.md A14s)")
+        return "sharded serving of the moe family has no expert parallelism (ROADMAP.md A14s)"
     if rules_preset == "default":
-        if cfg.family == "moe":
-            return "the experts need expert parallelism (ROADMAP.md A14)"
         if cfg.family not in sh.TP_FAMILIES:
             return (f"the {cfg.family} family's layers have no sequence-parallel layout "
                     "(ROADMAP.md A12b)")
         if cfg.frontend is not None:
             return (f"the {cfg.frontend} frontend has no sequence-parallel layout "
                     "(ROADMAP.md A12b)")
-        return ""
-    if rules_preset == "fsdp":
-        if cfg.family == "moe":
-            raise ValueError(f"rules preset 'fsdp' on {cfg.name}: its experts stay on the model "
-                             "axis (act_experts → model), which needs expert parallelism the "
-                             "port does not have (ROADMAP.md A14)")
     return ""
 
 
@@ -392,8 +396,9 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
     takes the CPU's own routes, to hold a trace to a real CPU step);
     ``stand_in``: the CPU stand-in for the card (``specs.abstract_device``).
     ``rules_preset``: "fsdp" (a cell's state sharded, ``"state":
-    "sharded"``) or "default" (the dense archs' cells sharded as well, with
-    the batch over ``("pod", "data")`` and the sequence, the MLP hidden and
+    "sharded"``; a MoE arch's serve cells refuse, A14s) or "default" (the
+    dense and MoE archs' train cells sharded as well, with the batch over
+    ``("pod", "data")`` and the sequence, the MLP hidden, the experts and
     the vocabulary over ``"model"``; every other cell keeps the state
     replicated on each device and ``replicated_why`` says why). The shape's
     ``SHAPE_RULES`` come under the preset's."""
@@ -403,7 +408,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
         task = data_sources.get_source(data_source).task
         cfg = dataclasses.replace(cfg, **task.model_overrides(
             task.derive(cfg, batch=info["batch"], seq=info["seq"], seed=0)))
-    replicated_why = _check_preset(cfg, rules_preset)
+    replicated_why = _check_preset(cfg, rules_preset, info["kind"])
     if mesh_override is not None:
         mesh = mesh_override
     elif mesh_kind == "one":
@@ -573,8 +578,8 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-mode", default="probe",
                     help="selection gradient source for graft cells")
     ap.add_argument("--rules-preset", default="default", choices=list(specs_lib.RULE_PRESETS),
-                    help="fsdp: the non-MoE archs' state sharded; default: the dense archs' "
-                         "state sharded, the rest replicated")
+                    help="fsdp: every arch's state sharded (MoE serve cells refused); default: "
+                         "the dense and MoE archs' train state sharded, the rest replicated")
     ap.add_argument("--data-source", default="synthetic_lm",
                     help="task/data-source registry name for train cells")
     ap.add_argument("--cpu-stand-in", action="store_true",

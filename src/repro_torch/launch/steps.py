@@ -54,9 +54,9 @@ over trains on them, as JAX's replicated shards compute, and its loss
 counts zero. ``train_state_logical`` is the twin of JAX's logical tree of
 the train state.
 
-JAX's ``default`` preset (the dense family): the same state (``fsdp``
-overrides activation rules only), the batch over ``("pod", "data")`` and
-each row's sequence over ``"model"`` (``models/model.py``
+JAX's ``default`` preset (the dense and moe families): the same state
+(``fsdp`` overrides activation rules only), the batch over ``("pod",
+"data")`` and each row's sequence over ``"model"`` (``models/model.py``
 ``sequence_layout``): the model peers of a batch shard hold the same rows
 and each runs its positions of the residual stream, the attention queries
 and its slices of the MLP and of the vocabulary, with the collectives of
@@ -65,6 +65,13 @@ every model peer, and only the peer at model index 0 counts it (the
 ``counts`` rule above, ``model`` not being a batch axis). The selection
 forward gathers the final hiddens over the sequence, so its per-row
 outputs are the one-process values on every model peer.
+
+A MoE model under either preset groups the global batch's tokens as JAX
+does: each forward here says which axes its rows split over
+(``sharding.batch_rows``: the batch's, or the subset's), and its MoE
+layers run their groups and experts where ``sharding.ExpertLayout`` puts
+them. Adafactor's factored moments on a sharded state are the whole
+leaf's (``optim/optimizers.py``).
 """
 from __future__ import annotations
 
@@ -83,7 +90,6 @@ from repro_torch.distributed.accumulate import accumulated_grads
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import model as model_lib
 from repro_torch.optim import Optimizer, OptimizerConfig, make_optimizer
-from repro_torch.optim.optimizers import ADAFACTOR_SHARDED
 from repro_torch.selection import base as selection_base
 from repro_torch.selection import registry as sampler_registry
 from repro_torch.selection import sources as sources_lib
@@ -169,14 +175,20 @@ class ShardLayout:
 
 def _check_sharded(mcfg, tcfg: TrainConfig, mesh, rules) -> None:
     """Raise ``ValueError`` for what the sharded step does not run: rules
-    other than the ``fsdp`` layout and, for the dense family, the
-    ``default`` one (``sharding.check_rules``)."""
-    sh.check_rules(mesh, rules, mcfg.family, mcfg.frontend)
-    if tcfg.optimizer.name == "adafactor":
-        raise ValueError(ADAFACTOR_SHARDED)
+    other than the ``fsdp`` layout and, for the dense and moe families, the
+    ``default`` one (``sharding.check_rules``); a MoE's chunk-major groups,
+    and its microbatches, whose global rows lie on other ranks (each an
+    all-to-all); the ``full`` grad source."""
+    sh.check_rules(mesh, rules, mcfg.family, mcfg.frontend, mcfg.moe_local_groups)
+    if mcfg.family == "moe" and tcfg.microbatches > 1:
+        raise ValueError(
+            f"{tcfg.microbatches} microbatches of a sharded MoE batch: each microbatch's "
+            "global rows, which its groups span, lie on other ranks, and gathering them is an "
+            "all-to-all the port's Mesh does not have (ROADMAP.md A14c)")
     if tcfg.use_graft and tcfg.graft.grad_mode == "full":
         raise ValueError("grad_mode 'full' takes per-sample gradients of the whole parameter "
-                         "tree, which a sharded state does not hold; use probe or logit_embed")
+                         "tree, which a sharded state does not hold; use probe or logit_embed "
+                         "(ROADMAP.md A18)")
 
 
 def state_for_model(mcfg, tcfg: TrainConfig, model, batch_size: int) -> Dict[str, Any]:
@@ -352,7 +364,8 @@ def selection_inputs(mcfg, tcfg: TrainConfig, params, batch, backend=None
     """
     gcfg = tcfg.graft
     extractor = sources_lib.resolve_features(gcfg.feature_mode)
-    pooled, emb, scores = selection_rows(mcfg, tcfg, params, batch)
+    with _rows_of(backend, "batch_axes"):
+        pooled, emb, scores = selection_rows(mcfg, tcfg, params, batch)
     if backend is not None:
         pooled, emb, scores = (backend.all_gather_rows(x) for x in (pooled, emb, scores))
     V = extractor(pooled, gcfg.r_max)
@@ -413,6 +426,15 @@ def _state_carry(tcfg: TrainConfig, state):
 
 def _batch_size(batch) -> int:
     return next(iter(batch.values())).shape[0]
+
+
+def _rows_of(layout, axes: str):
+    """``sharding.batch_rows`` over a sharded state's ``layout.<axes>``
+    (its batch's or its subset's), for a forward of this rank's rows;
+    nothing without one (a data-parallel backend's, or one process's)."""
+    if not isinstance(layout, ShardLayout):
+        return contextlib.nullcontext()
+    return sh.batch_rows(getattr(layout, axes))
 
 
 # ---------------------------------------------------------------------------
@@ -487,7 +509,8 @@ def _finish(tcfg: TrainConfig, state, loss: torch.Tensor, grads, metrics,
     if sentinel and "health" in state:
         healthy, metrics = apply_sentinel(tcfg, state, metrics)
     if healthy:
-        metrics["lr"] = opt.update(state["params"], grads, state["opt"], step)
+        metrics["lr"] = opt.update(state["params"], grads, state["opt"], step,
+                                   layout.shardings if layout is not None else None)
         state.update(updates)
     else:
         metrics["lr"] = opt.lr(step)
@@ -520,7 +543,8 @@ def baseline_train_step(mcfg, tcfg: TrainConfig, state, batch, *, opt: Optimizer
         scale = (1.0 / n) if layout.counts(layout.batch_axes) else 0.0
 
     def loss_of(mb):
-        loss = model_lib.loss_fn(mcfg, state["model"], mb)[0]
+        with _rows_of(layout, "batch_axes"):
+            loss = model_lib.loss_fn(mcfg, state["model"], mb)[0]
         return loss if scale is None else loss * scale
 
     if tcfg.microbatches > 1:
@@ -543,7 +567,8 @@ def subset_loss(mcfg, state, batch, graft_state, backend=None) -> torch.Tensor:
     rank whose share a peer counts)."""
     rows = _rows(state, backend)
     sub_batch, weights = _local_subset(batch, graft_state, rows)
-    pel = model_lib.per_example_loss(mcfg, state["model"], sub_batch)
+    with _rows_of(rows, "subset_axes"):
+        pel = model_lib.per_example_loss(mcfg, state["model"], sub_batch)
     loss = torch.sum(pel * weights)
     layout = state.get("layout")
     if layout is not None and not layout.counts(layout.subset_axes):
@@ -603,7 +628,7 @@ def make_train_step(mcfg, tcfg: TrainConfig, kind: Optional[str] = None, backend
     when ``tcfg.sentinel`` is on. The optimizer is built once here, for
     every step the function takes. ``backend``: data parallel over its
     ranks; the local backend (one process) adds no op. Under
-    ``sharding_rules`` (the fsdp preset) the step takes the state
+    ``sharding_rules`` (the fsdp or default preset) the step takes the state
     ``state_for_model`` builds under the same rules, its parameters
     sharded over the mesh's ranks (``backend`` defaults to the mesh's)."""
     active = sh.active()

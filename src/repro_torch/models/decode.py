@@ -64,16 +64,16 @@ def check_serve_rules(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` unless the serve path runs the active
     ``sharding_rules`` for ``cfg``'s model: ``sharding.check_rules`` for its
     family and frontend (the ``fsdp`` layout, and the ``default`` one for
-    the dense family), and no MoE, whose experts need expert
-    parallelism."""
+    the dense family), and no MoE: a decode tick's dropless groups are its
+    rows, which the train step's expert layout does not cover."""
     act = sh.active()
     if act is None:
         return
-    sh.check_rules(*act, cfg.family, cfg.frontend)
+    sh.check_rules(*act, cfg.family, cfg.frontend, cfg.moe_local_groups)
     if cfg.family == "moe":
-        raise ValueError(f"{cfg.name}: sharded serving of the moe family keeps its experts on "
-                         "the model axis (act_experts → model), which needs expert parallelism "
-                         "(ROADMAP.md A14)")
+        raise ValueError(f"{cfg.name}: sharded serving of the moe family: the dropless decode's "
+                         "groups are a tick's rows and the prefill's its prompts, whose expert "
+                         "parallelism the port has not laid out (ROADMAP.md A14s)")
 
 
 def _layer_cache(cfg: ModelConfig, B: int, max_seq: int, device,

@@ -19,10 +19,14 @@ rank attends its slice and the ranks combine (the split-KV path). Under the
 are a slice of the sequence, and the flash kernels take its first
 position as their query offset. ``moe`` is the capacity-factor MoE
 layer with sort-based dispatch; ``dropless=True`` (a one-token decode step)
-sets each expert's capacity to the group size.
+sets each expert's capacity to the group size. Under either preset
+(``ep``, a ``sharding.ExpertLayout``) a rank routes its groups of the
+global batch and runs its own experts, and the ranks' float32 partials
+are summed (expert parallelism).
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -463,16 +467,17 @@ def moe_groups(cfg, x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
 
 
 def moe_routing(cfg, router: torch.Tensor, xt: torch.Tensor,
-                dropless: bool = False) -> Routing:
+                dropless: bool = False, capacity: Optional[int] = None) -> Routing:
     """The top-k routing and the sort-based dispatch plan of token groups
     ``xt`` (G, gs, D). The top k come from a stable descending sort, so
     that equal probabilities go to the lower expert index as
     ``jax.lax.top_k`` gives them; each expert's queue is a stable argsort
     of the expert ids, and the assignments past its capacity are dropped in
-    queue order."""
+    queue order. ``capacity``: the global batch's (``moe_capacity``), where
+    ``xt`` holds some of its groups; else ``xt``'s own."""
     G, gs, _ = xt.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
-    _, cap = moe_capacity(cfg, G * gs, dropless)
+    cap = capacity if capacity is not None else moe_capacity(cfg, G * gs, dropless)[1]
     dev = xt.device
     logits = xt @ router.to(xt.dtype)                               # (G, gs, E)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
@@ -501,7 +506,13 @@ def moe_routing(cfg, router: torch.Tensor, xt: torch.Tensor,
                    src_flat=src_flat, slot_valid=slot_valid)
 
 
-def moe(cfg, p, x: torch.Tensor, dropless: bool = False) -> torch.Tensor:
+# (the global batch's tokens, the groups' axes, the experts' axes) of each
+# sharded MoE forward, counted: the regimes a fleet's ranks report
+EXPERT_RUNS: collections.Counter = collections.Counter()
+
+
+def moe(cfg, p, x: torch.Tensor, dropless: bool = False,
+        ep: Optional[sh.ExpertLayout] = None) -> torch.Tensor:
     """Top-k routed MoE with static capacity, sort-based dispatch — the twin
     of the JAX package's ``moe``. x: (B, S, D) → (B, S, D).
 
@@ -513,29 +524,60 @@ def moe(cfg, p, x: torch.Tensor, dropless: bool = False) -> torch.Tensor:
     float32 in slot order (the JAX package scatter-adds them in float32 in
     buffer order), so that it is the same from run to run on the card.
     ``dropless`` (the decode step's) makes the capacity the group size.
+
+    ``ep`` (a ``sharding.ExpertLayout``, a sharded train step): x is this
+    rank's rows (and positions) and ``p`` the layer's leaves as stored. The
+    rank routes the tokens of its groups (``ep.dispatch``), with the global
+    batch's group size and capacity, runs its experts ``ep.expert_range``
+    on their slots with those experts' weights gathered over their other
+    axes, adds its slots' outputs in float32 in slot order, and the ranks'
+    partials are summed (``ep.combine``) before the one cast.
     """
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
-    xt, chunk_major = moe_groups(cfg, x)
+    if ep is None:
+        xt, chunk_major = moe_groups(cfg, x)
+        cap = moe_capacity(cfg, B * S, dropless)[1]
+        e0, e1 = 0, E
+        router, w_gate, w_up, w_down = p["router"], p["w_gate"], p["w_up"], p["w_down"]
+    else:
+        if dropless:
+            raise ValueError("the dropless MoE under sharding_rules: its groups are a decode "
+                             "tick's rows (ROADMAP.md A14s)")
+        xt, chunk_major, cap = ep.dispatch(x), False, ep.capacity
+        e0, e1 = ep.expert_range
+        EXPERT_RUNS[(ep.tokens, ep.group_axes, ep.expert_axes)] += 1
+        router = sh.materialize(p["router"])
+        w_gate, w_up, w_down = (sh.materialize_part(p[n], 0, (e0, e1), ep.expert_axes)
+                                for n in ("w_gate", "w_up", "w_down"))
     G, gs, _ = xt.shape
-    _, cap = moe_capacity(cfg, B * S, dropless)
-    r = moe_routing(cfg, p["router"], xt, dropless)
+    r = moe_routing(cfg, router, xt, dropless, cap)
+    # this rank's experts [e0, e1): their slots of the buffer, and each
+    # (token, slot) assignment that lands in one of them
+    lo, hi = e0 * cap, e1 * cap
+    ids_flat = r.ids.reshape(G, gs * k)
+    local = r.keep & (ids_flat >= e0) & (ids_flat < e1)
+    slot_of = torch.where(local, r.slot_of - lo, 0)
+    valid = r.slot_valid[:, lo:hi]
 
-    expert_in = _Route.apply(xt, r.token_of_slot, r.slot_valid,
-                             r.slot_of.reshape(G, gs, k), r.keep.reshape(G, gs, k))
-    xe = expert_in.reshape(G, E, cap, D).transpose(0, 1).reshape(E, G * cap, D)
+    expert_in = _Route.apply(xt, r.token_of_slot[:, lo:hi], valid,
+                             slot_of.reshape(G, gs, k), local.reshape(G, gs, k))
+    El = e1 - e0
+    xe = expert_in.reshape(G, El, cap, D).transpose(0, 1).reshape(El, G * cap, D)
     act = _activation(cfg.mlp_activation)
-    h = act(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
-    ye = torch.bmm(h, p["w_down"])                                  # (E, G·C, D)
-    flat_out = ye.reshape(E, G, cap, D).transpose(0, 1).reshape(G, E * cap, D)
+    h = act(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+    ye = torch.bmm(h, w_down)                                       # (El, G·C, D)
+    flat_out = ye.reshape(El, G, cap, D).transpose(0, 1).reshape(G, El * cap, D)
 
     w = (r.gate.reshape(G, gs * k) * r.keep).to(x.dtype)
-    slot_out = _Route.apply(flat_out, r.slot_of, r.keep, r.src_flat[..., None],
-                            r.slot_valid[..., None])                # (G, gs·k, D)
+    slot_out = _Route.apply(flat_out, slot_of, local, r.src_flat[:, lo:hi, None],
+                            valid[..., None])                       # (G, gs·k, D)
     contrib = (slot_out * w[..., None]).to(torch.float32).reshape(G, gs, k, D)
     out = contrib[:, :, 0]
     for j in range(1, k):
         out = out + contrib[:, :, j]
+    if ep is not None:
+        return ep.combine(out, x.shape).to(x.dtype)
     out = out.to(x.dtype)
     if chunk_major:
         return out.reshape(S // gs, B, gs, D).transpose(0, 1).reshape(B, S, D)

@@ -361,10 +361,11 @@ class ShardedModel:
     def tree(self) -> Dict[str, Any]:
         return _wrap(self.model.tree(), self.shardings)
 
-    def gathered(self) -> Dict[str, Any]:
+    def gathered(self, max_leaf_bytes: Optional[int] = None) -> Dict[str, Any]:
         """The full parameter tree, every sharded leaf gathered (a
-        collective on every rank of the mesh)."""
-        return values_tree(self, list(self.parameters()))
+        collective on every rank of the mesh; see ``values_tree`` for
+        ``max_leaf_bytes``)."""
+        return values_tree(self, list(self.parameters()), max_leaf_bytes)
 
     def param_shardings(self) -> List[sh.LeafSharding]:
         """Each parameter's sharding, in ``parameters()``' order."""
@@ -373,12 +374,17 @@ class ShardedModel:
 
 
 @torch.no_grad()
-def values_tree(model, values: List[torch.Tensor]) -> Dict[str, Any]:
+def values_tree(model, values: List[torch.Tensor],
+                max_leaf_bytes: Optional[int] = None) -> Dict[str, Any]:
     """``values``, one a parameter in ``model.parameters()``' order (the
     parameters themselves, or an optimizer's moments), placed as
     ``model.tree()`` places the parameters. Of a ``ShardedModel`` each
     value is this rank's shard and is gathered to the full tensor (a
-    collective on every rank of the mesh)."""
+    collective on every rank of the mesh). A leaf whose full tensor takes
+    more than ``max_leaf_bytes`` is not gathered: it gives its value's
+    leading rows along dim 0, as many as fit that size at the full leaf's
+    row (the same count on every rank and in an unsharded model: rank 0's
+    are the leaf's own, cut to its shard's other dims)."""
     plain = model.model if isinstance(model, ShardedModel) else model
     index = {id(p): i for i, p in enumerate(plain.parameters())}
     tree = plain.tree()
@@ -387,6 +393,10 @@ def values_tree(model, values: List[torch.Tensor]) -> Dict[str, Any]:
 
     def place(p, s):
         v = values[index[id(p)]]
+        shape = s.shape if s is not None else tuple(v.shape)
+        row = int(np.prod(shape[1:], dtype=np.int64)) * v.element_size()
+        if max_leaf_bytes is not None and row * shape[0] > max_leaf_bytes:
+            return v[:max(1, max_leaf_bytes // row)]
         return sh.gather_tensor(v, s) if s is not None and s.is_sharded else v
     return _zip_tree(place, tree, shardings)
 
@@ -396,11 +406,9 @@ def shard_model(model: Model, mesh, rules=None) -> ShardedModel:
     """``model``'s parameters cut IN PLACE to this rank's shards on
     ``mesh`` under ``rules`` (default: the active ``sharding_rules``'),
     each leaf placed by ``params_logical``, ``logical_to_spec`` and
-    ``drop_indivisible``. The full tensors go with the last reference to
-    them. A MoE model refuses: its experts need expert parallelism."""
-    if model.cfg.family == "moe":
-        raise ValueError(f"{model.cfg.name}: sharding a MoE model needs expert parallelism "
-                         "(act_experts → model), which the port does not have (ROADMAP.md A14)")
+    ``drop_indivisible`` (a MoE layer's experts over ``"model"``, their
+    ``embed`` over ``"data"``). The full tensors go with the last reference
+    to them."""
     tree = model.tree()
     shardings = sh.param_shardings(tree, params_logical(model.cfg, tree), mesh, rules)
     for p, s in zip(_leaves(tree), _leaves(shardings)):
@@ -470,7 +478,7 @@ def _tree(params) -> Dict[str, Any]:
 
 def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
                  dense_override: bool = False, cache=None, cache_index: int = 0, sp=None,
-                 kv=None):
+                 kv=None, ep=None):
     """One residual block of the config's family (dense for a
     ``first_blocks`` layer) → ``(x, new layer cache)``. With ``cache`` (the
     layer's dict of ``models/decode.py``) the block runs S new positions
@@ -480,13 +488,19 @@ def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
     dropless, as in JAX. ``sp`` (a ``sharding.SeqParallel``): x holds this
     rank's positions of the sequence, and the attention and MLP lay out
     their work as the ``default`` preset declares it (``layers.attention``,
-    ``layers.mlp``)."""
+    ``layers.mlp``). ``ep`` (a ``sharding.ExpertLayout``, a MoE block
+    under ``sharding_rules``): the MoE takes its leaves as stored and runs
+    this rank's experts on its groups (``layers.moe``)."""
     fam = "dense" if dense_override else cfg.family
     new_cache = None if cache is None else {}
-    # a sharded block's weights, gathered here; under ``sp`` the MLP takes
-    # its leaves as stored and gathers its own slices
-    mlp_p = p.get("mlp") if sp is not None else None
-    p = sh.materialize_tree({k: v for k, v in p.items() if mlp_p is None or k != "mlp"})
+    # a sharded block's weights, gathered here; under ``sp`` the MLP, and
+    # under ``ep`` the MoE, take their leaves as stored and gather their
+    # own slices
+    own = {"mlp"} if sp is not None else set()
+    if ep is not None and fam == "moe":
+        own.add("moe")
+    stored = {k: p[k] for k in own if k in p}
+    p = sh.materialize_tree({k: v for k, v in p.items() if k not in own})
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     if fam == "ssm":
         t_out, t_state = S.rwkv_time_mix(cfg, p["time"], h,
@@ -512,9 +526,10 @@ def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
     x = x + attn_out
     h2 = L.rms_norm(x, p["ln2"], cfg.rms_eps)
     if fam == "moe":
-        ff = L.moe(cfg, p["moe"], h2, dropless=cache is not None and x.shape[1] == 1)
+        ff = L.moe(cfg, stored.get("moe", p.get("moe")), h2,
+                   dropless=cache is not None and x.shape[1] == 1, ep=ep)
     else:
-        ff = L.mlp(cfg, p["mlp"] if mlp_p is None else mlp_p, h2, sp)
+        ff = L.mlp(cfg, stored.get("mlp", p.get("mlp")), h2, sp)
     if cfg.post_block_norm:
         ff = L.rms_norm(ff, p["ln2_post"], cfg.rms_eps)
     if cache is not None:
@@ -542,10 +557,38 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _dots_po
 def sequence_layout(cfg: ModelConfig, batch) -> Optional[sh.SeqParallel]:
     """The ``default`` preset's layout of ``batch``'s forward under the
     active ``sharding_rules`` (``sharding.sequence_parallel``), for a
-    family whose layers run it; else None."""
+    family whose layers run it (dense, moe); else None."""
     if cfg.family not in sh.TP_FAMILIES or cfg.frontend is not None:
         return None
     return sh.sequence_parallel(batch["tokens"].shape[1])
+
+
+def expert_layout(cfg: ModelConfig, x: torch.Tensor, sp: Optional[sh.SeqParallel] = None
+                  ) -> Optional[sh.ExpertLayout]:
+    """Where a MoE model's forward of this rank's embedded input ``x``
+    (its rows, split over the enclosing ``sharding.batch_rows``' axes, and
+    under ``sp`` its positions) runs its experts under the active
+    ``sharding_rules``: the group size and capacity from the global
+    batch's token count, the groups' and experts' axes by
+    ``sharding.moe_axes``; None for another family or under no rules.
+    Raises ``ValueError`` under rules without ``batch_rows``: the groups
+    span the global batch, so the layer must know which rows it holds."""
+    act = sh.active()
+    if cfg.family != "moe" or act is None:
+        return None
+    mesh, rules = act
+    rows_axes = sh.row_axes()
+    if rows_axes is None:
+        raise ValueError("a MoE forward under sharding_rules needs its rows' axes "
+                         "(sharding.batch_rows): the groups span the global batch")
+    tokens = x.shape[0] * (mesh.size(rows_axes) if rows_axes else 1) * (
+        sp.length if sp is not None else x.shape[1])
+    gs, cap = L.moe_capacity(cfg, tokens)
+    g, e = sh.moe_axes(tokens // gs, cfg.num_experts, mesh, rules)
+    if g[:len(rows_axes)] != rows_axes[:len(g)]:
+        raise ValueError(f"the MoE groups over {g} and the rows over {rows_axes}: neither is "
+                         "a prefix of the other")
+    return sh.ExpertLayout(mesh, tokens, gs, cap, cfg.num_experts, rows_axes, g, e, sp)
 
 
 def embed_inputs(cfg: ModelConfig, params, batch, sp: Optional[sh.SeqParallel] = None
@@ -602,10 +645,15 @@ def forward_hiddens(cfg: ModelConfig, params, batch
     the rest (selective checkpointing), the port of ``checkpoint_dots``. A
     kernel called through an extension (flash, RWKV) is no matrix product to
     the dispatcher and is recomputed, as a ``pallas_call`` is under
-    ``checkpoint_dots``."""
+    ``checkpoint_dots``.
+
+    A MoE model under ``sharding_rules`` runs its experts where
+    ``expert_layout`` puts them; the layout is fixed here, so that a
+    block's recompute runs the same collectives as its forward."""
     params = _tree(params)
     sp = sequence_layout(cfg, batch)
     x, positions, mask = embed_inputs(cfg, params, batch, sp)
+    ep = expert_layout(cfg, x, sp)
     is_local = cfg.is_local_pattern()
     for p in params.get("first_blocks", []):
         x, _ = _apply_block(cfg, p, x, positions, False, dense_override=True, sp=sp)
@@ -614,12 +662,12 @@ def forward_hiddens(cfg: ModelConfig, params, batch
         local = bool(is_local[cfg.first_k_dense + i])
         if remat == "full":
             x, _ = checkpoint(_apply_block, cfg, p, x, positions, local,
-                              use_reentrant=False, sp=sp)
+                              use_reentrant=False, sp=sp, ep=ep)
         elif remat == "dots":
             x, _ = checkpoint(_apply_block, cfg, p, x, positions, local,
-                              use_reentrant=False, context_fn=_DOTS_CONTEXT, sp=sp)
+                              use_reentrant=False, context_fn=_DOTS_CONTEXT, sp=sp, ep=ep)
         else:
-            x, _ = _apply_block(cfg, p, x, positions, local, sp=sp)
+            x, _ = _apply_block(cfg, p, x, positions, local, sp=sp, ep=ep)
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return x, mask
 

@@ -28,6 +28,14 @@ takes the JAX leaves, each the index of one param or a list of the indices
 of the params stacked on a new axis 0, and the state holds one entry per
 group (``groups=None``: every param is a leaf of its own). The other
 optimizers are elementwise and ignore ``groups``.
+
+On a sharded state (``update(..., shardings)``, each param its rank's
+shard and its ``sharding.LeafSharding``) Adafactor's factored moments are
+those of the whole leaf: a row or column mean over a dim that a mesh axis
+splits is the ``psum`` of the shards' sums over that axis divided by the
+dim's global size, the update's RMS the ``psum`` over the axes that split
+the leaf (each shard counted once), and ``vr``/``vc`` hold this rank's
+rows and columns of them.
 """
 from __future__ import annotations
 
@@ -41,12 +49,6 @@ from repro_torch.kernels import build, fused_optim
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 NAMES = ("adamw", "sgd", "lion", "adafactor")
-
-# why Adafactor does not step a sharded state
-ADAFACTOR_SHARDED = (
-    "adafactor on a sharded state: its factored second moments vr and vc are a leaf's row "
-    "and column means, which span every shard and need a psum over the mesh that the port "
-    "does not make (ROADMAP.md A16); use adamw, sgd or lion under the fsdp preset")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +68,9 @@ class OptimizerConfig:
 
 
 class Optimizer(NamedTuple):
+    """``update(params, grads, state, step, shardings=None)``: ``shardings``
+    the params' ``LeafSharding``s where they are a sharded state's shards
+    (read by Adafactor's means; the elementwise rules need none)."""
     init: Callable[..., Dict[str, Any]]
     apply: Callable[..., Dict[str, Any]]
     preprocess: Callable[..., Tuple[List[torch.Tensor], Dict[str, Any]]]
@@ -127,8 +132,6 @@ def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
         ``reduce`` adds the ranks' sums (kernel A split)."""
         grads = list(grads)
         if reduce is not None:
-            if cfg.name == "adafactor":
-                raise ValueError(ADAFACTOR_SHARDED)
             mine = [g for g, c in zip(grads, counted) if c]
             norm, scale = fused_optim.grad_norm(mine, cfg.clip_norm, reduce,
                                                 device=grads[0].device)
@@ -165,7 +168,7 @@ def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
             return state
 
         @torch.no_grad()
-        def update(params, grads, state, step: int) -> float:
+        def update(params, grads, state, step: int, shardings=None) -> float:
             grads, scale = _unclipped(grads)
             hp = hyper(step)
             fused_optim.optimizer_update(cfg.name, params, grads, state["m"],
@@ -184,7 +187,8 @@ def _adafactor(cfg: OptimizerConfig, lr_fn, sdt: torch.dtype):
     """Adafactor (``repro/optim/optimizers.py:166-216``): factored second
     moments ``vr``/``vc`` over a leaf's trailing two dims (``v`` for 1-D
     leaves), decay ``1 - t^-0.8``, update clipping at RMS 1. Plain PyTorch
-    on every device."""
+    on every device; on a sharded state the means and the RMS span the
+    whole leaf (``_Leaf``)."""
     f32 = torch.float32
 
     def init(params, groups=None):
@@ -204,37 +208,51 @@ def _adafactor(cfg: OptimizerConfig, lr_fn, sdt: torch.dtype):
         return {"v": v, "groups": groups}
 
     @torch.no_grad()
-    def update(params, grads, state, step: int) -> float:
+    def update(params, grads, state, step: int, shardings=None) -> float:
         grads, scale = _unclipped(grads)
-        if scale is not None:
-            grads = fused_optim.scale_grads(grads, scale)
         lr = lr_fn(step)
         t = np.float32(step) + np.float32(1.0)
         beta2t = float(np.float32(1.0) - t ** np.float32(-0.8))
         for grp, s in zip(state["groups"], state["v"]):
-            if isinstance(grp, list):
+            stacked = isinstance(grp, list)
+            if stacked:
                 p = torch.stack([params[i] for i in grp])
                 g = torch.stack([grads[i] for i in grp])
             else:
                 p, g = params[grp], grads[grp]
-            gf = g.to(f32)
+            if scale is not None:           # the clip, a leaf at a time
+                g = fused_optim.scale_grads([g], scale)[0]
+            first = grp[0] if stacked else grp
+            leaf = _Leaf(shardings[first] if shardings is not None else None, p.ndim,
+                         len(grp) if stacked else None)
+            # the arithmetic of JAX's update, in place where a float32 copy
+            # of a stacked leaf would otherwise stay alive (a layer stack of
+            # experts is GBs): the same operations in the same order
+            gf = g.to(f32, copy=True)
+            del g
             g2 = gf * gf + 1e-30
             if p.ndim >= 2:
-                vr = beta2t * s["vr"].to(f32) + (1 - beta2t) * torch.mean(g2, dim=-1)
-                vc = beta2t * s["vc"].to(f32) + (1 - beta2t) * torch.mean(g2, dim=-2)
+                vr = beta2t * s["vr"].to(f32) + (1 - beta2t) * leaf.mean(g2, -1)
+                vc = beta2t * s["vc"].to(f32) + (1 - beta2t) * leaf.mean(g2, -2)
+                del g2
                 denom = (vr[..., None] * vc[..., None, :]) / (
-                    torch.mean(vr, dim=-1, keepdim=True)[..., None] + 1e-30)
-                upd = gf / (torch.sqrt(denom) + 1e-30)
+                    leaf.mean(vr, -2, keepdim=True)[..., None] + 1e-30)
+                upd = gf.div_(denom.sqrt_().add_(1e-30))
+                del denom
                 s["vr"].copy_(vr.to(sdt))
                 s["vc"].copy_(vc.to(sdt))
             else:
                 vv = beta2t * s["v"].to(f32) + (1 - beta2t) * g2
                 upd = gf / (torch.sqrt(vv) + 1e-30)
                 s["v"].copy_(vv.to(sdt))
-            rms = torch.sqrt(torch.mean(upd * upd) + 1e-30)
-            upd = upd / torch.clamp(rms, min=1.0)
-            p_new = (p.to(f32) - lr * (upd + cfg.weight_decay * p.to(f32))).to(p.dtype)
-            if isinstance(grp, list):
+            rms = torch.sqrt(leaf.mean_all(upd * upd) + 1e-30)
+            upd.div_(torch.clamp(rms, min=1.0))
+            pf = p.to(f32, copy=True)
+            step_ = pf * cfg.weight_decay
+            pf.sub_(step_.add_(upd).mul_(lr))
+            del upd, step_
+            p_new = pf.to(p.dtype)
+            if stacked:
                 for k, i in enumerate(grp):
                     params[i].copy_(p_new[k])
             else:
@@ -242,3 +260,43 @@ def _adafactor(cfg: OptimizerConfig, lr_fn, sdt: torch.dtype):
         return lr
 
     return init, update
+
+
+class _Leaf:
+    """The means Adafactor takes over one JAX leaf: ``sharding`` is its
+    param's ``LeafSharding`` (None: the leaf is whole here), ``stack`` the
+    number of blocks stacked on a new dim 0 (None: not stacked). A mean
+    over a dim that mesh axes split sums the shards over those axes; the
+    stack's dim is never split."""
+
+    def __init__(self, sharding, ndim: int, stack: Optional[int]):
+        self.sharding, self.ndim, self.stack = sharding, ndim, stack
+
+    def _axes_and_size(self, dim: int) -> Tuple[Tuple[str, ...], int]:
+        """The axes that split the leaf's dim ``dim`` (< 0) and its global
+        size."""
+        s = self.sharding
+        shape = ((self.stack,) if self.stack is not None else ()) + tuple(s.shape)
+        spec = ((None,) if self.stack is not None else ()) + tuple(s.spec)
+        axes = tuple(a for a in ((spec[dim],) if isinstance(spec[dim], str)
+                                 else (spec[dim] or ())) if s.mesh.shape[a] > 1)
+        return axes, shape[dim]
+
+    def mean(self, x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+        """The global mean over the leaf's dim ``dim`` (< 0; also that dim of
+        a tensor factored from the leaf, such as ``vr``, whose trailing dim
+        is the leaf's ``dim``) of this rank's ``x``."""
+        xdim = dim if x.dim() == self.ndim else -1
+        axes, n = self._axes_and_size(dim) if self.sharding is not None else ((), 0)
+        if not axes:
+            return torch.mean(x, dim=xdim, keepdim=keepdim)
+        return self.sharding.mesh.psum(torch.sum(x, dim=xdim, keepdim=keepdim), axes) / n
+
+    def mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The global mean over the whole leaf of this rank's ``x``."""
+        axes = () if self.sharding is None else tuple(
+            a for a in self.sharding.sharded_axes if self.sharding.mesh.shape[a] > 1)
+        if not axes:
+            return torch.mean(x)
+        n = float(np.prod(self.sharding.shape, dtype=np.float64)) * (self.stack or 1)
+        return self.sharding.mesh.psum(torch.sum(x), axes) / n

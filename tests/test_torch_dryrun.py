@@ -326,24 +326,34 @@ def test_production_mesh_shapes():
     ("rwkv6-7b", "default", "A12b"), ("musicgen-medium", "default", "A12b"),
     ("qwen3-moe-235b-a22b", "default", "A14")])
 def test_parameter_sharding_presets_raise(arch, preset, reason):
-    """What the port's partitioner does not run: fsdp on a MoE arch (its
-    experts stay on the model axis), its decode cell too, and head-parallel
-    attention in the dry run; the ``default`` preset's sequence and tensor
-    parallelism on the families other than dense and on MoE at the train
-    step and at the serve steps (their dry-run cells keep the state
-    replicated)."""
+    """What the port's partitioner does not run: head-parallel attention in
+    the dry run; the ``default`` preset's sequence and tensor parallelism
+    on the families other than dense and moe, at the train step and at the
+    serve steps (their dry-run cells keep the state replicated); sharded
+    serving of a MoE arch under either preset (A14s), whose train step and
+    train cell now run sharded (expert parallelism)."""
+    moe = tconfigs.get_config(arch).family == "moe"
     if preset == "default":
         mesh = tmesh.make_mesh((2, 2), ("data", "model"))
         mcfg = tconfigs.get_smoke_config(arch)
         tt = tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4)))
-        with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match=reason):
-            tsteps.make_train_step(mcfg, tt)
+        with tsharding.sharding_rules(mesh, {}):
+            if moe:
+                assert callable(tsteps.make_train_step(mcfg, tt))
+            else:
+                with pytest.raises(ValueError, match=reason):
+                    tsteps.make_train_step(mcfg, tt)
         with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match=reason):
             tsteps.decode_step(mcfg, None, None, None)
         return
-    with pytest.raises(ValueError, match=reason):
-        dryrun.run_cell(arch, "train_4k", "single", "graft", smoke=True,
-                        rules_preset=preset)
+    if moe:
+        res = dryrun.run_cell(arch, "train_4k", "single", "graft", smoke=True,
+                              rules_preset=preset, **CARD)
+        assert res["state"] == "sharded"
+    else:
+        with pytest.raises(ValueError, match=reason):
+            dryrun.run_cell(arch, "train_4k", "single", "graft", smoke=True,
+                            rules_preset=preset)
     if preset == "fsdp":
         with pytest.raises(ValueError, match=reason):
             dryrun.run_cell(arch, "decode_32k", "single", "serve", smoke=True,

@@ -48,11 +48,16 @@ package, on the CPU.
   argument bytes equal JAX's shard sizes (each rounded to the allocator's
   512-byte blocks) plus the replicated rest; under ``remat="full"`` the
   peak is below the replicated cell's on the same mesh.
-* The refusals: Adafactor and ``grad_mode="full"`` on a sharded state,
-  the ``head_tp`` preset's head-parallel rule set (ROADMAP.md A13), the
-  ``default`` preset on the ssm family (A12b; the dense family runs it,
-  ``tests/test_torch_tp.py``), a MoE model.
+* The refusals: ``grad_mode="full"`` on a sharded state (A18), the
+  ``head_tp`` preset's head-parallel rule set (ROADMAP.md A13), the
+  ``default`` preset on the ssm family (A12b; the dense and moe families
+  run it, ``tests/test_torch_tp.py``), a MoE model's chunk-major groups
+  and microbatches under a mesh (A14c). What was refused before runs: the
+  sharded step under Adafactor and on the MoE family, on a (1, 1) mesh,
+  bit-equal to one process.
 """
+import contextlib
+import dataclasses
 import functools
 import threading
 
@@ -331,12 +336,9 @@ def test_sharded_step_refusals():
     mesh = make_mesh((1, 1), ("data", "model"), LocalBackend(LocalBackendConfig()))
     mcfg = tconfigs.get_smoke_config("minicpm-2b")
     fsdp = tspecs.RULE_PRESETS["fsdp"]
-    for tt, what in ((tsteps.TrainConfig(optimizer=TOptCfg(name="adafactor"),
-                                         graft=TGraftConfig(rset=(2, 4))), "vr and vc"),
-                     (tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4), grad_mode="full")),
-                      "per-sample")):
-        with tsharding.sharding_rules(mesh, fsdp), pytest.raises(ValueError, match=what):
-            tsteps.init_train_state(mcfg, tt, torch.Generator().manual_seed(0), K)
+    tt = tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4), grad_mode="full"))
+    with tsharding.sharding_rules(mesh, fsdp), pytest.raises(ValueError, match="per-sample"):
+        tsteps.init_train_state(mcfg, tt, torch.Generator().manual_seed(0), K)
     tt = tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4)))
     with tsharding.sharding_rules(mesh, tspecs.RULE_PRESETS["head_tp"]), \
             pytest.raises(ValueError, match="A13"):
@@ -345,13 +347,45 @@ def test_sharded_step_refusals():
     with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match="A12b"):
         tsteps.make_train_step(rwkv, tt)
     moe = tconfigs.get_smoke_config("qwen3-moe-235b-a22b")
-    with tsharding.sharding_rules(mesh, fsdp), pytest.raises(ValueError, match="expert"):
-        tsteps.init_train_state(moe, tt, torch.Generator().manual_seed(0), 64)
+    local = dataclasses.replace(moe, moe_local_groups=True)
+    for preset in (fsdp, {}):
+        with tsharding.sharding_rules(mesh, preset), pytest.raises(ValueError, match="A14c"):
+            tsteps.init_train_state(local, tt, torch.Generator().manual_seed(0), 64)
+    accumulate = tsteps.TrainConfig(microbatches=2)
+    with tsharding.sharding_rules(mesh, fsdp), pytest.raises(ValueError, match="A14c"):
+        tsteps.make_train_step(moe, accumulate)
     state = tsteps.init_train_state(mcfg, tt, torch.Generator().manual_seed(0), K)
     with tsharding.sharding_rules(mesh, fsdp):
         step = tsteps.make_train_step(mcfg, tt)
     with pytest.raises(ValueError, match="sharded state"):
         step(state, {})
+
+
+@pytest.mark.parametrize("arch,opt", [("minicpm-2b", "adafactor"),
+                                      ("qwen3-moe-235b-a22b", "adamw"),
+                                      ("kimi-k2-1t-a32b", "adafactor")])
+def test_sharded_step_runs_moe_and_adafactor(arch, opt):
+    """What the sharded step refused before: Adafactor on a sharded state
+    (its factored moments a shard's rows and columns of the leaf's) and the
+    MoE family, on a (1, 1) mesh, against the same step on one process:
+    the same loss and grad norm, bit for bit."""
+    mesh = make_mesh((1, 1), ("data", "model"), LocalBackend(LocalBackendConfig()))
+    mcfg = tconfigs.get_smoke_config(arch)
+    tt = tsteps.TrainConfig(optimizer=TOptCfg(name=opt), graft=TGraftConfig(rset=(2, 4)))
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(DataConfig(
+        vocab_size=mcfg.vocab_size, seq_len=16, global_batch=K)).batch_at(0).items()}
+    got = []
+    for rules in (tspecs.RULE_PRESETS["fsdp"], None):
+        with (tsharding.sharding_rules(mesh, rules) if rules is not None
+              else contextlib.nullcontext()):
+            state = tsteps.init_train_state(mcfg, tt, torch.Generator().manual_seed(0), K)
+            step = tsteps.make_train_step(mcfg, tt)
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        got.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+        if rules is not None:
+            assert "layout" in state and ("m" in state["opt"]) == (opt == "adamw")
+    assert got[0] == got[1]
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""JAX's ``default`` sharding preset on the port (the dense family): a
-sequence-parallel residual stream, sequence-sharded attention queries
-through the flash kernels' query offset, a tensor-parallel MLP and a
-vocabulary-parallel loss, against the JAX package on the CPU.
+"""JAX's ``default`` sharding preset on the port (the dense and moe
+families): a sequence-parallel residual stream, sequence-sharded attention
+queries through the flash kernels' query offset, a tensor-parallel MLP,
+expert parallelism and a vocabulary-parallel loss; the MoE family under
+``fsdp`` too, and Adafactor on a sharded state; against the JAX package on
+the CPU.
 
 * One 4-rank gloo fleet on a (2, 2) ``("data", "model")`` mesh (``python -m
   repro_torch.backend --worker --job``, task kind ``tp``) runs 3 float32
@@ -17,15 +19,23 @@ vocabulary-parallel loss, against the JAX package on the CPU.
   positions (alternating windows of 16 that the query offset must honour,
   both softcaps, the post-block norms); then the baseline step on the
   stablelm case under Lion, and the minicpm case with the ``logit_embed``
-  grad source under SGD. Each is held against
+  grad source under SGD; then the MoE family (``preset`` per case):
+  qwen3-moe smoke at 32 positions under ``fsdp`` (the refresh's 4 groups
+  over both axes, every expert on every rank; the subset's 2 over
+  ``"data"``, the experts over ``"model"``) and under ``default``, and
+  kimi-k2 smoke (its dense first block) under Adafactor with each preset
+  (the subset's one group on every rank, ``"data"``'s second rank adding
+  zeros). Each is held against
   ``jax.jit(repro.launch.steps.make_train_step)`` with no mesh on the same
   global batches: pivots and ranks EXACT, losses at rtol 1e-4, the grad
   norm at rtol 1e-5, each leaf of step 0's first moment at rtol 1e-4 /
   atol 1e-4 of its largest element; each rank's resident params and
-  moments exactly its shards; launches as ``expected_launches(...,
-  sharded=True)`` reckons; the layout each rank reports (the sequence,
-  the MLP hidden and, for stablelm and gemma2, the vocabulary over
-  ``"model"``).
+  moments exactly its shards (Adafactor's factors: the shard's rows and
+  columns); launches as ``expected_launches(..., sharded=True)`` reckons;
+  the layout each rank reports (the sequence, the MLP hidden and, for
+  stablelm, gemma2 and the MoE archs, the vocabulary over ``"model"``) and
+  the MoE regimes its forwards ran. Under Adafactor, which keeps no first
+  moment, each leaf's change over the run is held instead.
 * The same fleet serves (task kind ``serve``, ``SERVE_CASES``): sharded
   ``prefill_step`` and ``decode_step`` on the (2, 2) mesh, float32, smoke
   configs, weights from seed 0 through ``jax_bridge``, against
@@ -49,7 +59,7 @@ vocabulary-parallel loss, against the JAX package on the CPU.
 * The split-KV combine over two threads standing in for two ranks equals
   the whole cache's dense and chunked attention, a slice wholly masked
   among the cases; the cache's logical axes equal JAX's ``cache_logical``;
-  the serve path's refusals (MoE, the other families under ``default``,
+  the serve path's refusals (MoE, A14s; the other families under ``default``,
   ``head_tp``, a dense model with a frontend under ``default``); the serve
   entry points taking the cache's rows (``prefill`` given the cache's
   layout, ``serve_model`` a sharded model); the dry run's dense serve cells
@@ -61,11 +71,15 @@ vocabulary-parallel loss, against the JAX package on the CPU.
   slices' dK/dV summed).
 * ``vocab_parallel_nll`` over two threads standing in for two ranks (a
   mesh whose collectives meet at a barrier) equals ``_nll`` of the whole
-  logits, values and gradients.
+  logits, values and gradients. Over the same threads the expert-parallel
+  ``moe`` equals JAX's ``moe`` with no mesh in each regime (forward, the
+  gradients of x and of the four leaves, the router's summed), and three
+  sharded Adafactor steps equal the same steps on the whole leaves.
 * The dry run on the CPU stand-in at smoke size: the four dense archs'
-  ``default`` train cells report ``"state": "sharded"`` and a peak below
-  the replicated state's on the same (2, 2) mesh; the other families keep
-  the state replicated and say why.
+  ``default`` train cells, and the MoE archs' under both presets, report
+  ``"state": "sharded"`` and a peak below the replicated state's on the
+  same (2, 2) mesh; the other families keep the state replicated and say
+  why, as the MoE serve cells do (A14s).
 * The loss chunks' recompute: a chunked loss's backward saves no (B, C, V)
   float32 tensor, and its loss and gradients are bit-equal to the chunked
   loss without recompute.
@@ -99,9 +113,13 @@ GC = dict(rset=(2, 4), eps=0.25, refresh_every=2, use_pallas=True)
 STEPS, K = 3, 8
 F32 = dict(param_dtype="float32")
 STABLELM = dict(F32, remat="full", loss_chunk=8)
+MOE, KIMI = "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b"
+ADAFACTOR = dict(OPT, name="adafactor")
 # arch, model overrides, sequence length, optimizer, GRAFT config (None: the
-# baseline step), and the axes each rank's layout reports: (sequence, MLP
-# hidden, vocabulary)
+# baseline step), the rules preset (default: "default"), and the axes each
+# rank's layout reports: (sequence, MLP hidden, vocabulary); "axes" the
+# batch's and the subset's axes (default: "data" both); "moe" the MoE
+# regimes its forwards ran (tokens, the groups' axes, the experts' axes)
 CASES = {
     "minicpm-2b": dict(arch="minicpm-2b", model=F32, seq=16, opt=OPT, graft=GC,
                        layout=(["model"], ["model"], [])),
@@ -116,6 +134,24 @@ CASES = {
                                        opt=dict(OPT, name="sgd", learning_rate=1e-2),
                                        graft=dict(GC, grad_mode="logit_embed"),
                                        layout=(["model"], ["model"], [])),
+    # the refresh's 8 × 32 tokens in G = 4 groups over both axes (the experts
+    # whole on every rank), the subset's 4 × 32 in G = 2 over "data" alone
+    # (the experts over "model", each rank gathering its group's rows)
+    "qwen3-moe-fsdp": dict(arch=MOE, model=F32, seq=32, opt=OPT, graft=GC, preset="fsdp",
+                           layout=([], [], []), axes=(["data", "model"], ["data", "model"]),
+                           moe=[[128, ["data"], ["model"]], [256, ["data", "model"], []]]),
+    "qwen3-moe-default": dict(arch=MOE, model=F32, seq=32, opt=OPT, graft=GC,
+                              layout=(["model"], ["model"], ["model"]),
+                              moe=[[128, ["data"], ["model"]], [256, ["data"], ["model"]]]),
+    # kimi-k2 (its dense first block) under Adafactor; the subset's one group
+    # on every rank, the experts over "model", data 1's partials zeros
+    "kimi-k2-fsdp-adafactor": dict(arch=KIMI, model=F32, seq=16, opt=ADAFACTOR, graft=GC,
+                                   preset="fsdp", layout=([], [], []),
+                                   axes=(["data", "model"], ["data", "model"]),
+                                   moe=[[64, [], ["model"]], [128, ["data"], ["model"]]]),
+    "kimi-k2-default-adafactor": dict(arch=KIMI, model=F32, seq=16, opt=ADAFACTOR, graft=GC,
+                                      layout=(["model"], ["model"], ["model"]),
+                                      moe=[[64, [], ["model"]], [128, ["data"], ["model"]]]),
 }
 FLEET_TIMEOUT_S = 150
 # the serve cases: arch, model overrides, shape (its SHAPE_RULES), preset,
@@ -226,12 +262,14 @@ for path in sys.argv[1:]:
         state, met = fn(state, {k: jnp.asarray(v) for k, v in b.items()})
         res["losses"].append(float(met["loss"]))
         res["grad_norms"].append(float(met["grad_norm"]))
-        if step == 0:
+        if step == 0 and "m" in state["opt"]:
             res["m0"] = jax.tree_util.tree_map(np.asarray, state["opt"]["m"])
         if graft is not None:
             res["ranks"].append(int(met["rank"]))
             if step % graft.refresh_every == 0:
                 res["pivots"][step] = np.asarray(state["graft"].pivots).tolist()
+    res["params"] = jax.tree_util.tree_map(np.asarray, state["params"])
+    res["init"] = job["params"]
     with open(path + ".out", "wb") as f:
         pickle.dump(res, f)
 """
@@ -262,7 +300,8 @@ class _Fleet:
             data = SyntheticLM(DataConfig(vocab_size=mcfg.vocab_size, seq_len=case["seq"],
                                           global_batch=K))
             batches = [data.batch_at(s) for s in range(STEPS)]
-            job.append({"kind": "tp", "mesh": ((2, 2), ("data", "model")),
+            job.append({"kind": "tp", "preset": case.get("preset", "default"),
+                        "mesh": ((2, 2), ("data", "model")),
                         "arch": case["arch"], "smoke": True, "model": case["model"],
                         "steps": STEPS,
                         "tcfg": {"optimizer": case["opt"], "graft": case["graft"],
@@ -354,20 +393,29 @@ def test_fleet_matches_jax_step(case, runs):
     ranks, jax_runs = runs
     want = jax_runs[case]
     task = list(CASES).index(case)
-    seq, mlp, vocab = CASES[case]["layout"]
+    spec = CASES[case]
+    seq, mlp, vocab = spec["layout"]
     for rank in ranks:
         got = rank[task]
         assert got["gather_exact"]
         assert got["layout"] == {"seq": seq, "mlp": mlp, "vocab": vocab}
-        assert (got["batch_axes"], got["subset_axes"]) == (["data"], ["data"])
+        assert (got["batch_axes"], got["subset_axes"]) == spec.get("axes", (["data"], ["data"]))
+        assert got["moe"] == spec.get("moe", [])
         assert got["ranks"] == want["ranks"]
         assert {int(k): v for k, v in got["pivots"].items()} == want["pivots"]
         np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
         np.testing.assert_allclose(got["grad_norms"], want["grad_norms"], rtol=1e-5)
         assert got["resident_bytes"] == got["shard_bytes"]
         assert got["launches"] == {k: v for k, v in got["launches_expected"].items() if v}
-    want_leaves = dict(_leaves(want["m0"]))
-    got_leaves = _leaves(params_to_numpy(ranks[0][task]["m0"]))
+    if spec["opt"]["name"] == "adafactor":
+        # no first moment: each leaf's change over the run against JAX's
+        init = dict(_leaves(want["init"]))
+        want_leaves = {k: v - init[k] for k, v in _leaves(want["params"])}
+        got_leaves = [(k, v - init[k])
+                      for k, v in _leaves(params_to_numpy(ranks[0][task]["params"]))]
+    else:
+        want_leaves = dict(_leaves(want["m0"]))
+        got_leaves = _leaves(params_to_numpy(ranks[0][task]["m0"]))
     assert len(got_leaves) == len(want_leaves)
     for path, g in got_leaves:
         w = want_leaves[path]
@@ -699,13 +747,22 @@ def test_dense_attention_takes_the_offset():
 # ---------------------------------------------------------------------------
 
 class _ThreadMesh:
-    """Rank ``rank`` of ``n`` threads whose collectives meet at a barrier."""
+    """Rank ``rank`` of ``n`` threads whose collectives meet at a barrier:
+    the ranks of a (1, n) ``("data", "model")`` mesh."""
+
+    axis_names = ("data", "model")
 
     def __init__(self, rank, n, slots, barrier):
         self.rank, self.n, self.slots, self.barrier = rank, n, slots, barrier
+        self.shape = {"data": 1, "model": n}
+        self.coords = {"data": 0, "model": rank}
 
     def size(self, axes):
-        return self.n
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def axis_index(self, axes):
+        return self.rank if self.size(axes) > 1 else 0
 
     def _all(self, x):
         self.slots[self.rank] = x
@@ -715,10 +772,41 @@ class _ThreadMesh:
         return every
 
     def psum(self, x, axes):
-        return sum(self._all(x))
+        return sum(self._all(x)) if self.size(axes) > 1 else x
 
     def pmax(self, x, axes):
         return torch.stack(self._all(x)).amax(dim=0)
+
+    def all_gather(self, x, axes, dim=0):
+        return torch.cat(self._all(x), dim=dim) if self.size(axes) > 1 else x
+
+    def psum_scatter(self, x, axes, dim=0):
+        if self.size(axes) == 1:
+            return x
+        k = x.shape[dim] // self.n
+        return sum(self._all(x)).narrow(dim, self.rank * k, k).clone()
+
+
+def _threads(n, fn):
+    """``fn(mesh)`` on each of ``n`` threads standing in for the ranks of a
+    (1, n) mesh → their results in rank order (the first error raised)."""
+    slots, barrier, got, errors = [None] * n, threading.Barrier(n), [None] * n, []
+
+    def rank(r):
+        try:
+            got[r] = fn(_ThreadMesh(r, n, slots, barrier))
+        except BaseException as e:          # noqa: BLE001 — raised below
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return got
 
 
 def test_vocab_parallel_nll_equals_nll():
@@ -755,6 +843,170 @@ def test_vocab_parallel_nll_equals_nll():
 
 
 # ---------------------------------------------------------------------------
+# expert parallelism and Adafactor's means over two threads
+# ---------------------------------------------------------------------------
+
+# name: (preset, rows, positions, the axes the rows split over, then the
+# axes the MoE's groups and its experts split over on the (1, 2) mesh)
+EP_CASES = {
+    # G = 2 groups over ("data", "model"): every rank runs every expert
+    "fsdp_experts_whole": ("fsdp", 4, 32, ("data", "model"), ("data", "model"), ()),
+    # the same groups, the rows whole on each rank: each takes its group
+    "fsdp_rows_whole": ("fsdp", 2, 64, (), ("data", "model"), ()),
+    # G = 3 does not divide over "model": the experts go there, and each
+    # rank gathers its group's rows from its peer
+    "fsdp_experts_split": ("fsdp", 2, 96, ("data", "model"), ("data",), ("model",)),
+    # G = 3 over "data" alone, the rows whole on each rank: the experts over
+    # "model" and the ranks' partials summed by a psum
+    "fsdp_rows_whole_experts_split": ("fsdp", 1, 192, (), ("data",), ("model",)),
+    # the default preset: the sequence gathered, the experts over "model"
+    "default": ("default", 2, 64, ("data",), ("data",), ("model",)),
+}
+
+
+def _rank_part(n, axes, mesh):
+    """``[start, stop)`` of a dim of ``n`` split over ``axes`` at ``mesh``'s rank."""
+    k, i = mesh.size(axes) if axes else 1, mesh.axis_index(axes) if axes else 0
+    return i * n // k, (i + 1) * n // k
+
+
+@pytest.mark.parametrize("case", list(EP_CASES))
+def test_expert_parallel_moe_equals_jax(case):
+    """The expert-parallel ``moe`` over two threads standing in for the
+    ranks of "model" against JAX's ``moe`` with no mesh: each rank's output
+    is its rows and positions of JAX's; the gradients of x (the ranks'
+    summed where they hold the same rows) and of the four leaves (the
+    router's partial on each rank and summed; the experts' each rank's
+    shard) at rtol 1e-5, atol 1e-5 of the largest value."""
+    from repro.configs import get_smoke_config as jsmoke
+    from repro.models import layers as jlayers
+    from repro_torch.distributed import sharding as tsharding
+    import jax.numpy as jnp
+    preset, B, S, rows, groups, experts = EP_CASES[case]
+    arch = "qwen3-moe-235b-a22b"
+    jm = jsmoke(arch, param_dtype="float32")
+    tm = tconfigs.get_smoke_config(arch, param_dtype="float32")
+    jp = {k: np.asarray(v) for k, v in
+          jlayers.init_moe_params(jax.random.PRNGKey(0), jm, jnp.float32).items()}
+    rng = np.random.default_rng(0)
+    x, dy = (rng.normal(size=(B, S, jm.d_model)).astype(np.float32) for _ in range(2))
+
+    def both(p, xx, g):
+        out, vjp = jax.vjp(lambda p, xx: jlayers.moe(jm, p, xx), p, xx)
+        return out, vjp(g)
+    jout, (jgp, jgx) = (jax.tree_util.tree_map(np.asarray, t) for t in jax.jit(both)(
+        {k: jnp.asarray(v) for k, v in jp.items()}, jnp.asarray(x), jnp.asarray(dy)))
+    names = sorted(jp)
+
+    def rank(mesh):
+        with tsharding.sharding_rules(mesh, tspecs.RULE_PRESETS[preset]):
+            shardings = tsharding.param_shardings(jp, tmodel._MOE_LOGICAL, mesh)
+            shards = {k: tsharding.shard_tensor(torch.from_numpy(jp[k].copy()),
+                                                s).requires_grad_()
+                      for k, s in shardings.items()}
+            p = {k: tsharding.ShardedParam(shards[k], s) if s.is_sharded else shards[k]
+                 for k, s in shardings.items()}
+            r0, r1 = _rank_part(B, rows, mesh)
+            sp = tmodel.sequence_layout(tm, {"tokens": torch.zeros((r1 - r0, S))})
+            s0, s1 = (sp.start, sp.stop) if sp is not None else (0, S)
+            xr = torch.from_numpy(x[r0:r1, s0:s1].copy()).requires_grad_()
+            with tsharding.batch_rows(rows):
+                ep = tmodel.expert_layout(tm, xr, sp)
+            y = tlayers.moe(tm, p, xr, ep=ep)
+            # rows whole on every rank: rank 0 counts them (the step's rule)
+            weight = 1.0 if rows or sp is not None or mesh.rank == 0 else 0.0
+            loss = (y * torch.from_numpy(dy[r0:r1, s0:s1].copy())).sum() * weight
+            grads = torch.autograd.grad(loss, [xr] + [shards[k] for k in names])
+            return ((ep.group_axes, ep.expert_axes), (r0, r1, s0, s1), y.detach(), grads,
+                    shardings)
+
+    got = _threads(2, rank)
+    gx = np.zeros_like(x)
+    for (layout, (r0, r1, s0, s1), y, grads, _) in got:
+        assert layout == (groups, experts), layout
+        want = jout[r0:r1, s0:s1]
+        np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+        gx[r0:r1, s0:s1] += grads[0].numpy()
+    np.testing.assert_allclose(gx, jgx, rtol=1e-5, atol=1e-5 * np.abs(jgx).max())
+    for i, k in enumerate(names):
+        s = got[0][4][k]
+        parts = [g[3][1 + i].numpy() for g in got]
+        whole = np.concatenate(parts, axis=0) if s.is_sharded else sum(parts)
+        np.testing.assert_allclose(whole, jgp[k], rtol=1e-5,
+                                   atol=1e-5 * np.abs(jgp[k]).max(), err_msg=k)
+
+
+def test_moe_needs_its_rows_axes_under_rules():
+    """Under ``sharding_rules`` a MoE forward that is not told its rows'
+    axes (``batch_rows``) refuses: its groups span the global batch."""
+    from repro_torch.distributed import sharding as tsharding
+    tm = tconfigs.get_smoke_config("qwen3-moe-235b-a22b", param_dtype="float32")
+    mesh = tmesh.make_mesh((1, 2), ("data", "model"))
+    with tsharding.sharding_rules(mesh, tspecs.RULE_PRESETS["fsdp"]):
+        with pytest.raises(ValueError, match="batch_rows"):
+            tmodel.expert_layout(tm, torch.zeros((2, 32, tm.d_model)))
+
+
+# name: (full shape, logical axes) of the leaves of the sharded Adafactor
+# step; "stack" is two blocks' (8, 6) leaves stacked as one JAX leaf
+ADAFACTOR_LEAVES = {
+    "w_in": ((6, 8), ("embed", "mlp")),             # the columns over "model"
+    "w_out": ((8, 6), ("mlp", "embed")),            # the rows over "model"
+    "experts": ((4, 6, 10), ("experts", "embed", "mlp")),   # split on neither
+    "norm": ((6,), (None,)),
+    "stack0": ((8, 6), ("mlp", "embed")),
+    "stack1": ((8, 6), ("mlp", "embed")),
+}
+
+
+def test_sharded_adafactor_equals_the_whole_leaves():
+    """Three Adafactor steps on two threads' shards (fsdp rules on a (1, 2)
+    mesh, the global clip by kernel A's split) equal the same steps on the
+    whole leaves, leaf by leaf: the factored moments' rows and columns over
+    a split dim and the update's RMS span the whole leaf."""
+    from repro_torch.distributed import sharding as tsharding
+    from repro_torch.optim import OptimizerConfig as TOptCfg
+    from repro_torch.optim import make_optimizer
+    cfg = TOptCfg(name="adafactor", learning_rate=1e-2, schedule="constant", clip_norm=0.5)
+    names = list(ADAFACTOR_LEAVES)
+    groups = [0, 1, 2, 3, [4, 5]]
+    rng = np.random.default_rng(0)
+    full = {k: rng.normal(size=shape).astype(np.float32)
+            for k, (shape, _) in ADAFACTOR_LEAVES.items()}
+    grads = [{k: rng.normal(size=v.shape).astype(np.float32) * (0.1 + i)
+              for k, v in full.items()} for i in range(3)]
+    opt = make_optimizer(cfg)
+    params = [torch.from_numpy(full[k].copy()) for k in names]
+    state = opt.init(params, groups)
+    for g in grads:
+        opt.apply(params, [torch.from_numpy(g[k]) for k in names], state, 0)
+
+    def rank(mesh):
+        with tsharding.sharding_rules(mesh, tspecs.RULE_PRESETS["fsdp"]):
+            sh = [tsharding.leaf_sharding(ADAFACTOR_LEAVES[k][0], ADAFACTOR_LEAVES[k][1], mesh)
+                  for k in names]
+        mine = [tsharding.shard_tensor(torch.from_numpy(full[k].copy()), s)
+                for k, s in zip(names, sh)]
+        st = opt.init(mine, groups)
+        for step, g in enumerate(grads):
+            gs = [tsharding.shard_tensor(torch.from_numpy(g[k].copy()), s)
+                  for k, s in zip(names, sh)]
+            gs, _ = opt.preprocess(gs, [s.counted() for s in sh],
+                                   lambda t: mesh.psum(t, ("data", "model")))
+            opt.update(mine, gs, st, 0, sh)
+        return mine, sh
+
+    got = _threads(2, rank)
+    assert got[0][1][0].dim_axes(1) == ("model",) and got[0][1][1].dim_axes(0) == ("model",)
+    for i, k in enumerate(names):
+        s = got[0][1][i]
+        dim = next((d for d in range(len(s.shape)) if s.local_shape[d] != s.shape[d]), None)
+        whole = (got[0][0][i] if dim is None
+                 else torch.cat([g[0][i] for g in got], dim=dim))
+        torch.testing.assert_close(whole, params[i], rtol=1e-5, atol=1e-6, msg=k)
+
+
+# ---------------------------------------------------------------------------
 # the dry run's default cells
 # ---------------------------------------------------------------------------
 
@@ -777,12 +1029,42 @@ def test_default_cell_runs_sharded_below_replicated(arch):
     assert res["full"]["memory"]["peak_bytes"] < replicated["memory"]["peak_bytes"]
 
 
-@pytest.mark.parametrize("arch,label", [("rwkv6-7b", "A12b"), ("musicgen-medium", "A12b"),
-                                        ("qwen3-moe-235b-a22b", "A14")])
+@pytest.mark.parametrize("arch,label", [("rwkv6-7b", "A12b"), ("musicgen-medium", "A12b")])
 def test_default_cell_of_other_families_stays_replicated(arch, label):
     res = dryrun.run_cell(arch, "train_4k", "single", "graft", smoke=True,
                           rules_preset="default", **CARD)
     assert res["state"] == "replicated" and label in res["replicated_why"]
+
+
+@pytest.mark.parametrize("preset", ["default", "fsdp"])
+@pytest.mark.parametrize("arch", [MOE, KIMI])
+def test_moe_train_cell_runs_sharded_below_replicated(arch, preset):
+    """The MoE archs' train cells (kimi-k2's under Adafactor) trace sharded
+    under both presets, below the replicated state's peak on the same mesh;
+    their serve cells keep the state replicated under ``default`` and
+    refuse under ``fsdp``, each naming A14s."""
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    res = dryrun.run_cell(arch, "train_4k", "t", "graft", smoke=True, mesh_override=mesh,
+                          rules_preset=preset, **CARD)
+    assert res["state"] == "sharded" and "replicated_why" not in res
+    coll = res["full"]["collectives"]["count_by_op"]
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+    # the replicated state with the batch over data, as the cell ran before
+    backend = dryrun.RecordingBackend(2)
+    cell = tspecs.build_cell(arch, "train_4k", smoke=True, batch_shards=2, backend=backend,
+                             **CARD)
+    assert cell.tcfg.optimizer.name == ("adafactor" if arch == KIMI else "adamw")
+    replicated = dryrun.trace(cell, backend)
+    for key in ("peak_bytes", "argument_size_in_bytes"):
+        assert res["full"]["memory"][key] < replicated["memory"][key], key
+    if preset == "fsdp":
+        with pytest.raises(ValueError, match="A14s"):
+            dryrun.run_cell(arch, "decode_32k", "t", "serve", smoke=True, mesh_override=mesh,
+                            rules_preset=preset, **CARD)
+    else:
+        serve = dryrun.run_cell(arch, "decode_32k", "t", "serve", smoke=True,
+                                mesh_override=mesh, rules_preset=preset, **CARD)
+        assert serve["state"] == "replicated" and "A14s" in serve["replicated_why"]
 
 
 # ---------------------------------------------------------------------------
