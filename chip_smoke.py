@@ -280,7 +280,7 @@ Phases (any failure exits nonzero and prints no result line):
                train_4k cells, and the dense archs' decode_32k cells on the
                pod under ``default``, which must trace sharded and fit 80
                GB), then the others cheapest first, 7 at once in worker
-               processes until the phase's 120 s: fits, peak GB, TFLOPs, collective bytes and
+               processes until the phase's 90 s: fits, peak GB, TFLOPs, collective bytes and
                trace seconds a cell, a line for each cell left out for time
                (all rows in ``build/chip_smoke_dryrun.json``).
  23. fsdp    — parameter sharding under JAX's ``fsdp`` preset (ZeRO-3): (a)
@@ -294,7 +294,7 @@ Phases (any failure exits nonzero and prints no result line):
                sharing the card on a (2, 2) ("data", "model") mesh, one fleet
                of ``python -m repro_torch.backend --worker --job`` ranks:
                minicpm-2b at full width, 2 of 40 layers, the slice's GRAFT
-               settings (batch 16 × 256, rset [2,4,8], a refresh every 2), 4
+               settings (batch 16 × 256, rset [2,4,8], a refresh every 2), 2
                steps from seed 0, each rank its 4 rows: losses and every
                step's grad norm within rtol 3e-3 of the same configuration
                run in this process, ranks and pivots equal, each leaf of
@@ -317,8 +317,8 @@ Phases (any failure exits nonzero and prints no result line):
                (c) four gloo ranks sharing the card on a (2, 2) ("data",
                "model") mesh, phase fsdp's run under ``default``: minicpm-2b
                at full width (vocabulary 122753: the logits stay whole over
-               "model"), 2 layers, 4 steps, each rank its 8 rows' 128 of the
-               256 positions; held to the same run in this process as phase
+               "model"), 2 layers, 2 steps (a refresh and a subset step),
+               each rank its 8 rows' 128 of the 256 positions; held to the same run in this process as phase
                fsdp holds its fleet (step 0's gradient against the subset
                split into its 2 row parts), each rank's peak within 10 % of
                (b), its launches as ``expected_launches(sharded=True)``
@@ -337,7 +337,7 @@ Phases (any failure exits nonzero and prints no result line):
                80 GB, then their prefill_32k cells under ``default`` (the
                dense archs) and ``fsdp``, cheapest first, each with its
                shape's rules (decode_32k's cache positions over "model"), 4
-               worker processes until the phase's 80 s; hymba-1.5b and
+               worker processes until the phase's 60 s; hymba-1.5b and
                rwkv6-7b are left out for time (their prefills loop over
                tokens in Python); (b)
                the dry run's prediction for (c), the prefill and a tick of
@@ -353,6 +353,25 @@ Phases (any failure exits nonzero and prints no result line):
                logits within 2^-7 of its largest, each rank's peak within
                10 % of (b), its resident cache exactly its slice's; tick ms
                and tokens/s beside this process's.
+ 26. moe_ep  — expert parallelism: qwen3-moe-235b-a22b at full width, 2
+               layers, one refresh step on two gloo ranks sharing the card
+               on a (1, 2) mesh, (a) under ``default`` with AdamW and (b)
+               under ``fsdp`` with Adafactor, each held to the same run in
+               this process, to the dry run's peak, to its shards' bytes and
+               to the reckoned launches.
+ 27. tp_families — JAX's ``default`` preset on the ssm, audio and vlm
+               families: rwkv6-7b (float32), musicgen-medium and
+               internvl2-26b at full width, 2 layers, 8 rows, one refresh
+               step on two gloo ranks sharing the card on a (1, 2) mesh,
+               the three in one launch; internvl2-26b's 768 positions put
+               its 256 patches and 128 tokens on rank 0; rwkv6-7b's ranks
+               run the time mix on their 32 of 64 heads. Each rank held to
+               the same run in this process (losses and grad norms at
+               3e-3, ranks and pivots equal, step 0's first moment a leaf
+               at 2e-2, the final parameters at 3e-3), its peak within 10 %
+               of the dry run's, its resident state exactly its shards, its
+               launches as reckoned; then #8 and #8b at one rank's 256 and
+               128 streams against their plain versions, timed.
 
 It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -1626,60 +1645,72 @@ def _rwkv_bound(kind, BH, T, D):
     return _cost_bound(rs.cost(kind, BH, T, D))
 
 
-def phase_rwkv(ctx):
+def _rwkv_case(name, BH, T, D, w_low, tag="rwkv"):
+    """One shape: the forward (with and without its tile states) and the
+    backward against their plain versions, reruns bit-equal,
+    ``ops.rwkv_scan`` chunk-invariant, then each timed beside its plain
+    version and its bound → (max|diff| by output, kernel ms, plain ms,
+    bounds) by kind."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv_scan as rw
+    r, k, v, w, u, do = _rwkv_inputs(BH, T, D, w_low=w_low)
+    o, states = rw.rwkv_scan_forward(r, k, v, w, u, save_states=True)
+    grads = rw.rwkv_scan_backward(r, k, v, w, u, do, states)
+    o_ng, none = rw.rwkv_scan_forward(r, k, v, w, u)
+    o2, states2 = rw.rwkv_scan_forward(r, k, v, w, u, save_states=True)
+    grads2 = rw.rwkv_scan_backward(r, k, v, w, u, do, states2)
+    torch.cuda.synchronize()
+    same = none is None and torch.equal(o, o_ng) and torch.equal(o, o2) and \
+        torch.equal(states, states2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    want = rw.rwkv_scan_reference(r, k, v, w, u)
+    want_g = rw.rwkv_scan_backward_reference(r, k, v, w, u, do)
+    torch.cuda.synchronize()
+    # tolerance: float32 sums in another order — over D for the output
+    # (1e-5 of its largest value), over D and T for the gradients (1e-4)
+    errs, ok = {}, same
+    for what, a, b in zip(("o", "dr", "dk", "dv", "dw", "du"), (o,) + grads,
+                          (want,) + want_g):
+        errs[what] = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        ok = ok and errs[what] <= (1e-5 if what == "o" else 1e-4) * scale + 1e-6
+    chunks = ""
+    if T % 64 == 0:
+        outs = [ops.rwkv_scan(r, k, v, w, u, chunk=c) for c in (16, 32, 64)]
+        inv = all(torch.equal(x, o) for x in outs)
+        ok = ok and inv
+        chunks = f", ops.rwkv_scan chunk 16/32/64 {'bit-equal' if inv else 'DIFFER'}"
+    print(f"[{tag}] {name}: BH={BH} T={T} D={D}: max|diff| "
+          + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
+          + f"; reruns and the no-grad forward {'bit-equal' if same else 'DIFFER'}"
+          f"{chunks} -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"rwkv kernels disagree with their plain versions on {name}")
+    del want, want_g, o2, states2, grads2, o_ng
+    t = {"fwd": _time_auto(lambda: rw.rwkv_scan_forward(r, k, v, w, u)),
+         "fwd_states": _time_auto(lambda: rw.rwkv_scan_forward(r, k, v, w, u,
+                                                               save_states=True)),
+         "bwd": _time_auto(lambda: rw.rwkv_scan_backward(r, k, v, w, u, do, states))}
+    plain = {"fwd": _time_auto(lambda: rw.rwkv_scan_reference(r, k, v, w, u), max_iters=5),
+             "bwd": _time_auto(lambda: rw.rwkv_scan_backward_reference(
+                 r, k, v, w, u, do), max_iters=5)}
+    plain["fwd_states"] = plain["fwd"]
+    bounds = {"fwd": _rwkv_bound("fwd", BH, T, D),
+              "fwd_states": _rwkv_bound("fwd", BH, T, D),
+              "bwd": _rwkv_bound("bwd", BH, T, D)}
+    for kind in t:
+        b_ms, b_by, nbytes, flops = bounds[kind]
+        print(f"[{tag}] {name} {kind}: kernel {t[kind]:.4f} ms, plain {plain[kind]:.4f} ms, "
+              f"library none, bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops} flop); "
+              f"{t[kind] / b_ms:.1f}x the bound", flush=True)
+    del r, k, v, w, u, do, o, states, grads
+    torch.cuda.empty_cache()
+    return errs, t, plain, bounds
+
+
+def phase_rwkv(ctx):
     for name, BH, T, D, w_low in RWKV_SHAPES:
-        r, k, v, w, u, do = _rwkv_inputs(BH, T, D, w_low=w_low)
-        o, states = rw.rwkv_scan_forward(r, k, v, w, u, save_states=True)
-        grads = rw.rwkv_scan_backward(r, k, v, w, u, do, states)
-        o_ng, none = rw.rwkv_scan_forward(r, k, v, w, u)
-        o2, states2 = rw.rwkv_scan_forward(r, k, v, w, u, save_states=True)
-        grads2 = rw.rwkv_scan_backward(r, k, v, w, u, do, states2)
-        torch.cuda.synchronize()
-        same = none is None and torch.equal(o, o_ng) and torch.equal(o, o2) and \
-            torch.equal(states, states2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
-        want = rw.rwkv_scan_reference(r, k, v, w, u)
-        want_g = rw.rwkv_scan_backward_reference(r, k, v, w, u, do)
-        torch.cuda.synchronize()
-        # tolerance: float32 sums in another order — over D for the output
-        # (1e-5 of its largest value), over D and T for the gradients (1e-4)
-        errs, ok = {}, same
-        for what, a, b in zip(("o", "dr", "dk", "dv", "dw", "du"), (o,) + grads,
-                              (want,) + want_g):
-            errs[what] = (a - b).abs().max().item()
-            scale = b.abs().max().item()
-            ok = ok and errs[what] <= (1e-5 if what == "o" else 1e-4) * scale + 1e-6
-        chunks = ""
-        if T % 64 == 0:
-            outs = [ops.rwkv_scan(r, k, v, w, u, chunk=c) for c in (16, 32, 64)]
-            inv = all(torch.equal(x, o) for x in outs)
-            ok = ok and inv
-            chunks = f", ops.rwkv_scan chunk 16/32/64 {'bit-equal' if inv else 'DIFFER'}"
-        print(f"[rwkv] {name}: BH={BH} T={T} D={D}: max|diff| "
-              + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
-              + f"; reruns and the no-grad forward {'bit-equal' if same else 'DIFFER'}"
-              f"{chunks} -> {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise AssertionError(f"rwkv kernels disagree with their plain versions on {name}")
-        del want, want_g, o2, states2, grads2, o_ng
-        t = {"fwd": _time_auto(lambda: rw.rwkv_scan_forward(r, k, v, w, u)),
-             "fwd_states": _time_auto(lambda: rw.rwkv_scan_forward(r, k, v, w, u,
-                                                                   save_states=True)),
-             "bwd": _time_auto(lambda: rw.rwkv_scan_backward(r, k, v, w, u, do, states))}
-        plain = {"fwd": _time_auto(lambda: rw.rwkv_scan_reference(r, k, v, w, u), max_iters=5),
-                 "bwd": _time_auto(lambda: rw.rwkv_scan_backward_reference(
-                     r, k, v, w, u, do), max_iters=5)}
-        plain["fwd_states"] = plain["fwd"]
-        bounds = {"fwd": _rwkv_bound("fwd", BH, T, D),
-                  "fwd_states": _rwkv_bound("fwd", BH, T, D),
-                  "bwd": _rwkv_bound("bwd", BH, T, D)}
-        for kind in t:
-            b_ms, b_by, nbytes, flops = bounds[kind]
-            print(f"[rwkv] {name} {kind}: kernel {t[kind]:.4f} ms, plain {plain[kind]:.4f} ms, "
-                  f"library none, bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops} flop); "
-                  f"{t[kind] / b_ms:.1f}x the bound", flush=True)
+        errs, t, plain, bounds = _rwkv_case(name, BH, T, D, w_low)
         # the kernels line: the forward at the selection forward's shape, the
         # backward at the subset's at rank 2 (where each runs on the path)
         for key, shape, kind, err in (("rwkv_scan", "selection", "fwd", errs["o"]),
@@ -1691,8 +1722,6 @@ def phase_rwkv(ctx):
                     "replaces": RWKV_REPLACES[key], "launches": None, "max_abs_err": err,
                     "ms": t[kind], "plain_ms": plain[kind], "bound_ms": bounds[kind][0],
                     "bound_by": bounds[kind][1], "library_ms": None}
-        del r, k, v, w, u, do, o, states, grads
-        torch.cuda.empty_cache()
 
 
 RWKV_LAYERS = 16
@@ -3209,7 +3238,7 @@ def phase_sharded(ctx):
     shutil.rmtree(work, ignore_errors=True)
 
 
-DRYRUN_BUDGET_S = 120.0      # the whole phase, the two real steps included
+DRYRUN_BUDGET_S = 90.0       # the whole phase, the two real steps included
 DRYRUN_JOBS = 7              # cells traced at once (the host has 8 cores)
 DRYRUN_PEAK_RTOL = 0.10
 # the cells that must trace in the phase: the slice's and rwkv_slice's
@@ -3330,11 +3359,13 @@ def phase_dryrun(ctx):
             f"{cell}: peak {res['full']['memory']['peak_bytes'] / 1e9:.1f} GB")
 
 
-FSDP_BUDGET_S = 100.0         # (a)'s pool of dry-run cells, which runs beside (b) and (c)
+FSDP_BUDGET_S = 60.0          # (a)'s pool of dry-run cells, which runs beside (b) and (c)
 FSDP_JOBS = 4                 # (a)'s workers: the host's other 4 cores run (c)'s ranks
 FSDP_REQUIRED = ("minicpm-2b", "qwen1.5-32b")
 FSDP_LAYERS = 2               # (c): phase shell's cut
-FSDP_STEPS = 4
+# a refresh step and a subset step (cut, with the pools' budgets, to keep
+# the script within its time beside phase tp_families)
+FSDP_STEPS = 2
 # each leaf of step 0's gradient (relative Frobenius norm) against the
 # same step split as the ranks split it, in one process: the two differ
 # in the order gloo sums the parts and the bfloat16 rounding of the
@@ -3448,7 +3479,7 @@ def _fsdp_reference(mcfg, tcfg, batches, seed, parts=None, n_steps=None, max_lea
     from repro_torch.models import model as model_lib
     gen = torch.Generator(device="cuda").manual_seed(seed)
     state = steps.state_for_model(mcfg, tcfg, model_lib.init_params(mcfg, gen, "cuda"),
-                                  batches[0]["tokens"].shape[0])
+                                  batches[0]["labels"].shape[0])
     # the unsplit step's first moment is the state's own (no copy of the
     # weights: a MoE layer's would not fit beside the state)
     init = [p.detach().clone() for p in state["params"]] if parts != 1 else None
@@ -3946,7 +3977,218 @@ def phase_moe_ep(ctx):
         assert whole <= 3e-3, f"({tag}) final parameters differ by {whole:.3g}"
 
 
-SERVE_TP_BUDGET_S = 80.0      # (a)'s pool, beside (b) and (c)
+TPF_LAYERS = 2                # phase families' cut
+TPF_STEPS = 1                 # a refresh step: the selection forward and the subset's step
+TPF_MESH = ((1, 2), ("data", "model"))
+# (arch, rows, positions, model overrides): internvl2-26b's 768 positions
+# are its 256 patches and 512 tokens, so that rank 0's 384 hold the patches
+# and 128 tokens; rwkv6-7b's 64 heads give each rank 32. rwkv6-7b runs in
+# float32: its bfloat16 gradient at random weights lies far from float32's
+# in one process alone (the phase prints how far), so two bfloat16 runs
+# that round apart cannot be held at 3e-3
+TPF_RUNS = (("rwkv6-7b", 8, 512, {"param_dtype": "float32"}), ("musicgen-medium", 8, 512, {}),
+            ("internvl2-26b", 8, 768, {}))
+TPF_OVERRIDES = ["graft.rset=[2,4]", "optimizer.schedule=constant"]
+# the RWKV kernels at one rank's streams of the rwkv6-7b task: its rows'
+# 32 heads in the selection forward (8 rows), in the subset's step (rset's
+# largest, 4)
+TPF_RWKV_SHAPES = (("rank_selection", 8 * 32, 512, 64, 0.4),
+                   ("rank_subset", 4 * 32, 512, 64, 0.4))
+
+
+def _tpf_config(arch, rows, seq, extra):
+    from repro_torch.api import ExperimentConfig
+    over = dict({"attn_backend": "auto", "num_layers": TPF_LAYERS}, **extra)
+    return ExperimentConfig().apply_overrides(
+        [o for o in SLICE_OVERRIDES if not o.startswith(("model.overrides", "train.steps"))]
+        + [f"model.arch={arch}", f"model.overrides={json.dumps(over)}",
+           f"train.steps={TPF_STEPS}", "train.log_every=0", f"train.batch={rows}",
+           f"train.seq={seq}"] + TPF_OVERRIDES)
+
+
+def _tpf_batch(mcfg, rows, seq, seed):
+    """A batch of the model's input (``specs.batch_specs``' layout) from a
+    seeded generator: frames, or patches and tokens, or tokens; labels."""
+    import torch
+    from repro_torch.launch import specs
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, s in specs.batch_specs(mcfg, rows, seq).items():
+        if s.dtype.is_floating_point:
+            out[k] = torch.randn(s.shape, generator=g).to(s.dtype)
+        else:
+            out[k] = torch.randint(0, mcfg.vocab_size, s.shape, generator=g, dtype=s.dtype)
+    return out
+
+
+def _tpf_prediction(cfg, mcfg, rows, seq):
+    """One rank's refresh step of the (1, 2) fleet on fake cuda:0 tensors."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*TPF_MESH)
+    backend = dryrun.RecordingBackend(mesh.size)
+    cell = specs.experiment_cell(cfg, mesh=dryrun.RecordingMesh(mesh, backend),
+                                 rules=dict(sh.DEFAULT_RULES, **specs.RULE_PRESETS["default"]),
+                                 backend=backend, batch=specs.batch_specs(mcfg, rows, seq))
+    return dryrun.trace(cell, backend)
+
+
+def phase_tp_families(ctx):
+    """JAX's ``default`` preset on the ssm, audio and vlm families:
+    rwkv6-7b (in float32, beside one bfloat16 run in this process),
+    musicgen-medium and internvl2-26b at full width and 2 layers, one
+    refresh step each, on two gloo ranks sharing the card on a (1, 2)
+    ("data", "model") mesh, the three tasks in one launch. Each is first run
+    in this process (then freed), and traced by the dry run on fake cuda:0
+    tensors while the fleet runs; each rank is held to the one process
+    (losses and grad norms at 3e-3, ranks and pivots equal; step 0's first
+    moment leaf by leaf at ``FSDP_M0_RTOL``; the final parameters as a
+    whole at 3e-3), to the prediction's peak (``DRYRUN_PEAK_RTOL``), to its
+    shards' resident bytes, to ``expected_launches``, to its layout (the
+    sequence and d_ff over "model") and, for rwkv6-7b, to its heads of the
+    time mix. Then the RWKV kernels at one rank's streams against their
+    plain versions, timed."""
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.backend import fleet
+    ctx.pop("trainer", None)
+    smi = ctx.get("smi", "")
+    jobs, refs, preds, cfgs = [], {}, {}, {}
+    for arch, rows, seq, extra in TPF_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfgs[arch] = cfg = _tpf_config(arch, rows, seq, extra)
+        mcfg, tcfg, _ = cfg.build()
+        model_over = dict({"attn_backend": "auto", "num_layers": TPF_LAYERS}, **extra)
+        assert mcfg == configs.get_config(arch, **model_over), "the fleet's config differs"
+        batches = [_tpf_batch(mcfg, rows, seq, seed=i) for i in range(TPF_STEPS)]
+        t1 = time.perf_counter()
+        refs[arch] = _fsdp_reference(mcfg, tcfg, batches, seed=0, parts=1, n_steps=TPF_STEPS,
+                                     max_leaf_bytes=MOE_EP_LEAF_BYTES)
+        print(f"[tp_families] {arch} ({mcfg.param_dtype}): {rows} x {seq} "
+              f"({', '.join(batches[0])}), rset {list(tcfg.graft.rset)}: one process "
+              f"{time.perf_counter() - t1:.1f} s, losses {refs[arch]['losses']}, grad norms "
+              f"{refs[arch]['grad_norms']}", flush=True)
+        if extra.get("param_dtype") == "float32":   # the same run in bfloat16, beside it
+            bf16 = _tpf_config(arch, rows, seq, {k: v for k, v in extra.items()
+                                                 if k != "param_dtype"})
+            m16, t16, _ = bf16.build()
+            half = _fsdp_reference(m16, t16, batches, seed=0, parts=1, n_steps=TPF_STEPS,
+                                   max_leaf_bytes=MOE_EP_LEAF_BYTES)
+            gaps, whole = _leaf_gaps(_leading_block(half["m0"], refs[arch]["m0"]),
+                                     refs[arch]["m0"])
+            print(f"[tp_families] {arch} {smi}: one process in bfloat16 against float32 from "
+                  f"the same draws: losses {half['losses']}, grad norms "
+                  f"{half['grad_norms']} (relative "
+                  f"{abs(half['grad_norms'][0] / refs[arch]['grad_norms'][0] - 1):.3g}), "
+                  f"ranks {half['ranks']}, step 0's first moment {whole:.3g} apart in all, "
+                  f"the leaves furthest apart "
+                  f"{[(p, round(gaps[p], 4)) for p in sorted(gaps, key=gaps.get)[-4:]]}",
+                  flush=True)
+            del half
+        jobs.append({"kind": "tp", "preset": "default", "mesh": TPF_MESH, "arch": arch,
+                     "model": model_over, "seed": 0, "steps": TPF_STEPS, "batches": batches,
+                     "max_leaf_bytes": MOE_EP_LEAF_BYTES, "tcfg": dataclasses.asdict(tcfg)})
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="tp_families.", dir=os.path.join(ROOT, "build"))
+    box = {}
+
+    def run_fleet():
+        try:
+            port = fleet.free_port()
+            t1 = time.perf_counter()
+            runs = fleet.launch([fleet.mesh_worker_command(
+                os.path.join(work, "job.pt"), os.path.join(work, "out"),
+                fleet.backend_overrides(2, r, port)) for r in range(2)], timeout=400)
+            box["wall"] = time.perf_counter() - t1
+            box["ranks"] = [torch.load(r.last_json()["path"], weights_only=True) for r in runs]
+        except BaseException as e:                  # noqa: BLE001 — raised below
+            box["error"] = e
+
+    try:
+        torch.save(jobs, os.path.join(work, "job.pt"))
+        thread = threading.Thread(target=run_fleet)
+        thread.start()
+        try:
+            for arch, rows, seq, _ in TPF_RUNS:     # the ranks' prediction, beside them
+                t1 = time.perf_counter()
+                preds[arch] = _tpf_prediction(cfgs[arch], cfgs[arch].build()[0], rows, seq)
+                print(f"[tp_families] {arch} prediction traced in "
+                      f"{time.perf_counter() - t1:.1f} s: peak "
+                      f"{preds[arch]['memory']['peak_bytes'] / 1e9:.3f} GB a rank, args "
+                      f"{preds[arch]['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, "
+                      f"collectives { {k: v for k, v in preds[arch]['collectives']['bytes_by_op'].items() if v} }, "
+                      f"kernels { {k: r['launches'] for k, r in preds[arch]['kernels'].items()} }",
+                      flush=True)
+        finally:
+            thread.join()
+        if "error" in box:
+            raise box["error"]
+        wall, ranks = box["wall"], box["ranks"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[tp_families] {smi}: the fleet's three tasks in {wall:.1f} s of wall", flush=True)
+    failures = []
+    for i, (arch, rows, seq, _) in enumerate(TPF_RUNS):
+        ref, pred_peak = refs[arch], preds[arch]["memory"]["peak_bytes"]
+        mcfg = cfgs[arch].build()[0]
+        kernels = (("rwkv_scan", "rwkv_scan_backward") if mcfg.family == "ssm"
+                   else ("flash_forward", "flash_dq", "flash_dkv"))
+        vocab = ["model"] if mcfg.vocab_size % 2 == 0 else []
+        for r in ranks:
+            got = r["tasks"][i]
+            want = {k: v for k, v in got["launches_expected"].items() if v}
+            rel_peak = (pred_peak - got["peak_bytes"]) / got["peak_bytes"]
+            rel = {key: max(abs(a - b) / abs(b) for a, b in zip(got[key], ref[key]))
+                   for key in ("losses", "grad_norms")}
+            print(f"[tp_families] {arch} {smi}: rank {r['rank']}: losses {got['losses']}, grad "
+                  f"norms {got['grad_norms']} (relative to one process {rel}), ranks "
+                  f"{got['ranks']}, step ms {[round(x * 1e3, 1) for x in got['step_s']]}, "
+                  f"resident {got['resident_bytes']} B (shards {got['shard_bytes']} B), "
+                  f"max_memory_allocated {got['peak_bytes'] / 1e9:.3f} GB (prediction "
+                  f"{rel_peak:+.2%}), launches {got['launches']}, layout {got['layout']}, "
+                  f"heads {got['heads']}", flush=True)
+            H = mcfg.num_heads // 2
+            checks = [
+                (r["collectives"] == "gloo" and r["device"].startswith("cuda"),
+                 (r["collectives"], r["device"])),
+                (got["resident_bytes"] == got["shard_bytes"], "resident state is not its shards"),
+                (abs(pred_peak - got["peak_bytes"]) <= DRYRUN_PEAK_RTOL * got["peak_bytes"],
+                 f"peak {got['peak_bytes']} vs predicted {pred_peak}"),
+                (got["launches"] == want, f"launches {got['launches']} vs {want}"),
+                (all(want.get(n) for n in ("graft_select", "grad_norm", "optimizer_update")
+                     + kernels), f"a kernel is not on the sharded path: {want}"),
+                (got["layout"] == {"seq": ["model"], "mlp": ["model"], "vocab": vocab},
+                 got["layout"]),
+                (got["heads"] == ([[r["rank"] * H, r["rank"] * H + H]]
+                                  if mcfg.family == "ssm" else []), got["heads"]),
+                (got["ranks"] == ref["ranks"], (got["ranks"], ref["ranks"])),
+                ({int(k): v for k, v in got["pivots"].items()} == ref["pivots"], "pivots"),
+                (rel["losses"] <= 3e-3 and rel["grad_norms"] <= 3e-3,
+                 f"losses / grad norms {rel} relative to one process")]
+            failures += [f"{arch} rank {r['rank']}: {what}" for ok, what in checks if not ok]
+        got0 = ranks[0]["tasks"][i]
+        _, whole = _leaf_gaps(got0["params"], _leading_block(ref["params"], got0["params"]))
+        gaps, _ = _leaf_gaps(got0["m0"], _leading_block(ref["m0"], got0["m0"]))
+        furthest = sorted(gaps, key=gaps.get, reverse=True)
+        print(f"[tp_families] {arch} {smi}: final parameters {whole:.3g} relative to one "
+              f"process; step 0's first moment vs one process, the leaves furthest apart "
+              f"{[(p, round(gaps[p], 6)) for p in furthest[:6]]} (bar {FSDP_M0_RTOL})",
+              flush=True)
+        bad = [(p, gaps[p]) for p in furthest if not gaps[p] <= FSDP_M0_RTOL]
+        if bad:
+            failures.append(f"{arch}: step 0's gradients differ from one process: {bad}")
+        if not whole <= 3e-3:
+            failures.append(f"{arch}: final parameters differ by {whole:.3g}")
+    assert not failures, failures
+    for name, BH, T, D, w_low in TPF_RWKV_SHAPES:
+        _rwkv_case(name, BH, T, D, w_low, tag="tp_families")
+
+
+SERVE_TP_BUDGET_S = 60.0      # (a)'s pool, beside (b) and (c)
 SERVE_TP_JOBS = 4
 # (a)'s archs under ``fsdp``; their ``default`` decode_32k cells are phase
 # dryrun's (``DRYRUN_DECODE_REQUIRED``)
@@ -4219,7 +4461,7 @@ def main() -> int:
                      ("analysis", phase_analysis), ("backend", phase_backend),
                      ("sharded", phase_sharded), ("dryrun", phase_dryrun),
                      ("fsdp", phase_fsdp), ("tp", phase_tp), ("serve_tp", phase_serve_tp),
-                     ("moe_ep", phase_moe_ep)):
+                     ("moe_ep", phase_moe_ep), ("tp_families", phase_tp_families)):
         print(f"=== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

@@ -148,13 +148,15 @@ def expected_launches(mcfg, cfg, groups: int, flash: bool = True,
     once a step. With no ``cfg.graft`` (the baseline step) no refresh runs.
     ``optimizer`` "adafactor": the update is plain PyTorch (no kernel B).
 
-    Under JAX's ``default`` preset (a sharded dense or MoE model,
-    ``sharded``) the counts are the same a rank (a MoE layer's experts run
+    Under JAX's ``default`` preset (``sharded``; every family but the
+    hybrid one) the counts are the same a rank (a MoE layer's experts run
     on aten ops): each rank runs one flash forward, dQ and
     dK/dV a layer and pass on its slice of the queries against the whole
-    K/V (the query offset), the MLP and vocabulary slices on aten ops, and
-    the one graft_select a refresh on the gathered batch. ``flash`` is the
-    route of the whole sequence."""
+    K/V (the query offset), or one RWKV scan forward and backward a layer
+    and pass on its heads' B·H/n streams of the gathered sequence, the MLP
+    (the channel mix's) and vocabulary slices on aten ops, and the one
+    graft_select a refresh on the gathered batch. ``flash`` is the route
+    of the whole sequence."""
     steps = cfg.train.steps
     refreshes = (0 if cfg.graft is None else
                  sum(1 for s in range(steps) if s % cfg.graft.refresh_every == 0))

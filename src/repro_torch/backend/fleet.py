@@ -48,10 +48,12 @@ rank's backend (``mesh_worker_command``: ``python -m repro_torch.backend
     groups' and the experts' axes), its resident and shard bytes and its
     launches;
   * ``"tp"`` — the same under ``preset`` (default: JAX's ``default``
-    preset, for the dense and moe families): the batch over ``("pod",
-    "data")``, each row's sequence, the MLP hidden, the experts and the
-    vocabulary over ``"model"``; the model peers of a batch shard take the
-    same rows;
+    preset, for every family but the hybrid one): the batch over
+    ``("pod", "data")``, each row's sequence (the frames, or the patches
+    and tokens, a frontend embeds), the MLP hidden, the RWKV heads, the
+    experts and the vocabulary over ``"model"``; the model peers of a
+    batch shard take the same rows. Each rank also reports the heads of
+    its RWKV time mixes (``heads``);
   * ``"serve"`` — sharded serving on ``mesh`` under ``preset``'s rules with
     ``shape``'s ``SHAPE_RULES``: ``arch`` (``smoke``, ``model``) with
     weights from ``params`` or ``seed``; a prefill of the rank's rows of the prompt
@@ -477,6 +479,7 @@ def _fsdp_task(task, backend, device, preset: str = "fsdp") -> Dict[str, Any]:
     from repro_torch.launch import specs, steps
     from repro_torch.models import model as model_lib
     from repro_torch.models.layers import EXPERT_RUNS, resolve_attn_backend
+    from repro_torch.models.ssm import HEAD_RUNS
     from repro_torch.optim import OptimizerConfig
     from repro_torch.selection.base import GraftConfig
 
@@ -525,6 +528,7 @@ def _fsdp_task(task, backend, device, preset: str = "fsdp") -> Dict[str, Any]:
         torch.cuda.reset_peak_memory_stats(device)
     launch_audit.zero_counts()
     EXPERT_RUNS.clear()
+    HEAD_RUNS.clear()
     with launch_audit.recording() as trace:
         for i in range(task["steps"]):
             batch = {name: x[r * k:(r + 1) * k].to(device)
@@ -554,10 +558,12 @@ def _fsdp_task(task, backend, device, preset: str = "fsdp") -> Dict[str, Any]:
     # the MoE regimes its forwards ran: (tokens, the groups' axes, the
     # experts' axes), the experts whole where they split over none
     out["moe"] = sorted([tokens, list(g), list(e)] for tokens, g, e in EXPERT_RUNS)
+    # the heads [start, stop) of its head-parallel RWKV time mixes
+    out["heads"] = sorted(list(k) for k in HEAD_RUNS)
     run = types.SimpleNamespace(train=types.SimpleNamespace(steps=task["steps"], eval_every=0),
                                 graft=tcfg.graft)
-    flash = resolve_attn_backend(mcfg, batch["labels"].shape[1], batch["labels"].shape[1],
-                                 device) == "flash"
+    S = model_lib.input_length(mcfg, batch)
+    flash = resolve_attn_backend(mcfg, S, S, device) == "flash"
     out["launches_expected"] = launch_audit.expected_launches(
         mcfg, run, launch_audit.optim_groups(state["params"]), flash=flash, card=cuda,
         sharded=True, optimizer=tcfg.optimizer.name)

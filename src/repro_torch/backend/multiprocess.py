@@ -165,7 +165,8 @@ class MultiProcessBackend(base.Backend):
 
     def reduce_tensors(self, grads: Sequence[torch.Tensor], op: str) -> List[torch.Tensor]:
         """One ``all_reduce`` per dtype group, over a flat copy of the
-        group; the results are views of it in ``grads``' order."""
+        group; the results are views of it in ``grads``' order (on gloo the
+        sum comes back into that copy: the device holds one)."""
         if op not in ("sum", "mean"):
             raise ValueError(f"reduce op must be 'sum' or 'mean', got '{op}'")
         out: List[Optional[torch.Tensor]] = [None] * len(grads)
@@ -188,8 +189,11 @@ class MultiProcessBackend(base.Backend):
             wired = self._wire(flat)
             dist.all_reduce(wired, op=dist.ReduceOp.SUM)
             if op == "mean":
-                wired = wired / self.process_count
-            flat = wired.to(flat.device, non_blocking=True)
+                wired.div_(self.process_count)
+            # staged on the host: the sum comes back into flat, not into a
+            # second copy beside it on the device
+            if wired is not flat:
+                flat.copy_(wired, non_blocking=True)
             for i, s in zip(idx, starts):
                 out[i] = flat[s:s + grads[i].numel()].view(grads[i].shape)
         return out

@@ -35,7 +35,7 @@ The partitioner half places parameters where XLA's would under
 ``constrain`` (``with_sharding_constraint`` on activations) has no
 counterpart: under ``fsdp`` no activation is constrained beyond the batch
 split, which the train step makes itself (``launch/steps.py``); under the
-``default`` preset the dense family's layers place their activations
+``default`` preset the layers of ``TP_FAMILIES`` place their activations
 where JAX's ``constrain`` calls declare them, with the collectives
 written out (:class:`SeqParallel`). A decode cache lies as JAX's
 ``cache_logical`` declares it (:class:`CacheLayout`: its rows over the
@@ -187,8 +187,10 @@ _TP_ACTIVATIONS = ("act_seq", "act_res_seq", "act_q_seq", "act_heads", "act_kv_h
 # decode_32k and long_500k) split them over the mesh under either preset,
 # and only the cache reads them (``cache_layout``)
 _CACHE_ACTIVATIONS = ("act_kv_seq",)
-# the families whose layers run the default preset's layout
-TP_FAMILIES = ("dense", "moe")
+# the families whose layers run the default preset's layout (a dense or moe
+# model with a frontend too: ``models/model.py`` ``sequence_layout`` lays out
+# the frames, or the patches and tokens, that it embeds)
+TP_FAMILIES = ("dense", "moe", "ssm", "audio", "vlm")
 
 
 def rules_mode(mesh, rules: Dict[str, MeshAxes]) -> str:
@@ -212,11 +214,11 @@ def check_rules(mesh, rules: Dict[str, MeshAxes], family: str = "dense",
     """Raise ``ValueError`` unless the port's sharded steps run ``rules`` on
     ``mesh`` for a model of ``family`` with ``frontend``; return the mode
     (``rules_mode``). They run the ``fsdp`` layout for every family they
-    shard, and the ``default`` preset's layout for the dense and moe
-    families without a frontend (``models/model.py`` ``sequence_layout``
-    lays out token sequences only). A MoE's chunk-major grouping
-    (``local_groups``, ``moe_local_groups``) moves its groups between the
-    ranks of "model", an all-to-all the port's ``Mesh`` does not have."""
+    shard, and the ``default`` preset's layout for the families of
+    ``TP_FAMILIES``, with or without a frontend; the hybrid family's SSM
+    heads have none yet. A MoE's chunk-major grouping (``local_groups``,
+    ``moe_local_groups``) moves its groups between the ranks of "model", an
+    all-to-all the port's ``Mesh`` does not have."""
     mode = rules_mode(mesh, rules)
     if family == "moe" and local_groups and mode in ("fsdp", "default"):
         raise ValueError(
@@ -229,12 +231,8 @@ def check_rules(mesh, rules: Dict[str, MeshAxes], family: str = "dense",
         if family not in TP_FAMILIES:
             raise ValueError(
                 f"the 'default' preset's sequence and tensor parallelism on the {family} family: "
-                "the port lays it out for the dense and moe families only (ROADMAP.md A12b)")
-        if frontend is not None:
-            raise ValueError(
-                f"the 'default' preset's sequence and tensor parallelism on a {family} model "
-                f"with the {frontend} frontend: the port lays out token sequences only "
-                "(ROADMAP.md A12b)")
+                f"the port lays it out for the {', '.join(TP_FAMILIES)} families; the hybrid "
+                "family alone is left (ROADMAP.md A12b)")
         return mode
     heads = [n for n in ("act_heads", "act_kv_heads")
              if logical_to_spec((n,), mesh, rules) != (None,)]

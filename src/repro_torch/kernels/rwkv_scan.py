@@ -69,7 +69,8 @@ def library_smem_bytes() -> int:
 
 
 def cost(kind: str, BH: int, T: int, D: int) -> Tuple[int, int]:
-    """(operations, bytes) of the function, whatever computes it. Bytes:
+    """(operations, bytes) of the function, whatever computes it, on ``BH``
+    streams (a head-parallel time mix's rank: its rows × its heads). Bytes:
     each input read and each output written once — forward r, k, v, w, u →
     o; backward r, k, v, w, u, do → dr, dk, dv, dw, du (the tile states the
     kernels save and reload are a design's intermediate). Float32

@@ -21,19 +21,22 @@ storage, nothing computed), on one device of the mesh:
   as on the card): JAX's ``argument_size_in_bytes``,
   ``output_size_in_bytes`` (``alias_size_in_bytes`` of it shared with the
   arguments), ``temp_size_in_bytes`` (the peak beyond the arguments), and
-  ``peak_bytes`` with ``fits`` against the H100's 80 GB.
+  ``peak_bytes`` with ``fits`` against the H100's 80 GB. On the card's
+  routes the peak adds cuBLAS's workspaces (``workspace_bytes``: 32 MiB
+  for each of the forward's and the backward's threads that calls it).
 * **Collectives**: a cell whose state stays replicated on every device
   (data parallel) splits the batch over the mesh axes that ``act_batch``
   maps to. A recording backend stands in for the processes:
   ``all_gather_rows`` and ``reduce_grads`` return fake tensors of the real
   shapes and add their operands' bytes under JAX's op names. Under
   ``fsdp`` (every arch; a MoE arch's train cells only) and under
-  ``default`` (the dense and MoE archs' train cells) the state is one
+  ``default`` (the train cells of every arch but hymba-1.5b's) the state is one
   device's shards (``"state": "sharded"``) and a recording mesh stands in
   for the ranks: each weight's just-in-time gather, its gradient's
   reduce-scatter, the norm's psum and, under ``default``, the sequence's
   gathers and reduce-scatters and the vocabulary-parallel loss's pmax and
-  psums, and a MoE layer's gathered rows and its combine's reduce-scatter
+  psums, the RWKV mixes' heads and ``d_ff`` slices, and a MoE layer's
+  gathered rows and its combine's reduce-scatter
   return fake tensors of the real shapes and add their operands' bytes the
   same way. A prefill or
   decode cell's cache is one device's part of it (``specs.cache_logical``
@@ -103,6 +106,13 @@ _DEVICE = torch.ops.prim.device.default
 # allocations: they move no bytes
 _ALLOCATING = frozenset(("empty", "empty_like", "empty_strided", "new_empty",
                          "new_empty_strided"))
+# PyTorch's cuBLAS workspace on sm_90 (``CUBLAS_WORKSPACE_CONFIG`` unset),
+# one a thread that calls cuBLAS, held from its first call on: the
+# forward's matmuls run on the caller's thread, the backward's (and a
+# recompute's) on autograd's device thread
+CUBLAS_WORKSPACE_BYTES = 32 << 20
+_CUBLAS = frozenset(("mm", "addmm", "bmm", "baddbmm", "addbmm", "mv", "addmv", "dot", "vdot",
+                     "_scaled_mm"))
 
 
 def _tensors(tree) -> List[torch.Tensor]:
@@ -137,6 +147,8 @@ class Tracker(TorchDispatchMode):
         self.live: Dict[int, int] = {}
         self.current = 0
         self.peak = 0
+        # the threads that called cuBLAS: the forward's (False), the backward's (True)
+        self.blas_threads: set = set()
 
     def see(self, t: torch.Tensor) -> None:
         """Count ``t``'s storage from now until it is freed (once)."""
@@ -167,6 +179,8 @@ class Tracker(TorchDispatchMode):
         if func is _DEVICE:             # a fake tensor's ``.device``, no op
             return out
         self.ops += 1
+        if func.overloadpacket.__name__ in _CUBLAS:
+            self.blas_threads.add(torch._C._current_graph_task_id() != -1)
         outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
         if func.overloadpacket.__name__ not in _ALLOCATING and not func.is_view:
             ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
@@ -240,7 +254,7 @@ class RecordingBackend(Backend):
             flat = torch.cat([tensors[i].reshape(-1) for i in idx])
             self._record("all-reduce", _nbytes(flat))
             if op == "mean":
-                flat = flat / self.shards
+                flat.div_(self.shards)
             start = 0
             for i in idx:
                 n = tensors[i].numel()
@@ -328,14 +342,18 @@ def trace(cell: specs_lib.Cell, backend: RecordingBackend = None) -> Dict[str, A
     aten_flops = float(flop_counter.get_total_flops())
     kernel_flops, kernel_bytes = costs.total("flops"), costs.total("bytes")
     alias = sum(size for key, size in outputs.items() if key in arg_keys)
+    on_card = cell.as_card or torch.device(cell.device).type == "cuda"
+    workspace = CUBLAS_WORKSPACE_BYTES * len(tracker.blas_threads) if on_card else 0
+    peak = tracker.peak + workspace
     memory = {
         "argument_size_in_bytes": args_bytes,
         "output_size_in_bytes": sum(outputs.values()),
         "alias_size_in_bytes": alias,
-        "temp_size_in_bytes": tracker.peak - args_bytes,
-        "peak_bytes": tracker.peak,
+        "temp_size_in_bytes": peak - args_bytes,
+        "workspace_bytes": workspace,
+        "peak_bytes": peak,
         "device_bytes": DEVICE_BYTES,
-        "fits": tracker.peak <= DEVICE_BYTES,
+        "fits": peak <= DEVICE_BYTES,
     }
     collectives = (backend or RecordingBackend(1)).collectives()
     return {
@@ -377,9 +395,9 @@ def _check_preset(cfg, rules_preset: str, kind: str = "train") -> str:
         if cfg.family not in sh.TP_FAMILIES:
             return (f"the {cfg.family} family's layers have no sequence-parallel layout "
                     "(ROADMAP.md A12b)")
-        if cfg.frontend is not None:
-            return (f"the {cfg.frontend} frontend has no sequence-parallel layout "
-                    "(ROADMAP.md A12b)")
+        if kind != "train" and (cfg.family != "dense" or cfg.frontend is not None):
+            return (f"sharded serving of the {cfg.family} family under 'default' is not laid "
+                    "out (ROADMAP.md A12s)")
     return ""
 
 
@@ -397,9 +415,11 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
     ``stand_in``: the CPU stand-in for the card (``specs.abstract_device``).
     ``rules_preset``: "fsdp" (a cell's state sharded, ``"state":
     "sharded"``; a MoE arch's serve cells refuse, A14s) or "default" (the
-    dense and MoE archs' train cells sharded as well, with the batch over
-    ``("pod", "data")`` and the sequence, the MLP hidden, the experts and
-    the vocabulary over ``"model"``; every other cell keeps the state
+    train cells of every family but the hybrid one sharded as well, with
+    the batch over ``("pod", "data")`` and the sequence, the MLP hidden,
+    the RWKV heads, the experts and the vocabulary over ``"model"``; the
+    serve cells of the dense archs without a frontend too; every other
+    cell keeps the state
     replicated on each device and ``replicated_why`` says why). The shape's
     ``SHAPE_RULES`` come under the preset's."""
     cfg = config_lib.get_config(arch)
@@ -579,7 +599,7 @@ def main(argv=None) -> int:
                     help="selection gradient source for graft cells")
     ap.add_argument("--rules-preset", default="default", choices=list(specs_lib.RULE_PRESETS),
                     help="fsdp: every arch's state sharded (MoE serve cells refused); default: "
-                         "the dense and MoE archs' train state sharded, the rest replicated")
+                         "every train state but hymba's sharded, and the dense serve cells")
     ap.add_argument("--data-source", default="synthetic_lm",
                     help="task/data-source registry name for train cells")
     ap.add_argument("--cpu-stand-in", action="store_true",

@@ -317,18 +317,21 @@ def serve_cell(mcfg, kind: str, rows: int, max_seq: int, params, *, fake_mode, d
 
 
 def experiment_cell(cfg, *, device="cuda:0", stand_in: bool = False, mesh=None,
-                    rules=None, backend=None) -> Cell:
+                    rules=None, backend=None,
+                    batch: Optional[Dict[str, TensorSpec]] = None) -> Cell:
     """One step of an ``api.ExperimentConfig`` (its model, train config and
     data source's batch) on fake tensors: the step ``Trainer.fit`` runs
     first, a refresh step under GRAFT, without the sentinel. With ``mesh``
-    and ``rules`` (the fsdp preset): one device's step of a sharded fleet,
+    and ``rules`` (a preset's): one device's step of a sharded fleet,
     its rows the global batch's share, its collectives on ``mesh`` and
-    ``backend``."""
+    ``backend``. ``batch``: the global batch's specs where the data
+    source's are not the model's input (a frontend's frames, or its
+    patches and tokens: ``batch_specs``)."""
     mcfg, tcfg, data = cfg.build()
     tcfg = _dry_run_config(tcfg)
     dev, as_card = abstract_device(device, stand_in)
     fake_mode = FakeTensorMode()
-    specs = source_batch_specs(data)
+    specs = source_batch_specs(data) if batch is None else dict(batch)
     rows = cfg.train.batch
     sharded = contextlib.nullcontext()
     if mesh is not None:

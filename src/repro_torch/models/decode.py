@@ -63,17 +63,24 @@ CACHE_LOGICAL = {
 def check_serve_rules(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` unless the serve path runs the active
     ``sharding_rules`` for ``cfg``'s model: ``sharding.check_rules`` for its
-    family and frontend (the ``fsdp`` layout, and the ``default`` one for
-    the dense family), and no MoE: a decode tick's dropless groups are its
-    rows, which the train step's expert layout does not cover."""
+    family and frontend (the ``fsdp`` layout; the ``default`` one for the
+    dense family without a frontend), and no MoE: a decode tick's dropless
+    groups are its rows, which the train step's expert layout does not
+    cover. Under ``default`` the ssm family's states, the audio and vlm
+    families' and a frontend's prompts are not laid out (A12s)."""
     act = sh.active()
     if act is None:
         return
-    sh.check_rules(*act, cfg.family, cfg.frontend, cfg.moe_local_groups)
+    mode = sh.check_rules(*act, cfg.family, cfg.frontend, cfg.moe_local_groups)
     if cfg.family == "moe":
         raise ValueError(f"{cfg.name}: sharded serving of the moe family: the dropless decode's "
                          "groups are a tick's rows and the prefill's its prompts, whose expert "
                          "parallelism the port has not laid out (ROADMAP.md A14s)")
+    if mode == "default" and (cfg.family != "dense" or cfg.frontend is not None):
+        raise ValueError(f"{cfg.name}: serving the {cfg.family} family"
+                         + (f" with the {cfg.frontend} frontend" if cfg.frontend else "")
+                         + " under the 'default' preset: its decode state and prompts are not "
+                         "laid out over the sequence and heads (ROADMAP.md A12s)")
 
 
 def _layer_cache(cfg: ModelConfig, B: int, max_seq: int, device,

@@ -486,29 +486,31 @@ def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
     ``None``; ``kv`` (a ``sharding.CacheLayout``) says where this rank's
     part of the cache lies. A one-token step through a MoE block is
     dropless, as in JAX. ``sp`` (a ``sharding.SeqParallel``): x holds this
-    rank's positions of the sequence, and the attention and MLP lay out
-    their work as the ``default`` preset declares it (``layers.attention``,
-    ``layers.mlp``). ``ep`` (a ``sharding.ExpertLayout``, a MoE block
-    under ``sharding_rules``): the MoE takes its leaves as stored and runs
-    this rank's experts on its groups (``layers.moe``)."""
+    rank's positions of the sequence, and the attention and MLP, or the
+    RWKV time and channel mixes, lay out their work as the ``default``
+    preset declares it (``layers.attention``, ``layers.mlp``,
+    ``ssm.rwkv_time_mix``, ``ssm.rwkv_channel_mix``). ``ep`` (a
+    ``sharding.ExpertLayout``, a MoE block under ``sharding_rules``): the
+    MoE takes its leaves as stored and runs this rank's experts on its
+    groups (``layers.moe``)."""
     fam = "dense" if dense_override else cfg.family
     new_cache = None if cache is None else {}
-    # a sharded block's weights, gathered here; under ``sp`` the MLP, and
-    # under ``ep`` the MoE, take their leaves as stored and gather their
-    # own slices
-    own = {"mlp"} if sp is not None else set()
+    # a sharded block's weights, gathered here; under ``sp`` the MLP and the
+    # RWKV mixes, and under ``ep`` the MoE, take their leaves as stored and
+    # gather their own slices
+    own = {"mlp", "time", "channel"} if sp is not None else set()
     if ep is not None and fam == "moe":
         own.add("moe")
     stored = {k: p[k] for k in own if k in p}
     p = sh.materialize_tree({k: v for k, v in p.items() if k not in own})
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     if fam == "ssm":
-        t_out, t_state = S.rwkv_time_mix(cfg, p["time"], h,
-                                         state=None if cache is None else cache["time"])
+        t_out, t_state = S.rwkv_time_mix(cfg, stored.get("time", p.get("time")), h,
+                                         state=None if cache is None else cache["time"], sp=sp)
         x = x + t_out
         c_out, c_state = S.rwkv_channel_mix(
-            cfg, p["channel"], L.rms_norm(x, p["ln2"], cfg.rms_eps),
-            state=None if cache is None else cache["channel"])
+            cfg, stored.get("channel", p.get("channel")), L.rms_norm(x, p["ln2"], cfg.rms_eps),
+            state=None if cache is None else cache["channel"], sp=sp)
         if cache is not None:
             new_cache["time"], new_cache["channel"] = t_state, c_state
         return x + c_out, new_cache
@@ -554,13 +556,26 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _dots_po
 # forward / loss / features
 # ---------------------------------------------------------------------------
 
+def input_length(cfg: ModelConfig, batch) -> int:
+    """The positions of the sequence ``embed_inputs`` builds from ``batch``:
+    the frames' (audio), the patches' and the tokens' (vlm: the patches
+    first), else the tokens' (a decode tick's, whatever the frontend)."""
+    if "frame_embeds" in batch and (cfg.family == "audio" or cfg.frontend == "audio_frames"):
+        return batch["frame_embeds"].shape[1]
+    if "patch_embeds" in batch and (cfg.family == "vlm" or cfg.frontend == "vision_patches"):
+        return batch["patch_embeds"].shape[1] + batch["tokens"].shape[1]
+    return batch["tokens"].shape[1]
+
+
 def sequence_layout(cfg: ModelConfig, batch) -> Optional[sh.SeqParallel]:
     """The ``default`` preset's layout of ``batch``'s forward under the
-    active ``sharding_rules`` (``sharding.sequence_parallel``), for a
-    family whose layers run it (dense, moe); else None."""
-    if cfg.family not in sh.TP_FAMILIES or cfg.frontend is not None:
+    active ``sharding_rules`` (``sharding.sequence_parallel``) over the
+    sequence the model embeds (``input_length``; JAX constrains the whole of
+    it to ``act_res_seq``), for a family whose layers run it
+    (``sharding.TP_FAMILIES``); else None."""
+    if cfg.family not in sh.TP_FAMILIES:
         return None
-    return sh.sequence_parallel(batch["tokens"].shape[1])
+    return sh.sequence_parallel(input_length(cfg, batch))
 
 
 def expert_layout(cfg: ModelConfig, x: torch.Tensor, sp: Optional[sh.SeqParallel] = None
@@ -598,35 +613,34 @@ def embed_inputs(cfg: ModelConfig, params, batch, sp: Optional[sh.SeqParallel] =
     The frontend decides the input: ``frame_embeds`` (audio: every position
     labeled), ``patch_embeds`` followed by the embedded ``tokens`` (vlm: the
     mask is 0 on the patches and 1 on the text), or the embedded ``tokens``.
-    ``sp``: this rank's positions ``[sp.start, sp.stop)`` of the tokens,
-    embedded at their global positions (JAX's ``act_res_seq``)."""
+    ``sp``: this rank's positions ``[sp.start, sp.stop)`` of that sequence
+    (JAX's ``act_res_seq``), at their global positions: its frames, or its
+    part of ``patches ‖ tokens`` (patches and tokens both where the slice
+    straddles them), embedding only the tokens that fall in it."""
     _check_supported(cfg)
     params = _tree(params)
-    if sp is not None:
-        tokens = sp.take(batch["tokens"])
-        x = take_rows(sh.materialize(params["embed"]), tokens)
-        B, Sq = x.shape[:2]
-        positions = torch.arange(sp.start, sp.start + Sq, dtype=torch.int32,
-                                 device=x.device).expand(B, Sq)
-        return x, positions, torch.ones((B, Sq), dtype=torch.float32, device=x.device)
+    lo, hi = (sp.start, sp.stop) if sp is not None else (0, input_length(cfg, batch))
     if cfg.family == "audio" or cfg.frontend == "audio_frames":
-        x = batch["frame_embeds"].to(cfg.dtype)
+        x = batch["frame_embeds"][:, lo:hi].to(cfg.dtype)
         B, Sq = x.shape[:2]
         mask = torch.ones((B, Sq), dtype=torch.float32, device=x.device)
     elif cfg.family == "vlm" or cfg.frontend == "vision_patches":
-        patches = batch["patch_embeds"].to(cfg.dtype)
-        tok = take_rows(sh.materialize(params["embed"]), batch["tokens"])
+        P = batch["patch_embeds"].shape[1]
+        patches = batch["patch_embeds"][:, min(lo, P):min(hi, P)].to(cfg.dtype)
+        # every rank reads the table (its gather is a collective), with no
+        # token where its slice holds patches alone
+        tok = take_rows(sh.materialize(params["embed"]),
+                        batch["tokens"][:, max(lo, P) - P:max(hi, P) - P])
         x = torch.cat([patches, tok], dim=1)
         B, Sq = x.shape[:2]
-        mask = torch.cat([torch.zeros((B, patches.shape[1]), dtype=torch.float32,
-                                      device=x.device),
-                          torch.ones(batch["tokens"].shape, dtype=torch.float32,
-                                     device=x.device)], dim=1)
+        mask = torch.cat([torch.zeros(patches.shape[:2], dtype=torch.float32, device=x.device),
+                          torch.ones(tok.shape[:2], dtype=torch.float32, device=x.device)],
+                         dim=1)
     else:
-        x = take_rows(sh.materialize(params["embed"]), batch["tokens"])
+        x = take_rows(sh.materialize(params["embed"]), batch["tokens"][:, lo:hi])
         B, Sq = x.shape[:2]
         mask = torch.ones((B, Sq), dtype=torch.float32, device=x.device)
-    positions = torch.arange(Sq, dtype=torch.int32, device=x.device).expand(B, Sq)
+    positions = torch.arange(lo, lo + Sq, dtype=torch.int32, device=x.device).expand(B, Sq)
     return x, positions, mask
 
 

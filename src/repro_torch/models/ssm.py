@@ -21,14 +21,22 @@ WKV recurrence from a float32 (B, H, Dh, Dh) state, the SSM heads from a
 float32 (B, H, Dh, N) state. The WKV recurrence then runs as a PyTorch loop
 over the tokens, as the JAX package's ``lax.scan`` does: the RWKV kernels
 take no state in and give none out, and the training path keeps them.
+
+Under JAX's ``default`` preset (``sp``, a ``sharding.SeqParallel``) the
+time mix runs head-parallel over the gathered sequence (the rank's heads
+through the same kernels, its ``wo`` partial sums reduce-scattered onto
+its positions) and the channel mix tensor-parallel over ``d_ff``, as the
+JAX package's ``constrain`` calls declare them.
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import rwkv_scan as rwkv_lib
 
 def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor] = None
@@ -62,14 +70,63 @@ def lora_rank(cfg) -> int:
     return max(32, cfg.d_model // 64)
 
 
-def rwkv_time_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None
+# the heads [start, stop) of each head-parallel time mix (the ``default``
+# preset), counted: what a fleet's ranks report
+HEAD_RUNS: collections.Counter = collections.Counter()
+
+# the time-mix leaves whose columns (or, for ``wo``, rows) are the heads',
+# with that dim: the rank of a head-parallel time mix takes its heads' part
+_HEAD_LEAVES = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "decay_B": 1, "w0": 0, "u": 0,
+                "ln_x_scale": 0, "wo": 0}
+
+
+def rwkv_time_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None,
+                  sp: Optional[sh.SeqParallel] = None
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
     """RWKV6 attention-free token mixing. x: (B, S, D) → (out, new state).
     ``state`` (decode): ``{"shift": (B,1,D), "wkv": (B,H,Dh,Dh) float32}``;
-    the new state is None without one."""
-    B, S, D = x.shape
+    the new state is None without one.
+
+    ``sp`` (a ``sharding.SeqParallel``, the ``default`` preset): x is this
+    rank's positions and ``p`` the leaves as stored (``ShardedParam``s or
+    tensors). JAX constrains r, k and v to ``("act_batch", "act_seq",
+    "act_heads", None)``: the sequence whole, the heads over "model". So x
+    is gathered over the sequence once, the token shift and the five LoRA
+    lerps run on the whole of it (replicated compute over "model": each
+    rank's gradient of them is its heads' part, and the ranks' parts sum),
+    the rank takes its heads' columns of ``wr``, ``wk``, ``wv``, ``wg``,
+    ``decay_B`` and ``w0`` and its heads of ``u`` and ``ln_x_scale``, runs
+    the WKV on its B·H/n streams (the kernels' grids are the streams, so
+    one launch each way as before), the group norm and the gate, multiplies
+    by its rows of ``wo`` and reduce-scatters the partial sums onto its
+    positions (``act_res_seq``). Where the heads do not divide the axes,
+    each rank runs the whole heads on the gathered sequence and keeps its
+    own positions of the output (a recurrence needs every earlier one)."""
+    if sp is None:
+        return _time_mix(cfg, sh.materialize_tree(p), x, state)
+    if state is not None:
+        raise ValueError("a decode state under the 'default' preset: the ssm family's serve "
+                         "steps are not laid out (ROADMAP.md A12s)")
     H = cfg.num_heads
-    Dh = D // H
+    axes = sp.split("act_heads", H)
+    h = sp.gather(x)
+    if not axes:
+        return sp.take(_time_mix(cfg, sh.materialize_tree(p), h, None)[0]), None
+    h0, h1 = sp.part("act_heads", H)
+    HEAD_RUNS[(h0, h1)] += 1
+    Dh = cfg.d_model // H
+    w = {n: (sh.materialize_part(t, _HEAD_LEAVES[n], (h0 * Dh, h1 * Dh), axes)
+             if n in _HEAD_LEAVES else sh.materialize(t)) for n, t in p.items()}
+    return sp.scatter(_time_mix(cfg, w, h, None)[0], axes), None
+
+
+def _time_mix(cfg, p, x: torch.Tensor, state: Optional[dict]
+              ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """``rwkv_time_mix`` over whole leaves ``p``, whose head leaves
+    (``_HEAD_LEAVES``) may hold some of the heads: the WKV runs on those."""
+    B, S, D = x.shape
+    Dh = D // cfg.num_heads
+    H = p["u"].shape[0] // Dh
 
     shifted, new_shift = _token_shift(x, None if state is None else state["shift"])
     xr, xk, xv, xw, xg = (_lora_mix(x, shifted, p[f"mu_{n}"], p["lora_A"], p[f"lora_B_{n}"])
@@ -88,7 +145,7 @@ def rwkv_time_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None
                                     p["u"].reshape(H, Dh).to(torch.float32), state["wkv"])
         new_state = {"shift": new_shift, "wkv": wkv_state}
     else:
-        def streams(t):                                  # (B,S,D) → (B·H, S, Dh) f32
+        def streams(t):                                  # (B,S,H·Dh) → (B·H, S, Dh) f32
             return t.to(torch.float32).reshape(B, S, H, Dh).transpose(1, 2) \
                 .reshape(B * H, S, Dh).contiguous()
 
@@ -101,20 +158,51 @@ def rwkv_time_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None
     mean = torch.mean(wkv, dim=-1, keepdim=True)
     var = torch.var(wkv, dim=-1, keepdim=True, correction=0)
     wkv = (wkv - mean) * torch.rsqrt(var + 1e-5)
-    wkv = (wkv * p["ln_x_scale"].reshape(H, Dh)).reshape(B, S, D).to(x.dtype)
+    wkv = (wkv * p["ln_x_scale"].reshape(H, Dh)).reshape(B, S, H * Dh).to(x.dtype)
     return (wkv * g) @ p["wo"], new_state
 
 
-def rwkv_channel_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None
+def rwkv_channel_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None,
+                     sp: Optional[sh.SeqParallel] = None
                      ) -> Tuple[torch.Tensor, Optional[dict]]:
     """RWKV FFN with token shift and squared ReLU. ``state`` (decode):
-    ``{"shift": (B,1,D)}``."""
-    shifted, new_shift = _token_shift(x, None if state is None else state["shift"])
-    xk = x + (shifted - x) * p["mu_k"]
-    xr = x + (shifted - x) * p["mu_r"]
-    k = torch.square(F.relu(xk @ p["w_key"]))
-    r = torch.sigmoid(xr @ p["w_recept"])
-    return r * (k @ p["w_value"]), None if state is None else {"shift": new_shift}
+    ``{"shift": (B,1,D)}``.
+
+    ``sp`` (a ``sharding.SeqParallel``, the ``default`` preset): x is this
+    rank's positions and ``p`` the leaves as stored. JAX constrains k over
+    ``act_mlp`` and ``r * kv`` to ``act_res_seq``: x is gathered over the
+    sequence for the shift; where ``d_ff`` splits over ``act_mlp``'s axes
+    the rank computes k from its columns of ``w_key`` on the whole
+    sequence, kv's partial sums from its rows of ``w_value``, and
+    reduce-scatters them onto its positions; r comes from its positions
+    and the whole ``w_recept``. Where ``d_ff`` does not divide, the rank
+    runs its positions with the whole weights."""
+    if sp is None:
+        p = sh.materialize_tree(p)
+        shifted, new_shift = _token_shift(x, None if state is None else state["shift"])
+        xk = x + (shifted - x) * p["mu_k"]
+        xr = x + (shifted - x) * p["mu_r"]
+        k = torch.square(F.relu(xk @ p["w_key"]))
+        r = torch.sigmoid(xr @ p["w_recept"])
+        return r * (k @ p["w_value"]), None if state is None else {"shift": new_shift}
+    if state is not None:
+        raise ValueError("a decode state under the 'default' preset: the ssm family's serve "
+                         "steps are not laid out (ROADMAP.md A12s)")
+    h = sp.gather(x)
+    shifted_all = _token_shift(h)[0]
+    shifted = sp.take(shifted_all)
+    mu_k, mu_r = sh.materialize(p["mu_k"]), sh.materialize(p["mu_r"])
+    r = torch.sigmoid((x + (shifted - x) * mu_r) @ sh.materialize(p["w_recept"]))
+    Fd = p["w_key"].shape[1]
+    axes = sp.split("act_mlp", Fd)
+    if not axes:
+        k = torch.square(F.relu((x + (shifted - x) * mu_k) @ sh.materialize(p["w_key"])))
+        return r * (k @ sh.materialize(p["w_value"])), None
+    part = sp.part("act_mlp", Fd)
+    k = torch.square(F.relu((h + (shifted_all - h) * mu_k)
+                            @ sh.materialize_part(p["w_key"], 1, part, axes)))
+    kv = sp.scatter(k @ sh.materialize_part(p["w_value"], 0, part, axes), axes)
+    return r * kv, None
 
 
 def ssm_heads(cfg, p, x: torch.Tensor, state: Optional[torch.Tensor] = None

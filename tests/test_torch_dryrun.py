@@ -276,6 +276,22 @@ def test_tracker_peak_on_a_toy():
     del v
 
 
+@pytest.mark.parametrize("shape,variant,threads", [("train_4k", "graft", 2),
+                                                   ("decode_32k", "serve", 1)])
+def test_card_peak_counts_the_cublas_workspaces(shape, variant, threads):
+    """On the card's routes a cell's peak adds one cuBLAS workspace for each
+    thread that runs a matmul: the forward's and the backward's of a train
+    step, the forward's alone of a serve step; a CPU cell adds none."""
+    res = dryrun.run_cell("minicpm-2b", shape, "single", variant, smoke=True, **CARD)
+    mem = res["full"]["memory"]
+    assert mem["workspace_bytes"] == threads * dryrun.CUBLAS_WORKSPACE_BYTES
+    assert mem["temp_size_in_bytes"] == mem["peak_bytes"] - mem["argument_size_in_bytes"]
+    cfg = ExperimentConfig().apply_overrides(["graft.rset=[2,4]", "train.batch=8",
+                                              "train.seq=32"])
+    cpu = dryrun.trace(tspecs.experiment_cell(cfg, device="cpu"))["memory"]
+    assert cpu["workspace_bytes"] == 0
+
+
 def test_remat_full_peaks_below_none():
     peaks = {}
     for remat in ("full", "none"):
@@ -323,26 +339,27 @@ def test_production_mesh_shapes():
 @pytest.mark.parametrize("arch,preset,reason", [
     ("qwen3-moe-235b-a22b", "fsdp", "expert parallelism"),
     ("minicpm-2b", "head_tp", "tensor parallelism"),
-    ("rwkv6-7b", "default", "A12b"), ("musicgen-medium", "default", "A12b"),
-    ("qwen3-moe-235b-a22b", "default", "A14")])
+    ("rwkv6-7b", "default", "A12s"), ("musicgen-medium", "default", "A12s"),
+    ("hymba-1.5b", "default", "A12b"), ("qwen3-moe-235b-a22b", "default", "A14")])
 def test_parameter_sharding_presets_raise(arch, preset, reason):
     """What the port's partitioner does not run: head-parallel attention in
     the dry run; the ``default`` preset's sequence and tensor parallelism
-    on the families other than dense and moe, at the train step and at the
-    serve steps (their dry-run cells keep the state replicated); sharded
-    serving of a MoE arch under either preset (A14s), whose train step and
-    train cell now run sharded (expert parallelism)."""
+    on the hybrid family, at the train step and at the serve steps (A12b);
+    the serve steps of the ssm, audio and vlm families under ``default``
+    (A12s), whose train steps now run it; sharded serving of a MoE arch
+    under either preset (A14s), whose train step and train cell run
+    sharded (expert parallelism)."""
     moe = tconfigs.get_config(arch).family == "moe"
     if preset == "default":
         mesh = tmesh.make_mesh((2, 2), ("data", "model"))
         mcfg = tconfigs.get_smoke_config(arch)
         tt = tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4)))
         with tsharding.sharding_rules(mesh, {}):
-            if moe:
-                assert callable(tsteps.make_train_step(mcfg, tt))
-            else:
+            if reason == "A12b":
                 with pytest.raises(ValueError, match=reason):
                     tsteps.make_train_step(mcfg, tt)
+            else:
+                assert callable(tsteps.make_train_step(mcfg, tt))
         with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match=reason):
             tsteps.decode_step(mcfg, None, None, None)
         return

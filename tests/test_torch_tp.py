@@ -1,9 +1,10 @@
-"""JAX's ``default`` sharding preset on the port (the dense and moe
-families): a sequence-parallel residual stream, sequence-sharded attention
-queries through the flash kernels' query offset, a tensor-parallel MLP,
-expert parallelism and a vocabulary-parallel loss; the MoE family under
-``fsdp`` too, and Adafactor on a sharded state; against the JAX package on
-the CPU.
+"""JAX's ``default`` sharding preset on the port (every family but the
+hybrid one): a sequence-parallel residual stream over the tokens, frames or
+patches and tokens a model embeds, sequence-sharded attention queries
+through the flash kernels' query offset, a tensor-parallel MLP, a
+head-parallel RWKV time mix and a tensor-parallel channel mix, expert
+parallelism and a vocabulary-parallel loss; the MoE family under ``fsdp``
+too, and Adafactor on a sharded state; against the JAX package on the CPU.
 
 * One 4-rank gloo fleet on a (2, 2) ``("data", "model")`` mesh (``python -m
   repro_torch.backend --worker --job``, task kind ``tp``) runs 3 float32
@@ -25,16 +26,23 @@ the CPU.
   ``"data"``, the experts over ``"model"``) and under ``default``, and
   kimi-k2 smoke (its dense first block) under Adafactor with each preset
   (the subset's one group on every rank, ``"data"``'s second rank adding
-  zeros). Each is held against
+  zeros); then the frontends and the ssm family: the musicgen-medium smoke
+  config (each rank's frames), the internvl2-26b smoke config with 8
+  patches and 16 tokens (rank 0's 12 positions hold patches and text), the
+  minicpm-2b smoke config given the ``audio_frames`` frontend (the
+  classification task) and the rwkv6-7b smoke config with ``remat="full"``
+  (the time mix over 2 of its 4 heads a rank, through the RWKV plain
+  versions; the channel mix over ``d_ff``). Each is held against
   ``jax.jit(repro.launch.steps.make_train_step)`` with no mesh on the same
   global batches: pivots and ranks EXACT, losses at rtol 1e-4, the grad
   norm at rtol 1e-5, each leaf of step 0's first moment at rtol 1e-4 /
   atol 1e-4 of its largest element; each rank's resident params and
   moments exactly its shards (Adafactor's factors: the shard's rows and
   columns); launches as ``expected_launches(..., sharded=True)`` reckons;
-  the layout each rank reports (the sequence, the MLP hidden and, for
-  stablelm, gemma2 and the MoE archs, the vocabulary over ``"model"``) and
-  the MoE regimes its forwards ran. Under Adafactor, which keeps no first
+  the layout each rank reports (the sequence, the MLP hidden and, but for
+  minicpm-2b's 257 words, the vocabulary over ``"model"``), the MoE
+  regimes its forwards ran and the heads of its RWKV time mixes. Under
+  Adafactor, which keeps no first
   moment, each leaf's change over the run is held instead.
 * The same fleet serves (task kind ``serve``, ``SERVE_CASES``): sharded
   ``prefill_step`` and ``decode_step`` on the (2, 2) mesh, float32, smoke
@@ -59,8 +67,8 @@ the CPU.
 * The split-KV combine over two threads standing in for two ranks equals
   the whole cache's dense and chunked attention, a slice wholly masked
   among the cases; the cache's logical axes equal JAX's ``cache_logical``;
-  the serve path's refusals (MoE, A14s; the other families under ``default``,
-  ``head_tp``, a dense model with a frontend under ``default``); the serve
+  the serve path's refusals (MoE, A14s; the ssm, audio and vlm families
+  under ``default``, A12s; the hybrid one, A12b; ``head_tp``); the serve
   entry points taking the cache's rows (``prefill`` given the cache's
   layout, ``serve_model`` a sharded model); the dry run's dense serve cells
   sharded below the replicated state's peak, its sharded prefill cells
@@ -75,11 +83,19 @@ the CPU.
   ``moe`` equals JAX's ``moe`` with no mesh in each regime (forward, the
   gradients of x and of the four leaves, the router's summed), and three
   sharded Adafactor steps equal the same steps on the whole leaves.
+* ``embed_inputs(sp=)`` over threads standing in for the ranks of "model"
+  equals each rank's positions of the whole (frames; patches and tokens
+  straddling a rank, or patches alone), and the pooled features under the
+  layout equal one process's; the head-parallel time mix and the
+  tensor-parallel channel mix over two threads (and, where neither
+  divides, three) equal the whole mix, output and gradients.
 * The dry run on the CPU stand-in at smoke size: the four dense archs'
-  ``default`` train cells, and the MoE archs' under both presets, report
-  ``"state": "sharded"`` and a peak below the replicated state's on the
-  same (2, 2) mesh; the other families keep the state replicated and say
-  why, as the MoE serve cells do (A14s).
+  ``default`` train cells, the ssm, audio and vlm archs' and the MoE archs'
+  under both presets, report ``"state": "sharded"`` and a peak below the
+  replicated state's on the same (2, 2) mesh (rwkv6-7b's WKV cost at a
+  device's streams); hymba-1.5b's keeps the state replicated and says why
+  (A12b), as the serve cells of the MoE archs (A14s) and of the ssm, audio
+  and vlm archs (A12s) do; a dense arch given a frontend traces sharded.
 * The loss chunks' recompute: a chunked loss's backward saves no (B, C, V)
   float32 tensor, and its loss and gradients are bit-equal to the chunked
   loss without recompute.
@@ -152,8 +168,22 @@ CASES = {
     "kimi-k2-default-adafactor": dict(arch=KIMI, model=F32, seq=16, opt=ADAFACTOR, graft=GC,
                                       layout=(["model"], ["model"], ["model"]),
                                       moe=[[64, [], ["model"]], [128, ["data"], ["model"]]]),
+    # the frontends: each rank's frames; the vlm's 8 patches and 16 tokens,
+    # rank 0's 12 positions holding patches and text; minicpm-2b given the
+    # audio frames (the classification task)
+    "musicgen-medium": dict(arch="musicgen-medium", model=F32, seq=16, opt=OPT, graft=GC,
+                            layout=(["model"], ["model"], ["model"])),
+    "internvl2-26b": dict(arch="internvl2-26b", model=F32, seq=24, opt=OPT, graft=GC,
+                          layout=(["model"], ["model"], ["model"])),
+    "minicpm-2b-audio-frames": dict(arch="minicpm-2b", model=dict(F32, frontend="audio_frames"),
+                                    seq=16, opt=OPT, graft=GC,
+                                    layout=(["model"], ["model"], [])),
+    # rwkv6-7b: the time mix over its 4 heads, 2 a rank ("heads"), the channel
+    # mix over d_ff; the recompute replays the gathers and reduce-scatters
+    "rwkv6-7b": dict(arch="rwkv6-7b", model=dict(F32, remat="full"), seq=16, opt=OPT, graft=GC,
+                     layout=(["model"], ["model"], ["model"]), heads=2),
 }
-FLEET_TIMEOUT_S = 150
+FLEET_TIMEOUT_S = 240
 # the serve cases: arch, model overrides, shape (its SHAPE_RULES), preset,
 # the prompt batch (rows × positions), the cache's positions, greedy ticks
 # after the prefill, and the axes each rank's cache layout reports (rows,
@@ -297,9 +327,12 @@ class _Fleet:
         for name, case in CASES.items():
             mcfg = tconfigs.get_smoke_config(case["arch"], **case["model"])
             init = params_to_numpy(tmodel.init_params(mcfg, torch.Generator().manual_seed(0)))
-            data = SyntheticLM(DataConfig(vocab_size=mcfg.vocab_size, seq_len=case["seq"],
-                                          global_batch=K))
-            batches = [data.batch_at(s) for s in range(STEPS)]
+            if mcfg.frontend is None:
+                data = SyntheticLM(DataConfig(vocab_size=mcfg.vocab_size, seq_len=case["seq"],
+                                              global_batch=K))
+                batches = [data.batch_at(s) for s in range(STEPS)]
+            else:
+                batches = [_frontend_batch(mcfg, K, case["seq"], seed=s) for s in range(STEPS)]
             job.append({"kind": "tp", "preset": case.get("preset", "default"),
                         "mesh": ((2, 2), ("data", "model")),
                         "arch": case["arch"], "smoke": True, "model": case["model"],
@@ -395,12 +428,14 @@ def test_fleet_matches_jax_step(case, runs):
     task = list(CASES).index(case)
     spec = CASES[case]
     seq, mlp, vocab = spec["layout"]
-    for rank in ranks:
+    for rank_i, rank in enumerate(ranks):
         got = rank[task]
         assert got["gather_exact"]
         assert got["layout"] == {"seq": seq, "mlp": mlp, "vocab": vocab}
         assert (got["batch_axes"], got["subset_axes"]) == spec.get("axes", (["data"], ["data"]))
         assert got["moe"] == spec.get("moe", [])
+        n = spec.get("heads")           # the rank's heads of the RWKV time mix
+        assert got["heads"] == ([[rank_i % 2 * n, rank_i % 2 * n + n]] if n else [])
         assert got["ranks"] == want["ranks"]
         assert {int(k): v for k, v in got["pivots"].items()} == want["pivots"]
         np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
@@ -556,8 +591,8 @@ def test_cache_logical_equals_jax(arch):
 
 @pytest.mark.parametrize("arch,preset,label", [
     ("qwen3-moe-235b-a22b", "default", "A14"), ("qwen3-moe-235b-a22b", "fsdp", "A14"),
-    ("rwkv6-7b", "default", "A12b"), ("hymba-1.5b", "default", "A12b"),
-    ("musicgen-medium", "default", "A12b"), ("internvl2-26b", "default", "A12b"),
+    ("rwkv6-7b", "default", "A12s"), ("hymba-1.5b", "default", "A12b"),
+    ("musicgen-medium", "default", "A12s"), ("internvl2-26b", "default", "A12s"),
     ("minicpm-2b", "head_tp", "A13")])
 def test_serving_refuses_what_it_does_not_shard(arch, preset, label):
     from repro_torch.distributed import sharding as tsharding
@@ -621,26 +656,39 @@ def test_sharded_prefill_cell_takes_the_device_rows(preset):
 
 
 def test_default_refuses_a_dense_model_with_a_frontend():
-    """A dense arch given a frontend (the classification task) has no
-    sequence-parallel layout (``sequence_layout`` keeps it whole): the
-    ``default`` preset refuses it, ``fsdp`` runs it."""
+    """A dense arch given a frontend (the classification task) runs the
+    ``default`` preset's layout over the frames it embeds (the refusal this
+    test was named for is lifted; ``fsdp`` runs it too), and its dry-run
+    cell traces sharded; its serve steps refuse under ``default`` (A12s),
+    and the hybrid family's train step still refuses (A12b)."""
     from repro_torch.distributed import sharding as tsharding
     from repro_torch.launch import steps as tsteps
     from repro_torch.selection.base import GraftConfig as TGraftConfig
     mesh = tmesh.make_mesh((2, 2), ("data", "model"))
     mcfg = tconfigs.get_smoke_config("minicpm-2b", frontend="audio_frames")
-    with pytest.raises(ValueError, match="audio_frames frontend.*A12b"):
-        tsharding.check_rules(mesh, {}, "dense", "audio_frames")
+    assert tsharding.check_rules(mesh, {}, "dense", "audio_frames") == "default"
     assert tsharding.check_rules(mesh, {}, "dense") == "default"
     assert tsharding.check_rules(mesh, tspecs.RULE_PRESETS["fsdp"], "dense",
                                  "audio_frames") == "fsdp"
-    with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match="A12b"):
-        tsteps.make_train_step(mcfg, tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4))))
-    # the dry run's cell whose data source pins the frontend stays replicated
+    for family in ("ssm", "audio", "vlm"):
+        assert tsharding.check_rules(mesh, {}, family) == "default"
+    with pytest.raises(ValueError, match="hybrid family alone.*A12b"):
+        tsharding.check_rules(mesh, {}, "hybrid")
+    tcfg = tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4)))
+    with tsharding.sharding_rules(mesh, {}):
+        tsteps.make_train_step(mcfg, tcfg)
+        frames = torch.zeros((4, 16, mcfg.d_model))
+        sp = tmodel.sequence_layout(mcfg, {"frame_embeds": frames})
+        assert (sp.length, sp.axes) == (16, ("model",))
+        with pytest.raises(ValueError, match="audio_frames frontend.*A12s"):
+            tsteps.prefill_step(mcfg, None, {"frame_embeds": frames}, 16)
+        with pytest.raises(ValueError, match="A12b"):
+            tsteps.make_train_step(tconfigs.get_smoke_config("hymba-1.5b"), tcfg)
+    # the dry run's cell whose data source pins the frontend shards
     res = dryrun.run_cell("minicpm-2b", "train_4k", "t", "graft", smoke=True,
                           mesh_override=mesh, rules_preset="default",
                           data_source="synthetic_classification", **CARD)
-    assert res["state"] == "replicated" and "audio_frames frontend" in res["replicated_why"]
+    assert res["state"] == "sharded" and "replicated_why" not in res
 
 
 @pytest.mark.parametrize("preset", ["default", "fsdp"])
@@ -936,6 +984,136 @@ def test_expert_parallel_moe_equals_jax(case):
                                    atol=1e-5 * np.abs(jgp[k]).max(), err_msg=k)
 
 
+# ---------------------------------------------------------------------------
+# the frontends' positions and the RWKV mixes over threads
+# ---------------------------------------------------------------------------
+
+def _frontend_batch(cfg, B, S, seed=0):
+    """A numpy batch of B rows of ``cfg``'s input: S frames (audio), or
+    ``cfg.num_patches`` patches and S - P tokens (vlm)."""
+    rng = np.random.default_rng(seed)
+    D, V = cfg.d_model, cfg.vocab_size
+    if cfg.frontend == "audio_frames":
+        return {"frame_embeds": rng.normal(size=(B, S, D)).astype(np.float32),
+                "labels": rng.integers(0, V, (B, S)).astype(np.int32)}
+    P = cfg.num_patches
+    toks = rng.integers(0, V, (B, S - P)).astype(np.int32)
+    return {"patch_embeds": rng.normal(size=(B, P, D)).astype(np.float32),
+            "tokens": toks, "labels": np.roll(toks, -1, 1)}
+
+
+# name: (arch, threads, positions): the vlm's 8 patches end inside rank 0's
+# 12 positions of 24, or fill rank 0's 6 and end inside rank 1's
+EMBED_CASES = {"audio": ("musicgen-medium", 2, 24), "vlm_straddle": ("internvl2-26b", 2, 24),
+               "vlm_patches_alone": ("internvl2-26b", 4, 24)}
+
+
+@pytest.mark.parametrize("case", list(EMBED_CASES))
+def test_embed_inputs_takes_the_rank_positions(case):
+    """``embed_inputs(sp=)`` on each thread standing in for a rank of
+    "model" equals its positions of the whole ``embed_inputs`` (the input,
+    the positions, the loss mask: 0 on the patches, 1 on the text), and the
+    pooled features of the whole forward under the ``default`` layout equal
+    one process's (a vlm batch pools its text positions only)."""
+    from repro_torch.distributed import sharding as tsharding
+    arch, n, S = EMBED_CASES[case]
+    cfg = tconfigs.get_smoke_config(arch, param_dtype="float32")
+    model = tmodel.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in _frontend_batch(cfg, 2, S).items()}
+    whole = tmodel.embed_inputs(cfg, model, batch)
+    pooled = tmodel.pooled_features(cfg, model, batch)
+
+    def rank(mesh):
+        with tsharding.sharding_rules(mesh, {}):
+            sp = tmodel.sequence_layout(cfg, batch)
+            return ((sp.start, sp.stop), tmodel.embed_inputs(cfg, model, batch, sp),
+                    tmodel.pooled_features(cfg, model, batch).detach())
+
+    got = _threads(n, rank)
+    assert [g[0] for g in got] == [(r * S // n, (r + 1) * S // n) for r in range(n)]
+    for (s0, s1), part, feats in got:
+        for a, b in zip(part, whole):
+            assert torch.equal(a, b[:, s0:s1]), (s0, s1)
+        torch.testing.assert_close(feats, pooled, rtol=1e-5, atol=1e-6)
+    if cfg.frontend == "vision_patches":
+        masks = [part[2][0] for _, part, _ in got]
+        assert [int(m.sum()) for m in masks] == [
+            max(0, s1 - max(s0, cfg.num_patches)) for s0, s1 in (g[0] for g in got)]
+
+
+# name: (mix, threads): on two the heads (4, 2 a rank) and d_ff split over
+# "model"; on three neither divides, and each rank runs the whole heads or
+# weights on its positions
+MIX_CASES = {"time_heads": ("time", 2), "channel_d_ff": ("channel", 2),
+             "time_whole_heads": ("time", 3), "channel_whole_d_ff": ("channel", 3)}
+
+
+@pytest.mark.parametrize("case", list(MIX_CASES))
+def test_rwkv_mixes_over_threads_equal_the_whole(case):
+    """The head-parallel time mix and the tensor-parallel channel mix on
+    threads standing in for the ranks of "model", each given its positions
+    and its shards (the ``default`` preset's ``params_logical`` layout),
+    equal the whole mix: each rank's output its positions of the whole, the
+    input's gradient and every leaf's (a sharded leaf's shards joined, a
+    replicated one's partials summed, as the step sums them) at rtol 1e-5."""
+    from repro_torch.distributed import sharding as tsharding
+    from repro_torch.models import ssm as tssm
+    mix, n = MIX_CASES[case]
+    cfg = tconfigs.get_smoke_config("rwkv6-7b", param_dtype="float32")
+    model = tmodel.init_params(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    p = {k: v.detach().clone() for k, v in model.blocks[0].tree()[mix].items()}
+    for k in p:                         # the zero-initialised LoRA leaves made to matter
+        if k.startswith("lora_B"):
+            p[k] = torch.randn(p[k].shape, generator=gen) * 0.1
+    fn = tssm.rwkv_time_mix if mix == "time" else tssm.rwkv_channel_mix
+    B, S = 2, 12
+    x, dy = (torch.randn((B, S, cfg.d_model), generator=gen) for _ in range(2))
+    names = sorted(p)
+    xw = x.clone().requires_grad_()
+    pw = {k: v.clone().requires_grad_() for k, v in p.items()}
+    want = fn(cfg, pw, xw)[0]
+    want_g = torch.autograd.grad((want * dy).sum(), [xw] + [pw[k] for k in names])
+    logical = tmodel._tree_logical({mix: p})[mix]
+    tssm.HEAD_RUNS.clear()
+
+    def rank(mesh):
+        with tsharding.sharding_rules(mesh, {}):
+            sp = tmodel.sequence_layout(cfg, {"tokens": torch.zeros((B, S))})
+            shardings = tsharding.param_shardings(p, logical, mesh)
+            shards = {k: tsharding.shard_tensor(p[k].clone(), s).requires_grad_()
+                      for k, s in shardings.items()}
+            leaves = {k: tsharding.ShardedParam(shards[k], s) if s.is_sharded else shards[k]
+                      for k, s in shardings.items()}
+            xr = x[:, sp.start:sp.stop].clone().requires_grad_()
+            y, _ = fn(cfg, leaves, xr, sp=sp)
+            grads = torch.autograd.grad((y * dy[:, sp.start:sp.stop]).sum(),
+                                        [xr] + [shards[k] for k in names])
+        return (sp.start, sp.stop), y.detach(), grads, shardings
+
+    got = _threads(n, rank)
+    gx = torch.zeros_like(x)
+    for (s0, s1), y, grads, _ in got:
+        torch.testing.assert_close(y, want[:, s0:s1].detach(), rtol=1e-5, atol=1e-6)
+        gx[:, s0:s1] = grads[0]
+    torch.testing.assert_close(gx, want_g[0], rtol=1e-5, atol=1e-6)
+    for i, k in enumerate(names):
+        s = got[0][3][k]
+        parts = [g[2][1 + i] for g in got]
+        dim = next((d for d in range(len(s.shape)) if s.local_shape[d] != s.shape[d]), None)
+        joined = sum(parts) if dim is None else torch.cat(parts, dim=dim)
+        torch.testing.assert_close(joined, want_g[1 + i], rtol=1e-5,
+                                   atol=1e-5 * float(want_g[1 + i].abs().max()), msg=k)
+    if case == "time_heads":            # the rank's heads, their leaves' shards
+        assert dict(tssm.HEAD_RUNS) == {(0, 2): 1, (2, 4): 1}
+        assert got[0][3]["wr"].dim_axes(1) == ("model",)
+        assert got[0][3]["wo"].dim_axes(0) == ("model",)
+    elif case == "channel_d_ff":
+        assert got[0][3]["w_key"].dim_axes(1) == ("model",)
+    else:
+        assert not tssm.HEAD_RUNS
+
+
 def test_moe_needs_its_rows_axes_under_rules():
     """Under ``sharding_rules`` a MoE forward that is not told its rows'
     axes (``batch_rows``) refuses: its groups span the global batch."""
@@ -1029,11 +1207,44 @@ def test_default_cell_runs_sharded_below_replicated(arch):
     assert res["full"]["memory"]["peak_bytes"] < replicated["memory"]["peak_bytes"]
 
 
-@pytest.mark.parametrize("arch,label", [("rwkv6-7b", "A12b"), ("musicgen-medium", "A12b")])
+@pytest.mark.parametrize("arch,label", [("rwkv6-7b", "A12s"), ("musicgen-medium", "A12s"),
+                                        ("internvl2-26b", "A12s"), ("hymba-1.5b", "A12b")])
 def test_default_cell_of_other_families_stays_replicated(arch, label):
-    res = dryrun.run_cell(arch, "train_4k", "single", "graft", smoke=True,
+    """The ssm, audio and vlm families' ``default`` train cells trace sharded
+    below the replicated state's peak on the same (2, 2) mesh (the rwkv6-7b
+    smoke cell's 4 heads, 2 a device: the WKV at a device's streams); their
+    decode cells stay replicated and name A12s. The hybrid family's train
+    cell stays replicated and names A12b."""
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    res = dryrun.run_cell(arch, "train_4k", "t", "graft", smoke=True, mesh_override=mesh,
                           rules_preset="default", **CARD)
-    assert res["state"] == "replicated" and label in res["replicated_why"]
+    if label == "A12b":
+        assert res["state"] == "replicated" and label in res["replicated_why"]
+        return
+    assert res["state"] == "sharded" and "replicated_why" not in res
+    coll = res["full"]["collectives"]["count_by_op"]
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+    backend = dryrun.RecordingBackend(2)             # the state replicated, the batch over data
+    cell = tspecs.build_cell(arch, "train_4k", smoke=True, batch_shards=2, backend=backend,
+                             **CARD)
+    replicated = dryrun.trace(cell, backend)
+    assert res["full"]["memory"]["peak_bytes"] < replicated["memory"]["peak_bytes"]
+    kernels = res["full"]["kernels"]
+    if arch == "rwkv6-7b":              # a device's streams: its rows × its 2 of 4 heads
+        from repro_torch.kernels import rwkv_scan as trs
+        cfg = tconfigs.get_smoke_config(arch)
+        L, Dh = cfg.num_layers, cfg.d_model // cfg.num_heads
+
+        def ops(kind, rows):
+            return trs.cost(kind, rows * 2, 64, Dh)[0]
+        # the selection forward's 2 rows a device, the subset's 1 (its 2 of 4
+        # over "data"), one launch a layer each way
+        assert kernels["rwkv_scan"]["launches"] == 2 * L
+        assert kernels["rwkv_scan"]["flops"] == L * (ops("fwd", 2) + ops("fwd", 1))
+        assert kernels["rwkv_scan_backward"]["flops"] == L * ops("bwd", 1)
+    serve = dryrun.run_cell(arch, "decode_32k", "t", "serve", smoke=True, mesh_override=mesh,
+                            rules_preset="default", **CARD)
+    assert serve["state"] == "replicated" and label in serve["replicated_why"]
 
 
 @pytest.mark.parametrize("preset", ["default", "fsdp"])
