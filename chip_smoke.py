@@ -332,14 +332,16 @@ Phases (any failure exits nonzero and prints no result line):
  25. serve_tp — sharded prefill and decode (no kernel of the port on this
                path): (a) the dry run's decode_32k cells on one device of
                the (16, 16) pod under ``fsdp`` (the dense archs,
-               musicgen-medium and internvl2-26b; their ``default`` decode
-               cells are phase dryrun's), required to trace sharded and fit
-               80 GB, then their prefill_32k cells under ``default`` (the
-               dense archs) and ``fsdp``, cheapest first, each with its
-               shape's rules (decode_32k's cache positions over "model"), 4
-               worker processes until the phase's 60 s; hymba-1.5b and
-               rwkv6-7b are left out for time (their prefills loop over
-               tokens in Python); (b)
+               musicgen-medium and internvl2-26b; the dense archs'
+               ``default`` decode cells are phase dryrun's) and under
+               ``default`` (rwkv6-7b, hymba-1.5b, musicgen-medium,
+               internvl2-26b), required to trace sharded and fit 80 GB,
+               then their prefill_32k cells under ``default`` (the dense
+               archs) and ``fsdp``, cheapest first, each with its shape's
+               rules (decode_32k's cache positions over "model"), 4 worker
+               processes until the phase's 60 s; the prefill_32k cells of
+               hymba-1.5b and rwkv6-7b are left out for time (their
+               prefills loop over tokens in Python); (b)
                the dry run's prediction for (c), the prefill and a tick of
                one device on the (2, 2) mesh; (c) four gloo ranks sharing
                the card, minicpm-2b at full width, 2 layers, bf16, under
@@ -359,19 +361,32 @@ Phases (any failure exits nonzero and prints no result line):
                under ``fsdp`` with Adafactor, each held to the same run in
                this process, to the dry run's peak, to its shards' bytes and
                to the reckoned launches.
- 27. tp_families — JAX's ``default`` preset on the ssm, audio and vlm
-               families: rwkv6-7b (float32), musicgen-medium and
-               internvl2-26b at full width, 2 layers, 8 rows, one refresh
-               step on two gloo ranks sharing the card on a (1, 2) mesh,
-               the three in one launch; internvl2-26b's 768 positions put
-               its 256 patches and 128 tokens on rank 0; rwkv6-7b's ranks
-               run the time mix on their 32 of 64 heads. Each rank held to
-               the same run in this process (losses and grad norms at
-               3e-3, ranks and pivots equal, step 0's first moment a leaf
-               at 2e-2, the final parameters at 3e-3), its peak within 10 %
-               of the dry run's, its resident state exactly its shards, its
-               launches as reckoned; then #8 and #8b at one rank's 256 and
-               128 streams against their plain versions, timed.
+ 27. tp_families — JAX's ``default`` preset on the ssm, audio, vlm and
+               hybrid families: rwkv6-7b (float32), musicgen-medium and
+               internvl2-26b at full width, 2 layers, 8 rows, and
+               hymba-1.5b, 4 rows × 1280 positions (the local layer's
+               window of 1024 cuts in at rank 1's query offset 640; its 25
+               SSM heads do not divide 2, so each rank runs them whole on
+               the gathered sequence), one refresh step on two gloo ranks
+               sharing the card on a (1, 2) mesh; internvl2-26b's 768
+               positions put its 256 patches and 128 tokens on rank 0;
+               rwkv6-7b's ranks run the time mix on their 32 of 64 heads.
+               Each rank held to the same run in this process (losses and
+               grad norms at 3e-3, ranks and pivots equal, step 0's first
+               moment a leaf at 2e-2, the final parameters at 3e-3), its
+               peak within 10 % of the dry run's, its resident state
+               exactly its shards, its launches as reckoned. The same
+               launch then serves the four archs under ``default`` with
+               decode_32k's rules (full width, 2 layers, 4 rows: a prompt
+               of 64 tokens, of 64 frames, or of 256 patches and 64 tokens
+               straddling rank 1's positions, then 6 ticks fed this
+               process's greedy tokens): greedy tokens equal but at a bf16
+               tie, logits within 2^-7 of their largest, each rank's
+               resident cache exactly its part (the K/V positions, the
+               RWKV state's heads over "model"; hymba's SSM state whole),
+               its peak within 10 % of the dry run's. Then #8 and #8b at
+               one rank's 256 and 128 streams against their plain
+               versions, timed.
 
 It prints a ``{"kernels": [...]}`` line (all eleven kernels), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -3985,15 +4000,27 @@ TPF_MESH = ((1, 2), ("data", "model"))
 # and 128 tokens; rwkv6-7b's 64 heads give each rank 32. rwkv6-7b runs in
 # float32: its bfloat16 gradient at random weights lies far from float32's
 # in one process alone (the phase prints how far), so two bfloat16 runs
-# that round apart cannot be held at 3e-3
+# that round apart cannot be held at 3e-3. hymba-1.5b's 1280 positions
+# pass its window of 1024, which cuts in at rank 1's query offset 640 on
+# the local layer; its 25 SSM heads do not divide 2 (the pod's branch:
+# each rank runs them whole on the gathered sequence)
 TPF_RUNS = (("rwkv6-7b", 8, 512, {"param_dtype": "float32"}), ("musicgen-medium", 8, 512, {}),
-            ("internvl2-26b", 8, 768, {}))
+            ("internvl2-26b", 8, 768, {}), ("hymba-1.5b", 4, 1280, {}))
 TPF_OVERRIDES = ["graft.rset=[2,4]", "optimizer.schedule=constant"]
 # the RWKV kernels at one rank's streams of the rwkv6-7b task: its rows'
 # 32 heads in the selection forward (8 rows), in the subset's step (rset's
 # largest, 4)
 TPF_RWKV_SHAPES = (("rank_selection", 8 * 32, 512, 64, 0.4),
                    ("rank_subset", 4 * 32, 512, 64, 0.4))
+# the serve tasks of the same launch, under ``default`` with decode_32k's
+# rules (the cache's positions over "model"): (arch, prompt positions,
+# model overrides) at TPF_LAYERS, TPF_SERVE_ROWS rows, then TPF_SERVE_TICKS
+# ticks into a cache of the prompt and 64 positions; internvl2-26b's 320
+# are its 256 patches and 64 tokens, rank 1's 160 straddling them
+TPF_SERVE = (("rwkv6-7b", 64, {"param_dtype": "float32"}), ("hymba-1.5b", 64, {}),
+             ("musicgen-medium", 64, {}), ("internvl2-26b", 320, {}))
+TPF_SERVE_ROWS, TPF_SERVE_TICKS = 4, 6
+TPF_FLEET_TIMEOUT_S = 600
 
 
 def _tpf_config(arch, rows, seq, extra):
@@ -4035,20 +4062,22 @@ def _tpf_prediction(cfg, mcfg, rows, seq):
 
 
 def phase_tp_families(ctx):
-    """JAX's ``default`` preset on the ssm, audio and vlm families:
+    """JAX's ``default`` preset on the ssm, audio, vlm and hybrid families:
     rwkv6-7b (in float32, beside one bfloat16 run in this process),
-    musicgen-medium and internvl2-26b at full width and 2 layers, one
-    refresh step each, on two gloo ranks sharing the card on a (1, 2)
-    ("data", "model") mesh, the three tasks in one launch. Each is first run
-    in this process (then freed), and traced by the dry run on fake cuda:0
-    tensors while the fleet runs; each rank is held to the one process
-    (losses and grad norms at 3e-3, ranks and pivots equal; step 0's first
-    moment leaf by leaf at ``FSDP_M0_RTOL``; the final parameters as a
-    whole at 3e-3), to the prediction's peak (``DRYRUN_PEAK_RTOL``), to its
-    shards' resident bytes, to ``expected_launches``, to its layout (the
-    sequence and d_ff over "model") and, for rwkv6-7b, to its heads of the
-    time mix. Then the RWKV kernels at one rank's streams against their
-    plain versions, timed."""
+    musicgen-medium, internvl2-26b and hymba-1.5b at full width and 2
+    layers, one refresh step each, on two gloo ranks sharing the card on a
+    (1, 2) ("data", "model") mesh, the four serve tasks (``TPF_SERVE``) and
+    the four train tasks in one launch. Each is first run in this process (then
+    freed), and traced by the dry run on fake cuda:0 tensors while the
+    fleet runs; each rank is held to the one process (losses and grad norms
+    at 3e-3, ranks and pivots equal; step 0's first moment leaf by leaf at
+    ``FSDP_M0_RTOL``; the final parameters as a whole at 3e-3), to the
+    prediction's peak (``DRYRUN_PEAK_RTOL``), to its shards' resident
+    bytes, to ``expected_launches``, to its layout (the sequence and d_ff
+    over "model") and, for rwkv6-7b, to its heads of the time mix; each
+    serve task as phase serve_tp holds its own (``_serve_checks``).
+    Then the RWKV kernels at one rank's streams against their plain
+    versions, timed."""
     import tempfile
     import torch
     from repro_torch import configs
@@ -4091,6 +4120,29 @@ def phase_tp_families(ctx):
         jobs.append({"kind": "tp", "preset": "default", "mesh": TPF_MESH, "arch": arch,
                      "model": model_over, "seed": 0, "steps": TPF_STEPS, "batches": batches,
                      "max_leaf_bytes": MOE_EP_LEAF_BYTES, "tcfg": dataclasses.asdict(tcfg)})
+    serve, serve_jobs = {}, []
+    for arch, plen, extra in TPF_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        model_over = dict({"num_layers": TPF_LAYERS}, **extra)
+        mcfg = configs.get_config(arch, **model_over)
+        prompts = _tpf_batch(mcfg, TPF_SERVE_ROWS, plen, seed=7)
+        max_seq = plen + 64
+        t1 = time.perf_counter()
+        ref = _serve_reference(mcfg, prompts, max_seq, TPF_SERVE_TICKS)
+        print(f"[tp_families] serve {arch} ({mcfg.param_dtype}): {TPF_SERVE_ROWS} x {plen} "
+              f"({', '.join(prompts)}) into {max_seq}, {TPF_SERVE_TICKS} ticks: one process "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        serve[arch] = {"mcfg": mcfg, "plen": plen, "max_seq": max_seq, "ref": ref,
+                       "task": len(serve_jobs)}
+        serve_jobs.append({"kind": "serve", "mesh": TPF_MESH, "arch": arch, "model": model_over,
+                     "seed": 0, "shape": "decode_32k", "preset": "default", "batch": prompts,
+                     "max_seq": max_seq, "ticks": TPF_SERVE_TICKS,
+                     "feed": ref["tokens"][:TPF_SERVE_TICKS]})
+    # the serve tasks first: a rank's process keeps each thread's cuBLAS
+    # workspace, and a train task's backward thread would leave one that a
+    # serve task (no backward) does not reckon
+    jobs = serve_jobs + jobs
     gc.collect()
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="tp_families.", dir=os.path.join(ROOT, "build"))
@@ -4102,7 +4154,8 @@ def phase_tp_families(ctx):
             t1 = time.perf_counter()
             runs = fleet.launch([fleet.mesh_worker_command(
                 os.path.join(work, "job.pt"), os.path.join(work, "out"),
-                fleet.backend_overrides(2, r, port)) for r in range(2)], timeout=400)
+                fleet.backend_overrides(2, r, port)) for r in range(2)],
+                timeout=TPF_FLEET_TIMEOUT_S)
             box["wall"] = time.perf_counter() - t1
             box["ranks"] = [torch.load(r.last_json()["path"], weights_only=True) for r in runs]
         except BaseException as e:                  # noqa: BLE001 — raised below
@@ -4123,6 +4176,13 @@ def phase_tp_families(ctx):
                       f"collectives { {k: v for k, v in preds[arch]['collectives']['bytes_by_op'].items() if v} }, "
                       f"kernels { {k: r['launches'] for k, r in preds[arch]['kernels'].items()} }",
                       flush=True)
+            for arch, task in serve.items():
+                t1 = time.perf_counter()
+                task["pred"], task["part"] = _serve_prediction(
+                    task["mcfg"], TPF_MESH, TPF_SERVE_ROWS, task["plen"], task["max_seq"],
+                    f"[tp_families] serve {arch}")
+                print(f"[tp_families] serve {arch} prediction traced in "
+                      f"{time.perf_counter() - t1:.1f} s: its cache {task['part']} B", flush=True)
         finally:
             thread.join()
         if "error" in box:
@@ -4130,7 +4190,8 @@ def phase_tp_families(ctx):
         wall, ranks = box["wall"], box["ranks"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[tp_families] {smi}: the fleet's three tasks in {wall:.1f} s of wall", flush=True)
+    print(f"[tp_families] {smi}: the fleet's {len(TPF_SERVE)} serve and {len(TPF_RUNS)} train "
+          f"tasks in {wall:.1f} s of wall", flush=True)
     failures = []
     for i, (arch, rows, seq, _) in enumerate(TPF_RUNS):
         ref, pred_peak = refs[arch], preds[arch]["memory"]["peak_bytes"]
@@ -4139,7 +4200,7 @@ def phase_tp_families(ctx):
                    else ("flash_forward", "flash_dq", "flash_dkv"))
         vocab = ["model"] if mcfg.vocab_size % 2 == 0 else []
         for r in ranks:
-            got = r["tasks"][i]
+            got = r["tasks"][len(serve_jobs) + i]
             want = {k: v for k, v in got["launches_expected"].items() if v}
             rel_peak = (pred_peak - got["peak_bytes"]) / got["peak_bytes"]
             rel = {key: max(abs(a - b) / abs(b) for a, b in zip(got[key], ref[key]))
@@ -4163,6 +4224,7 @@ def phase_tp_families(ctx):
                      + kernels), f"a kernel is not on the sharded path: {want}"),
                 (got["layout"] == {"seq": ["model"], "mlp": ["model"], "vocab": vocab},
                  got["layout"]),
+                # rwkv6-7b's 64 heads split; hymba-1.5b's 25 do not
                 (got["heads"] == ([[r["rank"] * H, r["rank"] * H + H]]
                                   if mcfg.family == "ssm" else []), got["heads"]),
                 (got["ranks"] == ref["ranks"], (got["ranks"], ref["ranks"])),
@@ -4170,7 +4232,7 @@ def phase_tp_families(ctx):
                 (rel["losses"] <= 3e-3 and rel["grad_norms"] <= 3e-3,
                  f"losses / grad norms {rel} relative to one process")]
             failures += [f"{arch} rank {r['rank']}: {what}" for ok, what in checks if not ok]
-        got0 = ranks[0]["tasks"][i]
+        got0 = ranks[0]["tasks"][len(serve_jobs) + i]
         _, whole = _leaf_gaps(got0["params"], _leading_block(ref["params"], got0["params"]))
         gaps, _ = _leaf_gaps(got0["m0"], _leading_block(ref["m0"], got0["m0"]))
         furthest = sorted(gaps, key=gaps.get, reverse=True)
@@ -4183,35 +4245,50 @@ def phase_tp_families(ctx):
             failures.append(f"{arch}: step 0's gradients differ from one process: {bad}")
         if not whole <= 3e-3:
             failures.append(f"{arch}: final parameters differ by {whole:.3g}")
+    for arch, task in serve.items():
+        failures += _serve_checks(f"[tp_families] serve {arch}", task["mcfg"], task["ref"],
+                                  task["pred"], task["part"], ranks, task["task"], smi)
     assert not failures, failures
     for name, BH, T, D, w_low in TPF_RWKV_SHAPES:
         _rwkv_case(name, BH, T, D, w_low, tag="tp_families")
 
 
-SERVE_TP_BUDGET_S = 60.0      # (a)'s pool, beside (b) and (c)
+# (a)'s pool, beside (b) and (c): 30 s of it for the other families'
+# decode cells, so that they leave the prefill cells 60 s
+SERVE_TP_BUDGET_S = 90.0
 SERVE_TP_JOBS = 4
-# (a)'s archs under ``fsdp``; their ``default`` decode_32k cells are phase
-# dryrun's (``DRYRUN_DECODE_REQUIRED``)
+# (a)'s archs under ``fsdp``; the dense ones' ``default`` decode_32k cells
+# are phase dryrun's (``DRYRUN_DECODE_REQUIRED``)
 SERVE_TP_ARCHS = TP_ARCHS + ("musicgen-medium", "internvl2-26b")
-# (a)'s prefill_32k cells after the decode ones, cheapest first: phase
-# dryrun's budget reaches none of them
-SERVE_TP_PREFILLS = (("minicpm-2b", "fsdp"), ("minicpm-2b", "default"),
+# (a)'s archs under ``default``: the other families' decode_32k cells
+SERVE_TP_DEFAULT_ARCHS = ("rwkv6-7b", "hymba-1.5b", "musicgen-medium", "internvl2-26b")
+# (a)'s prefill_32k cells after the decode ones: phase dryrun's budget
+# reaches none of them. The first, a sharded prefill under ``default`` at
+# the pod's size, is required; then the frontends' ``default`` cells, then
+# the rest cheapest first
+SERVE_TP_PREFILLS = (("minicpm-2b", "default"), ("minicpm-2b", "fsdp"),
+                     ("musicgen-medium", "default"), ("internvl2-26b", "default"),
                      ("stablelm-12b", "default"), ("gemma2-27b", "default"),
                      ("qwen1.5-32b", "default")) + tuple(
     (arch, "fsdp") for arch in ("stablelm-12b", "internvl2-26b", "musicgen-medium",
                                 "gemma2-27b", "qwen1.5-32b"))
 SERVE_TP_LAYERS = 2           # (c): phase shell's cut
 SERVE_TP_ROWS, SERVE_TP_PROMPT, SERVE_TP_MAX_SEQ, SERVE_TP_TICKS = 4, 512, 1024, 16
-SERVE_TP_LOGIT_TOL = 2.0 ** -7
+# a sharded serve run's logits against one process's, as a share of the
+# largest, by the model's parameter dtype: a bf16 ulp at |logit| 2-4 for
+# bfloat16, the CPU serve tests' 1e-4 for float32
+SERVE_LOGIT_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
 
 
 def _serve_tp_sweep(box):
     """(a), run in a thread: the ``fsdp`` decode_32k cells first, then the
-    prefill_32k ones of both presets; ``box`` gets (results, left out) or
-    the error."""
+    other families' ``default`` ones, then the prefill_32k ones of both
+    presets; ``box`` gets (results, left out) or the error."""
     from repro_torch.launch import dryrun
     try:
         todo = ([(arch, "decode_32k", "serve", "single", "fsdp") for arch in SERVE_TP_ARCHS]
+                + [(arch, "decode_32k", "serve", "single", "default")
+                   for arch in SERVE_TP_DEFAULT_ARCHS]
                 + [(arch, "prefill_32k", "serve", "single", preset)
                    for arch, preset in SERVE_TP_PREFILLS])
         box["cells"] = dryrun.sweep(todo, SERVE_TP_JOBS, SERVE_TP_BUDGET_S, device="cuda:0")
@@ -4220,8 +4297,8 @@ def _serve_tp_sweep(box):
 
 
 def _serve_tp_cells(box, smi):
-    """(a)'s results printed; the decode cells held to trace sharded and
-    fit."""
+    """(a)'s results printed; the decode cells and the first prefill cell
+    held to trace sharded and fit."""
     from repro_torch.launch import dryrun
     if "error" in box:
         raise box["error"]
@@ -4243,59 +4320,82 @@ def _serve_tp_cells(box, smi):
         print(f"[serve_tp] LEFT OUT {' '.join(cell)}: past the phase's "
               f"{SERVE_TP_BUDGET_S:.0f} s budget", flush=True)
     print(f"[serve_tp] (a) {smi}: {len(results)} cells traced in {SERVE_TP_JOBS} worker "
-          f"processes; left out for time as well: hymba-1.5b and rwkv6-7b", flush=True)
+          f"processes; left out for time as well: the prefill_32k cells of hymba-1.5b and "
+          f"rwkv6-7b (their PyTorch loops over tokens)", flush=True)
     failed = [(r["arch"], r["shape"], r.get("rules_preset")) for r in results if not r.get("ok")]
     assert not failed, f"serve cells failed: {failed}"
     by_cell = {(r["arch"], r["shape"], r["rules_preset"]): r for r in results}
-    for arch in SERVE_TP_ARCHS:
-        res = by_cell.get((arch, "decode_32k", "fsdp"))
-        assert res is not None, f"{arch}'s decode_32k fsdp cell not traced in the budget"
-        assert res["state"] == "sharded", (arch, res["state"])
+    first_arch, first_preset = SERVE_TP_PREFILLS[0]
+    for arch, shape, preset in ([(a, "decode_32k", "fsdp") for a in SERVE_TP_ARCHS]
+                                + [(a, "decode_32k", "default") for a in SERVE_TP_DEFAULT_ARCHS]
+                                + [(first_arch, "prefill_32k", first_preset)]):
+        res = by_cell.get((arch, shape, preset))
+        assert res is not None, f"{arch}'s {shape} {preset} cell not traced in the budget"
+        assert res["state"] == "sharded", (arch, shape, preset, res["state"])
         assert res["full"]["memory"]["fits"], (
-            f"{arch}'s decode_32k fsdp cell peaks at "
+            f"{arch}'s {shape} {preset} cell peaks at "
             f"{res['full']['memory']['peak_bytes'] / 1e9:.1f} GB")
 
 
-def _serve_tp_prediction(mcfg, rules):
-    """(b): one device's prefill and decode tick of (c) on fake cuda:0
-    tensors, on the (2, 2) mesh under ``rules`` → the larger peak."""
+def _serve_rules():
+    """``default`` with decode_32k's rules: the cache's positions over "model"."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs
+    return dict(sh.DEFAULT_RULES, **specs.SHAPE_RULES["decode_32k"],
+                **specs.RULE_PRESETS["default"])
+
+
+def _serve_prediction(mcfg, mesh_spec, rows, plen, max_seq, tag):
+    """One device's prefill and decode tick of a serve fleet of ``rows``
+    prompts of ``plen`` positions into ``max_seq``, on fake cuda:0 tensors
+    on the ``mesh_spec`` mesh under ``_serve_rules()`` → (the larger peak,
+    the bytes of the device's cache: its part of every leaf by
+    ``CACHE_LOGICAL``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import dryrun, specs
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decode as decode_lib
     from repro_torch.models import model as model_lib
+    rules = _serve_rules()
+    shape, names = mesh_spec
     peaks = {}
     for kind in ("prefill", "decode"):
-        backend = dryrun.RecordingBackend(4)
-        mesh = dryrun.RecordingMesh(make_mesh(*FSDP_MESH), backend)
+        backend = dryrun.RecordingBackend(math.prod(shape))
+        mesh = dryrun.RecordingMesh(make_mesh(*mesh_spec), backend)
         fake_mode = FakeTensorMode()
         with fake_mode, sh.sharding_rules(mesh, rules):
             params = model_lib.shard_model(model_lib.Model(mcfg, "cuda:0"), mesh, rules)
-        cell = specs.serve_cell(mcfg, kind, SERVE_TP_ROWS, SERVE_TP_MAX_SEQ, params,
-                                seq=SERVE_TP_PROMPT, mesh=mesh, rules=rules, fake_mode=fake_mode,
-                                device="cuda:0", as_card=False, batch=SERVE_TP_ROWS // 2)
+        cell = specs.serve_cell(mcfg, kind, rows, max_seq, params, seq=plen, mesh=mesh,
+                                rules=rules, fake_mode=fake_mode, device="cuda:0", as_card=False,
+                                batch=rows // shape[names.index("data")])
         res = dryrun.trace(cell, backend)
         peaks[kind] = res["memory"]["peak_bytes"]
-        print(f"[serve_tp] (b) {kind} of the (2, 2) fleet's device on fake cuda:0 tensors: "
-              f"peak {peaks[kind] / 1e9:.4f} GB, args "
+        print(f"{tag} {kind} of the {shape} fleet's device on fake cuda:0 tensors: peak "
+              f"{peaks[kind] / 1e9:.4f} GB, args "
               f"{res['memory']['argument_size_in_bytes'] / 1e9:.4f} GB, collectives "
               f"{ {k: v for k, v in res['collectives']['count_by_op'].items() if v} }",
               flush=True)
-    return max(peaks.values())
+    with sh.sharding_rules(make_mesh(*mesh_spec), rules):
+        cache = decode_lib.init_cache(mcfg, rows, max_seq, "meta")
+    part = sum(t.numel() * t.element_size() for layer in cache["layers"]
+               for t in model_lib._leaves(layer))
+    return max(peaks.values()), part
 
 
-def _serve_tp_reference(mcfg, toks):
-    """(c)'s run in this process, on the card, unsharded: greedy tokens (the
-    whole batch, a column a tick), logits (host float32), tick ms."""
+def _serve_reference(mcfg, prompts, max_seq, ticks):
+    """A serve fleet's run in this process, on the card, unsharded: greedy
+    tokens (the whole batch, a column a tick), logits (host float32), tick
+    seconds, the least top-2 logit gap."""
     import torch
     from repro_torch.models import decode as decode_lib
     from repro_torch.models import model as model_lib
     model = model_lib.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    t = toks.cuda()
-    logits, cache = decode_lib.prefill(mcfg, model, {"tokens": t, "labels": t}, SERVE_TP_MAX_SEQ)
+    logits, cache = decode_lib.prefill(mcfg, model, {k: v.cuda() for k, v in prompts.items()},
+                                       max_seq)
     out = {"logits": [logits.float().cpu()], "tokens": [], "tick_s": []}
     cur = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
-    for _ in range(SERVE_TP_TICKS):
+    for _ in range(ticks):
         out["tokens"].append(cur.cpu())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4311,10 +4411,69 @@ def _serve_tp_reference(mcfg, toks):
     return out
 
 
+def _serve_checks(tag, mcfg, ref, pred, part, ranks, task, smi):
+    """A serve fleet's ranks (task ``task`` of each) against this process's
+    run (``_serve_reference``): the failures. Each rank on gloo and the
+    card, its rows over "data" and positions over "model"; its logits
+    within ``SERVE_LOGIT_TOL`` of the largest for the model's dtype, its
+    greedy tokens this process's except where this process's logits tie
+    within that bar; its resident cache exactly ``part``; its peak within
+    ``DRYRUN_PEAK_RTOL`` of ``pred``."""
+    import torch
+    scale = max(float(lg.abs().max()) for lg in ref["logits"])
+    bar = SERVE_LOGIT_TOL[mcfg.param_dtype] * scale
+    rows = ref["logits"][0].shape[0]
+    ref_tick = sum(ref["tick_s"]) / len(ref["tick_s"])
+    print(f"{tag} {smi}: this process: {len(ref['tick_s'])} ticks of {ref_tick * 1e3:.2f} ms "
+          f"on average ({rows / ref_tick:.1f} tokens/s), max|logit| {scale:.4g}, the least "
+          f"top-2 logit gap {ref['min_gap']:.4g}", flush=True)
+    failures = []
+    for r in ranks:
+        got = r["tasks"][task]
+        lay = got["layout"]
+        r0, r1 = lay["rows"]
+        err = max(float((a - b[r0:r1]).abs().max()) for a, b in zip(got["logits"], ref["logits"]))
+        # the ranks' greedy tokens are the whole batch's (gathered each tick)
+        same = [torch.equal(a, b) for a, b in zip(got["tokens"], ref["tokens"])]
+        # where a tick's tokens differ: each differing row's token against
+        # this process's logits at that tick, how far below its greedy one
+        below = [float(lg[i, 0, b[i, 0]] - lg[i, 0, a[i, 0]])
+                 for a, b, lg in zip(got["tokens"], ref["tokens"], ref["logits"])
+                 for i in range(a.shape[0]) if a[i, 0] != b[i, 0]]
+        tick = sum(got["tick_s"]) / len(got["tick_s"])
+        rel_peak = (pred - got["peak_bytes"]) / got["peak_bytes"]
+        print(f"{tag} {smi}: rank {r['rank']}: layout {lay}, prefill "
+              f"{got['prefill_s'] * 1e3:.1f} ms, tick {tick * 1e3:.1f} ms on average "
+              f"({rows / tick:.2f} tokens/s for the fleet), ticks ms "
+              f"{[round(x * 1e3, 1) for x in got['tick_s']]}, greedy tokens equal at "
+              f"{sum(same)} of {len(same)} ticks (elsewhere the tokens taken lie {below} below "
+              f"this process's greedy ones in its logits), max|logit diff| {err:.4g} (bar "
+              f"{bar:.4g}, {1 - err / bar:.1%} to spare), resident cache "
+              f"{got['resident_bytes']} B (its part {part} B), max_memory_allocated "
+              f"{got['peak_bytes'] / 1e9:.4f} GB (prediction {rel_peak:+.2%})", flush=True)
+        checks = [
+            (r["collectives"] == "gloo" and r["device"].startswith("cuda"),
+             (r["collectives"], r["device"])),
+            (lay["batch_axes"] == ["data"] and lay["seq_axes"] == ["model"], lay),
+            # bf16 logits over a large vocabulary tie (this process's least
+            # top-2 gap is 0 on an H100): a token may differ only where one
+            # bf16 ulp decides the argmax
+            (all(x <= bar for x in below),
+             f"greedy tokens differ at ticks {[i for i, ok in enumerate(same) if not ok]}, "
+             f"{below} below"),
+            (err <= bar, f"logits differ by {err}"),
+            (got["resident_bytes"] == part, (got["resident_bytes"], part)),
+            (abs(pred - got["peak_bytes"]) <= DRYRUN_PEAK_RTOL * got["peak_bytes"],
+             f"peak {got['peak_bytes']} vs predicted {pred}")]
+        failures += [f"{tag} rank {r['rank']}: {what}" for ok, what in checks if not ok]
+    return failures
+
+
 def phase_serve_tp(ctx):
     """Sharded serving: (a) the dry run's decode_32k cells under ``fsdp``
-    and prefill_32k cells under both presets on the (16, 16) pod in a
-    thread, beside
+    (and the other families' under ``default``) and prefill_32k cells
+    under both presets (minicpm-2b's under ``default`` required) on the
+    (16, 16) pod in a thread, beside
     (b) the prediction for (c) and (c) four gloo ranks sharing the card
     under ``default`` with decode_32k's rules (the split-KV combine), held
     to the same run in this process."""
@@ -4340,22 +4499,21 @@ def _serve_tp_fleet(smi):
     import torch
     from repro_torch import configs
     from repro_torch.backend import fleet
-    from repro_torch.distributed import sharding as sh
-    from repro_torch.launch import specs
     mcfg = configs.get_config("minicpm-2b", num_layers=SERVE_TP_LAYERS)
-    rules = dict(sh.DEFAULT_RULES, **specs.SHAPE_RULES["decode_32k"],
-                 **specs.RULE_PRESETS["default"])
     t1 = time.perf_counter()
-    pred = _serve_tp_prediction(mcfg, rules)
+    # the device's cache is its 2 rows and 512 positions of the K/V
+    pred, part = _serve_prediction(mcfg, FSDP_MESH, SERVE_TP_ROWS, SERVE_TP_PROMPT,
+                                   SERVE_TP_MAX_SEQ, "[serve_tp] (b)")
     print(f"[serve_tp] (b) traced in {time.perf_counter() - t1:.1f} s", flush=True)
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, mcfg.vocab_size, (SERVE_TP_ROWS, SERVE_TP_PROMPT)).astype(np.int32))
-    ref = _serve_tp_reference(mcfg, toks)
+    prompts = {"tokens": toks, "labels": toks}
+    ref = _serve_reference(mcfg, prompts, SERVE_TP_MAX_SEQ, SERVE_TP_TICKS)
     gc.collect()
     torch.cuda.empty_cache()
     task = {"kind": "serve", "mesh": FSDP_MESH, "arch": "minicpm-2b",
             "model": {"num_layers": SERVE_TP_LAYERS}, "seed": 0, "shape": "decode_32k",
-            "preset": "default", "tokens": toks, "max_seq": SERVE_TP_MAX_SEQ,
+            "preset": "default", "batch": prompts, "max_seq": SERVE_TP_MAX_SEQ,
             "ticks": SERVE_TP_TICKS, "feed": ref["tokens"][:SERVE_TP_TICKS]}
     work = tempfile.mkdtemp(prefix="serve_tp.", dir=os.path.join(ROOT, "build"))
     try:
@@ -4369,52 +4527,9 @@ def _serve_tp_fleet(smi):
         ranks = [torch.load(r.last_json()["path"], weights_only=True) for r in runs]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    scale = max(float(lg.abs().max()) for lg in ref["logits"])
-    slice_bytes = (SERVE_TP_LAYERS * 2 * (SERVE_TP_ROWS // 2) * (SERVE_TP_MAX_SEQ // 2)
-                   * mcfg.num_kv_heads * mcfg.head_dim * 2)
-    ref_tick = sum(ref["tick_s"]) / len(ref["tick_s"])
-    print(f"[serve_tp] (c) {smi}: this process: prefill of {SERVE_TP_ROWS} x {SERVE_TP_PROMPT}, "
-          f"{SERVE_TP_TICKS} ticks of {ref_tick * 1e3:.2f} ms on average "
-          f"({SERVE_TP_ROWS / ref_tick:.1f} tokens/s), max|logit| {scale:.4g}, the least "
-          f"top-2 logit gap {ref['min_gap']:.4g}", flush=True)
-    for r in ranks:
-        assert r["collectives"] == "gloo" and r["device"].startswith("cuda"), \
-            (r["collectives"], r["device"])
-        got = r["tasks"][0]
-        lay = got["layout"]
-        r0, r1 = lay["rows"]
-        err = max(float((a - b[r0:r1]).abs().max()) for a, b in zip(got["logits"], ref["logits"]))
-        same = [torch.equal(a, b) for a, b in zip(got["tokens"], ref["tokens"])]
-        # where a tick's tokens differ: each differing row's token against
-        # this process's logits at that tick, how far below its greedy one
-        below = [float(lg[i, 0, b[i, 0]] - lg[i, 0, a[i, 0]])
-                 for a, b, lg in zip(got["tokens"], ref["tokens"], ref["logits"])
-                 for i in range(a.shape[0]) if a[i, 0] != b[i, 0]]
-        tick = sum(got["tick_s"]) / len(got["tick_s"])
-        rel_peak = (pred - got["peak_bytes"]) / got["peak_bytes"]
-        print(f"[serve_tp] (c) {smi}: rank {r['rank']}: layout {lay}, prefill "
-              f"{got['prefill_s'] * 1e3:.1f} ms, tick {tick * 1e3:.1f} ms on average "
-              f"({SERVE_TP_ROWS / tick:.2f} tokens/s for the fleet), ticks ms "
-              f"{[round(x * 1e3, 1) for x in got['tick_s']]}, greedy tokens equal at "
-              f"{sum(same)} of {len(same)} ticks (elsewhere the tokens taken lie "
-              f"{below} below this process's greedy ones in its logits), "
-              f"max|logit diff| {err:.4g} (bar "
-              f"{SERVE_TP_LOGIT_TOL * scale:.4g}), resident cache {got['resident_bytes']} B "
-              f"(slice {slice_bytes} B), max_memory_allocated {got['peak_bytes'] / 1e9:.4f} GB "
-              f"(prediction {rel_peak:+.2%})", flush=True)
-        assert lay["batch_axes"] == ["data"] and lay["seq_axes"] == ["model"], lay
-        # bf16 logits over 122753 words tie: on an H100 this process's least
-        # top-2 gap over these ticks is 0. A token may differ only where this
-        # process's logits tie within the logits' bar, where one bf16 ulp
-        # decides the argmax
-        assert all(x <= SERVE_TP_LOGIT_TOL * scale for x in below), \
-            f"rank {r['rank']}: greedy tokens differ at ticks " \
-            f"{[i for i, ok in enumerate(same) if not ok]}, {below} below"
-        assert err <= SERVE_TP_LOGIT_TOL * scale, f"rank {r['rank']}: logits differ by {err}"
-        assert got["resident_bytes"] == slice_bytes, (got["resident_bytes"], slice_bytes)
-        assert abs(pred - got["peak_bytes"]) <= DRYRUN_PEAK_RTOL * got["peak_bytes"], \
-            f"rank {r['rank']}: peak {got['peak_bytes']} vs predicted {pred}"
+    failures = _serve_checks("[serve_tp] (c)", mcfg, ref, pred, part, ranks, 0, smi)
     print(f"[serve_tp] (c) {smi}: fleet wall {wall:.1f} s", flush=True)
+    assert not failures, failures
 
 
 def _leaf_gaps(got, want):

@@ -148,8 +148,8 @@ def expected_launches(mcfg, cfg, groups: int, flash: bool = True,
     once a step. With no ``cfg.graft`` (the baseline step) no refresh runs.
     ``optimizer`` "adafactor": the update is plain PyTorch (no kernel B).
 
-    Under JAX's ``default`` preset (``sharded``; every family but the
-    hybrid one) the counts are the same a rank (a MoE layer's experts run
+    Under JAX's ``default`` preset (``sharded``; every family) the
+    counts are the same a rank (a MoE layer's experts and the SSM heads run
     on aten ops): each rank runs one flash forward, dQ and
     dK/dV a layer and pass on its slice of the queries against the whole
     K/V (the query offset), or one RWKV scan forward and backward a layer

@@ -48,16 +48,17 @@ rank's backend (``mesh_worker_command``: ``python -m repro_torch.backend
     groups' and the experts' axes), its resident and shard bytes and its
     launches;
   * ``"tp"`` — the same under ``preset`` (default: JAX's ``default``
-    preset, for every family but the hybrid one): the batch over
-    ``("pod", "data")``, each row's sequence (the frames, or the patches
-    and tokens, a frontend embeds), the MLP hidden, the RWKV heads, the
-    experts and the vocabulary over ``"model"``; the model peers of a
-    batch shard take the same rows. Each rank also reports the heads of
-    its RWKV time mixes (``heads``);
+    preset): the batch over ``("pod", "data")``, each row's sequence (the
+    frames, or the patches and tokens, a frontend embeds), the MLP hidden,
+    the RWKV and SSM heads, the experts and the vocabulary over
+    ``"model"``; the model peers of a batch shard take the same rows. Each
+    rank also reports the heads of its head-parallel RWKV time mixes and
+    SSM heads (``heads``);
   * ``"serve"`` — sharded serving on ``mesh`` under ``preset``'s rules with
     ``shape``'s ``SHAPE_RULES``: ``arch`` (``smoke``, ``model``) with
-    weights from ``params`` or ``seed``; a prefill of the rank's rows of the prompt
-    batch ``tokens`` into a cache of ``max_seq``, then ``ticks`` decode ticks
+    weights from ``params`` or ``seed``; a prefill of the rank's rows of the
+    prompt batch ``batch`` (tokens, frames, or patches and tokens) into a
+    cache of ``max_seq``, then ``ticks`` decode ticks
     (greedy, or fed the whole batch's ``feed`` tokens a tick), or with
     ``wave`` (``serve_model``'s keywords) one ``serve_model`` run. Each rank
     reports its cache's layout, its rows' logits, the whole batch's greedy
@@ -558,7 +559,7 @@ def _fsdp_task(task, backend, device, preset: str = "fsdp") -> Dict[str, Any]:
     # the MoE regimes its forwards ran: (tokens, the groups' axes, the
     # experts' axes), the experts whole where they split over none
     out["moe"] = sorted([tokens, list(g), list(e)] for tokens, g, e in EXPERT_RUNS)
-    # the heads [start, stop) of its head-parallel RWKV time mixes
+    # the heads [start, stop) of its head-parallel RWKV time mixes and SSM heads
     out["heads"] = sorted(list(k) for k in HEAD_RUNS)
     run = types.SimpleNamespace(train=types.SimpleNamespace(steps=task["steps"], eval_every=0),
                                 graft=tcfg.graft)
@@ -645,12 +646,11 @@ def _serve_task(task, backend, device) -> Dict[str, Any]:
         return kv.gather_rows(logits[:, 0].argmax(-1).to(torch.int32)).cpu()[:, None]
 
     with sh.sharding_rules(mesh, rules):
-        kv = sh.cache_layout(task["tokens"].shape[0], task["max_seq"])
-        tokens = kv.take_rows(task["tokens"]).to(device)
+        kv = sh.cache_layout(next(iter(task["batch"].values())).shape[0], task["max_seq"])
+        batch = {k: kv.take_rows(v).to(device) for k, v in task["batch"].items()}
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = steps.prefill_step(mcfg, model, {"tokens": tokens, "labels": tokens},
-                                           task["max_seq"], kv)
+        logits, cache = steps.prefill_step(mcfg, model, batch, task["max_seq"], kv)
         _sync(device)
         out["prefill_s"] = time.perf_counter() - t0
         out["layout"] = {"rows": [kv.row_start, kv.row_stop], "seq": [kv.start, kv.stop],

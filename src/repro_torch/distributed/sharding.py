@@ -35,7 +35,7 @@ The partitioner half places parameters where XLA's would under
 ``constrain`` (``with_sharding_constraint`` on activations) has no
 counterpart: under ``fsdp`` no activation is constrained beyond the batch
 split, which the train step makes itself (``launch/steps.py``); under the
-``default`` preset the layers of ``TP_FAMILIES`` place their activations
+``default`` preset the layers of every family place their activations
 where JAX's ``constrain`` calls declare them, with the collectives
 written out (:class:`SeqParallel`). A decode cache lies as JAX's
 ``cache_logical`` declares it (:class:`CacheLayout`: its rows over the
@@ -187,10 +187,6 @@ _TP_ACTIVATIONS = ("act_seq", "act_res_seq", "act_q_seq", "act_heads", "act_kv_h
 # decode_32k and long_500k) split them over the mesh under either preset,
 # and only the cache reads them (``cache_layout``)
 _CACHE_ACTIVATIONS = ("act_kv_seq",)
-# the families whose layers run the default preset's layout (a dense or moe
-# model with a frontend too: ``models/model.py`` ``sequence_layout`` lays out
-# the frames, or the patches and tokens, that it embeds)
-TP_FAMILIES = ("dense", "moe", "ssm", "audio", "vlm")
 
 
 def rules_mode(mesh, rules: Dict[str, MeshAxes]) -> str:
@@ -213,26 +209,19 @@ def check_rules(mesh, rules: Dict[str, MeshAxes], family: str = "dense",
                 frontend: Optional[str] = None, local_groups: bool = False) -> str:
     """Raise ``ValueError`` unless the port's sharded steps run ``rules`` on
     ``mesh`` for a model of ``family`` with ``frontend``; return the mode
-    (``rules_mode``). They run the ``fsdp`` layout for every family they
-    shard, and the ``default`` preset's layout for the families of
-    ``TP_FAMILIES``, with or without a frontend; the hybrid family's SSM
-    heads have none yet. A MoE's chunk-major grouping (``local_groups``,
-    ``moe_local_groups``) moves its groups between the ranks of "model", an
-    all-to-all the port's ``Mesh`` does not have."""
+    (``rules_mode``). They run the ``fsdp`` layout and the ``default``
+    preset's for every family, with or without a frontend
+    (``models/model.py`` ``sequence_layout`` lays out the frames, or the
+    patches and tokens, that a model embeds). A MoE's chunk-major grouping
+    (``local_groups``, ``moe_local_groups``) moves its groups between the
+    ranks of "model", an all-to-all the port's ``Mesh`` does not have."""
     mode = rules_mode(mesh, rules)
     if family == "moe" and local_groups and mode in ("fsdp", "default"):
         raise ValueError(
             "moe_local_groups under a mesh: the chunk-major groups (act_moe_groups → "
             "act_moe_dispatch) move between the ranks by an all-to-all, which the port's Mesh "
             "does not have (ROADMAP.md A14c)")
-    if mode == "fsdp":
-        return mode
-    if mode == "default":
-        if family not in TP_FAMILIES:
-            raise ValueError(
-                f"the 'default' preset's sequence and tensor parallelism on the {family} family: "
-                f"the port lays it out for the {', '.join(TP_FAMILIES)} families; the hybrid "
-                "family alone is left (ROADMAP.md A12b)")
+    if mode in ("fsdp", "default"):
         return mode
     heads = [n for n in ("act_heads", "act_kv_heads")
              if logical_to_spec((n,), mesh, rules) != (None,)]
@@ -776,7 +765,7 @@ def materialize_tree(tree):
 
 
 __all__ = ["DEFAULT_RULES", "MeshAxes", "Spec", "sharding_rules", "logical_to_spec",
-           "drop_indivisible", "active", "rules_mode", "check_rules", "TP_FAMILIES", "psum",
+           "drop_indivisible", "active", "rules_mode", "check_rules", "psum",
            "SeqParallel", "sequence_parallel", "batch_rows", "row_axes", "moe_axes",
            "ExpertLayout", "CacheLayout", "cache_layout", "split_axes",
            "LeafSharding", "leaf_sharding", "param_shardings", "shard_tensor", "gather_tensor",

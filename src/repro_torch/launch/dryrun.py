@@ -30,12 +30,13 @@ storage, nothing computed), on one device of the mesh:
   ``all_gather_rows`` and ``reduce_grads`` return fake tensors of the real
   shapes and add their operands' bytes under JAX's op names. Under
   ``fsdp`` (every arch; a MoE arch's train cells only) and under
-  ``default`` (the train cells of every arch but hymba-1.5b's) the state is one
+  ``default`` (every cell but a MoE arch's serve cells) the state is one
   device's shards (``"state": "sharded"``) and a recording mesh stands in
   for the ranks: each weight's just-in-time gather, its gradient's
   reduce-scatter, the norm's psum and, under ``default``, the sequence's
   gathers and reduce-scatters and the vocabulary-parallel loss's pmax and
-  psums, the RWKV mixes' heads and ``d_ff`` slices, and a MoE layer's
+  psums, the RWKV mixes' and the SSM heads' heads and ``d_ff`` slices
+  (and their decode states' heads), and a MoE layer's
   gathered rows and its combine's reduce-scatter
   return fake tensors of the real shapes and add their operands' bytes the
   same way. A prefill or
@@ -391,13 +392,6 @@ def _check_preset(cfg, rules_preset: str, kind: str = "train") -> str:
                              "serving of the moe family has no expert parallelism laid out "
                              "(ROADMAP.md A14s)")
         return "sharded serving of the moe family has no expert parallelism (ROADMAP.md A14s)"
-    if rules_preset == "default":
-        if cfg.family not in sh.TP_FAMILIES:
-            return (f"the {cfg.family} family's layers have no sequence-parallel layout "
-                    "(ROADMAP.md A12b)")
-        if kind != "train" and (cfg.family != "dense" or cfg.frontend is not None):
-            return (f"sharded serving of the {cfg.family} family under 'default' is not laid "
-                    "out (ROADMAP.md A12s)")
     return ""
 
 
@@ -414,17 +408,17 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
     takes the CPU's own routes, to hold a trace to a real CPU step);
     ``stand_in``: the CPU stand-in for the card (``specs.abstract_device``).
     ``rules_preset``: "fsdp" (a cell's state sharded, ``"state":
-    "sharded"``; a MoE arch's serve cells refuse, A14s) or "default" (the
-    train cells of every family but the hybrid one sharded as well, with
-    the batch over ``("pod", "data")`` and the sequence, the MLP hidden,
-    the RWKV heads, the experts and the vocabulary over ``"model"``; the
-    serve cells of the dense archs without a frontend too; every other
-    cell keeps the state
-    replicated on each device and ``replicated_why`` says why). The shape's
-    ``SHAPE_RULES`` come under the preset's."""
+    "sharded"``; a MoE arch's serve cells refuse, A14s) or "default" (every
+    cell sharded as well, with the batch over ``("pod", "data")`` and the
+    sequence, the MLP hidden, the RWKV and SSM heads, the experts and the
+    vocabulary over ``"model"``, but a MoE arch's serve cells, which keep
+    the state replicated on each device, and ``replicated_why`` says why).
+    The shape's ``SHAPE_RULES`` come under the preset's. ``data_source``'s
+    task pins the model's fields (a dense arch given a frontend) on every
+    cell, a serve cell's prompts its input."""
     cfg = config_lib.get_config(arch)
     info = specs_lib.SHAPES[shape]
-    if info["kind"] == "train" and data_source != "synthetic_lm":     # the task pins fields
+    if data_source != "synthetic_lm":                                 # the task pins fields
         task = data_sources.get_source(data_source).task
         cfg = dataclasses.replace(cfg, **task.model_overrides(
             task.derive(cfg, batch=info["batch"], seq=info["seq"], seed=0)))
@@ -435,9 +429,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str, variant: str,
         mesh = make_mesh((1, 1), ("data", "model"))
     else:
         mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
-    sel_modes: Dict[str, Any] = {"feature_mode": feature_mode, "grad_mode": grad_mode}
-    if shape.startswith("train"):
-        sel_modes["data_source"] = data_source
+    sel_modes: Dict[str, Any] = {"feature_mode": feature_mode, "grad_mode": grad_mode,
+                                 "data_source": data_source}
     rows = max(4, info["batch"] // 64) if smoke else info["batch"]
     rules = dict(specs_lib.SHAPE_RULES[shape], **specs_lib.RULE_PRESETS[rules_preset])
     shards = batch_shards(mesh, rows, rules)

@@ -133,11 +133,15 @@ def source_batch_specs(source) -> Dict[str, TensorSpec]:
 
 
 def batch_specs(mcfg: model_lib.ModelConfig, batch: int, seq: int) -> Dict[str, TensorSpec]:
+    """A batch of the model's input (``models/model.py`` ``embed_inputs``):
+    frames (audio, or the ``audio_frames`` frontend), patches then tokens
+    (vlm, or ``vision_patches``), or tokens; labels."""
     i32 = torch.int32
-    if mcfg.family == "audio":
+    kind = model_lib.input_kind(mcfg)
+    if kind == "frames":
         return {"frame_embeds": TensorSpec((batch, seq, mcfg.d_model), mcfg.dtype),
                 "labels": TensorSpec((batch, seq), i32)}
-    if mcfg.family == "vlm":
+    if kind == "patches":
         s_text = seq - mcfg.num_patches
         return {"patch_embeds": TensorSpec((batch, mcfg.num_patches, mcfg.d_model), mcfg.dtype),
                 "tokens": TensorSpec((batch, s_text), i32),
@@ -224,8 +228,10 @@ def build_cell(arch: str, shape: str, *, variant: str = "graft",
     ``mesh`` (whose collectives the step calls), built and stepped under
     ``sharding_rules(mesh, rules)``; a serve cell's cache is the device's
     part of it (``serve_cell``).
-    ``data_source``: a registered source (train cells), whose task pins the
-    model's fields and whose ``spec()`` gives the batch. The train step runs
+    ``data_source``: a registered source, whose task pins the model's
+    fields (a frontend: a serve cell's prompts are then its frames, or its
+    patches and tokens) and, for a train cell, whose ``spec()`` gives the
+    batch. The train step runs
     without the sentinel. Not smoke, attention runs in chunks of 1024 and
     the loss in 512, JAX's production defaults."""
     ok, why = cell_is_supported(arch, shape)
@@ -245,6 +251,11 @@ def build_cell(arch: str, shape: str, *, variant: str = "graft",
     if B % batch_shards:
         raise ValueError(f"batch {B} does not split over {batch_shards} devices")
     local = B // batch_shards
+    entry = None
+    if data_source is not None and data_source != "synthetic_lm":
+        entry = data_sources.get_source(data_source)
+        dcfg = entry.task.derive(mcfg, batch=local, seq=S, seed=0)
+        mcfg = dataclasses.replace(mcfg, **entry.task.model_overrides(dcfg))
     dev, as_card = abstract_device(device, stand_in)
     fake_mode = FakeTensorMode()
     common = dict(fake_mode=fake_mode, device=dev, as_card=as_card, batch=local)
@@ -253,13 +264,8 @@ def build_cell(arch: str, shape: str, *, variant: str = "graft",
         use_graft = variant in ("graft", "subset", "select")
         tcfg = _dry_run_config(default_train_config(
             arch, use_graft=use_graft, batch=B, feature_mode=feature_mode, grad_mode=grad_mode))
-        if data_source is not None and data_source != "synthetic_lm":
-            entry = data_sources.get_source(data_source)
-            dcfg = entry.task.derive(mcfg, batch=local, seq=S, seed=0)
-            mcfg = dataclasses.replace(mcfg, **entry.task.model_overrides(dcfg))
-            specs = source_batch_specs(entry.build(dcfg))
-        else:
-            specs = batch_specs(mcfg, local, S)
+        specs = (batch_specs(mcfg, local, S) if entry is None
+                 else source_batch_specs(entry.build(dcfg)))
         sharded = sh.sharding_rules(mesh, rules) if mesh is not None else contextlib.nullcontext()
         kind = variant if variant in ("graft", "baseline", "subset", "select") else None
         with fake_mode, sharded:

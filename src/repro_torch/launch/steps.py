@@ -54,13 +54,13 @@ over trains on them, as JAX's replicated shards compute, and its loss
 counts zero. ``train_state_logical`` is the twin of JAX's logical tree of
 the train state.
 
-JAX's ``default`` preset (every family but the hybrid one): the same
+JAX's ``default`` preset (every family): the same
 state (``fsdp`` overrides activation rules only), the batch over ``("pod",
 "data")`` and each row's sequence over ``"model"`` (``models/model.py``
 ``sequence_layout``: the tokens, the frames or the patches and tokens the
 model embeds): the model peers of a batch shard hold the same rows and
 each runs its positions of the residual stream, the attention queries,
-its heads of the RWKV time mix and its slices of the MLP (the RWKV
+its heads of the RWKV time mix or the SSM heads and its slices of the MLP (the RWKV
 channel mix's too) and of the vocabulary, with the collectives of
 ``distributed/sharding.py`` ``SeqParallel``. The loss comes out whole on
 every model peer, and only the peer at model index 0 counts it (the
@@ -177,8 +177,8 @@ class ShardLayout:
 
 def _check_sharded(mcfg, tcfg: TrainConfig, mesh, rules) -> None:
     """Raise ``ValueError`` for what the sharded step does not run: rules
-    other than the ``fsdp`` layout and, for every family but the hybrid
-    one, the ``default`` one (``sharding.check_rules``); a MoE's chunk-major groups,
+    other than the ``fsdp`` and ``default`` layouts (``sharding.check_rules``); a
+    MoE's chunk-major groups,
     and its microbatches, whose global rows lie on other ranks (each an
     all-to-all); the ``full`` grad source."""
     sh.check_rules(mesh, rules, mcfg.family, mcfg.frontend, mcfg.moe_local_groups)

@@ -30,14 +30,20 @@ cache, each leaf cut by its logical axes (``CACHE_LOGICAL``, JAX's
 ``"layout"`` (a ``sharding.CacheLayout``) says where it lies. The caller
 takes the cache's rows, as the train step's caller takes its rows:
 ``prefill`` is given the cache's layout (``sharding.cache_layout`` of the
-whole batch) and its rows of the prompts, ``decode_step`` the tokens of
-the cache's rows; both return the logits of those rows. Under the ``default`` preset (the dense family)
-the prefill's residual stream runs sequence-parallel
-(``sharding.SeqParallel``), the MLP over its ``d_ff`` slice, and the
-logits come from this rank's slice of the vocabulary, gathered. Where the
-cache's positions split over ranks, each rank attends its slice and the
-ranks combine their online-softmax states (``models/layers.py``).
-``check_serve_rules`` says which rules the path runs.
+whole batch) and its rows of the prompts (tokens, frames, or patches and
+tokens), ``decode_step`` the tokens of the cache's rows; both return the
+logits of those rows. Under the ``default`` preset the prefill's residual
+stream runs sequence-parallel over the positions the model embeds
+(``sharding.SeqParallel``; a rank's frames, or its part of the patches
+and tokens), the MLP and the RWKV channel mix over their ``d_ff`` slice,
+the RWKV time mix and the SSM heads over the rank's heads of their state
+(``wkv`` and ``ssm`` over ``act_heads``, the token-shift carry whole),
+and the logits come from this rank's slice of the vocabulary, gathered.
+A tick's one position is computed on every model rank, the partial sums
+``psum``-ed. Where the cache's positions split over ranks, each rank
+attends its slice and the ranks combine their online-softmax states
+(``models/layers.py``). ``check_serve_rules`` says which rules the path
+runs.
 """
 from __future__ import annotations
 
@@ -63,24 +69,18 @@ CACHE_LOGICAL = {
 def check_serve_rules(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` unless the serve path runs the active
     ``sharding_rules`` for ``cfg``'s model: ``sharding.check_rules`` for its
-    family and frontend (the ``fsdp`` layout; the ``default`` one for the
-    dense family without a frontend), and no MoE: a decode tick's dropless
-    groups are its rows, which the train step's expert layout does not
-    cover. Under ``default`` the ssm family's states, the audio and vlm
-    families' and a frontend's prompts are not laid out (A12s)."""
+    family and frontend (the ``fsdp`` layout, and the ``default`` one for
+    every family, with or without a frontend), and no MoE: a decode tick's
+    dropless groups are its rows, which the train step's expert layout does
+    not cover."""
     act = sh.active()
     if act is None:
         return
-    mode = sh.check_rules(*act, cfg.family, cfg.frontend, cfg.moe_local_groups)
+    sh.check_rules(*act, cfg.family, cfg.frontend, cfg.moe_local_groups)
     if cfg.family == "moe":
         raise ValueError(f"{cfg.name}: sharded serving of the moe family: the dropless decode's "
                          "groups are a tick's rows and the prefill's its prompts, whose expert "
                          "parallelism the port has not laid out (ROADMAP.md A14s)")
-    if mode == "default" and (cfg.family != "dense" or cfg.frontend is not None):
-        raise ValueError(f"{cfg.name}: serving the {cfg.family} family"
-                         + (f" with the {cfg.frontend} frontend" if cfg.frontend else "")
-                         + " under the 'default' preset: its decode state and prompts are not "
-                         "laid out over the sequence and heads (ROADMAP.md A12s)")
 
 
 def _layer_cache(cfg: ModelConfig, B: int, max_seq: int, device,

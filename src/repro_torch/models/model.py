@@ -486,19 +486,19 @@ def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
     ``None``; ``kv`` (a ``sharding.CacheLayout``) says where this rank's
     part of the cache lies. A one-token step through a MoE block is
     dropless, as in JAX. ``sp`` (a ``sharding.SeqParallel``): x holds this
-    rank's positions of the sequence, and the attention and MLP, or the
-    RWKV time and channel mixes, lay out their work as the ``default``
-    preset declares it (``layers.attention``, ``layers.mlp``,
-    ``ssm.rwkv_time_mix``, ``ssm.rwkv_channel_mix``). ``ep`` (a
+    rank's positions of the sequence, and the attention and MLP, the RWKV
+    time and channel mixes, or the SSM heads, lay out their work as the
+    ``default`` preset declares it (``layers.attention``, ``layers.mlp``,
+    ``ssm.rwkv_time_mix``, ``ssm.rwkv_channel_mix``, ``ssm.ssm_heads``). ``ep`` (a
     ``sharding.ExpertLayout``, a MoE block under ``sharding_rules``): the
     MoE takes its leaves as stored and runs this rank's experts on its
     groups (``layers.moe``)."""
     fam = "dense" if dense_override else cfg.family
     new_cache = None if cache is None else {}
-    # a sharded block's weights, gathered here; under ``sp`` the MLP and the
-    # RWKV mixes, and under ``ep`` the MoE, take their leaves as stored and
-    # gather their own slices
-    own = {"mlp", "time", "channel"} if sp is not None else set()
+    # a sharded block's weights, gathered here; under ``sp`` the MLP, the
+    # RWKV mixes and the SSM heads, and under ``ep`` the MoE, take their
+    # leaves as stored and gather their own slices
+    own = {"mlp", "time", "channel", "ssm"} if sp is not None else set()
     if ep is not None and fam == "moe":
         own.add("moe")
     stored = {k: p[k] for k in own if k in p}
@@ -518,8 +518,8 @@ def _apply_block(cfg: ModelConfig, p, x, positions, is_local: bool,
         cfg, p["attn"], h, positions, is_local=is_local,
         cache=None if cache is None else cache["attn"], cache_index=cache_index, sp=sp, kv=kv)
     if fam == "hybrid":                 # attention and SSM heads in parallel
-        ssm_out, ssm_state = S.ssm_heads(cfg, p["ssm"], h,
-                                         state=None if cache is None else cache["ssm"])
+        ssm_out, ssm_state = S.ssm_heads(cfg, stored.get("ssm", p.get("ssm")), h,
+                                         state=None if cache is None else cache["ssm"], sp=sp)
         attn_out = attn_out + ssm_out
         if cache is not None:
             new_cache["ssm"] = ssm_state
@@ -556,13 +556,25 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _dots_po
 # forward / loss / features
 # ---------------------------------------------------------------------------
 
+def input_kind(cfg: ModelConfig) -> str:
+    """What a batch of ``cfg``'s input holds: ``"frames"`` (audio, or the
+    ``audio_frames`` frontend), ``"patches"`` (patches then tokens: vlm, or
+    ``vision_patches``) or ``"tokens"``."""
+    if cfg.family == "audio" or cfg.frontend == "audio_frames":
+        return "frames"
+    if cfg.family == "vlm" or cfg.frontend == "vision_patches":
+        return "patches"
+    return "tokens"
+
+
 def input_length(cfg: ModelConfig, batch) -> int:
     """The positions of the sequence ``embed_inputs`` builds from ``batch``:
     the frames' (audio), the patches' and the tokens' (vlm: the patches
     first), else the tokens' (a decode tick's, whatever the frontend)."""
-    if "frame_embeds" in batch and (cfg.family == "audio" or cfg.frontend == "audio_frames"):
+    kind = input_kind(cfg)
+    if kind == "frames" and "frame_embeds" in batch:
         return batch["frame_embeds"].shape[1]
-    if "patch_embeds" in batch and (cfg.family == "vlm" or cfg.frontend == "vision_patches"):
+    if kind == "patches" and "patch_embeds" in batch:
         return batch["patch_embeds"].shape[1] + batch["tokens"].shape[1]
     return batch["tokens"].shape[1]
 
@@ -571,10 +583,7 @@ def sequence_layout(cfg: ModelConfig, batch) -> Optional[sh.SeqParallel]:
     """The ``default`` preset's layout of ``batch``'s forward under the
     active ``sharding_rules`` (``sharding.sequence_parallel``) over the
     sequence the model embeds (``input_length``; JAX constrains the whole of
-    it to ``act_res_seq``), for a family whose layers run it
-    (``sharding.TP_FAMILIES``); else None."""
-    if cfg.family not in sh.TP_FAMILIES:
-        return None
+    it to ``act_res_seq``); else None."""
     return sh.sequence_parallel(input_length(cfg, batch))
 
 
@@ -620,11 +629,12 @@ def embed_inputs(cfg: ModelConfig, params, batch, sp: Optional[sh.SeqParallel] =
     _check_supported(cfg)
     params = _tree(params)
     lo, hi = (sp.start, sp.stop) if sp is not None else (0, input_length(cfg, batch))
-    if cfg.family == "audio" or cfg.frontend == "audio_frames":
+    kind = input_kind(cfg)
+    if kind == "frames":
         x = batch["frame_embeds"][:, lo:hi].to(cfg.dtype)
         B, Sq = x.shape[:2]
         mask = torch.ones((B, Sq), dtype=torch.float32, device=x.device)
-    elif cfg.family == "vlm" or cfg.frontend == "vision_patches":
+    elif kind == "patches":
         P = batch["patch_embeds"].shape[1]
         patches = batch["patch_embeds"][:, min(lo, P):min(hi, P)].to(cfg.dtype)
         # every rank reads the table (its gather is a collective), with no

@@ -23,10 +23,16 @@ over the tokens, as the JAX package's ``lax.scan`` does: the RWKV kernels
 take no state in and give none out, and the training path keeps them.
 
 Under JAX's ``default`` preset (``sp``, a ``sharding.SeqParallel``) the
-time mix runs head-parallel over the gathered sequence (the rank's heads
-through the same kernels, its ``wo`` partial sums reduce-scattered onto
-its positions) and the channel mix tensor-parallel over ``d_ff``, as the
-JAX package's ``constrain`` calls declare them.
+time mix and the SSM heads run head-parallel over the gathered sequence
+(the rank's heads, through the same kernels for the time mix; the output
+projection's partial sums reduce-scattered onto the rank's positions) and
+the channel mix tensor-parallel over ``d_ff``, as the JAX package's
+``constrain`` calls declare them. With a decode state as well (a sharded
+prefill or decode tick) each block starts from the rank's heads of the
+state (``CACHE_LOGICAL``: ``wkv`` and ``ssm`` over ``act_heads``) and
+returns them, and the token-shift carry is the gathered sequence's last
+position, whole on every rank. A tick's one position is computed on every
+model rank, its head-parallel partial sums ``psum``-ed.
 """
 from __future__ import annotations
 
@@ -70,14 +76,18 @@ def lora_rank(cfg) -> int:
     return max(32, cfg.d_model // 64)
 
 
-# the heads [start, stop) of each head-parallel time mix (the ``default``
-# preset), counted: what a fleet's ranks report
+# the heads [start, stop) of each head-parallel time mix or SSM heads (the
+# ``default`` preset), counted: what a fleet's ranks report
 HEAD_RUNS: collections.Counter = collections.Counter()
 
 # the time-mix leaves whose columns (or, for ``wo``, rows) are the heads',
 # with that dim: the rank of a head-parallel time mix takes its heads' part
 _HEAD_LEAVES = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "decay_B": 1, "w0": 0, "u": 0,
                 "ln_x_scale": 0, "wo": 0}
+# the SSM heads' leaves over the heads, with that dim: ``w_in``'s columns and
+# ``w_out``'s rows (``ssm_inner``, Dh a head), the others' heads (one a head)
+_SSM_HEAD_LEAVES = {"w_in": 1, "w_out": 0, "w_B": 1, "w_C": 1, "w_delta": 1,
+                    "delta_bias": 0, "A_log": 0, "D_skip": 0}
 
 
 def rwkv_time_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None,
@@ -101,23 +111,40 @@ def rwkv_time_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None,
     by its rows of ``wo`` and reduce-scatters the partial sums onto its
     positions (``act_res_seq``). Where the heads do not divide the axes,
     each rank runs the whole heads on the gathered sequence and keeps its
-    own positions of the output (a recurrence needs every earlier one)."""
+    own positions of the output (a recurrence needs every earlier one).
+    With ``state`` (a sharded prefill or tick) ``wkv`` is the rank's heads
+    of the state, or the whole where the heads do not divide, and the new
+    state likewise; its ``shift`` is whole."""
     if sp is None:
         return _time_mix(cfg, sh.materialize_tree(p), x, state)
-    if state is not None:
-        raise ValueError("a decode state under the 'default' preset: the ssm family's serve "
-                         "steps are not laid out (ROADMAP.md A12s)")
+    return _head_parallel(cfg, p, x, state, sp, _time_mix, _HEAD_LEAVES)
+
+
+def _head_parallel(cfg, p, x: torch.Tensor, state, sp: sh.SeqParallel, mix, leaves
+                   ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """``mix(cfg, leaves, sequence, state)`` head-parallel under ``sp``: x
+    (this rank's positions) gathered over the sequence; the rank's heads of
+    each leaf named in ``leaves`` (name → the dim of its heads, H of them
+    or H·Dh) and the whole of the others; the
+    output's partial sums reduce-scattered onto the rank's positions
+    (``psum``-ed where the sequence does not split, as a tick's one
+    position). Where the heads do not divide, the whole heads on every
+    rank, its own positions of the output kept."""
     H = cfg.num_heads
     axes = sp.split("act_heads", H)
     h = sp.gather(x)
     if not axes:
-        return sp.take(_time_mix(cfg, sh.materialize_tree(p), h, None)[0]), None
+        out, new_state = mix(cfg, sh.materialize_tree(p), h, state)
+        return sp.take(out), new_state
     h0, h1 = sp.part("act_heads", H)
     HEAD_RUNS[(h0, h1)] += 1
-    Dh = cfg.d_model // H
-    w = {n: (sh.materialize_part(t, _HEAD_LEAVES[n], (h0 * Dh, h1 * Dh), axes)
-             if n in _HEAD_LEAVES else sh.materialize(t)) for n, t in p.items()}
-    return sp.scatter(_time_mix(cfg, w, h, None)[0], axes), None
+
+    def part(n, t):                     # a head is t.shape[dim] // H wide on its dim
+        k = t.shape[leaves[n]] // H
+        return sh.materialize_part(t, leaves[n], (h0 * k, h1 * k), axes)
+    w = {n: part(n, t) if n in leaves else sh.materialize(t) for n, t in p.items()}
+    out, new_state = mix(cfg, w, h, state)
+    return sp.scatter(out, axes), new_state
 
 
 def _time_mix(cfg, p, x: torch.Tensor, state: Optional[dict]
@@ -176,7 +203,9 @@ def rwkv_channel_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None,
     sequence, kv's partial sums from its rows of ``w_value``, and
     reduce-scatters them onto its positions; r comes from its positions
     and the whole ``w_recept``. Where ``d_ff`` does not divide, the rank
-    runs its positions with the whole weights."""
+    runs its positions with the whole weights. With ``state`` the shift
+    starts from its carry and the new one is the gathered sequence's last
+    position, whole."""
     if sp is None:
         p = sh.materialize_tree(p)
         shifted, new_shift = _token_shift(x, None if state is None else state["shift"])
@@ -185,11 +214,9 @@ def rwkv_channel_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None,
         k = torch.square(F.relu(xk @ p["w_key"]))
         r = torch.sigmoid(xr @ p["w_recept"])
         return r * (k @ p["w_value"]), None if state is None else {"shift": new_shift}
-    if state is not None:
-        raise ValueError("a decode state under the 'default' preset: the ssm family's serve "
-                         "steps are not laid out (ROADMAP.md A12s)")
     h = sp.gather(x)
-    shifted_all = _token_shift(h)[0]
+    shifted_all, new_shift = _token_shift(h, None if state is None else state["shift"])
+    new_state = None if state is None else {"shift": new_shift}
     shifted = sp.take(shifted_all)
     mu_k, mu_r = sh.materialize(p["mu_k"]), sh.materialize(p["mu_r"])
     r = torch.sigmoid((x + (shifted - x) * mu_r) @ sh.materialize(p["w_recept"]))
@@ -197,15 +224,16 @@ def rwkv_channel_mix(cfg, p, x: torch.Tensor, state: Optional[dict] = None,
     axes = sp.split("act_mlp", Fd)
     if not axes:
         k = torch.square(F.relu((x + (shifted - x) * mu_k) @ sh.materialize(p["w_key"])))
-        return r * (k @ sh.materialize(p["w_value"])), None
+        return r * (k @ sh.materialize(p["w_value"])), new_state
     part = sp.part("act_mlp", Fd)
     k = torch.square(F.relu((h + (shifted_all - h) * mu_k)
                             @ sh.materialize_part(p["w_key"], 1, part, axes)))
     kv = sp.scatter(k @ sh.materialize_part(p["w_value"], 0, part, axes), axes)
-    return r * kv, None
+    return r * kv, new_state
 
 
-def ssm_heads(cfg, p, x: torch.Tensor, state: Optional[torch.Tensor] = None
+def ssm_heads(cfg, p, x: torch.Tensor, state: Optional[torch.Tensor] = None,
+              sp: Optional[sh.SeqParallel] = None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Selective SSM over H heads of dim Dh = D // H with diagonal state N:
 
@@ -213,10 +241,32 @@ def ssm_heads(cfg, p, x: torch.Tensor, state: Optional[torch.Tensor] = None
     y_t = (h_t · C_t) + D_skip ⊙ x̃_t
 
     x: (B, S, D) → (out (B, S, D), the state after the last token, or None
-    without a decode ``state`` (B,H,Dh,N) float32 to start from)."""
+    without a decode ``state`` (B,H,Dh,N) float32 to start from).
+
+    ``sp`` (a ``sharding.SeqParallel``, the ``default`` preset): x is this
+    rank's positions and ``p`` the leaves as stored. JAX constrains x̃ to
+    ``("act_batch", "act_seq", "act_heads", None)`` and the output to
+    ``act_res_seq``: x is gathered over the sequence, the rank takes its
+    heads' columns of ``w_in`` and rows of ``w_out`` (``ssm_inner``) and its
+    heads of ``w_B``, ``w_C``, ``w_delta``, ``delta_bias``, ``A_log`` and
+    ``D_skip``, runs the loop on its heads and reduce-scatters the output
+    projection's partial sums onto its positions. Where the heads do not
+    divide the axes, each rank runs the whole heads on the gathered
+    sequence and keeps its own positions. ``state`` is then the rank's
+    heads of the state (or the whole), and so is the new one."""
+    if sp is None:
+        return _ssm_heads(cfg, sh.materialize_tree(p), x, state)
+    return _head_parallel(cfg, p, x, state, sp, _ssm_heads, _SSM_HEAD_LEAVES)
+
+
+def _ssm_heads(cfg, p, x: torch.Tensor, state: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``ssm_heads`` over whole leaves ``p``, whose head leaves
+    (``_SSM_HEAD_LEAVES``) may hold some of the heads: the loop runs on
+    those."""
     B, S, D = x.shape
-    H, N = cfg.num_heads, cfg.ssm_state
-    Dh = D // H
+    H, N = p["A_log"].shape
+    Dh = D // cfg.num_heads
     f32 = torch.float32
 
     def proj(w):                                          # "bsd,dhn->bshn"
@@ -242,7 +292,7 @@ def ssm_heads(cfg, p, x: torch.Tensor, state: Optional[torch.Tensor] = None
         hs.append(h)
     y = torch.einsum("bshdn,bshn->bshd", torch.stack(hs, dim=1), Cm)   # (B,S,H,Dh)
     y = y + p["D_skip"].to(f32)[None, None, :, None] * xtf
-    out = y.reshape(B, S, D).to(x.dtype) @ p["w_out"]
+    out = y.reshape(B, S, H * Dh).to(x.dtype) @ p["w_out"]
     return out, None if state is None else h
 
 

@@ -324,7 +324,10 @@ def test_decode_cell_on_multipod_2x2x2():
     res = dryrun.run_cell("hymba-1.5b", "decode_32k", "t", "serve", with_deltas=False,
                           smoke=True, mesh_override=mesh, **CARD)
     assert res["full"]["flops"] >= 0 and res["batch_shards"] == 4
-    assert res["full"]["collectives"]["total_count"] == 0
+    # the default preset shards the hybrid family's serve cell: the tick's
+    # heads and d_ff partials and the split-KV combine meet over "model"
+    assert res["state"] == "sharded"
+    assert res["full"]["collectives"]["count_by_op"]["all-reduce"] > 0
 
 
 def test_production_mesh_shapes():
@@ -339,27 +342,28 @@ def test_production_mesh_shapes():
 @pytest.mark.parametrize("arch,preset,reason", [
     ("qwen3-moe-235b-a22b", "fsdp", "expert parallelism"),
     ("minicpm-2b", "head_tp", "tensor parallelism"),
-    ("rwkv6-7b", "default", "A12s"), ("musicgen-medium", "default", "A12s"),
-    ("hymba-1.5b", "default", "A12b"), ("qwen3-moe-235b-a22b", "default", "A14")])
+    ("rwkv6-7b", "default", None), ("musicgen-medium", "default", None),
+    ("hymba-1.5b", "default", None), ("qwen3-moe-235b-a22b", "default", "A14")])
 def test_parameter_sharding_presets_raise(arch, preset, reason):
     """What the port's partitioner does not run: head-parallel attention in
-    the dry run; the ``default`` preset's sequence and tensor parallelism
-    on the hybrid family, at the train step and at the serve steps (A12b);
-    the serve steps of the ssm, audio and vlm families under ``default``
-    (A12s), whose train steps now run it; sharded serving of a MoE arch
-    under either preset (A14s), whose train step and train cell run
-    sharded (expert parallelism)."""
+    the dry run; sharded serving of a MoE arch under either preset (A14s),
+    whose train step and train cell run sharded (expert parallelism). The
+    ``default`` preset on the ssm, audio and hybrid families, refused until
+    A12b and A12s at the serve steps (the hybrid one at the train step
+    too), runs: the train step is made, and the decode cell traces
+    sharded."""
     moe = tconfigs.get_config(arch).family == "moe"
     if preset == "default":
         mesh = tmesh.make_mesh((2, 2), ("data", "model"))
         mcfg = tconfigs.get_smoke_config(arch)
         tt = tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4)))
         with tsharding.sharding_rules(mesh, {}):
-            if reason == "A12b":
-                with pytest.raises(ValueError, match=reason):
-                    tsteps.make_train_step(mcfg, tt)
-            else:
-                assert callable(tsteps.make_train_step(mcfg, tt))
+            assert callable(tsteps.make_train_step(mcfg, tt))
+        if reason is None:
+            res = dryrun.run_cell(arch, "decode_32k", "t", "serve", smoke=True,
+                                  mesh_override=mesh, rules_preset=preset, **CARD)
+            assert res["state"] == "sharded" and "replicated_why" not in res
+            return
         with tsharding.sharding_rules(mesh, {}), pytest.raises(ValueError, match=reason):
             tsteps.decode_step(mcfg, None, None, None)
         return

@@ -1,10 +1,11 @@
-"""JAX's ``default`` sharding preset on the port (every family but the
-hybrid one): a sequence-parallel residual stream over the tokens, frames or
-patches and tokens a model embeds, sequence-sharded attention queries
-through the flash kernels' query offset, a tensor-parallel MLP, a
-head-parallel RWKV time mix and a tensor-parallel channel mix, expert
+"""JAX's ``default`` sharding preset on the port (every family): a
+sequence-parallel residual stream over the tokens, frames or patches and
+tokens a model embeds, sequence-sharded attention queries through the
+flash kernels' query offset, a tensor-parallel MLP, a head-parallel RWKV
+time mix and SSM heads and a tensor-parallel channel mix, expert
 parallelism and a vocabulary-parallel loss; the MoE family under ``fsdp``
-too, and Adafactor on a sharded state; against the JAX package on the CPU.
+too, and Adafactor on a sharded state; sharded serving under both presets;
+against the JAX package on the CPU.
 
 * One 4-rank gloo fleet on a (2, 2) ``("data", "model")`` mesh (``python -m
   repro_torch.backend --worker --job``, task kind ``tp``) runs 3 float32
@@ -32,7 +33,10 @@ too, and Adafactor on a sharded state; against the JAX package on the CPU.
   minicpm-2b smoke config given the ``audio_frames`` frontend (the
   classification task) and the rwkv6-7b smoke config with ``remat="full"``
   (the time mix over 2 of its 4 heads a rank, through the RWKV plain
-  versions; the channel mix over ``d_ff``). Each is held against
+  versions; the channel mix over ``d_ff``); then the hybrid family: the
+  hymba-1.5b smoke config at 32 positions (its SSM heads over 2 of its 4
+  heads a rank; the window of 16 met at rank 1's query offset on layer
+  1). Each is held against
   ``jax.jit(repro.launch.steps.make_train_step)`` with no mesh on the same
   global batches: pivots and ranks EXACT, losses at rtol 1e-4, the grad
   norm at rtol 1e-5, each leaf of step 0's first moment at rtol 1e-4 /
@@ -41,7 +45,8 @@ too, and Adafactor on a sharded state; against the JAX package on the CPU.
   columns); launches as ``expected_launches(..., sharded=True)`` reckons;
   the layout each rank reports (the sequence, the MLP hidden and, but for
   minicpm-2b's 257 words, the vocabulary over ``"model"``), the MoE
-  regimes its forwards ran and the heads of its RWKV time mixes. Under
+  regimes its forwards ran and the heads of its RWKV time mixes and SSM
+  heads. Under
   Adafactor, which keeps no first
   moment, each leaf's change over the run is held instead.
 * The same fleet serves (task kind ``serve``, ``SERVE_CASES``): sharded
@@ -58,19 +63,26 @@ too, and Adafactor on a sharded state; against the JAX package on the CPU.
   ranks' slices; (e) under ``fsdp`` with decode_32k's rules, rwkv6-7b with
   4 rows (the rows over both axes) and hymba-1.5b with 2 (the rows over
   ``"data"``, the KV cache's positions over ``"model"``, the SSM state by
-  rows); (f) one ``serve_model`` wave under ``default``. The bars: greedy
+  rows); (f) one ``serve_model`` wave under ``default``; (g) under
+  ``default`` with decode_32k's rules the other families: rwkv6-7b and
+  hymba-1.5b (their decode states' heads over ``"model"``, 2 of 4 a rank;
+  the token-shift carry whole), musicgen-medium (a prompt of 16 frames)
+  and internvl2-26b (8 patches and 16 tokens, rank 0's 12 positions
+  straddling them). The bars: greedy
   tokens EXACT at every tick; each rank's logits (its rows) at rtol 1e-4
   / atol 1e-4 of their largest; each rank's cache after the prefill and
-  after the last tick within 1e-5 (of the largest) of its rows and
-  positions of JAX's cache, and its resident bytes exactly that slice's;
-  the layout each rank reports derived here from its coordinates.
+  after the last tick within 1e-5 (of the largest) of its rows,
+  positions and heads of JAX's cache, and its resident bytes exactly that
+  slice's; the layout each rank reports derived here from its
+  coordinates.
 * The split-KV combine over two threads standing in for two ranks equals
   the whole cache's dense and chunked attention, a slice wholly masked
   among the cases; the cache's logical axes equal JAX's ``cache_logical``;
-  the serve path's refusals (MoE, A14s; the ssm, audio and vlm families
-  under ``default``, A12s; the hybrid one, A12b; ``head_tp``); the serve
-  entry points taking the cache's rows (``prefill`` given the cache's
-  layout, ``serve_model`` a sharded model); the dry run's dense serve cells
+  the serve path's refusals (MoE, A14s; ``head_tp``), and the ssm,
+  hybrid, audio and vlm families' serve steps (once refused) under
+  ``default`` over two threads against one process; the serve entry
+  points taking the cache's rows (``prefill`` given the cache's layout,
+  ``serve_model`` a sharded model); the dry run's dense serve cells
   sharded below the replicated state's peak, its sharded prefill cells
   passing one device's rows of the prompts.
 * The flash plain versions with ``q_offset``: each half and sixteenth of a
@@ -86,16 +98,19 @@ too, and Adafactor on a sharded state; against the JAX package on the CPU.
 * ``embed_inputs(sp=)`` over threads standing in for the ranks of "model"
   equals each rank's positions of the whole (frames; patches and tokens
   straddling a rank, or patches alone), and the pooled features under the
-  layout equal one process's; the head-parallel time mix and the
-  tensor-parallel channel mix over two threads (and, where neither
-  divides, three) equal the whole mix, output and gradients.
+  layout equal one process's; the head-parallel time mix and SSM heads
+  and the tensor-parallel channel mix over two threads (and, where
+  neither divides, three) equal the whole mix, output and gradients, with
+  and without a decode state (a prefill's and a tick's new state each
+  rank's heads of the whole).
 * The dry run on the CPU stand-in at smoke size: the four dense archs'
-  ``default`` train cells, the ssm, audio and vlm archs' and the MoE archs'
-  under both presets, report ``"state": "sharded"`` and a peak below the
-  replicated state's on the same (2, 2) mesh (rwkv6-7b's WKV cost at a
-  device's streams); hymba-1.5b's keeps the state replicated and says why
-  (A12b), as the serve cells of the MoE archs (A14s) and of the ssm, audio
-  and vlm archs (A12s) do; a dense arch given a frontend traces sharded.
+  ``default`` train cells, the ssm, audio, vlm and hybrid archs' (and
+  their decode_32k and prefill_32k cells) and the MoE archs' under both
+  presets, report ``"state": "sharded"`` and a peak below the replicated
+  state's on the same (2, 2) mesh (rwkv6-7b's WKV cost at a device's
+  streams); the serve cells of the MoE archs keep the state replicated
+  and say why (A14s); a dense arch given a frontend traces sharded, its
+  serve cells too.
 * The loss chunks' recompute: a chunked loss's backward saves no (B, C, V)
   float32 tensor, and its loss and gradients are bit-equal to the chunked
   loss without recompute.
@@ -182,12 +197,19 @@ CASES = {
     # mix over d_ff; the recompute replays the gathers and reduce-scatters
     "rwkv6-7b": dict(arch="rwkv6-7b", model=dict(F32, remat="full"), seq=16, opt=OPT, graft=GC,
                      layout=(["model"], ["model"], ["model"]), heads=2),
+    # hymba-1.5b: the SSM heads over its 4 heads, 2 a rank ("heads"), beside
+    # the attention at the rank's query offset, whose window of 16 rank 1's
+    # queries meet on layer 1 (layers 0 and 2 are global)
+    "hymba-1.5b": dict(arch="hymba-1.5b", model=F32, seq=32, opt=OPT, graft=GC,
+                       layout=(["model"], ["model"], ["model"]), heads=2),
 }
 FLEET_TIMEOUT_S = 240
 # the serve cases: arch, model overrides, shape (its SHAPE_RULES), preset,
-# the prompt batch (rows × positions), the cache's positions, greedy ticks
-# after the prefill, and the axes each rank's cache layout reports (rows,
-# positions); "wave": serve_model's keywords instead of the ticks
+# the prompt batch (rows × positions: tokens, frames, or a vlm's patches
+# then tokens), the cache's positions, greedy ticks after the prefill, and
+# the axes each rank's cache layout reports (rows, positions); "heads": the
+# decode states' heads (wkv, ssm) over "model"; "wave": serve_model's
+# keywords instead of the ticks
 SERVE_CASES = {
     "a_minicpm_split_kv": dict(arch="minicpm-2b", model=F32, shape="decode_32k",
                                preset="default", rows=4, plen=16, max_seq=32, ticks=6,
@@ -206,6 +228,22 @@ SERVE_CASES = {
                          rows=2, plen=16, max_seq=32, ticks=6, layout=(["data"], ["model"])),
     "f_wave": dict(arch="minicpm-2b", model=F32, shape="decode_32k", preset="default",
                    wave=dict(slots=4, requests=4, max_new_tokens=6, max_seq=32, seed=0)),
+    # the default preset on the other families: the states' heads over
+    # "model" (2 of 4 a rank), the token-shift carry whole; hymba's window
+    # of 16 crossing the cache's slices; a prompt of frames; the vlm's 8
+    # patches and 16 tokens, rank 0's 12 positions straddling them
+    "g_rwkv6_default": dict(arch="rwkv6-7b", model=F32, shape="decode_32k", preset="default",
+                            rows=4, plen=16, max_seq=32, ticks=6, layout=(["data"], ["model"]),
+                            heads=True),
+    "g_hymba_default": dict(arch="hymba-1.5b", model=F32, shape="decode_32k", preset="default",
+                            rows=4, plen=16, max_seq=32, ticks=6, layout=(["data"], ["model"]),
+                            heads=True),
+    "g_musicgen_default": dict(arch="musicgen-medium", model=F32, shape="decode_32k",
+                               preset="default", rows=4, plen=16, max_seq=32, ticks=6,
+                               layout=(["data"], ["model"])),
+    "g_internvl2_default": dict(arch="internvl2-26b", model=F32, shape="decode_32k",
+                                preset="default", rows=4, plen=24, max_seq=32, ticks=6,
+                                layout=(["data"], ["model"])),
 }
 
 _JAX_SCRIPT = """
@@ -258,8 +296,7 @@ def serve(job):
                         done[i] = cur[i, 0] == 1
             results += [{"request_id": rid, "tokens": outs[i]} for i, rid in enumerate(ids)]
         return {"results": results}
-    toks = jnp.asarray(job["tokens"])
-    logits, cache = prefill(params, {"tokens": toks, "labels": toks})
+    logits, cache = prefill(params, {k: jnp.asarray(v) for k, v in job["batch"].items()})
     res = {"prefill_cache": jax.tree_util.tree_map(np.asarray, cache["layers"]),
            "logits": [np.asarray(logits)], "tokens": []}
     cur = greedy(logits)
@@ -358,11 +395,15 @@ class _Fleet:
             if "wave" in case:
                 task["wave"] = want["wave"] = case["wave"]
             else:
-                toks = np.random.default_rng(1).integers(
-                    0, mcfg.vocab_size, (case["rows"], case["plen"])).astype(np.int32)
-                task.update(tokens=torch.from_numpy(toks), max_seq=case["max_seq"],
-                            ticks=case["ticks"], return_cache=True)
-                want.update(tokens=toks, max_seq=case["max_seq"], ticks=case["ticks"])
+                if mcfg.frontend is None:
+                    toks = np.random.default_rng(1).integers(
+                        0, mcfg.vocab_size, (case["rows"], case["plen"])).astype(np.int32)
+                    prompts = {"tokens": toks, "labels": toks}
+                else:
+                    prompts = _frontend_batch(mcfg, case["rows"], case["plen"], seed=1)
+                task.update(batch={k: torch.from_numpy(v) for k, v in prompts.items()},
+                            max_seq=case["max_seq"], ticks=case["ticks"], return_cache=True)
+                want.update(batch=prompts, max_seq=case["max_seq"], ticks=case["ticks"])
             job.append(task)
             with open(work / f"jax_{name}.pkl", "wb") as f:
                 pickle.dump(want, f)
@@ -473,9 +514,9 @@ def _port_layers(jlayers):
     return [jax.tree_util.tree_map(lambda a: a[i], jlayers) for i in range(L)]
 
 
-def _slices(got_layers, want_layers, rows, seq):
+def _slices(got_layers, want_layers, rows, seq, heads):
     """(got, want) leaf pairs: each rank leaf beside its rows (and, for k/v,
-    positions) of JAX's."""
+    positions; for the decode states wkv and ssm, ``heads``) of JAX's."""
     pairs = []
     for g, w in zip(got_layers, _port_layers(want_layers)):
         for path, leaf in _leaves(g):
@@ -485,6 +526,8 @@ def _slices(got_layers, want_layers, rows, seq):
             want = want[rows[0]:rows[1]]
             if path[-1] in ("k", "v"):
                 want = want[:, seq[0]:seq[1]]
+            if path[-1] in ("wkv", "ssm"):
+                want = want[:, heads[0]:heads[1]]
             pairs.append((path, leaf.numpy(), want))
     return pairs
 
@@ -505,6 +548,8 @@ def test_sharded_serving_matches_jax(case, runs):
         batch_axes, seq_axes = spec["layout"]
         rows = _part(spec["rows"], batch_axes, coords)
         seq = _part(spec["max_seq"], seq_axes, coords)
+        mcfg = tconfigs.get_smoke_config(spec["arch"])
+        heads = _part(mcfg.num_heads, ["model"] if spec.get("heads") else [], coords)
         assert got["layout"] == {"rows": list(rows), "seq": list(seq),
                                  "batch_axes": batch_axes, "seq_axes": seq_axes}
         assert len(got["tokens"]) == spec["ticks"] + 1
@@ -515,7 +560,7 @@ def test_sharded_serving_matches_jax(case, runs):
             np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4 * np.abs(b).max(),
                                        err_msg=f"rank {r} logits at tick {t}")
         for key in ("prefill_cache", "cache"):
-            pairs = _slices(got[key], want[key], rows, seq)
+            pairs = _slices(got[key], want[key], rows, seq, heads)
             for path, a, b in pairs:
                 assert a.shape == b.shape, (key, path)
                 np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max(),
@@ -589,18 +634,64 @@ def test_cache_logical_equals_jax(arch):
                                                is_leaf=lambda t: isinstance(t, tuple))
 
 
+def _serve_over_threads(mcfg, batch, max_seq, n=2):
+    """A prefill of ``batch`` and one greedy tick on ``n`` threads standing
+    in for the ranks of "model" under ``default`` with decode_32k's rules →
+    each rank's (prefill logits, tick logits), beside one process's."""
+    from repro_torch.distributed import sharding as tsharding
+    from repro_torch.launch import steps as tsteps
+    model = tmodel.init_params(mcfg, torch.Generator().manual_seed(0))
+    want, cache = tsteps.prefill_step(mcfg, model, batch, max_seq)
+    tok = want[:, 0].argmax(-1).to(torch.int32)[:, None]
+    want_tick, _ = tsteps.decode_step(mcfg, model, cache, tok)
+    rules = dict(tspecs.SHAPE_RULES["decode_32k"], **tspecs.RULE_PRESETS["default"])
+    rows = next(iter(batch.values())).shape[0]
+
+    def rank(mesh):
+        with tsharding.sharding_rules(mesh, rules):      # a model of its own to cut
+            sharded = tmodel.shard_model(
+                tmodel.init_params(mcfg, torch.Generator().manual_seed(0)), mesh)
+            kv = tsharding.cache_layout(rows, max_seq)
+            logits, c = tsteps.prefill_step(mcfg, sharded, {k: kv.take_rows(v)
+                                                            for k, v in batch.items()},
+                                            max_seq, kv)
+            tick, _ = tsteps.decode_step(mcfg, sharded, c, kv.take_rows(tok))
+        return logits, tick
+
+    return _threads(n, rank), (want, want_tick)
+
+
 @pytest.mark.parametrize("arch,preset,label", [
     ("qwen3-moe-235b-a22b", "default", "A14"), ("qwen3-moe-235b-a22b", "fsdp", "A14"),
-    ("rwkv6-7b", "default", "A12s"), ("hymba-1.5b", "default", "A12b"),
-    ("musicgen-medium", "default", "A12s"), ("internvl2-26b", "default", "A12s"),
+    ("rwkv6-7b", "default", None), ("hymba-1.5b", "default", None),
+    ("musicgen-medium", "default", None), ("internvl2-26b", "default", None),
     ("minicpm-2b", "head_tp", "A13")])
 def test_serving_refuses_what_it_does_not_shard(arch, preset, label):
+    """The serve steps refuse the MoE family under a preset (A14s) and
+    ``head_tp`` (A13). The ssm, hybrid, audio and vlm families' serve steps
+    (refused until A12b and A12s) run under ``default`` with decode_32k's
+    rules: over two threads standing in for the ranks of "model" a prefill
+    (tokens, frames, or 8 patches and 16 tokens, rank 0's 12 positions
+    straddling them) and a greedy tick equal one process's logits."""
     from repro_torch.distributed import sharding as tsharding
     from repro_torch.launch import steps as tsteps
     mesh = tmesh.make_mesh((2, 2), ("data", "model"))
-    mcfg = tconfigs.get_smoke_config(arch)
+    mcfg = tconfigs.get_smoke_config(arch, param_dtype="float32")
     toks = torch.zeros((4, 8), dtype=torch.int32)
     rules = dict(tspecs.SHAPE_RULES["decode_32k"], **tspecs.RULE_PRESETS[preset])
+    if label is None:
+        if tmodel.input_kind(mcfg) == "tokens":
+            batch = {"tokens": torch.randint(0, mcfg.vocab_size, (4, 16),
+                                             generator=torch.Generator().manual_seed(1))}
+        else:
+            S = 24 if tmodel.input_kind(mcfg) == "patches" else 16
+            batch = {k: torch.from_numpy(v) for k, v in _frontend_batch(mcfg, 4, S).items()}
+        got, want = _serve_over_threads(mcfg, batch, 32)
+        for r, pair in enumerate(got):
+            for a, b in zip(pair, want):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()),
+                                           msg=f"rank {r}")
+        return
     with tsharding.sharding_rules(mesh, rules):
         with pytest.raises(ValueError, match=label):
             tsteps.prefill_step(mcfg, None, {"tokens": toks, "labels": toks}, 16)
@@ -657,10 +748,11 @@ def test_sharded_prefill_cell_takes_the_device_rows(preset):
 
 def test_default_refuses_a_dense_model_with_a_frontend():
     """A dense arch given a frontend (the classification task) runs the
-    ``default`` preset's layout over the frames it embeds (the refusal this
-    test was named for is lifted; ``fsdp`` runs it too), and its dry-run
-    cell traces sharded; its serve steps refuse under ``default`` (A12s),
-    and the hybrid family's train step still refuses (A12b)."""
+    ``default`` preset's layout over the frames it embeds (the refusals
+    this test was named for are lifted; ``fsdp`` runs it too), and its
+    dry-run train and serve cells trace sharded; its serve steps run under
+    ``default`` (a prefill of frames over two threads equals one
+    process's), and so does the hybrid family's train step."""
     from repro_torch.distributed import sharding as tsharding
     from repro_torch.launch import steps as tsteps
     from repro_torch.selection.base import GraftConfig as TGraftConfig
@@ -670,25 +762,28 @@ def test_default_refuses_a_dense_model_with_a_frontend():
     assert tsharding.check_rules(mesh, {}, "dense") == "default"
     assert tsharding.check_rules(mesh, tspecs.RULE_PRESETS["fsdp"], "dense",
                                  "audio_frames") == "fsdp"
-    for family in ("ssm", "audio", "vlm"):
+    for family in ("ssm", "audio", "vlm", "hybrid"):
         assert tsharding.check_rules(mesh, {}, family) == "default"
-    with pytest.raises(ValueError, match="hybrid family alone.*A12b"):
-        tsharding.check_rules(mesh, {}, "hybrid")
     tcfg = tsteps.TrainConfig(graft=TGraftConfig(rset=(2, 4)))
     with tsharding.sharding_rules(mesh, {}):
         tsteps.make_train_step(mcfg, tcfg)
         frames = torch.zeros((4, 16, mcfg.d_model))
         sp = tmodel.sequence_layout(mcfg, {"frame_embeds": frames})
         assert (sp.length, sp.axes) == (16, ("model",))
-        with pytest.raises(ValueError, match="audio_frames frontend.*A12s"):
-            tsteps.prefill_step(mcfg, None, {"frame_embeds": frames}, 16)
-        with pytest.raises(ValueError, match="A12b"):
-            tsteps.make_train_step(tconfigs.get_smoke_config("hymba-1.5b"), tcfg)
-    # the dry run's cell whose data source pins the frontend shards
-    res = dryrun.run_cell("minicpm-2b", "train_4k", "t", "graft", smoke=True,
-                          mesh_override=mesh, rules_preset="default",
-                          data_source="synthetic_classification", **CARD)
-    assert res["state"] == "sharded" and "replicated_why" not in res
+        assert callable(tsteps.make_train_step(tconfigs.get_smoke_config("hymba-1.5b"), tcfg))
+    f32 = dataclasses.replace(mcfg, param_dtype="float32")
+    batch = {k: torch.from_numpy(v) for k, v in _frontend_batch(f32, 4, 16).items()}
+    got, want = _serve_over_threads(f32, batch, 32)
+    for pair in got:
+        for a, b in zip(pair, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+    # the dry run's cells whose data source pins the frontend shard
+    for shape, variant in (("train_4k", "graft"), ("decode_32k", "serve"),
+                           ("prefill_32k", "serve")):
+        res = dryrun.run_cell("minicpm-2b", shape, "t", variant, smoke=True,
+                              mesh_override=mesh, rules_preset="default",
+                              data_source="synthetic_classification", **CARD)
+        assert res["state"] == "sharded" and "replicated_why" not in res, shape
 
 
 @pytest.mark.parametrize("preset", ["default", "fsdp"])
@@ -993,7 +1088,7 @@ def _frontend_batch(cfg, B, S, seed=0):
     ``cfg.num_patches`` patches and S - P tokens (vlm)."""
     rng = np.random.default_rng(seed)
     D, V = cfg.d_model, cfg.vocab_size
-    if cfg.frontend == "audio_frames":
+    if tmodel.input_kind(cfg) == "frames":
         return {"frame_embeds": rng.normal(size=(B, S, D)).astype(np.float32),
                 "labels": rng.integers(0, V, (B, S)).astype(np.int32)}
     P = cfg.num_patches
@@ -1035,80 +1130,137 @@ def test_embed_inputs_takes_the_rank_positions(case):
         for a, b in zip(part, whole):
             assert torch.equal(a, b[:, s0:s1]), (s0, s1)
         torch.testing.assert_close(feats, pooled, rtol=1e-5, atol=1e-6)
-    if cfg.frontend == "vision_patches":
+    if tmodel.input_kind(cfg) == "patches":
         masks = [part[2][0] for _, part, _ in got]
         assert [int(m.sum()) for m in masks] == [
             max(0, s1 - max(s0, cfg.num_patches)) for s0, s1 in (g[0] for g in got)]
 
 
-# name: (mix, threads): on two the heads (4, 2 a rank) and d_ff split over
-# "model"; on three neither divides, and each rank runs the whole heads or
-# weights on its positions
-MIX_CASES = {"time_heads": ("time", 2), "channel_d_ff": ("channel", 2),
-             "time_whole_heads": ("time", 3), "channel_whole_d_ff": ("channel", 3)}
+# name: (mix, threads, positions, whether a decode state goes in): on two
+# the heads (4, 2 a rank) and d_ff split over "model"; on three neither
+# divides, and each rank runs the whole heads or weights on its positions.
+# "ssm" is hymba's SSM heads. With a state the mix is a prefill (12
+# positions, each rank's 6 or 4) or a tick (one position on every rank)
+MIX_CASES = {"time_heads": ("time", 2, 12, False), "channel_d_ff": ("channel", 2, 12, False),
+             "time_whole_heads": ("time", 3, 12, False),
+             "channel_whole_d_ff": ("channel", 3, 12, False),
+             "ssm_heads": ("ssm", 2, 12, False), "ssm_whole_heads": ("ssm", 3, 12, False),
+             "time_heads_prefill": ("time", 2, 12, True),
+             "channel_d_ff_prefill": ("channel", 2, 12, True),
+             "ssm_heads_prefill": ("ssm", 2, 12, True),
+             "ssm_whole_heads_prefill": ("ssm", 3, 12, True),
+             "time_heads_tick": ("time", 2, 1, True), "ssm_heads_tick": ("ssm", 2, 1, True),
+             "channel_d_ff_tick": ("channel", 2, 1, True)}
+MIX_FNS = {"time": "rwkv_time_mix", "channel": "rwkv_channel_mix", "ssm": "ssm_heads"}
+
+
+def _mix_state(mix, cfg, B, gen):
+    """A random decode state of ``mix`` for B rows: the token-shift carry
+    (B, 1, D), the WKV state (B, H, Dh, Dh) or the SSM heads' (B, H, Dh, N)."""
+    D, H = cfg.d_model, cfg.num_heads
+    if mix == "ssm":
+        return torch.randn((B, H, D // H, cfg.ssm_state), generator=gen)
+    state = {"shift": torch.randn((B, 1, D), generator=gen)}
+    if mix == "time":
+        state["wkv"] = torch.randn((B, H, D // H, D // H), generator=gen) * 0.1
+    return state
+
+
+def _state_heads(state, heads):
+    """The heads ``[start, stop)`` of a decode state's per-head leaves
+    (``wkv``, the SSM state; ``CACHE_LOGICAL``'s ``act_heads``), the
+    token-shift carry whole."""
+    if isinstance(state, dict):
+        return {k: (v if k == "shift" else _state_heads(v, heads)) for k, v in state.items()}
+    return state[:, heads[0]:heads[1]]
 
 
 @pytest.mark.parametrize("case", list(MIX_CASES))
 def test_rwkv_mixes_over_threads_equal_the_whole(case):
-    """The head-parallel time mix and the tensor-parallel channel mix on
-    threads standing in for the ranks of "model", each given its positions
-    and its shards (the ``default`` preset's ``params_logical`` layout),
-    equal the whole mix: each rank's output its positions of the whole, the
-    input's gradient and every leaf's (a sharded leaf's shards joined, a
-    replicated one's partials summed, as the step sums them) at rtol 1e-5."""
+    """The head-parallel RWKV time mix and SSM heads and the
+    tensor-parallel channel mix on threads standing in for the ranks of
+    "model", each given its positions and its shards (the ``default``
+    preset's ``params_logical`` layout), equal the whole mix: each rank's
+    output its positions of the whole, the input's gradient and every
+    leaf's (a sharded leaf's shards joined, a replicated one's partials
+    summed, as the step sums them) at rtol 1e-5. With a decode state each
+    rank starts from its heads of it (``CACHE_LOGICAL``; the whole where
+    the heads do not divide) and its new state is its heads of the whole
+    one, the token-shift carry whole; a tick's one position is every
+    rank's (the partial sums psum-ed; its gradient is not taken: serving
+    takes none)."""
     from repro_torch.distributed import sharding as tsharding
     from repro_torch.models import ssm as tssm
-    mix, n = MIX_CASES[case]
-    cfg = tconfigs.get_smoke_config("rwkv6-7b", param_dtype="float32")
+    mix, n, S, with_state = MIX_CASES[case]
+    arch = "hymba-1.5b" if mix == "ssm" else "rwkv6-7b"
+    cfg = tconfigs.get_smoke_config(arch, param_dtype="float32")
     model = tmodel.init_params(cfg, torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     p = {k: v.detach().clone() for k, v in model.blocks[0].tree()[mix].items()}
-    for k in p:                         # the zero-initialised LoRA leaves made to matter
-        if k.startswith("lora_B"):
+    for k in p:                         # the zero-initialised leaves made to matter
+        if k.startswith("lora_B") or k == "delta_bias":
             p[k] = torch.randn(p[k].shape, generator=gen) * 0.1
-    fn = tssm.rwkv_time_mix if mix == "time" else tssm.rwkv_channel_mix
-    B, S = 2, 12
+    fn = getattr(tssm, MIX_FNS[mix])
+    B = 2
     x, dy = (torch.randn((B, S, cfg.d_model), generator=gen) for _ in range(2))
+    state = _mix_state(mix, cfg, B, gen) if with_state else None
+    grads = S > 1
     names = sorted(p)
     xw = x.clone().requires_grad_()
     pw = {k: v.clone().requires_grad_() for k, v in p.items()}
-    want = fn(cfg, pw, xw)[0]
-    want_g = torch.autograd.grad((want * dy).sum(), [xw] + [pw[k] for k in names])
+    want, want_state = fn(cfg, pw, xw, state=state)
+    if grads:
+        want_g = torch.autograd.grad((want * dy).sum(), [xw] + [pw[k] for k in names])
     logical = tmodel._tree_logical({mix: p})[mix]
     tssm.HEAD_RUNS.clear()
 
     def rank(mesh):
         with tsharding.sharding_rules(mesh, {}):
             sp = tmodel.sequence_layout(cfg, {"tokens": torch.zeros((B, S))})
+            heads = sp.part("act_heads", cfg.num_heads)
             shardings = tsharding.param_shardings(p, logical, mesh)
             shards = {k: tsharding.shard_tensor(p[k].clone(), s).requires_grad_()
                       for k, s in shardings.items()}
             leaves = {k: tsharding.ShardedParam(shards[k], s) if s.is_sharded else shards[k]
                       for k, s in shardings.items()}
             xr = x[:, sp.start:sp.stop].clone().requires_grad_()
-            y, _ = fn(cfg, leaves, xr, sp=sp)
-            grads = torch.autograd.grad((y * dy[:, sp.start:sp.stop]).sum(),
-                                        [xr] + [shards[k] for k in names])
-        return (sp.start, sp.stop), y.detach(), grads, shardings
+            mine = None if state is None else _state_heads(state, heads)
+            y, new_state = fn(cfg, leaves, xr, state=mine, sp=sp)
+            g = (torch.autograd.grad((y * dy[:, sp.start:sp.stop]).sum(),
+                                     [xr] + [shards[k] for k in names]) if grads else None)
+        return (sp.start, sp.stop), y.detach(), g, shardings, heads, new_state
 
     got = _threads(n, rank)
     gx = torch.zeros_like(x)
-    for (s0, s1), y, grads, _ in got:
+    for (s0, s1), y, g, _, heads, new_state in got:
         torch.testing.assert_close(y, want[:, s0:s1].detach(), rtol=1e-5, atol=1e-6)
-        gx[:, s0:s1] = grads[0]
-    torch.testing.assert_close(gx, want_g[0], rtol=1e-5, atol=1e-6)
-    for i, k in enumerate(names):
-        s = got[0][3][k]
-        parts = [g[2][1 + i] for g in got]
-        dim = next((d for d in range(len(s.shape)) if s.local_shape[d] != s.shape[d]), None)
-        joined = sum(parts) if dim is None else torch.cat(parts, dim=dim)
-        torch.testing.assert_close(joined, want_g[1 + i], rtol=1e-5,
-                                   atol=1e-5 * float(want_g[1 + i].abs().max()), msg=k)
-    if case == "time_heads":            # the rank's heads, their leaves' shards
+        if with_state:
+            for a, b in zip(_leaves(new_state), _leaves(_state_heads(want_state, heads))):
+                assert a[0] == b[0] and a[1].shape == b[1].shape, (a[0], b[0])
+                torch.testing.assert_close(a[1], b[1].detach(), rtol=1e-5, atol=1e-6)
+        else:
+            assert new_state is None
+        if grads:
+            gx[:, s0:s1] = g[0]
+    if grads:
+        # the SSM heads' input gradient reaches ~27 at smoke size, where the
+        # ranks' sum rounds in float32 at ~3e-6
+        atol = 1e-7 * float(want_g[0].abs().max()) if mix == "ssm" else 1e-6
+        torch.testing.assert_close(gx, want_g[0], rtol=1e-5, atol=atol)
+        for i, k in enumerate(names):
+            s = got[0][3][k]
+            parts = [r[2][1 + i] for r in got]
+            dim = next((d for d in range(len(s.shape)) if s.local_shape[d] != s.shape[d]), None)
+            joined = sum(parts) if dim is None else torch.cat(parts, dim=dim)
+            torch.testing.assert_close(joined, want_g[1 + i], rtol=1e-5,
+                                       atol=1e-5 * float(want_g[1 + i].abs().max()), msg=k)
+    if mix != "channel" and n == 2:     # the rank's heads, their leaves' shards
         assert dict(tssm.HEAD_RUNS) == {(0, 2): 1, (2, 4): 1}
-        assert got[0][3]["wr"].dim_axes(1) == ("model",)
-        assert got[0][3]["wo"].dim_axes(0) == ("model",)
-    elif case == "channel_d_ff":
+        assert [r[4] for r in got] == [(0, 2), (2, 4)]
+        wide = ("wr", "wo") if mix == "time" else ("w_in", "w_out")
+        assert got[0][3][wide[0]].dim_axes(1) == ("model",)
+        assert got[0][3][wide[1]].dim_axes(0) == ("model",)
+    elif mix == "channel" and n == 2:
         assert got[0][3]["w_key"].dim_axes(1) == ("model",)
     else:
         assert not tssm.HEAD_RUNS
@@ -1207,20 +1359,17 @@ def test_default_cell_runs_sharded_below_replicated(arch):
     assert res["full"]["memory"]["peak_bytes"] < replicated["memory"]["peak_bytes"]
 
 
-@pytest.mark.parametrize("arch,label", [("rwkv6-7b", "A12s"), ("musicgen-medium", "A12s"),
-                                        ("internvl2-26b", "A12s"), ("hymba-1.5b", "A12b")])
-def test_default_cell_of_other_families_stays_replicated(arch, label):
-    """The ssm, audio and vlm families' ``default`` train cells trace sharded
-    below the replicated state's peak on the same (2, 2) mesh (the rwkv6-7b
-    smoke cell's 4 heads, 2 a device: the WKV at a device's streams); their
-    decode cells stay replicated and name A12s. The hybrid family's train
-    cell stays replicated and names A12b."""
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "musicgen-medium", "internvl2-26b",
+                                  "hymba-1.5b"])
+def test_default_cells_of_other_families_run_sharded(arch):
+    """The ssm, audio, vlm and hybrid families' ``default`` train cells and
+    their decode_32k and prefill_32k cells trace sharded below the
+    replicated state's peak on the same (2, 2) mesh (the rwkv6-7b smoke
+    cell's 4 heads, 2 a device: the WKV at a device's streams; hymba's SSM
+    heads likewise, 2 of 4 a device)."""
     mesh = tmesh.make_mesh((2, 2), ("data", "model"))
     res = dryrun.run_cell(arch, "train_4k", "t", "graft", smoke=True, mesh_override=mesh,
                           rules_preset="default", **CARD)
-    if label == "A12b":
-        assert res["state"] == "replicated" and label in res["replicated_why"]
-        return
     assert res["state"] == "sharded" and "replicated_why" not in res
     coll = res["full"]["collectives"]["count_by_op"]
     assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
@@ -1242,9 +1391,16 @@ def test_default_cell_of_other_families_stays_replicated(arch, label):
         assert kernels["rwkv_scan"]["launches"] == 2 * L
         assert kernels["rwkv_scan"]["flops"] == L * (ops("fwd", 2) + ops("fwd", 1))
         assert kernels["rwkv_scan_backward"]["flops"] == L * ops("bwd", 1)
-    serve = dryrun.run_cell(arch, "decode_32k", "t", "serve", smoke=True, mesh_override=mesh,
-                            rules_preset="default", **CARD)
-    assert serve["state"] == "replicated" and label in serve["replicated_why"]
+    for shape in ("decode_32k", "prefill_32k"):
+        serve = dryrun.run_cell(arch, shape, "t", "serve", smoke=True, mesh_override=mesh,
+                                rules_preset="default", **CARD)
+        assert serve["state"] == "sharded" and "replicated_why" not in serve, shape
+        assert serve["full"]["collectives"]["count_by_op"]["all-reduce"] > 0, shape
+        backend = dryrun.RecordingBackend(serve["batch_shards"])   # the state replicated
+        cell = tspecs.build_cell(arch, shape, variant="serve", smoke=True,
+                                 batch_shards=serve["batch_shards"], backend=backend, **CARD)
+        replicated = dryrun.trace(cell, backend)
+        assert serve["full"]["memory"]["peak_bytes"] < replicated["memory"]["peak_bytes"], shape
 
 
 @pytest.mark.parametrize("preset", ["default", "fsdp"])
